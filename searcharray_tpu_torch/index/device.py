@@ -1,0 +1,166 @@
+"""Device-resident index: the posting planes and scoring metadata as torch
+tensors on an explicit device.
+
+The CSR posting store is uploaded once as two parallel 32-bit planes:
+``hdrs`` (doc << blk_bits | block) and ``pays`` (the 18-bit position
+bitmap).  Both are int32: the payload fits in 18 bits and every header is
+below ``PAD_HDR32 < 2^31 - 16``, so signed shifts are exact (torch has no
+shifts on uint32).  Term lookup stays on the host (vocab dict ->
+offset/length).
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from searcharray_tpu_torch.index.builder import (
+    BuiltIndex,
+    DocTermMatrix,
+    TermPostings,
+)
+from searcharray_tpu_torch.index.vocab import Vocabulary
+from searcharray_tpu_torch.ops import encoding as enc
+from searcharray_tpu_torch.ops.kernels import (
+    PAD_HDR32,
+    blk_bits_for,
+    bucket_of,
+    compress_planes,
+    expand_bucket_of,
+)
+
+
+def derive_attach_arrays(built: BuiltIndex) -> dict:
+    """The host-side arrays a DeviceIndex uploads: the tail-padded hdr32 /
+    pay32 planes, in the JAX package's layout, so the port attaches the
+    JAX package's arrays too.  The JAX package also derives a per-term
+    block-word max, which bounds its Pallas grid; K1 binary-searches each
+    block's word range instead, so the port neither derives nor reads
+    it."""
+    max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
+    max_bucket = max(bucket_of(max(1, max_len)),
+                     expand_bucket_of(max(1, max_len)))
+    max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
+    blk_bits = blk_bits_for(int(max_doc_len))
+    hdr, pay = compress_planes(built.postings.data, blk_bits)
+    pad_h = np.full(max_bucket, PAD_HDR32, dtype=np.int32)
+    pad_p = np.zeros(max_bucket, dtype=np.uint32)
+    return {
+        "hdr32": np.concatenate([hdr, pad_h]),
+        "pay32": np.concatenate([pay, pad_p]),
+        "blk_bits": blk_bits,
+        "max_bucket": max_bucket,
+    }
+
+
+class DeviceIndex:
+    """Device copy of a built index on ``device`` (immutable postings, plus
+    the lazily allocated tf pool and its host-side slot map)."""
+
+    def __init__(self, built: BuiltIndex, device):
+        self.built = built
+        self.device = torch.device(device)
+        self.postings = built.postings          # host CSR (numpy, uint64)
+        self.doc_term = built.doc_term
+        self.vocab: Vocabulary = built.vocab
+        self.doc_lens_np = built.doc_lens
+        self.avg_doc_length = built.avg_doc_length
+        self.corpus_size = int(len(built.doc_lens))
+        self.doc_freqs = built.doc_freqs  # host int64[V], precomputed
+
+        max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
+        # tail padding covers the largest bucket-sized slice taken at any
+        # term's offset
+        self.max_bucket = max(bucket_of(max(1, max_len)),
+                              expand_bucket_of(max(1, max_len)))
+        max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
+        self._max_doc_len = max_doc_len
+        self.blk_bits = blk_bits_for(int(max_doc_len))
+
+        der = self._usable_derived(built) or derive_attach_arrays(built)
+        self.hdrs = torch.as_tensor(np.asarray(der["hdr32"], np.int32),
+                                    device=self.device)
+        self.pays = torch.as_tensor(
+            np.asarray(der["pay32"]).view(np.int32), device=self.device)
+        self.doc_lens = torch.as_tensor(
+            np.asarray(built.doc_lens, dtype=np.float32), device=self.device)
+        # Device tf pool f32[Ct, N] (search/dense.py), allocated on first
+        # use; the host keeps term -> slot in LRU order.
+        self.tf_pool: Optional[torch.Tensor] = None
+        self.tf_slot: "OrderedDict[int, int]" = OrderedDict()
+        self.tf_free: list = []
+        # dict-LRU tf fallback for pool-ineligible corpora (dense.term_tf)
+        self.tf_cache: "OrderedDict[int, torch.Tensor]" = OrderedDict()
+
+    def _usable_derived(self, built: BuiltIndex):
+        """Precomputed attach arrays, or None if absent or stale (layout
+        constants must match what this code would derive; keys the port
+        does not read are ignored)."""
+        der = built.derived
+        if not der:
+            return None
+        W = len(built.postings.data)
+        if (der.get("blk_bits") == self.blk_bits
+                and der.get("max_bucket") == self.max_bucket
+                and len(der["hdr32"]) == W + self.max_bucket
+                and len(der["pay32"]) == W + self.max_bucket):
+            return der
+        return None
+
+    def term_span(self, term_id: int) -> Tuple[int, int, int]:
+        """(offset, length, bucket) for a term's posting slice."""
+        o = int(self.postings.offsets[term_id])
+        n = int(self.postings.lengths[term_id])
+        return o, n, bucket_of(max(1, n))
+
+
+def _doc_term_from_postings(postings: TermPostings,
+                            num_docs: int) -> DocTermMatrix:
+    """Doc -> term CSR derived from the term-major postings."""
+    tid = np.repeat(np.arange(postings.num_terms, dtype=np.int64),
+                    postings.lengths)
+    docs = enc.keys_of(postings.data).astype(np.int64)
+    order = np.lexsort((tid, docs))
+    docs, tid = docs[order], tid[order]
+    keep = np.ones(len(docs), dtype=bool)
+    keep[1:] = (docs[1:] != docs[:-1]) | (tid[1:] != tid[:-1])
+    rows = np.zeros(num_docs + 1, dtype=np.int64)
+    np.add.at(rows, docs[keep] + 1, 1)
+    return DocTermMatrix(tid[keep].astype(np.uint32), np.cumsum(rows))
+
+
+def from_numpy_state(arrays: dict, device) -> DeviceIndex:
+    """Build the port's BuiltIndex and DeviceIndex from numpy arrays and
+    Python lists only -- e.g. an index built by the JAX package, so both
+    packages score the same postings.
+
+    ``arrays`` holds ``data`` (uint64 posting words), ``offsets``,
+    ``lengths``, ``doc_lens``, ``doc_freqs``, ``avg_doc_length`` and
+    ``terms`` (vocabulary in id order); optionally ``doc_term_cols`` /
+    ``doc_term_rows`` (derived from the postings when absent) and
+    ``derived`` (the dict of :func:`derive_attach_arrays`).  The built
+    index is ``DeviceIndex.built``."""
+    postings = TermPostings(
+        np.ascontiguousarray(arrays["data"], dtype=np.uint64),
+        np.asarray(arrays["offsets"], dtype=np.int64),
+        np.asarray(arrays["lengths"], dtype=np.int64))
+    doc_lens = np.asarray(arrays["doc_lens"], dtype=np.float32)
+    vocab = Vocabulary()
+    terms: Sequence = arrays["terms"]
+    for t in terms:
+        vocab.add_term(t)
+    if len(vocab) != len(terms):
+        raise ValueError("vocabulary terms are not unique")
+    if "doc_term_cols" in arrays:
+        doc_term = DocTermMatrix(np.asarray(arrays["doc_term_cols"]),
+                                 np.asarray(arrays["doc_term_rows"]))
+    else:
+        doc_term = _doc_term_from_postings(postings, len(doc_lens))
+    built = BuiltIndex(
+        postings=postings, doc_term=doc_term, vocab=vocab, doc_lens=doc_lens,
+        avg_doc_length=float(arrays["avg_doc_length"]),
+        doc_freqs=np.asarray(arrays["doc_freqs"], dtype=np.int64),
+        derived=arrays.get("derived"))
+    return DeviceIndex(built, device)

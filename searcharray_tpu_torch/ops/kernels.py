@@ -1,0 +1,164 @@
+"""Posting-plane layout helpers: host derivation (numpy) and device slicing,
+similarity math and exact top-k (torch).
+
+Posting slices are cut from the padded planes; tails past a term's words
+are rewritten to a sentinel header (max value, empty payload) so
+sortedness is preserved and padding is inert in every popcount and
+segment-sum.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from searcharray_tpu_torch.ops.encoding import LSB_BITS, LSB_MASK, MSB_SHIFT
+
+MIN_BUCKET = 8
+
+# Sentinel header for padding in the 32-bit plane layout: larger than any
+# real compressed header (doc << blk_bits | blk), sorts last, payload 0.
+PAD_HDR32 = (1 << 31) - 16
+
+
+def bucket_of(n: int) -> int:
+    """Padded size for a posting slice of length n.
+
+    Quarter-power-of-two steps (1, 1.25, 1.5, 1.75 times 2^k): at most 25%
+    padding instead of 2x.
+    """
+    if n <= MIN_BUCKET:
+        return MIN_BUCKET
+    p = MIN_BUCKET
+    while p < n:
+        p <<= 1
+    half = p >> 1
+    for frac in (5, 6, 7):
+        cand = (half * frac) >> 2
+        if n <= cand:
+            return cand
+    return p
+
+
+def expand_bucket_of(n: int) -> int:
+    """Coarse power-of-4 padding bound.  DeviceIndex pads its planes to
+    this bound (and to ``bucket_of``) so a bucket-sized slice taken at any
+    term's offset stays inside the planes."""
+    b = 4096
+    while b < n:
+        b <<= 2
+    return b
+
+
+def compress_planes(words: np.ndarray, blk_bits: int):
+    """uint64 posting words -> (hdr32 int32, pay32 uint32) planes.
+
+    hdr32 = doc_key << blk_bits | block.  Device kernels are pure 32-bit
+    and headers stay sortable as one i32 key.
+    Requires doc_key < 2**(31 - blk_bits) - 16.
+    """
+    from searcharray_tpu_torch.index import native as native_mod
+
+    res = native_mod.compress_planes(words, blk_bits)
+    if res is not None:
+        hdr32, pay, max_hdr = res
+        if max_hdr >= PAD_HDR32 - 16:
+            raise ValueError(
+                "corpus too large for 32-bit posting headers at this "
+                "document length"
+            )
+        return hdr32, pay
+    keys = (words >> np.uint64(64 - 28)).astype(np.int64)
+    blks = ((words >> np.uint64(MSB_SHIFT)) & np.uint64((1 << 18) - 1)).astype(
+        np.int64
+    )
+    hdr = (keys << blk_bits) | blks
+    if len(hdr) and int(hdr.max()) >= PAD_HDR32 - 16:
+        raise ValueError(
+            "corpus too large for 32-bit posting headers at this document "
+            "length"
+        )
+    pay = (words & np.uint64(int(LSB_MASK))).astype(np.uint32)
+    return hdr.astype(np.int32), pay
+
+
+def blk_bits_for(max_doc_len: int) -> int:
+    """Static block-field width: enough for every block plus one spare slot
+    so hdr+1 adjacency probes never roll into the next document."""
+    max_blk = max(0, (max(1, int(max_doc_len)) - 1) // LSB_BITS)
+    bits = 1
+    while (1 << bits) < max_blk + 2:
+        bits += 1
+    return bits
+
+
+def apply_similarity_device(kind, tfs, doc_lens, idf, avgdl, k1, b):
+    """Similarity math on device tensors, in the association of the JAX
+    package's formulas (float32 results agree to the last bits).  ``idf``
+    is a scalar or a tensor that broadcasts against ``tfs``."""
+    k1f = np.float32(k1)
+    bf = np.float32(b)
+    if kind == "none":
+        return tfs
+    if isinstance(idf, np.generic):
+        idf = float(idf)  # numpy scalars must not drive tensor arithmetic
+    # a tensor divisor: CUDA torch divides by a host scalar as a multiply
+    # by its reciprocal, which is not the IEEE quotient the kernels and
+    # numpy give
+    avgdl_t = doc_lens.new_full((), float(np.float32(avgdl)))
+    norm = float(k1f) * (float(np.float32(1.0) - bf)
+                         + float(bf) * (doc_lens / avgdl_t))
+    if kind == "bm25":
+        return (tfs / (tfs + norm)) * idf
+    if kind == "bm25_legacy":
+        return idf * ((tfs * float(k1f + np.float32(1.0))) / (tfs + norm))
+    if kind == "bm25_impact":
+        return tfs / (tfs + norm)
+    if kind == "classic":
+        # idf passed in is the classic idf; norm unused
+        return idf * torch.sqrt(tfs) / torch.sqrt(doc_lens)
+    raise ValueError(f"unknown similarity kind {kind}")
+
+
+def topk_exact(x: torch.Tensor, k: int):
+    """Exact top-k over the last axis, ties to the SMALLEST index.
+
+    ``torch.topk`` gives no tie order (on [1,3,3,2,3] with k=2 it may
+    return indices [2, 4]; the contract is [1, 2]).  So: take the k-th
+    value from ``torch.topk``; keep every element above it; fill the rest
+    with the earliest elements equal to it (a running count over the
+    equality mask); ``nonzero`` lists the k survivors of each row in
+    ascending index order, and a stable descending sort by score then
+    orders them by (-score, index)."""
+    if k == 0:
+        return (x.new_empty(x.shape[:-1] + (0,)),
+                torch.empty(x.shape[:-1] + (0,), dtype=torch.int64,
+                            device=x.device))
+    kth = torch.topk(x, k, dim=-1, sorted=True).values[..., -1:]
+    above = x > kth
+    tie = x == kth
+    need = k - above.sum(dim=-1, keepdim=True)
+    keep = above | (tie & (torch.cumsum(tie, dim=-1) <= need))
+    idx = torch.nonzero(keep)[:, -1].reshape(x.shape[:-1] + (k,))
+    vals = torch.gather(x, -1, idx)
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return vals, torch.gather(idx, -1, order)
+
+
+def take_term_planes(hdrs: torch.Tensor, pays: torch.Tensor, off: int,
+                     n: int, min_blk=None, max_blk=None, *, bucket: int,
+                     blk_bits: int):
+    """Slice bucket-sized (hdr32, pay32) planes with PAD-sanitized tail and
+    optional position-block windowing (the reference's payload_slice,
+    `roaringish_ops.pyx:46`, `roaringish.py:245-282`).  Returns new
+    tensors; the planes are not modified."""
+    h = hdrs[off: off + bucket]
+    p = pays[off: off + bucket]
+    if n < bucket:
+        valid = torch.arange(bucket, device=hdrs.device) < n
+        h = torch.where(valid, h, PAD_HDR32)
+        p = torch.where(valid, p, 0)
+    if min_blk is not None:
+        blk = h & ((1 << blk_bits) - 1)
+        in_win = (blk >= min_blk) & (blk <= max_blk)
+        p = torch.where(in_win, p, 0)
+    return h.contiguous(), p.contiguous()

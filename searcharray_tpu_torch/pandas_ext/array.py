@@ -1,0 +1,494 @@
+"""Pandas ExtensionArray facade over the torch device index.
+
+The JAX package's facade (`Terms`, `TermsDtype`, `SearchArray`) with the
+device as an explicit argument: ``SearchArray.index(strings,
+device="cuda")``.  Search methods run over the whole corpus on that device
+and gather the view's rows at the end.  The dtype registers as
+``"tokenized_text_torch"``, so pandas take/concat hand back this package's
+arrays.  Term queries only: phrases, slop, mutation and sharding raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import json
+import numbers
+from typing import Iterable, List, Optional, Union
+
+import numpy as np
+import pandas as pd
+from pandas.api.extensions import (
+    ExtensionArray,
+    ExtensionDtype,
+    register_extension_dtype,
+    take as pd_take,
+)
+from pandas.api.types import is_list_like
+
+from searcharray_tpu_torch.index.builder import (
+    BuiltIndex,
+    build_index,
+    build_index_from_terms,
+    ws_tokenizer,
+)
+from searcharray_tpu_torch.index.device import DeviceIndex
+from searcharray_tpu_torch.index.vocab import TermMissingError
+from searcharray_tpu_torch.ops import encoding as enc
+from searcharray_tpu_torch.search import batch as batch_mod
+from searcharray_tpu_torch.search import dense as dense_mod
+from searcharray_tpu_torch.search import scoring
+from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class Terms:
+    """One indexed doc: a bag of term -> tf plus optional positions."""
+
+    def __init__(self, postings, doc_len: int = 0, posns: Optional[dict] = None,
+                 encoded=False):
+        self.postings = postings
+        self.doc_len = doc_len
+        self.posns = posns
+        self.encoded = encoded
+
+    def termfreq(self, token):
+        return self.postings[token]
+
+    def terms(self):
+        return self.postings.items()
+
+    @staticmethod
+    def _decode(words):
+        _, p = enc.decode_words(np.asarray(words, dtype=np.uint64))
+        return p.astype(np.uint32)
+
+    def positions(self, term=None):
+        """Positions per term.  Rows fetched from an index hold ENCODED
+        posting words (``encoded=True``) and decode here on demand."""
+        if self.posns is None:
+            return {}
+        if term is None:
+            if self.encoded:
+                return {t: self._decode(w)
+                        for t, w in self.posns.items()}.items()
+            return self.posns.items()
+        w = self.posns[term]
+        return self._decode(w) if self.encoded else w
+
+    def __len__(self):
+        return len(self.postings)
+
+    def __repr__(self):
+        return f"Terms({set(self.postings.keys())})"
+
+    def __eq__(self, other):
+        if isinstance(other, SearchArray):
+            return other == self
+        same = isinstance(other, Terms) and self.postings == other.postings
+        if same and self.doc_len == other.doc_len:
+            return True
+
+    def __hash__(self):
+        return hash(json.dumps(self.postings, sort_keys=True))
+
+
+@register_extension_dtype
+class TermsDtype(ExtensionDtype):
+    """Pandas dtype for tokenized, searchable text on a torch device."""
+
+    name = "tokenized_text_torch"
+    type = Terms
+    kind = "O"
+
+    @classmethod
+    def construct_from_string(cls, string):
+        if not isinstance(string, str):
+            raise TypeError(
+                "'construct_from_string' expects a string, got {}".format(type(string))
+            )
+        elif string == cls.name:
+            return cls()
+        raise TypeError(
+            "Cannot construct a '{}' from '{}'".format(cls.__name__, string)
+        )
+
+    @classmethod
+    def construct_array_type(cls):
+        return SearchArray
+
+    def __repr__(self):
+        return "TermsDtype()"
+
+    @property
+    def na_value(self):
+        return Terms({})
+
+
+class _IndexState:
+    """Holder shared by all row views of one backing index."""
+
+    __slots__ = ("built", "dev", "device", "cache_gt_than")
+
+    def __init__(self, built: BuiltIndex, device, dev=None):
+        self.built = built
+        self.device = device
+        self.dev = dev
+        self.cache_gt_than = 25  # pool-admission threshold (see warm())
+
+
+class SearchArray(ExtensionArray):
+    """An array of tokenized text, indexed for search on a torch device.
+
+    Build with :meth:`index`; normal pandas slicing yields row views over
+    the shared device index.
+    """
+
+    dtype = TermsDtype()
+    _readonly = False
+
+    def __init__(self, postings, tokenizer=ws_tokenizer, avoid_copies=True,
+                 device="cuda"):
+        if not is_list_like(postings):
+            raise TypeError("Expected list-like object, got {}".format(type(postings)))
+        self.tokenizer = tokenizer
+        self.avoid_copies = avoid_copies
+        self._attach(_IndexState(build_index_from_terms(postings, Terms),
+                                 device))
+
+    # ------------------------------------------------------------------
+    # construction / wiring
+    # ------------------------------------------------------------------
+    def _attach(self, state: _IndexState, rows: Optional[np.ndarray] = None,
+                subset: bool = False):
+        self._state = state
+        self.rows = (np.arange(state.built.corpus_size, dtype=np.int64)
+                     if rows is None else rows)
+        self.subset = subset
+
+    def _view(self, state: _IndexState, rows=None,
+              subset=False) -> "SearchArray":
+        new = SearchArray([], tokenizer=self.tokenizer,
+                          avoid_copies=self.avoid_copies,
+                          device=state.device)
+        new._attach(state, rows=rows, subset=subset)
+        return new
+
+    @property
+    def _built(self) -> BuiltIndex:
+        return self._state.built
+
+    @property
+    def device(self):
+        return self._state.device
+
+    @property
+    def doc_lens(self) -> np.ndarray:
+        return self._built.doc_lens[self.rows]
+
+    @property
+    def avg_doc_length(self) -> float:
+        return self._built.avg_doc_length
+
+    @property
+    def corpus_size(self) -> int:
+        return self._built.corpus_size
+
+    @property
+    def dev(self) -> DeviceIndex:
+        if self._state.dev is None:
+            self._state.dev = DeviceIndex(self._built, self._state.device)
+        return self._state.dev
+
+    @property
+    def term_dict(self):
+        return self._built.vocab
+
+    @property
+    def _full_view(self) -> bool:
+        return not self.subset and len(self.rows) == self.corpus_size
+
+    @classmethod
+    def index(cls, array: Iterable, tokenizer=ws_tokenizer, truncate=False,
+              batch_size=100_000, avoid_copies=True, workers=4,
+              cache_gt_than=25, data_dir: Optional[str] = None,
+              autowarm=True, mesh=None, device="cuda") -> "SearchArray":
+        """Tokenize and index an iterable of strings; the index lives on
+        ``device`` (a torch device, "cuda" by default)."""
+        if mesh is not None:
+            raise _todo("mesh= (doc-axis sharding)", "Queue 1 item 14")
+        if data_dir is not None:
+            raise _todo("data_dir= (memmap persistence)", "Queue 1 item 13")
+        if not is_list_like(array):
+            raise TypeError("Expected list-like object, got {}".format(type(array)))
+        built = build_index(array, tokenizer, truncate=truncate,
+                            batch_size=batch_size, workers=workers)
+        arr = cls([], tokenizer=tokenizer, avoid_copies=avoid_copies,
+                  device=device)
+        arr._attach(_IndexState(built, device))
+        if autowarm:
+            arr.warm(cache_gt_than=cache_gt_than)
+        else:
+            arr._state.cache_gt_than = cache_gt_than
+        return arr
+
+    def warm(self, cache_gt_than: Optional[int] = None):
+        """Prefill the tf pool with the hottest terms (more than
+        ``cache_gt_than`` posting words; default: the value given at
+        :meth:`index` time), one K1 launch each, so the first queries
+        against frequent terms skip their fills."""
+        if cache_gt_than is None:
+            cache_gt_than = self._state.cache_gt_than
+        self._state.cache_gt_than = cache_gt_than
+        lengths = self._built.postings.lengths
+        common = np.flatnonzero(lengths > cache_gt_than)
+        if dense_mod.dense_eligible(self.dev) and len(common):
+            hot = common[np.argsort(-lengths[common], kind="stable")]
+            tf_cap = max(0, dense_mod.tf_capacity(self.dev) - 8)
+            dense_mod.ensure_tfs(self.dev, [int(t) for t in hot[:tf_cap]])
+
+    def warm_serving(self, **kwargs):
+        raise _todo("warm_serving", "'Do not port': no ahead-of-time "
+                    "compiles exist in PyTorch")
+
+    @classmethod
+    def _from_sequence(cls, scalars, *, dtype=None, copy=False):
+        if dtype is not None and not isinstance(dtype, TermsDtype):
+            return scalars
+        if isinstance(scalars, np.ndarray) and scalars.dtype.kind not in "OUS":
+            return scalars
+        return cls(scalars)
+
+    # ------------------------------------------------------------------
+    # pandas protocol
+    # ------------------------------------------------------------------
+    @property
+    def nbytes(self):
+        b = self._built
+        return (
+            b.postings.nbytes
+            + b.doc_term.nbytes
+            + b.doc_lens.nbytes
+            + b.vocab.nbytes
+        )
+
+    def _row_to_terms(self, corpus_row: int) -> Terms:
+        """One corpus row as a Terms scalar.  Positions stay ENCODED
+        (posting words; Terms decodes lazily on .positions()) and tf is the
+        payload popcount, so fetching a row never decodes anything."""
+        b = self._built
+        tids = b.doc_term.row_terms(corpus_row)
+        tfs = {}
+        posns = {}
+        for tid in tids:
+            term = b.vocab.get_term(int(tid))
+            sl = b.postings.term_slice(int(tid))
+            keys = enc.keys_of(sl)
+            mine = sl[keys == np.uint64(corpus_row)]
+            posns[term] = mine
+            tfs[term] = max(1, int(enc.popcount64(
+                mine & np.uint64(enc.LSB_MASK)).sum()))
+        return Terms(tfs, doc_len=int(b.doc_lens[corpus_row]), posns=posns,
+                     encoded=True)
+
+    def __getitem__(self, key):
+        key = pd.api.indexers.check_array_indexer(self, key)
+        if isinstance(key, numbers.Integral):
+            row = int(key)
+            if row < 0:
+                row += len(self)
+            if row < 0 or row >= len(self):
+                raise IndexError("index out of bounds")
+            return self._row_to_terms(int(self.rows[row]))
+        return self._view(self._state, rows=self.rows[key], subset=True)
+
+    def __setitem__(self, key, value):
+        raise _todo("SearchArray.__setitem__", "Queue 1 item 15")
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __eq__(self, other):
+        if isinstance(other, (pd.DataFrame, pd.Series, pd.Index)):
+            return NotImplemented
+        if isinstance(other, SearchArray):
+            if len(self) != len(other):
+                return False
+            return np.asarray(self[:], dtype=object) == np.asarray(
+                other[:], dtype=object)
+        if isinstance(other, Terms):
+            return np.asarray([t == other for t in self[:]], dtype=bool)
+        return np.full(len(self), False)
+
+    def isna(self):
+        return np.asarray(self.doc_lens == 0)
+
+    def take(self, indices, allow_fill=False, fill_value=None):
+        result_indices = pd_take(np.arange(len(self.rows)), indices,
+                                 allow_fill=allow_fill, fill_value=-1)
+        if allow_fill and -1 in result_indices:
+            if fill_value is None or pd.isna(fill_value):
+                fill_value = Terms({}, encoded=True)
+            rows = [fill_value if r < 0 else self[int(r)]
+                    for r in result_indices]
+            return SearchArray(rows, tokenizer=self.tokenizer,
+                               avoid_copies=self.avoid_copies,
+                               device=self.device)
+        return self[result_indices].copy()
+
+    def copy(self):
+        if self.avoid_copies:
+            # share the immutable built index and device buffers
+            state = _IndexState(self._built, self.device, self._state.dev)
+        else:
+            import copy as _copy
+
+            state = _IndexState(_copy.deepcopy(self._built), self.device)
+        return self._view(state, rows=self.rows.copy(), subset=self.subset)
+
+    @classmethod
+    def _concat_same_type(cls, to_concat):
+        to_concat = list(to_concat)
+        first = to_concat[0]
+        # full-corpus views concatenate by merging their built indexes
+        if all(ea._full_view and ea.tokenizer is first.tokenizer
+               for ea in to_concat):
+            from searcharray_tpu_torch.index.builder import merge_built
+
+            merged = merge_built([ea._built for ea in to_concat])
+            return first._view(_IndexState(merged, first.device))
+        data = np.concatenate([np.asarray(ea[:], dtype=object)
+                               for ea in to_concat])
+        return SearchArray(data, tokenizer=first.tokenizer,
+                           device=first.device)
+
+    def __array__(self, dtype=None, copy=None):
+        if copy is False:
+            raise ValueError(
+                "SearchArray rows are materialised on conversion; a no-copy "
+                "numpy view is not possible"
+            )
+        return np.asarray([self._row_to_terms(int(r)) for r in self.rows],
+                          dtype=object)
+
+    # ------------------------------------------------------------------
+    # search API
+    # ------------------------------------------------------------------
+    def _gather_rows(self, dense) -> np.ndarray:
+        """A corpus-wide f32 device vector as this view's numpy rows."""
+        dense_np = dense.cpu().numpy()
+        return dense_np if self._full_view else dense_np[self.rows]
+
+    def _check_token_arg(self, token) -> str:
+        if isinstance(token, list) and len(token) == 1:
+            token = token[0]
+        if isinstance(token, str):
+            return token
+        if isinstance(token, list):
+            raise NotImplementedError(batch_mod.PHRASE_TODO)
+        raise TypeError("Expected a string or list of strings for phrases")
+
+    def _resolve_tid(self, token: str) -> int:
+        """Token -> term id (-1 for a vocabulary miss)."""
+        try:
+            return self.term_dict.get_term_id(token)
+        except TermMissingError:
+            return -1
+
+    def termfreqs(self, token: Union[List[str], str], slop: int = 0,
+                  min_posn: Optional[int] = None,
+                  max_posn: Optional[int] = None) -> np.ndarray:
+        token = self._check_token_arg(token)
+        tid = self._resolve_tid(token)
+        if tid < 0:
+            return np.zeros(len(self), dtype=np.float32)
+        return self._gather_rows(
+            scoring.termfreqs_dense(self.dev, tid, min_posn, max_posn))
+
+    def docfreq(self, token: str) -> int:
+        if not isinstance(token, str):
+            raise TypeError("Expected a string")
+        tid = self._resolve_tid(token)
+        return 0 if tid < 0 else scoring.docfreq(self.dev, tid)
+
+    def doclengths(self) -> np.ndarray:
+        return self.doc_lens
+
+    def score(self, token: Union[str, List[str]],
+              similarity: Similarity = default_bm25, slop: int = 0,
+              min_posn: Optional[int] = None,
+              max_posn: Optional[int] = None) -> np.ndarray:
+        token = self._check_token_arg(token)
+        fused = getattr(similarity, "_fused", None)
+        if fused is not None:
+            kind, k1, b = fused
+            tid = self._resolve_tid(token)
+            if tid < 0 or self.avg_doc_length == 0:
+                return np.zeros(len(self), dtype=np.float32)
+            idf = scoring.host_idf(kind, [self.docfreq(token)],
+                                   self.corpus_size, self.avg_doc_length)
+            return self._gather_rows(scoring.score_term_dense(
+                self.dev, tid, kind=kind, k1=k1, b=b, min_posn=min_posn,
+                max_posn=max_posn, idf=idf))
+        # Custom (user) similarity: honour the reference protocol exactly —
+        # subset-shaped numpy tfs/doc_lens in, scores out.
+        tfs = self.termfreqs(token, min_posn=min_posn, max_posn=max_posn)
+        scores = similarity(tfs, np.asarray([self.docfreq(token)]),
+                            self.doclengths(), self.avg_doc_length,
+                            self.corpus_size)
+        return np.asarray(scores, dtype=np.float32)
+
+    def score_batch(self, queries: List[Union[str, List[str]]],
+                    similarity: Similarity = default_bm25, slop=0,
+                    top_k: Optional[int] = None, block: bool = True):
+        """Score a batch of term queries with one host copy.
+
+        Returns float32[Q, len(self)], or with ``top_k`` set,
+        ``(scores[Q, k], indices[Q, k])`` ranked on the device.  With
+        ``block=False`` (requires ``top_k``, a fused similarity and a full
+        un-sliced view) the call returns a zero-arg ``collect()`` once all
+        device work is enqueued; invoking it waits for the one copy.
+        ``slop`` only affects phrases, which are not ported yet."""
+        fused = getattr(similarity, "_fused", None)
+        if not block and not (fused is not None and top_k is not None
+                              and self._full_view):
+            raise ValueError(
+                "block=False requires top_k, a fused similarity, and a "
+                "full un-sliced view")
+        tokens = [self._check_token_arg(q) for q in queries]
+        if fused is None:
+            dense = np.stack([self.score(t, similarity=similarity)
+                              for t in tokens])
+        else:
+            kind, k1, b = fused
+            qtids = [[self._resolve_tid(t)] for t in tokens]
+            if self._full_view and top_k is not None:
+                return batch_mod.score_batch_fused(
+                    self.dev, qtids, kind, k1, b,
+                    top_k=min(top_k, len(self)), defer=not block)
+            dense = batch_mod.score_batch_fused(self.dev, qtids, kind, k1, b)
+            if not self._full_view:
+                dense = dense[:, self.rows]
+        if top_k is None:
+            return dense
+        idx = np.argsort(dense, axis=1)[:, ::-1][:, :top_k]
+        return np.take_along_axis(dense, idx, axis=1), idx
+
+    def topk(self, token: Union[str, List[str]], k: int = 10,
+             similarity: Similarity = default_bm25, slop: int = 0):
+        """Top-k (scores, row indices) for one query, ranked on the device
+        through the batch driver; a host argpartition for custom
+        similarities and sliced views."""
+        k = min(k, len(self))
+        if getattr(similarity, "_fused", None) is not None and self._full_view:
+            scores, idx = self.score_batch([token], similarity=similarity,
+                                           slop=slop, top_k=k)
+            return scores[0], idx[0]
+        scores = self.score(token, similarity=similarity, slop=slop)
+        idx = np.argpartition(scores, -k)[-k:]
+        idx = idx[np.argsort(scores[idx])[::-1]]
+        return scores[idx], idx
+
+    def positions(self, token: str, key=None):
+        raise _todo("SearchArray.positions", "Queue 1 item 15")

@@ -1,0 +1,276 @@
+"""Batched multi-query term scoring: the serving path.
+
+Queries are deduplicated, classified and grouped:
+
+* ``dterm`` (corpus dense-eligible): the group's tf rows are made
+  resident in the tf pool (one K1 launch per missing term), then one
+  row gather + elementwise similarity + exact top-k scores the group;
+* ``term`` (corpus too large for dense planes): every query's posting
+  slice is offset into a flat query-major key space (``q * Npad + doc``)
+  and reduced by ONE sorted segment-sum, K2, for the whole group.
+
+With ``top_k`` every group's result is packed into int32 [Qg, 2k] (f32
+score bits ‖ doc indices), so one device-to-host copy returns a batch.
+Phrase and slop queries and the candidate-subset engine are not ported
+yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from searcharray_tpu_torch.index.device import DeviceIndex
+from searcharray_tpu_torch.ops import kernels as K
+from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+from searcharray_tpu_torch.search import dense
+from searcharray_tpu_torch.search.scoring import (
+    apply_similarity_device,
+    host_idf,
+)
+
+# Device work items issued since import: tf-pool fills and group launches.
+DISPATCHES = dense.DISPATCHES
+
+_DOC_BLOCK = 1024  # Npad is a multiple of it (keeps query rows aligned)
+
+# flat keys are int32 and the segment-sum pad sentinel is 2**30, so the
+# flat key space (Qchunk * Npad) stays below 2**29 per group launch
+_MAX_FLAT = 1 << 29
+
+# max sliced posting words per sparse group launch
+_SPARSE_CHUNK_WORDS = 1 << 26
+
+PHRASE_TODO = ("phrase and slop queries come with the phrase slice "
+               "(ROADMAP Queue 1 items 7-9)")
+
+
+def _npad(num_docs: int) -> int:
+    return -(-max(1, num_docs) // _DOC_BLOCK) * _DOC_BLOCK
+
+
+def _flat_keys(keys: torch.Tensor, Qg: int, Npad: int) -> torch.Tensor:
+    """[Qg, M] sorted per-row doc keys -> flat int32[Qg * M] keys in the
+    query-major space ``q * Npad + doc``.  PAD keys clamp to the row's
+    last slot (their counts are zero by construction upstream), so the
+    flat keys stay non-decreasing across rows."""
+    offs = (torch.arange(Qg, dtype=torch.int32, device=keys.device)
+            * Npad)[:, None]
+    return (torch.clamp(keys, max=Npad - 1) + offs).reshape(-1).contiguous()
+
+
+def _flat_segment_sum(keys: torch.Tensor, counts: torch.Tensor, Qg: int,
+                      Npad: int) -> torch.Tensor:
+    """[Qg, M] sorted per-row (keys, counts) -> dense float32[Qg, Npad]."""
+    dense_ = kernels_cuda.segment_sum(_flat_keys(keys, Qg, Npad),
+                                      counts.reshape(-1).contiguous(),
+                                      num_docs=Qg * Npad)
+    return dense_.reshape(Qg, Npad)
+
+
+def _slice_keys(hdrs, pays, offs, ns, bucket: int, blk_bits: int):
+    """Per-query posting slices -> (doc keys int32[Qp, bucket], popcounts
+    f32[Qp, bucket]); the tail past each slice is PAD with count 0."""
+    device = hdrs.device
+    offs_t = torch.as_tensor(np.asarray(offs, np.int64), device=device)
+    ns_t = torch.as_tensor(np.asarray(ns, np.int64), device=device)
+    col = torch.arange(bucket, device=device)
+    idx = offs_t[:, None] + col[None, :]
+    valid = col[None, :] < ns_t[:, None]
+    h = torch.where(valid, hdrs[idx], K.PAD_HDR32)
+    p = torch.where(valid, pays[idx], 0)
+    return h >> blk_bits, kernels_cuda.popcount_i32(p).to(torch.float32)
+
+
+def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
+                   k1: float, b: float, top_k: Optional[int]):
+    """The sparse term group: fn(hdrs, pays, doc_lens, avgdl, offs, ns,
+    idfs) -> f32[Qp, N] scores, or the packed top-k with ``top_k``."""
+    N = dev.corpus_size
+    Npad = _npad(N)
+    blk_bits = dev.blk_bits
+
+    def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
+        device = hdrs.device
+        keys, pops = _slice_keys(hdrs, pays, offs, ns, bucket, blk_bits)
+        tfs = _flat_segment_sum(keys, pops, Qp, Npad)[:, :N]
+        idf_t = torch.as_tensor(np.asarray(idfs, np.float32), device=device)
+        out = apply_similarity_device(kind, tfs, doc_lens[None, :],
+                                      idf_t[:, None], avgdl, k1, b)
+        if top_k is None:
+            return out
+        return dense.pack_topk(out, top_k)
+
+    return f
+
+
+def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
+              kind: str):
+    """Split term queries into structure groups.
+
+    Returns a dict mapping a structural key to a list of (query_index,
+    offs[1], ns[1], idf, tids); queries with a missing term or no term
+    are in no group and score all-zero.  ``dterm`` when the
+    corpus is dense-eligible (rare terms included: the candidate-subset
+    engine is not ported yet, ROADMAP Queue 1 item 10), else ``term``
+    keyed by posting bucket."""
+    dense_ok = dense.dense_eligible(dev)
+    groups: dict = {}
+    for qi, tids in enumerate(queries_tids):
+        if tids is None or len(tids) == 0 or any(t < 0 for t in tids):
+            continue
+        if len(tids) > 1:
+            raise NotImplementedError(PHRASE_TODO)
+        dfs = [int(dev.doc_freqs[t]) for t in tids]
+        idf = host_idf(kind, dfs, dev.corpus_size, dev.avg_doc_length)
+        off, n, _ = dev.term_span(tids[0])
+        gkey = ("dterm",) if dense_ok else ("term", K.bucket_of(max(1, n)))
+        groups.setdefault(gkey, []).append(
+            (qi, np.asarray([off], np.int32), np.asarray([n], np.int32), idf,
+             tids))
+    return groups
+
+
+def score_batch_fused(dev: DeviceIndex,
+                      queries_tids: Sequence[Optional[List[int]]],
+                      kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
+                      top_k: Optional[int] = None, defer: bool = False):
+    """Score a batch of resolved term-id queries, one launch per group.
+
+    ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
+    mark vocabulary misses, making the query score zero), or None.
+
+    Returns float32[Q, num_docs] (numpy), or with ``top_k``: (scores
+    float32[Q, k], indices int64[Q, k]).  With ``defer`` (requires
+    ``top_k``) returns a zero-arg ``collect()`` instead: all device work
+    is enqueued and the packed result is being copied into pinned host
+    memory; collect() waits for that copy's event and unpacks.
+    """
+    if defer and top_k is None:
+        raise ValueError("defer requires top_k")
+    # dedup identical queries: serving batches repeat hot queries; each
+    # distinct one is scored once and fanned back out below
+    keymap: dict = {}
+    uniq: List[Optional[List[int]]] = []
+    expand: List[int] = []
+    for tids in queries_tids:
+        kq = None if tids is None else tuple(tids)
+        uid = keymap.get(kq)
+        if uid is None:
+            uid = len(uniq)
+            keymap[kq] = uid
+            uniq.append(tids)
+        expand.append(uid)
+    n_total = len(queries_tids)
+    dedup = len(uniq) != n_total
+
+    Q = len(uniq)
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    # queries in no group (and every query of a corpus without tokens)
+    # keep the all-zero rows
+    groups = _classify(dev, uniq, kind) if dev.avg_doc_length else {}
+
+    N = dev.corpus_size
+    Npad = _npad(N)
+    cap_t = dense.tf_capacity(dev)
+
+    # chunk every group into rectangular specs
+    specs: List[dict] = []
+    for gkey, grows in groups.items():
+        if gkey[0] == "dterm":
+            # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
+            # rows must fit the pool beside one free slot
+            max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
+        else:
+            # bound by the flat segment-sum key space AND by sliced
+            # posting-bucket words
+            max_chunk = max(1, min(_MAX_FLAT // Npad,
+                                   _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
+        for c0 in range(0, len(grows), max_chunk):
+            chunk = grows[c0: c0 + max_chunk]
+            spec = {"gkey": gkey, "chunk": chunk,
+                    "idfs": np.asarray([r[3] for r in chunk], np.float32)}
+            if gkey[0] == "dterm":
+                spec["tf_tids"] = [r[4][0] for r in chunk]
+            else:
+                spec["offs"] = np.asarray([r[1][0] for r in chunk], np.int64)
+                spec["ns"] = np.asarray([r[2][0] for r in chunk], np.int64)
+            specs.append(spec)
+
+    # partition dterm specs into waves whose unique terms fit the pool: a
+    # wave's rows are pinned through its fill and its group launches
+    waves: List[List[dict]] = []
+    cur: List[dict] = []
+    cur_t: set = set()
+    for s in specs:
+        if s["gkey"][0] != "dterm":
+            continue
+        t_t = set(s["tf_tids"])
+        if cur and len(cur_t | t_t) > cap_t - 1:
+            waves.append(cur)
+            cur, cur_t = [], set()
+        cur.append(s)
+        cur_t |= t_t
+    if cur:
+        waves.append(cur)
+
+    rows: List[int] = []          # query index of each output row
+    outs: List[torch.Tensor] = []
+    for wave in waves:
+        dense.ensure_tfs(dev, [t for s in wave for t in s["tf_tids"]])
+        for s in wave:
+            slots = torch.as_tensor(dense.tf_slots_of(dev, s["tf_tids"]),
+                                    device=dev.device)
+            idfs = torch.as_tensor(s["idfs"], device=dev.device)
+            DISPATCHES[0] += 1
+            outs.append(dense.term_group_body(kind, k1, b, top_k,
+                                              dev.tf_pool, slots,
+                                              dev.doc_lens, idfs, avgdl))
+            rows += [r[0] for r in s["chunk"]]
+    for s in specs:
+        gkey = s["gkey"]
+        if gkey[0] != "term":
+            continue
+        DISPATCHES[0] += 1
+        fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
+                            top_k)
+        outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl, s["offs"],
+                       s["ns"], s["idfs"]))
+        rows += [r[0] for r in s["chunk"]]
+
+    if top_k is not None:
+        staged, event = None, None
+        if outs:
+            staged = torch.cat(outs)
+            if staged.device.type == "cuda":
+                # start the device-to-host copy now; collect() waits on it
+                packed_dev = staged
+                staged = torch.empty(packed_dev.shape, dtype=packed_dev.dtype,
+                                     pin_memory=True)
+                staged.copy_(packed_dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(packed_dev.device))
+        del outs
+
+        def collect():
+            scores = np.zeros((Q, top_k), np.float32)
+            idx = np.tile(np.arange(top_k, dtype=np.int64), (Q, 1))
+            if staged is not None:
+                if event is not None:
+                    event.synchronize()
+                packed = staged.numpy()
+                scores[rows] = packed[:, :top_k].view(np.float32)
+                idx[rows] = packed[:, top_k:]
+            if dedup:  # fan duplicate queries back out
+                return scores[expand], idx[expand]
+            return scores, idx
+
+        return collect if defer else collect()
+
+    out_np = np.zeros((Q, N), np.float32)
+    if outs:
+        out_np[rows] = torch.cat(outs).cpu().numpy()
+    if dedup:  # fan duplicate queries back out
+        out_np = out_np[expand]
+    return out_np

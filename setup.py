@@ -3,8 +3,9 @@
 The native runtime (native/indexer.cpp) is compiled on first use with the
 host's g++ (-march=native), never pre-built — so the SOURCE must travel
 with the installed package.  This copies it into
-``searcharray_tpu/_native_src/`` at build time; ``index/native.py`` looks
-there when the repo-layout path is absent (pip-installed case).
+``searcharray_tpu/_native_src/`` and ``searcharray_tpu_torch/_native_src/``
+at build time; each package's ``index/native.py`` looks there when the
+repo-layout path is absent (pip-installed case).
 """
 import os
 import shutil
@@ -18,10 +19,10 @@ class BuildPyWithNativeSrc(build_py):
         super().run()
         here = os.path.dirname(os.path.abspath(__file__))
         src = os.path.join(here, "native", "indexer.cpp")
-        dst_dir = os.path.join(self.build_lib, "searcharray_tpu",
-                               "_native_src")
-        os.makedirs(dst_dir, exist_ok=True)
-        shutil.copy(src, dst_dir)
+        for pkg in ("searcharray_tpu", "searcharray_tpu_torch"):
+            dst_dir = os.path.join(self.build_lib, pkg, "_native_src")
+            os.makedirs(dst_dir, exist_ok=True)
+            shutil.copy(src, dst_dir)
 
 
 setup(cmdclass={"build_py": BuildPyWithNativeSrc})
