@@ -8,24 +8,33 @@ entry points a user calls, and checks it:
 
 1. environment: a CUDA device, torch/CUDA versions, the card's name and
    power limit;
-2. build: the hand-written kernels K1 (csrc/score_term.cu) and K2
-   (csrc/segment_sum.cu) compile with nvcc for sm_90a;
+2. build: the hand-written kernels K1 (csrc/score_term.cu), K2
+   (csrc/segment_sum.cu), K4 (csrc/plane_fill.cu) and K5
+   (csrc/phrase_chain.cu) compile with nvcc for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
-   ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined, each held
-   to a numpy oracle computed from the host postings; then the same
-   ``score_batch`` on a 40k-doc index with one ~220k-token document,
-   which is too large for dense planes and takes the sparse term group
-   (K2); the launch counts are read right after it and every kernel
-   must have run;
+   ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
+   terms; then exact phrases on the dense plane engine:
+   ``score(phrase)``, ``termfreqs(phrase)`` and ``score_batch`` of terms
+   and phrases mixed, three times (the phrase chain K5 on planes filled
+   by K4, then the phrase-tf cache's promotion, whose rows K5 fills, then
+   the cached rows), with phrases that repeat a term and one whose chain
+   splits in two halves.  Each result is held to a numpy oracle computed
+   from the host postings (phrase freqs exactly, scores to rtol 1e-6).
+   Then the same term ``score_batch`` on a 40k-doc index with one
+   ~220k-token document, which is too large for dense planes and takes
+   the sparse term group (K2); the launch counts are read right after it
+   and every kernel must have run;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results;
 5. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gave it (K1 on the slices of its tf fills, K2 on
-   the flat keys of the long-document batch), with their times;
-6. evidence: timings, ``score_batch`` qps over several windows and
-   memory, each beside the card's name and power limit; the kernels
-   line; the result line.
+   the flat keys of the long-document batch, K4 on the batch's plane
+   rows, K5 on each phrase group of the batch and on tf-pool rows), with
+   their times;
+6. evidence: timings, ``score_batch`` qps over several windows (terms;
+   a serving mix of terms and phrases) and memory, each beside the
+   card's name and power limit; the kernels line; the result line.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
@@ -44,6 +53,13 @@ DEVICE = "cuda"
 WINDOWS = 5       # score_batch qps windows
 HOT_CALLS = 25    # calls per hot window (~0.5 s on an H100)
 COLD_CALLS = 10   # calls per cold window
+MIX_CALLS = 10    # calls per serving-mix window
+# phrases beside bench.PHRASE_QUERIES: a repeated term in a left-to-right
+# chain and in a right-to-left one, and a chain split in two halves at its
+# rarest term ("purpose")
+EXTRA_PHRASES = [["the", "the"], ["what", "is", "purpose", "purpose"],
+                 ["is", "the", "purpose", "of", "the"]]
+LSB18 = np.uint32((1 << 18) - 1)
 
 
 def card_line() -> str:
@@ -70,36 +86,167 @@ def oracle_tf(post, tid, n_docs):
     return np.bincount(keys, weights=pops, minlength=n_docs).astype(np.float32)
 
 
-def oracle_bm25(tf, doc_lens, df, n_docs, avgdl, k1=1.2, b=0.75):
-    """float32 BM25 in the port's association (Lucene 9 form)."""
-    idf = np.float32(np.log1p((n_docs - df + 0.5) / (df + 0.5)))
+def oracle_bm25(tf, doc_lens, dfs, n_docs, avgdl, k1=1.2, b=0.75):
+    """float32 BM25 in the port's association (Lucene 9 form); the idf
+    sums over every query term, in float64."""
+    dfs = np.asarray(dfs, np.float64)
+    idf = np.float32(np.sum(np.log1p((n_docs - dfs + 0.5) / (dfs + 0.5))))
     k1f, bf, avg = np.float32(k1), np.float32(b), np.float32(avgdl)
     norm = k1f * ((np.float32(1.0) - bf) + bf * (doc_lens / avg))
     return (tf / (tf + norm)) * idf
 
 
-def oracle_scores(dev, term):
-    """BM25 of one term over the corpus of a DeviceIndex, from its host
-    postings (zeros for a vocabulary miss)."""
+# popcount of every 18-bit payload value, from the bits of its bytes
+POP18 = np.unpackbits(np.arange(1 << 18, dtype=">u4").view(np.uint8)).reshape(
+    -1, 32).sum(axis=1, dtype=np.int32)
+
+
+def popcount_u32(x):
+    """Popcount of 18-bit values (every payload, bigram and carry is one;
+    a larger value raises IndexError)."""
+    return POP18[x]
+
+
+def oracle_plane(post, tid, n_docs, blk_bits):
+    """A term's dense uint32[N << blk_bits] payload plane, from the host
+    posting words (doc key | block | 18-bit bitmap)."""
+    words = post.term_slice(tid)
+    keys = (words >> np.uint64(36)).astype(np.int64)
+    blks = ((words >> np.uint64(18)) & np.uint64(0x3FFFF)).astype(np.int64)
+    plane = np.zeros(n_docs << blk_bits, np.uint32)
+    plane[(keys << blk_bits) | blks] = (words & np.uint64(0x3FFFF)).astype(
+        np.uint32)
+    return plane
+
+
+def oracle_plan(n, split):
+    """The chain layout of the reference's compute_phrase_freqs
+    (middle_out.py:154-168), as the JAX package's phrase._plan has it."""
+    if split <= 1:
+        return [("l2r", list(range(n)))]
+    if split >= n - 2:
+        return [("r2l", list(range(n)))]
+    return [("l2r", list(range(split))), ("r2l", list(range(split, n)))]
+
+
+def oracle_chain(planes, tags, direction, n_docs, slots):
+    """Per-doc counts of each bigram step of one chain half, in numpy
+    uint32, with the formulas of the JAX package's dense chain
+    (searcharray_tpu/search/dense.py:494-555): shifts run over the flat
+    slot axis."""
+    top = np.uint32(17)
+    one = np.uint32(1)
+    up = lambda a: np.concatenate([np.zeros(1, a.dtype), a[:-1]])  # noqa: E731
+    down = lambda a: np.concatenate([a[1:], np.zeros(1, a.dtype)])  # noqa: E731
+
+    def same_counts(p):
+        ov = p & ((p << one) & LSB18)
+        consec = popcount_u32(ov & (ov << one) & LSB18)
+        return popcount_u32(ov) - (consec + 1) // 2, ov
+
+    out, carry = [], None
+    order = (range(1, len(planes)) if direction == "l2r"
+             else range(len(planes) - 2, -1, -1))
+    for i in order:
+        if direction == "l2r":
+            R = planes[i]
+            if carry is None and tags[i] == tags[i - 1]:
+                counts, ov = same_counts(R)
+                adj = (up(R) >> top) & R & one
+                cont = ov | adj
+            else:
+                L = planes[i - 1] if carry is None else carry
+                inner = L & (R >> one)
+                adj = (up(L) >> top) & R & one
+                counts = popcount_u32(inner)
+                cont = ((inner << one) & LSB18) | adj
+        else:
+            L = planes[i]
+            if carry is None and tags[i] == tags[i + 1]:
+                counts, _ = same_counts(L)
+                adj = (L >> top) & down(L) & one
+                cont = (L & (L >> one)) | (adj << top)
+            else:
+                R = planes[i + 1] if carry is None else carry
+                ov = L & (R >> one)
+                adj = (L >> top) & down(R) & one
+                counts = popcount_u32(ov)
+                cont = ov | (adj << top)
+        counts = counts + adj.astype(np.int32)
+        out.append(counts.reshape(n_docs, slots).sum(axis=1))
+        carry = cont
+    return out
+
+
+_PLANES: dict = {}
+_FREQS: dict = {}
+_ORACLE: dict = {}
+
+
+def oracle_phrase_freqs(dev, terms):
+    """Exact phrase freqs: the min over every chain step's per-doc count
+    (not a positional match count: the two differ where the plan splits
+    a phrase of four or more terms).  Memoized per (index, phrase)."""
+    key = (id(dev), tuple(terms))
+    if key not in _FREQS:
+        _FREQS[key] = _oracle_phrase_freqs(dev, terms)
+    return _FREQS[key]
+
+
+def _oracle_phrase_freqs(dev, terms):
+    n, bb = dev.corpus_size, dev.blk_bits
+    tids = [dev.vocab.get_term_id(t) for t in terms]
+    lengths = [int(dev.postings.lengths[t]) for t in tids]
+    pattern = [tids.index(t) for t in tids]
+    for t in tids:
+        if (id(dev), t) not in _PLANES:
+            _PLANES[(id(dev), t)] = oracle_plane(dev.postings, t, n, bb)
+    freqs = None
+    for direction, idxs in oracle_plan(len(tids), int(np.argmin(lengths))):
+        for c in oracle_chain([_PLANES[(id(dev), tids[i])] for i in idxs],
+                              [pattern[i] for i in idxs], direction, n,
+                              1 << bb):
+            freqs = c if freqs is None else np.minimum(freqs, c)
+    return freqs.astype(np.float32)
+
+
+def oracle_scores(dev, query):
+    """BM25 of one term or exact phrase over the corpus of a DeviceIndex,
+    from its host postings (zeros for a vocabulary miss)."""
+    terms = [query] if isinstance(query, str) else list(query)
+    key = (id(dev), tuple(terms))
+    if key in _ORACLE:
+        return _ORACLE[key]
     n = dev.corpus_size
-    if term not in dev.vocab:
+    if any(t not in dev.vocab for t in terms):
         return np.zeros(n, np.float32)
-    tid = dev.vocab.get_term_id(term)
-    return oracle_bm25(oracle_tf(dev.postings, tid, n), dev.doc_lens_np,
-                       int(dev.doc_freqs[tid]), n, dev.avg_doc_length)
+    tids = [dev.vocab.get_term_id(t) for t in terms]
+    tf = (oracle_tf(dev.postings, tids[0], n) if len(tids) == 1
+          else oracle_phrase_freqs(dev, terms))
+    _ORACLE[key] = oracle_bm25(tf, dev.doc_lens_np,
+                               [int(dev.doc_freqs[t]) for t in tids], n,
+                               dev.avg_doc_length)
+    return _ORACLE[key]
 
 
 def oracle_topk(scores, k):
-    """Top-k by (-score, index), the smallest-index tie rule."""
-    kth = np.partition(scores, len(scores) - k)[len(scores) - k]
-    cand = np.flatnonzero(scores >= kth)
+    """Top-k by (-score, index), the smallest-index tie rule.  With k or
+    more positive scores the top k are among them, so only those are
+    ranked (a rare term's few docs instead of the whole corpus)."""
+    pool = np.flatnonzero(scores > 0)
+    if len(pool) < k:
+        pool = np.arange(len(scores))
+    sub = scores[pool]
+    kth = np.partition(sub, len(sub) - k)[len(sub) - k]
+    cand = pool[sub >= kth]
     order = np.lexsort((cand, -scores[cand]))[:k]
     return cand[order]
 
 
 def check_ranking(dev, terms, scores, idx, what):
     """Top-k scores within rtol 1e-6 of the oracle's, indices equal
-    wherever the k-th score is > 0 (below it the zero tail ties)."""
+    wherever the k-th score is > 0 (below it the zero tail ties).
+    ``terms`` are the queries: terms or phrases."""
     for term, got_s, got_i in zip(terms, scores, idx):
         want = oracle_scores(dev, term)
         want_i = oracle_topk(want, len(got_i))
@@ -153,10 +300,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from bench import TERM_QUERIES, build_corpus
+    from bench import PHRASE_QUERIES, TERM_QUERIES, build_corpus
+    from bench import serving_queries
     from searcharray_tpu_torch import SearchArray
     from searcharray_tpu_torch.ops.cuda import score as kc
-    from searcharray_tpu_torch.search import batch, dense, scoring
+    from searcharray_tpu_torch.search import batch, dense, phrase, scoring
+
+    phases = []  # (phase, wall seconds), in the order they ran
+    marks = [time.perf_counter()]
+
+    def phase_done(name):
+        marks.append(time.perf_counter())
+        phases.append((name, marks[-1] - marks[-2]))
 
     # ---- 1. environment ----------------------------------------------
     card = card_line()
@@ -170,6 +325,7 @@ def main() -> int:
     so = kc.build()
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {so}",
           flush=True)
+    phase_done("environment and kernel build")
 
     # ---- 3. main path (counted) -----------------------------------------
     t0 = time.perf_counter()
@@ -177,6 +333,8 @@ def main() -> int:
     corpus_s = time.perf_counter() - t0
     kc.score_term.launches = 0
     kc.segment_sum.launches = 0
+    kc.plane_fill.launches = 0
+    kc.phrase_chain.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     arr = SearchArray.index(corpus, device=DEVICE, autowarm=False)
@@ -194,6 +352,7 @@ def main() -> int:
     post = dev.postings
     check(n == N_DOCS and dev.blk_bits == 3,
           f"index of {n} docs on {dev.device}, blk_bits {dev.blk_bits}")
+    phase_done("corpus, host build, upload, warm")
 
     avgdl = dev.avg_doc_length
     s_what = arr.score("what")
@@ -221,6 +380,62 @@ def main() -> int:
                   f"score_batch(top_k={TOP_K})")
     check(np.array_equal(p_idx, b_idx) and np.array_equal(p_scores, b_scores),
           "score_batch(block=False) + collect() equals the blocking call")
+    phase_done("terms: drive and oracle checks")
+
+    # exact phrases on the dense plane engine: planes filled by K4, freqs
+    # by K5.  The first score() and the first batch run the chain; the
+    # second encounter of a phrase promotes it (PHRASE_TF_MIN_HITS), and
+    # K5 fills its tf-pool row; the third batch reads the cached rows (the
+    # batch holds more rows than the 192-slot tf pool, so LRU evicts some
+    # of them between calls and K5 refills those).
+    ph3 = ["what", "is", "the"]
+    ph4 = ["what", "is", "the", "purpose"]
+    s_ph3 = arr.score(ph3)
+    f_ph4 = arr.termfreqs(ph4)
+    mixed = list(TERM_QUERIES) + list(PHRASE_QUERIES) + EXTRA_PHRASES + rare
+    phrases = list(PHRASE_QUERIES) + EXTRA_PHRASES
+    k5_before = kc.phrase_chain.launches
+    mixed_runs = [arr.score_batch(mixed, top_k=TOP_K)]
+    k5_chain = kc.phrase_chain.launches - k5_before
+    promoted_first = set(dev.phrase_recipes)
+    mixed_runs.append(arr.score_batch(mixed, top_k=TOP_K, block=False)())
+    k5_fill = kc.phrase_chain.launches - k5_before - k5_chain
+    mixed_runs.append(arr.score_batch(mixed, top_k=TOP_K))
+    phase_done("phrases: drive")
+
+    check(np.array_equal(f_ph4, oracle_phrase_freqs(dev, ph4)),
+          f"termfreqs({ph4}) equals the numpy oracle exactly "
+          f"({int(f_ph4.sum())} matches)")
+    want = oracle_scores(dev, ph3)
+    check(s_ph3.shape == (n,) and np.all(np.isfinite(s_ph3))
+          and np.allclose(s_ph3, want, rtol=1e-6, atol=0)
+          and float(want.max()) > 0,
+          f"score({ph3}) within rtol 1e-6 of the oracle "
+          f"(max abs err {np.abs(s_ph3 - want).max():.3g})")
+    # the first batch (the chain) against the oracle; the promotion
+    # (block=False) and the cached rows must then return it bit for bit
+    check_ranking(dev, mixed, *mixed_runs[0],
+                  f"mixed score_batch(top_k={TOP_K}), chain")
+    check(all(np.array_equal(r[0], mixed_runs[0][0])
+              and np.array_equal(r[1], mixed_runs[0][1])
+              for r in mixed_runs[1:]),
+          "the promotion (block=False) and cached-row batches return the "
+          "chain batch's top-k bit for bit")
+    sig = lambda q: (tuple(arr.term_dict.get_term_id(t) for t in q), 0)  # noqa: E731
+    check(k5_chain > 0 and k5_fill > 0
+          and promoted_first == {sig(ph3)}
+          and set(dev.phrase_recipes) == {sig(q) for q in phrases},
+          f"phrases ran the chain ({k5_chain} K5 launches in the first "
+          f"batch) and were promoted on their second hit ({k5_fill} K5 "
+          f"launches filling tf-pool rows, {len(dev.phrase_recipes)} "
+          "phrases cached)")
+    for ph in phrases:
+        got = arr.termfreqs(ph)
+        if not np.array_equal(got, oracle_phrase_freqs(dev, ph)):
+            raise AssertionError(f"termfreqs({ph}) differs from the oracle")
+    check(True, f"termfreqs of all {len(phrases)} phrases equal the oracle "
+          "exactly")
+    phase_done("phrases: oracle checks")
 
     # long documents: one ~220k-token doc needs 14 block bits, so dense
     # planes would pass the per-plane limit and score_batch takes the
@@ -241,9 +456,12 @@ def main() -> int:
     # the main path ends here: read its launch counts before anything else
     # launches a kernel
     launches = {"score_term": kc.score_term.launches,
-                "segment_sum": kc.segment_sum.launches}
+                "segment_sum": kc.segment_sum.launches,
+                "plane_fill": kc.plane_fill.launches,
+                "phrase_chain": kc.phrase_chain.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"main path launches: {launches}", flush=True)
+    phase_done("long-document index: build, drive, checks")
     check(all(v > 0 for v in launches.values()),
           "every kernel of the path launched in the main-path run")
 
@@ -262,6 +480,8 @@ def main() -> int:
     check(np.allclose(sparse, dense_want, rtol=1e-6, atol=0),
           "sparse term group (K2) equals the dterm results within rtol 1e-6 "
           f"(max abs err {np.abs(sparse - dense_want).max():.3g})")
+
+    phase_done("sparse term group vs dterm")
 
     # ---- 5. kernels vs plain at the main path's shapes --------------------
     k1_err = 0.0
@@ -320,6 +540,69 @@ def main() -> int:
           f"flat keys, {k2_slots} slots) and with a 2^30 pad tail, max abs "
           f"err {k2_err:.3g}")
 
+    # K4 on the plane rows of the mixed batch's phrases, all in one launch
+    # as ensure_batch fills them, into scratch pools; the rows must also
+    # equal the ones the main path left in the plane pool
+    ph_tids = list(dict.fromkeys(arr.term_dict.get_term_id(t)
+                                 for q in phrases for t in q))
+    spans = [dev.term_span(t)[:2] for t in ph_tids]
+    k4_rows = (np.asarray([o for o, _ in spans]),
+               np.asarray([m for _, m in spans]),
+               np.arange(len(ph_tids)))
+    NS = dense.plane_size(dev)
+    k4_pools = [torch.full((len(ph_tids), NS), -1, dtype=torch.int32,
+                           device=dev.device) for _ in range(2)]
+    kc.plane_fill(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
+    kc.plane_fill_plain(dev.hdrs, dev.pays, *k4_rows, k4_pools[1])
+    k4_err = (k4_pools[0] - k4_pools[1]).abs().max().item()
+    check(torch.equal(k4_pools[0], k4_pools[1])
+          and all(torch.equal(k4_pools[0][i],
+                              dev.plane_pool[dev.plane_slot[t]])
+                  for i, t in enumerate(ph_tids)),
+          f"K4 equals its plain version bit for bit on the {len(ph_tids)} "
+          f"plane rows of the mixed batch ({NS} slots each, "
+          f"{int(k4_rows[1].sum())} posting words), as do the main path's "
+          "plane-pool rows")
+
+    # K5 on each dphrase group of the first mixed batch (every phrase but
+    # the one score() had already promoted), and in the tf-row form of the
+    # phrase-tf cache's fills
+    groups = {}
+    for q in phrases:
+        if q != ph3:
+            tids = [arr.term_dict.get_term_id(t) for t in q]
+            plan_key, pattern = phrase.chain_key(dev, tids)
+            groups.setdefault((plan_key, pattern), []).append(tids)
+    dense.ensure_planes(dev, [t for g in groups.values() for ts in g
+                              for t in ts])
+    k5_specs = [(np.stack([dense.plane_slots_of(dev, ts) for ts in g]),
+                 plan_key, pattern)
+                for (plan_key, pattern), g in groups.items()]
+    check(any(len(pk) == 2 for _, pk, _ in k5_specs)
+          and any(len(set(pt)) < len(pt) for _, _, pt in k5_specs),
+          f"{len(k5_specs)} K5 groups, with a two-half plan and same-term "
+          "patterns")
+    kw5 = dict(num_docs=n, blk_bits=dev.blk_bits)
+    k5_err = 0.0
+    for slots5, plan_key, pattern in k5_specs:
+        got = kc.phrase_chain(dev.plane_pool, slots5, plan_key, pattern,
+                              **kw5)
+        want = kc.phrase_chain_plain(dev.plane_pool, slots5, plan_key,
+                                     pattern, **kw5)
+        rows5 = torch.full((len(slots5) + 2, n), -1.0, device=dev.device)
+        kc.phrase_chain(dev.plane_pool, slots5, plan_key, pattern,
+                        out=rows5, out_rows=range(2, len(slots5) + 2),
+                        **kw5)
+        k5_err = max(k5_err, (got - want).abs().max().item())
+        if not (torch.equal(got, want) and torch.equal(rows5[2:], want)
+                and bool((rows5[:2] == -1).all())):
+            raise AssertionError(f"K5 differs on {plan_key} {pattern}")
+    check(True, f"K5 equals its plain version bit for bit on the "
+          f"{len(k5_specs)} phrase groups of the mixed batch, and in the "
+          "tf-row form")
+
+    phase_done("kernels vs plain: checks")
+
     # kernel and plain version in turns: kernel, plain, plain, kernel
     k1_times = {}
     for term, (words, run, plain) in k1_pairs.items():
@@ -333,6 +616,28 @@ def main() -> int:
     k2_run, k2_plain = k2_batch(kc.segment_sum), k2_batch(kc.segment_sum_plain)
     k2_ms, k2_plain_ms = cuda_ms(k2_run), cuda_ms(k2_plain)
     k2_plain_ms2, k2_ms2 = cuda_ms(k2_plain), cuda_ms(k2_run)
+
+    def k4_fill(fn):
+        return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
+
+    k4_t = [cuda_ms(k4_fill(kc.plane_fill)),
+            cuda_ms(k4_fill(kc.plane_fill_plain), iters=10),
+            cuda_ms(k4_fill(kc.plane_fill_plain), iters=10),
+            cuda_ms(k4_fill(kc.plane_fill))]
+    # K5 time: every group launch of the first mixed batch, per batch
+    def k5_batch(fn):
+        return lambda: [fn(dev.plane_pool, s, pk, pt, **kw5)
+                        for s, pk, pt in k5_specs]
+
+    k5_t = [cuda_ms(k5_batch(kc.phrase_chain)),
+            cuda_ms(k5_batch(kc.phrase_chain_plain), iters=10),
+            cuda_ms(k5_batch(kc.phrase_chain_plain), iters=10),
+            cuda_ms(k5_batch(kc.phrase_chain))]
+    k5_each = [((len(s), len(pt), len(pk)), cuda_ms(
+        lambda s=s, pk=pk, pt=pt: kc.phrase_chain(
+            dev.plane_pool, s, pk, pt, **kw5))) for s, pk, pt in k5_specs]
+
+    phase_done("kernels vs plain: timing")
 
     # ---- 6. evidence -------------------------------------------------------
     def host_ms(fn, iters):
@@ -384,10 +689,38 @@ def main() -> int:
             arr.score_batch(cold_sets[w * COLD_CALLS + c], top_k=TOP_K)
         return COLD_CALLS
 
+    # the serving mix of bench.py: 120 queries per call, half of them
+    # phrases, hot stopword phrases and a rare tail that changes per call
+    mix_n = len(serving_queries(0))
+
+    def mix_blocking(w):
+        for c in range(MIX_CALLS):
+            arr.score_batch(serving_queries(w * MIX_CALLS + c), top_k=TOP_K)
+        return MIX_CALLS
+
+    def mix_pipelined(w):
+        pending = None
+        for c in range(MIX_CALLS):
+            nxt = arr.score_batch(serving_queries(1000 + w * MIX_CALLS + c),
+                                  top_k=TOP_K, block=False)
+            if pending is not None:
+                pending()
+            pending = nxt
+        pending()
+        return MIX_CALLS
+
     arr.score_batch(queries, top_k=TOP_K)
     qps_hot, fills_hot = qps_windows(hot_blocking, len(queries))
     qps_pipe, fills_pipe = qps_windows(hot_pipelined, len(queries))
     qps_cold, fills_cold = qps_windows(cold_blocking, 200)
+    k45_before = (kc.plane_fill.launches, kc.phrase_chain.launches)
+    qps_mix, fills_mix = qps_windows(mix_blocking, mix_n)
+    qps_mixp, fills_mixp = qps_windows(mix_pipelined, mix_n)
+    k45_per_call = [(a - b) / (2 * WINDOWS * MIX_CALLS) for a, b in zip(
+        (kc.plane_fill.launches, kc.phrase_chain.launches), k45_before)]
+    score_ph_ms = host_ms(lambda: arr.score(ph3), 30)
+    tf_ph_ms = host_ms(lambda: arr.termfreqs(ph4), 30)
+    phase_done("qps windows and latencies")
 
     evidence = [
         ("corpus generation s", corpus_s),
@@ -405,14 +738,32 @@ def main() -> int:
               (f"hot pipelined ({len(queries)} terms, top_k=10)",
                HOT_CALLS, qps_pipe, fills_pipe),
               ("cold blocking (200 fresh rare terms, top_k=10)",
-               COLD_CALLS, qps_cold, fills_cold))),
+               COLD_CALLS, qps_cold, fills_cold),
+              (f"serving mix blocking (bench.serving_queries, {mix_n} "
+               "queries, half phrases, top_k=10)", MIX_CALLS, qps_mix,
+               fills_mix),
+              (f"serving mix pipelined (bench.serving_queries, {mix_n} "
+               "queries, half phrases, top_k=10)", MIX_CALLS, qps_mixp,
+               fills_mixp))),
+        ("serving mix K4 and K5 launches per call", k45_per_call),
+        (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
+        (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
         *((f"K1 ms kernel, plain, plain, kernel ({term!r}, {words} words, "
            "kind none)", " ".join(map(str, t)))
           for term, (words, t) in k1_times.items()),
         (f"K2 ms kernel, plain, plain, kernel (long-document batch: "
          f"{len(k2_calls)} launches, {k2_keys} flat keys, {k2_slots} slots)",
          f"{k2_ms} {k2_plain_ms} {k2_plain_ms2} {k2_ms2}"),
+        (f"K4 ms kernel, plain, plain, kernel (one launch: "
+         f"{len(ph_tids)} plane rows of {NS} slots)",
+         " ".join(map(str, k4_t))),
+        (f"K5 ms kernel, plain, plain, kernel (first mixed batch: "
+         f"{len(k5_specs)} group launches)", " ".join(map(str, k5_t))),
+        ("K5 ms per group launch (queries, terms, plan halves)", k5_each),
+        ("plane pool bytes", dev.plane_pool.numel() * 4),
         ("max memory allocated bytes (main path)", peak_bytes),
+        ("wall s per phase", phases),
+        ("wall s in main()", marks[-1] - marks[0]),
     ]
     for name, value in evidence:
         print(f"evidence: {name} = {value} {tag}", flush=True)
@@ -427,6 +778,16 @@ def main() -> int:
          "replaces": "searcharray_tpu/ops/pallas/score.py:196",
          "launches": launches["segment_sum"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "plane_fill (K4)", "route": "cuda",
+         "source": "searcharray_tpu_torch/csrc/plane_fill.cu",
+         "replaces": "searcharray_tpu/search/dense.py:222",
+         "launches": launches["plane_fill"], "max_abs_err": k4_err,
+         "ms": k4_t[0], "plain_ms": k4_t[1]},
+        {"name": "phrase_chain (K5)", "route": "cuda",
+         "source": "searcharray_tpu_torch/csrc/phrase_chain.cu",
+         "replaces": "searcharray_tpu/search/dense.py:558",
+         "launches": launches["phrase_chain"], "max_abs_err": k5_err,
+         "ms": k5_t[0], "plain_ms": k5_t[1]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ def derive_attach_arrays(built: BuiltIndex) -> dict:
 
 class DeviceIndex:
     """Device copy of a built index on ``device`` (immutable postings, plus
-    the lazily allocated tf pool and its host-side slot map)."""
+    the lazily allocated plane and tf pools and their host-side slot
+    maps)."""
 
     def __init__(self, built: BuiltIndex, device):
         self.built = built
@@ -86,13 +87,23 @@ class DeviceIndex:
             np.asarray(der["pay32"]).view(np.int32), device=self.device)
         self.doc_lens = torch.as_tensor(
             np.asarray(built.doc_lens, dtype=np.float32), device=self.device)
-        # Device tf pool f32[Ct, N] (search/dense.py), allocated on first
-        # use; the host keeps term -> slot in LRU order.
+        # Device pools (search/dense.py), each allocated on first use:
+        # plane_pool int32[C, N << blk_bits] (one term payload plane per
+        # slot) and tf_pool f32[Ct, N]; the host keeps key -> slot maps
+        # in LRU order.
+        self.plane_pool: Optional[torch.Tensor] = None
+        self.plane_slot: "OrderedDict[int, int]" = OrderedDict()
+        self.plane_free: list = []
         self.tf_pool: Optional[torch.Tensor] = None
-        self.tf_slot: "OrderedDict[int, int]" = OrderedDict()
+        self.tf_slot: "OrderedDict[object, int]" = OrderedDict()
         self.tf_free: list = []
         # dict-LRU tf fallback for pool-ineligible corpora (dense.term_tf)
         self.tf_cache: "OrderedDict[int, torch.Tensor]" = OrderedDict()
+        # Phrase-tf cache: tf_slot keys may also be (tids, slop) phrase
+        # signatures.  phrase_hits counts encounters per signature;
+        # phrase_recipes holds a promoted signature's (terms, fill key).
+        self.phrase_hits: dict = {}
+        self.phrase_recipes: dict = {}
 
     def _usable_derived(self, built: BuiltIndex):
         """Precomputed attach arrays, or None if absent or stale (layout

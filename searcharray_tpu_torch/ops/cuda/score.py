@@ -1,5 +1,6 @@
-"""K1 (fused term scoring) and K2 (sorted segment-sum): Hopper kernels,
-their plain PyTorch versions, and the build.
+"""K1 (fused term scoring), K2 (sorted segment-sum), K4 (plane fill) and
+K5 (the exact-phrase bigram chain): Hopper kernels, their plain PyTorch
+versions, and the build of the one kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -9,7 +10,8 @@ sources) and loaded with ctypes.
 Each wrapper takes its plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
-(``score_term.launches``, ``segment_sum.launches``).
+(``score_term.launches``, ``segment_sum.launches``,
+``plane_fill.launches``, ``phrase_chain.launches``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,11 @@ import threading
 import numpy as np
 import torch
 
-from searcharray_tpu_torch.ops.kernels import apply_similarity_device
+from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
+    apply_similarity_device,
+    phrase_counts_dense_planes,
+    popcount_i32,
+)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -33,9 +39,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "searcharray_tpu_torch", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 KINDS = {"none": 0, "bm25": 1, "bm25_impact": 2, "bm25_legacy": 3}
+
+CHAIN_MAX_TERMS = 32         # K5 takes phrases of at most this many terms
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -67,20 +75,35 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels if no library for the current sources exists;
-    returns its path.  Raises with the compiler's output on failure."""
+    returns its path.  One nvcc per source, all started together, then
+    one link.  Raises with the compiler's output on failure."""
     so = library_path()
     if os.path.exists(so):
         return so
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", *NVCC_FLAGS, "-o", lib,
+                              *(obj for obj, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(lib, so)
     return so
 
 
@@ -99,17 +122,34 @@ def _get_lib():
             lib.sa_score_term.restype = c_int
             lib.sa_segment_sum.argtypes = [vp, vp, i64, vp, i64, c_int, vp]
             lib.sa_segment_sum.restype = c_int
+            lib.sa_plane_fill.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64,
+                                          c_int, vp]
+            lib.sa_plane_fill.restype = c_int
+            lib.sa_phrase_chain.argtypes = [vp, i64, vp, i64, c_int, vp,
+                                            i64, c_int, vp, i64, vp, c_int,
+                                            vp]
+            lib.sa_phrase_chain.restype = c_int
             _lib = lib
     return _lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, device) -> None:
+def _check(t: torch.Tensor, name: str, dtype, device,
+                 ndim: int = 1) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-D tensor")
+
+
+def _host_index(values, name: str, bound: int) -> np.ndarray:
+    """A host int64 index array, every entry checked to lie in [0, bound)
+    before a kernel dereferences it."""
+    arr = np.asarray(values, dtype=np.int64)
+    if arr.size and (arr.min() < 0 or arr.max() >= bound):
+        raise ValueError(f"{name} out of range [0, {bound})")
+    return arr
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -120,15 +160,6 @@ def _raise_on(err: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 # K1: fused term scoring
 # ---------------------------------------------------------------------------
-def popcount_i32(x: torch.Tensor) -> torch.Tensor:
-    """SWAR popcount of non-negative int32 values (torch has no popcount
-    op; ``>>`` on int32 is arithmetic, exact for the 18-bit payloads)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
-
-
 def _f32(x) -> float:
     """A scalar rounded to float32, as a Python float (exact)."""
     return float(np.float32(x))
@@ -236,3 +267,151 @@ def segment_sum(sorted_ids: torch.Tensor, values: torch.Tensor, *,
 
 
 segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: plane fill
+# ---------------------------------------------------------------------------
+def plane_fill_plain(hdrs, pays, offs, ns, slots, pool) -> torch.Tensor:
+    """Plain PyTorch K4: zero each row, then store the slice's payloads at
+    their headers (headers past the plane, such as PAD_HDR32, dropped)."""
+    plane_size = pool.shape[1]
+    for off, n, slot in zip(offs.tolist(), ns.tolist(), slots.tolist()):
+        h = hdrs[off: off + n]
+        ok = h < plane_size
+        row = pool[slot]
+        row.zero_()
+        row[h[ok].long()] = pays[off: off + n][ok]
+    return pool
+
+
+def plane_fill(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, slots,
+               pool: torch.Tensor) -> torch.Tensor:
+    """Expand posting slices into dense payload planes: for each row r,
+    ``pool[slots[r]]`` = 0 except ``pool[slots[r], hdr] = pay`` over the
+    words ``[offs[r], offs[r] + ns[r])`` of ``hdrs``/``pays``.
+
+    ``hdrs``/``pays`` are the int32 posting planes, ``pool`` the int32
+    [C, N << blk_bits] plane pool (filled in place and returned);
+    ``offs``/``ns``/``slots`` are host integer sequences, one entry per
+    row.  One launch fills every row."""
+    dev = pool.device
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(pays, "pays", torch.int32, dev)
+    _check(pool, "pool", torch.int32, dev, ndim=2)
+    if pays.shape != hdrs.shape:
+        raise ValueError("hdrs/pays lengths differ")
+    offs = _host_index(offs, "offs", hdrs.shape[0] + 1)
+    ns = np.asarray(ns, dtype=np.int64)
+    slots = _host_index(slots, "slots", pool.shape[0])
+    if not (offs.shape == ns.shape == slots.shape) or offs.ndim != 1:
+        raise ValueError("offs, ns and slots must be 1-D of one length")
+    if ns.size and (ns.min() < 0 or (offs + ns).max() > hdrs.shape[0]):
+        raise ValueError("a posting slice runs past the planes")
+    if len(set(slots.tolist())) != len(slots):
+        raise ValueError("a pool row is filled twice in one call")
+    if dev.type == "cpu":
+        return plane_fill_plain(hdrs, pays, offs, ns, slots, pool)
+    if dev.type != "cuda":
+        raise ValueError(f"no K4 kernel for device {dev}")
+    if len(slots) == 0 or pool.shape[1] == 0:
+        return pool
+    rows = torch.as_tensor(np.stack([offs, ns, slots]), device=dev)
+    err = _get_lib().sa_plane_fill(
+        hdrs.data_ptr(), pays.data_ptr(), rows[0].data_ptr(),
+        rows[1].data_ptr(), rows[2].data_ptr(), len(slots), pool.data_ptr(),
+        pool.shape[1], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "plane_fill")
+    plane_fill.launches += 1
+    return pool
+
+
+plane_fill.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the exact-phrase bigram chain on the plane pool
+# ---------------------------------------------------------------------------
+def _plan_ints(plan, pattern, T: int) -> np.ndarray:
+    """The chain plan in K5's host layout: n_halves, then per half
+    (dir, len, terms..., tags...)."""
+    if T > CHAIN_MAX_TERMS:
+        raise ValueError(f"K5 takes phrases of at most {CHAIN_MAX_TERMS} "
+                         f"terms, got {T}")
+    if len(pattern) != T or not 1 <= len(plan) <= 2:
+        raise ValueError("the pattern must tag every term; the plan has one "
+                         "or two halves")
+    out = [len(plan)]
+    for direction, idxs in plan:
+        idxs = list(idxs)
+        if len(idxs) < 2 or min(idxs) < 0 or max(idxs) >= T:
+            raise ValueError(f"bad chain half {direction} {idxs}")
+        out += [0 if direction == "l2r" else 1, len(idxs), *idxs,
+                *(pattern[i] for i in idxs)]
+    return np.asarray(out, np.int32)
+
+
+def phrase_chain_plain(pool, slots, plan, pattern, *, num_docs: int,
+                       blk_bits: int) -> torch.Tensor:
+    """Plain PyTorch K5: gather each query's planes, then the chain."""
+    slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=pool.device)
+    planes = [pool[slots_t[:, i]] for i in range(slots_t.shape[1])]
+    return phrase_counts_dense_planes(planes, list(pattern), plan, num_docs,
+                                      1 << blk_bits)
+
+
+def phrase_chain(pool: torch.Tensor, slots, plan, pattern, *, num_docs: int,
+                 blk_bits: int, out: torch.Tensor = None,
+                 out_rows=None) -> torch.Tensor:
+    """Per-doc exact phrase freqs of a group of queries sharing one chain
+    structure, read from the plane pool.
+
+    ``pool`` is the int32 [C, num_docs << blk_bits] plane pool, ``slots``
+    a host int [Qg, T] array of each query's plane rows, ``plan`` the
+    chain halves ((direction, term indices), ...) and ``pattern`` the
+    same-term tags.  Returns f32 [Qg, num_docs]; with ``out`` (an f32
+    [R, num_docs] tensor such as the tf pool) writes query q's freqs into
+    row ``out_rows[q]`` instead and returns ``out``."""
+    dev = pool.device
+    _check(pool, "pool", torch.int32, dev, ndim=2)
+    if pool.shape[1] != num_docs << blk_bits:
+        raise ValueError("pool rows are not num_docs << blk_bits wide")
+    slots = _host_index(slots, "slots", pool.shape[0])
+    if slots.ndim != 2:
+        raise ValueError("slots must be [queries, terms]")
+    Qg, T = slots.shape
+    plan_ints = _plan_ints(plan, pattern, T)
+    if out is None:
+        out = torch.empty((Qg, num_docs), dtype=torch.float32, device=dev)
+        rows = None
+    else:
+        _check(out, "out", torch.float32, dev, ndim=2)
+        if out.shape[1] != num_docs:
+            raise ValueError("out rows are not num_docs wide")
+        rows = _host_index(out_rows, "out_rows", out.shape[0])
+        if rows.shape != (Qg,) or len(set(rows.tolist())) != Qg:
+            raise ValueError("out_rows must name one distinct row per query")
+    if dev.type == "cpu":
+        freqs = phrase_chain_plain(pool, slots, plan, pattern,
+                                   num_docs=num_docs, blk_bits=blk_bits)
+        if rows is None:
+            return freqs
+        out[torch.as_tensor(rows)] = freqs
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {dev}")
+    if Qg == 0 or num_docs == 0:
+        return out
+    slots_t = torch.as_tensor(slots.astype(np.int32), device=dev)
+    rows_t = None if rows is None else torch.as_tensor(rows, device=dev)
+    err = _get_lib().sa_phrase_chain(
+        pool.data_ptr(), pool.shape[1], slots_t.data_ptr(), Qg, T,
+        plan_ints.ctypes.data, num_docs, blk_bits, out.data_ptr(),
+        num_docs, None if rows_t is None else rows_t.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "phrase_chain")
+    phrase_chain.launches += 1
+    return out
+
+
+phrase_chain.launches = 0

@@ -1,5 +1,5 @@
 """Posting-plane layout helpers: host derivation (numpy) and device slicing,
-similarity math and exact top-k (torch).
+similarity math, exact top-k and the exact-phrase bigram chain (torch).
 
 Posting slices are cut from the padded planes; tails past a term's words
 are rewritten to a sentinel header (max value, empty payload) so
@@ -8,8 +8,11 @@ segment-sum.
 """
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from searcharray_tpu_torch.ops.encoding import LSB_BITS, LSB_MASK, MSB_SHIFT
 
@@ -162,3 +165,100 @@ def take_term_planes(hdrs: torch.Tensor, pays: torch.Tensor, off: int,
         in_win = (blk >= min_blk) & (blk <= max_blk)
         p = torch.where(in_win, p, 0)
     return h.contiguous(), p.contiguous()
+
+
+def popcount_i32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of non-negative int32 values (torch has no popcount
+    op; ``>>`` on int32 is arithmetic, exact for the 18-bit payloads)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
+
+
+# ---------------------------------------------------------------------------
+# the exact-phrase chain on dense planes: the plain version of K5 (int32
+# planes; every value < 2^18, so shifts are exact)
+# ---------------------------------------------------------------------------
+_TOP = LSB_BITS - 1          # bit index of "last position in block"
+_LSB32 = (1 << LSB_BITS) - 1
+
+
+def _shift_up(a):
+    """a[s] -> a[s-1] over the flat slot axis (previous slot; zero fill)."""
+    return F.pad(a[..., :-1], (1, 0))
+
+
+def _shift_down(a):
+    """a[s] -> a[s+1] over the flat slot axis (next slot; zero fill)."""
+    return F.pad(a[..., 1:], (0, 1))
+
+
+def _popcount_f32(x):
+    return popcount_i32(x).to(torch.float32)
+
+
+def _same_counts_dense(p):
+    """Same-term adjusted counts per slot: adjacent pairs of a run, less
+    ceil(consecutive pairs / 2) (phrase._same_term_counts)."""
+    overlap = p & ((p << 1) & _LSB32)
+    adj = popcount_i32(overlap)
+    consec = popcount_i32(overlap & (overlap << 1) & _LSB32)
+    return (adj - (consec + 1) // 2).to(torch.float32), overlap
+
+
+def _dense_chain(planes: List, pattern: List[int], direction: str):
+    """Bigram chain over dense planes ([..., NS] each); returns the
+    per-slot count arrays (one per step).  ``pattern`` are same-term
+    equivalence tags."""
+    steps = []
+    carry = None
+    if direction == "l2r":
+        for i in range(1, len(planes)):
+            R = planes[i]
+            if carry is None and pattern[i] == pattern[i - 1]:
+                counts, overlap = _same_counts_dense(R)
+                adj = (_shift_up(R) >> _TOP) & R & 1
+                counts = counts + adj.to(torch.float32)
+                cont = overlap | adj
+            else:
+                L = planes[i - 1] if carry is None else carry
+                inner = L & (R >> 1)
+                adj = (_shift_up(L) >> _TOP) & R & 1
+                counts = _popcount_f32(inner) + adj.to(torch.float32)
+                cont = ((inner << 1) & _LSB32) | adj
+            steps.append(counts)
+            carry = cont
+    else:
+        for i in range(len(planes) - 2, -1, -1):
+            L = planes[i]
+            if carry is None and pattern[i] == pattern[i + 1]:
+                counts, _ = _same_counts_dense(L)
+                adj = (L >> _TOP) & _shift_down(L) & 1
+                counts = counts + adj.to(torch.float32)
+                cont = (L & (L >> 1)) | (adj << _TOP)
+            else:
+                R = planes[i + 1] if carry is None else carry
+                overlap = L & (R >> 1)
+                adj = (L >> _TOP) & _shift_down(R) & 1
+                counts = _popcount_f32(overlap) + adj.to(torch.float32)
+                cont = overlap | (adj << _TOP)
+            steps.append(counts)
+            carry = cont
+    return steps
+
+
+def phrase_counts_dense_planes(planes, pattern, plan, num_docs: int,
+                               slots: int):
+    """Min-over-steps per-doc phrase freqs from dense planes ([..., NS]
+    int32 each): the plain version of K5."""
+    freqs = None
+    for direction, idxs in plan:
+        sub = [planes[i] for i in idxs]
+        tags = [pattern[i] for i in idxs]
+        for counts in _dense_chain(sub, tags, direction):
+            per_doc = counts.reshape(counts.shape[:-1]
+                                     + (num_docs, slots)).sum(-1)
+            freqs = per_doc if freqs is None else torch.minimum(freqs,
+                                                                per_doc)
+    return freqs

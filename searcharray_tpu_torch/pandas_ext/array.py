@@ -5,7 +5,8 @@ device as an explicit argument: ``SearchArray.index(strings,
 device="cuda")``.  Search methods run over the whole corpus on that device
 and gather the view's rows at the end.  The dtype registers as
 ``"tokenized_text_torch"``, so pandas take/concat hand back this package's
-arrays.  Term queries only: phrases, slop, mutation and sharding raise
+arrays.  Terms, and exact phrases on the dense plane engine, are ported;
+windowed and slop phrases, mutation and sharding raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ from searcharray_tpu_torch.index.vocab import TermMissingError
 from searcharray_tpu_torch.ops import encoding as enc
 from searcharray_tpu_torch.search import batch as batch_mod
 from searcharray_tpu_torch.search import dense as dense_mod
+from searcharray_tpu_torch.search import phrase as phrase_mod
 from searcharray_tpu_torch.search import scoring
 from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
 
@@ -380,13 +382,14 @@ class SearchArray(ExtensionArray):
         dense_np = dense.cpu().numpy()
         return dense_np if self._full_view else dense_np[self.rows]
 
-    def _check_token_arg(self, token) -> str:
-        if isinstance(token, list) and len(token) == 1:
-            token = token[0]
+    def _check_token_arg(self, token) -> Union[str, List[str]]:
+        """A term (str) or a phrase (list of two or more str)."""
         if isinstance(token, str):
             return token
+        if isinstance(token, list) and len(token) == 1:
+            return token[0]
         if isinstance(token, list):
-            raise NotImplementedError(batch_mod.PHRASE_TODO)
+            return token
         raise TypeError("Expected a string or list of strings for phrases")
 
     def _resolve_tid(self, token: str) -> int:
@@ -396,15 +399,32 @@ class SearchArray(ExtensionArray):
         except TermMissingError:
             return -1
 
+    def _resolve_tids(self, token: Union[str, List[str]]) -> List[int]:
+        tokens = [token] if isinstance(token, str) else token
+        return [self._resolve_tid(t) for t in tokens]
+
+    @staticmethod
+    def _check_phrase_options(token, slop, min_posn, max_posn) -> None:
+        """Raise for the phrase options the port does not take yet."""
+        if isinstance(token, list) and slop:
+            raise NotImplementedError(phrase_mod.SLOP_TODO)
+        if isinstance(token, list) and (min_posn is not None
+                                        or max_posn is not None):
+            raise NotImplementedError(phrase_mod.SPARSE_TODO)
+
     def termfreqs(self, token: Union[List[str], str], slop: int = 0,
                   min_posn: Optional[int] = None,
                   max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        tid = self._resolve_tid(token)
-        if tid < 0:
+        self._check_phrase_options(token, slop, min_posn, max_posn)
+        tids = self._resolve_tids(token)
+        if min(tids) < 0:
             return np.zeros(len(self), dtype=np.float32)
+        if isinstance(token, list):
+            return self._gather_rows(phrase_mod.phrase_freqs_dense(
+                self.dev, tids))
         return self._gather_rows(
-            scoring.termfreqs_dense(self.dev, tid, min_posn, max_posn))
+            scoring.termfreqs_dense(self.dev, tids[0], min_posn, max_posn))
 
     def docfreq(self, token: str) -> int:
         if not isinstance(token, str):
@@ -420,49 +440,68 @@ class SearchArray(ExtensionArray):
               min_posn: Optional[int] = None,
               max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
+        self._check_phrase_options(token, slop, min_posn, max_posn)
+        tokens = [token] if isinstance(token, str) else token
+        # idf covers every query term (a vocabulary miss has df 0)
+        dfs = [self.docfreq(t) for t in tokens]
         fused = getattr(similarity, "_fused", None)
-        if fused is not None:
-            kind, k1, b = fused
-            tid = self._resolve_tid(token)
-            if tid < 0 or self.avg_doc_length == 0:
-                return np.zeros(len(self), dtype=np.float32)
-            idf = scoring.host_idf(kind, [self.docfreq(token)],
-                                   self.corpus_size, self.avg_doc_length)
+        if fused is None:
+            # Custom (user) similarity: honour the reference protocol
+            # exactly -- subset-shaped numpy tfs/doc_lens in, scores out.
+            tfs = self.termfreqs(token, min_posn=min_posn, max_posn=max_posn)
+            scores = similarity(tfs, np.asarray(dfs), self.doclengths(),
+                                self.avg_doc_length, self.corpus_size)
+            return np.asarray(scores, dtype=np.float32)
+        kind, k1, b = fused
+        tids = self._resolve_tids(token)
+        if min(tids) < 0 or self.avg_doc_length == 0:
+            return np.zeros(len(self), dtype=np.float32)
+        idf = scoring.host_idf(kind, dfs, self.corpus_size,
+                               self.avg_doc_length)
+        if isinstance(token, str):
             return self._gather_rows(scoring.score_term_dense(
-                self.dev, tid, kind=kind, k1=k1, b=b, min_posn=min_posn,
+                self.dev, tids[0], kind=kind, k1=k1, b=b, min_posn=min_posn,
                 max_posn=max_posn, idf=idf))
-        # Custom (user) similarity: honour the reference protocol exactly —
-        # subset-shaped numpy tfs/doc_lens in, scores out.
-        tfs = self.termfreqs(token, min_posn=min_posn, max_posn=max_posn)
-        scores = similarity(tfs, np.asarray([self.docfreq(token)]),
-                            self.doclengths(), self.avg_doc_length,
-                            self.corpus_size)
-        return np.asarray(scores, dtype=np.float32)
+        # a repeated phrase scores from the phrase-tf cache (one row
+        # gather + similarity)
+        dense = batch_mod.score_phrase_cached_single(self.dev, tids, kind,
+                                                     k1, b, idf)
+        if dense is None:
+            dense = phrase_mod.phrase_freqs_dense(self.dev, tids, kind=kind,
+                                                  k1=k1, b=b, idf=idf)
+        return self._gather_rows(dense)
 
     def score_batch(self, queries: List[Union[str, List[str]]],
                     similarity: Similarity = default_bm25, slop=0,
                     top_k: Optional[int] = None, block: bool = True):
-        """Score a batch of term queries with one host copy.
+        """Score a batch of terms and exact phrases with one host copy.
 
         Returns float32[Q, len(self)], or with ``top_k`` set,
         ``(scores[Q, k], indices[Q, k])`` ranked on the device.  With
         ``block=False`` (requires ``top_k``, a fused similarity and a full
         un-sliced view) the call returns a zero-arg ``collect()`` once all
         device work is enqueued; invoking it waits for the one copy.
-        ``slop`` only affects phrases, which are not ported yet."""
+        ``slop`` (an int, or one per query) must be 0 for phrases: slop
+        phrases are not ported yet."""
         fused = getattr(similarity, "_fused", None)
         if not block and not (fused is not None and top_k is not None
                               and self._full_view):
             raise ValueError(
                 "block=False requires top_k, a fused similarity, and a "
                 "full un-sliced view")
+        slops = ([slop] * len(queries) if np.isscalar(slop)
+                 else [int(s) for s in slop])
+        if len(slops) != len(queries):
+            raise ValueError("per-query slop length must match queries")
         tokens = [self._check_token_arg(q) for q in queries]
+        for t, s in zip(tokens, slops):
+            self._check_phrase_options(t, s, None, None)
         if fused is None:
             dense = np.stack([self.score(t, similarity=similarity)
                               for t in tokens])
         else:
             kind, k1, b = fused
-            qtids = [[self._resolve_tid(t)] for t in tokens]
+            qtids = [self._resolve_tids(t) for t in tokens]
             if self._full_view and top_k is not None:
                 return batch_mod.score_batch_fused(
                     self.dev, qtids, kind, k1, b,

@@ -1,18 +1,25 @@
-"""Batched multi-query term scoring: the serving path.
+"""Batched multi-query scoring of terms and exact phrases: the serving
+path.
 
 Queries are deduplicated, classified and grouped:
 
 * ``dterm`` (corpus dense-eligible): the group's tf rows are made
-  resident in the tf pool (one K1 launch per missing term), then one
-  row gather + elementwise similarity + exact top-k scores the group;
+  resident in the tf pool (one K1 launch per missing term; a repeated
+  phrase's freq row by K5), then one row gather + elementwise similarity
+  + exact top-k scores the group;
+* ``dphrase`` (exact phrases, corpus dense-eligible): the group's term
+  planes are made resident in the plane pool (one K4 launch for all
+  missing planes of a wave), then ONE K5 launch computes the phrase
+  freqs of every query in the group, then similarity + top-k;
 * ``term`` (corpus too large for dense planes): every query's posting
   slice is offset into a flat query-major key space (``q * Npad + doc``)
   and reduced by ONE sorted segment-sum, K2, for the whole group.
 
 With ``top_k`` every group's result is packed into int32 [Qg, 2k] (f32
 score bits ‖ doc indices), so one device-to-host copy returns a batch.
-Phrase and slop queries and the candidate-subset engine are not ported
-yet and raise ``NotImplementedError``.
+Phrases off the dense engine and the candidate-subset engine are not
+ported yet and raise ``NotImplementedError`` (slop phrases are rejected
+by the facade).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.search import dense
+from searcharray_tpu_torch.search.phrase import SPARSE_TODO, chain_key
 from searcharray_tpu_torch.search.scoring import (
     apply_similarity_device,
     host_idf,
@@ -41,9 +49,6 @@ _MAX_FLAT = 1 << 29
 
 # max sliced posting words per sparse group launch
 _SPARSE_CHUNK_WORDS = 1 << 26
-
-PHRASE_TODO = ("phrase and slop queries come with the phrase slice "
-               "(ROADMAP Queue 1 items 7-9)")
 
 
 def _npad(num_docs: int) -> int:
@@ -105,30 +110,104 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
     return f
 
 
+def _phrase_tf_route(dev: DeviceIndex, sig, tids, fkey, budget) -> bool:
+    """Whether this phrase scores from its cached tf-pool freq row (the
+    phrase-tf cache, search/dense.py).  Counts the encounter and, at
+    PHRASE_TF_MIN_HITS, registers the fill recipe and spends one unit of
+    the per-call promotion budget; the wave's ensure_batch then fills the
+    row with K5.  Evicted rows re-promote the same way on later hits."""
+    if sig in dev.tf_slot:
+        return True
+    h = dev.phrase_hits.get(sig, 0) + 1
+    dev.phrase_hits[sig] = h
+    if h < dense.PHRASE_TF_MIN_HITS or budget[0] <= 0:
+        return False
+    dev.phrase_recipes[sig] = (list(tids), fkey)
+    budget[0] -= 1
+    return True
+
+
+def _ptf_budget(dev: DeviceIndex) -> list:
+    """Phrase-tf promotions allowed in one call: at most half the tf pool
+    holds phrase rows, so hot terms and a phrase flood cannot thrash."""
+    n_sigs = sum(1 for k_ in dev.tf_slot if isinstance(k_, tuple))
+    return [max(0, dense.tf_capacity(dev) // 2 - n_sigs)]
+
+
+def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], kind: str,
+                               k1: float, b: float, idf):
+    """Single-query fast path of an exact phrase through the phrase-tf
+    cache, or None.
+
+    Mirrors _classify's dphrase structure.  A hit or a promotion scores
+    as one tf-row gather + similarity, the dterm group at one row."""
+    if not dense.dense_eligible(dev) or len(tids) < 2:
+        return None
+    if min(dev.term_span(t)[1] for t in tids) == 0:
+        return None
+    if not dense.phrase_fits_pool(dev, tids):
+        return None
+    plan_key, pattern = chain_key(dev, tids)
+    sig = (tuple(tids), 0)
+    if not _phrase_tf_route(dev, sig, tids,
+                            ("ph", len(tids), plan_key, pattern),
+                            _ptf_budget(dev)):
+        return None
+    dense.ensure_batch(dev, tf_tids=[sig])
+    slots = torch.as_tensor(dense.tf_slots_of(dev, [sig]), device=dev.device)
+    idfs = torch.as_tensor(np.asarray([idf], np.float32), device=dev.device)
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    return dense.term_group_body(kind, k1, b, None, dev.tf_pool, slots,
+                                 dev.doc_lens, idfs, avgdl)[0]
+
+
 def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
               kind: str):
-    """Split term queries into structure groups.
+    """Split queries into structure groups.
 
     Returns a dict mapping a structural key to a list of (query_index,
-    offs[1], ns[1], idf, tids); queries with a missing term or no term
-    are in no group and score all-zero.  ``dterm`` when the
-    corpus is dense-eligible (rare terms included: the candidate-subset
-    engine is not ported yet, ROADMAP Queue 1 item 10), else ``term``
-    keyed by posting bucket."""
+    offs[T], ns[T], idf, tids); queries with a missing term, no term or
+    an empty posting are in no group and score all-zero.  With the dense
+    engine (corpus dense-eligible) term queries use pooled tf rows
+    (``dterm``) and exact phrases the chain on pooled planes (``dphrase``,
+    keyed by term count, plan and pattern), or, once repeated, their
+    cached freq row (a ``dterm`` row keyed by the phrase signature).  The
+    candidate-subset engine is not ported yet (ROADMAP Queue 1 item 10):
+    rare terms and phrases take the dense groups too.  Term queries on
+    corpora too large for dense planes are ``term``, keyed by posting
+    bucket; phrases there, and phrases of more than CHAIN_MAX_TERMS terms
+    (K5's cap), need the sparse chain and raise before any routing."""
     dense_ok = dense.dense_eligible(dev)
+    ptf_budget = _ptf_budget(dev) if dense_ok else [0]
     groups: dict = {}
     for qi, tids in enumerate(queries_tids):
         if tids is None or len(tids) == 0 or any(t < 0 for t in tids):
             continue
-        if len(tids) > 1:
-            raise NotImplementedError(PHRASE_TODO)
         dfs = [int(dev.doc_freqs[t]) for t in tids]
         idf = host_idf(kind, dfs, dev.corpus_size, dev.avg_doc_length)
-        off, n, _ = dev.term_span(tids[0])
-        gkey = ("dterm",) if dense_ok else ("term", K.bucket_of(max(1, n)))
+        spans = [dev.term_span(t) for t in tids]
+        lengths = [s[1] for s in spans]
+        if len(tids) == 1:
+            gkey = (("dterm",) if dense_ok
+                    else ("term", K.bucket_of(max(1, lengths[0]))))
+            row_tids = tids
+        else:
+            if min(lengths) == 0:
+                continue
+            if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
+                raise NotImplementedError(SPARSE_TODO)
+            plan_key, pattern = chain_key(dev, tids)
+            sig = (tuple(tids), 0)
+            if _phrase_tf_route(dev, sig, tids,
+                                ("ph", len(tids), plan_key, pattern),
+                                ptf_budget):
+                gkey, row_tids = ("dterm",), [sig]
+            else:
+                gkey, row_tids = ("dphrase", len(tids), plan_key,
+                                  pattern), tids
         groups.setdefault(gkey, []).append(
-            (qi, np.asarray([off], np.int32), np.asarray([n], np.int32), idf,
-             tids))
+            (qi, np.asarray([s[0] for s in spans], np.int32),
+             np.asarray(lengths, np.int32), idf, row_tids))
     return groups
 
 
@@ -139,7 +218,8 @@ def score_batch_fused(dev: DeviceIndex,
     """Score a batch of resolved term-id queries, one launch per group.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
-    mark vocabulary misses, making the query score zero), or None.
+    mark vocabulary misses, making the query score zero), or None; a list
+    of two or more ids is an exact phrase (slop 0).
 
     Returns float32[Q, num_docs] (numpy), or with ``top_k``: (scores
     float32[Q, k], indices int64[Q, k]).  With ``defer`` (requires
@@ -173,12 +253,21 @@ def score_batch_fused(dev: DeviceIndex,
 
     N = dev.corpus_size
     Npad = _npad(N)
+    NS = dense.plane_size(dev)
+    cap_p = dense.plane_capacity(dev)
     cap_t = dense.tf_capacity(dev)
 
     # chunk every group into rectangular specs
     specs: List[dict] = []
     for gkey, grows in groups.items():
-        if gkey[0] == "dterm":
+        if gkey[0] == "dphrase":
+            # the JAX package's bound on a phrase group (a broadcast plane
+            # gather of ~2 GB there), and the chunk's terms must fit the
+            # plane pool beside one free slot
+            T = gkey[1]
+            max_chunk = max(1, min((1 << 29) // (T * max(1, NS)),
+                                   (cap_p - 1) // T))
+        elif gkey[0] == "dterm":
             # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
             # rows must fit the pool beside one free slot
             max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
@@ -187,30 +276,63 @@ def score_batch_fused(dev: DeviceIndex,
             # posting-bucket words
             max_chunk = max(1, min(_MAX_FLAT // Npad,
                                    _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
-        for c0 in range(0, len(grows), max_chunk):
-            chunk = grows[c0: c0 + max_chunk]
+        if gkey[0] == "dterm":
+            # a row keyed by a phrase signature whose tf row is not yet
+            # filled pulls its terms' planes into the wave's fill: cut
+            # chunks so each one's distinct recipe planes fit beside one
+            # free slot (a wave cannot split a spec)
+            chunks, cur_rows, cur_planes = [], [], set()
+            for row in grows:
+                key_ = row[4][0]
+                p_t = (set(dev.phrase_recipes[key_][0])
+                       if isinstance(key_, tuple)
+                       and key_ not in dev.tf_slot else set())
+                if cur_rows and (len(cur_rows) >= max_chunk
+                                 or len(cur_planes | p_t) > cap_p - 1):
+                    chunks.append(cur_rows)
+                    cur_rows, cur_planes = [], set()
+                cur_rows.append(row)
+                cur_planes |= p_t
+            if cur_rows:
+                chunks.append(cur_rows)
+        else:
+            chunks = [grows[c0: c0 + max_chunk]
+                      for c0 in range(0, len(grows), max_chunk)]
+        for chunk in chunks:
             spec = {"gkey": gkey, "chunk": chunk,
                     "idfs": np.asarray([r[3] for r in chunk], np.float32)}
             if gkey[0] == "dterm":
                 spec["tf_tids"] = [r[4][0] for r in chunk]
+            elif gkey[0] == "dphrase":
+                spec["plane_tids"] = [t for r in chunk for t in r[4]]
             else:
                 spec["offs"] = np.asarray([r[1][0] for r in chunk], np.int64)
                 spec["ns"] = np.asarray([r[2][0] for r in chunk], np.int64)
             specs.append(spec)
 
-    # partition dterm specs into waves whose unique terms fit the pool: a
-    # wave's rows are pinned through its fill and its group launches
+    # partition the dense specs into waves whose unique terms fit the
+    # pools: a wave's plane and tf rows are pinned through its fill and its
+    # group launches
     waves: List[List[dict]] = []
     cur: List[dict] = []
+    cur_p: set = set()
     cur_t: set = set()
     for s in specs:
-        if s["gkey"][0] != "dterm":
+        if s["gkey"][0] == "term":
             continue
-        t_t = set(s["tf_tids"])
-        if cur and len(cur_t | t_t) > cap_t - 1:
+        p_t = set(s.get("plane_tids", ()))
+        t_t = set(s.get("tf_tids", ()))
+        # a phrase signature whose row is not yet filled pulls its terms'
+        # planes into the wave's fill: count them against the plane pool
+        for key_ in t_t:
+            if isinstance(key_, tuple) and key_ not in dev.tf_slot:
+                p_t |= set(dev.phrase_recipes[key_][0])
+        if cur and (len(cur_p | p_t) > cap_p - 1
+                    or len(cur_t | t_t) > cap_t - 1):
             waves.append(cur)
-            cur, cur_t = [], set()
+            cur, cur_p, cur_t = [], set(), set()
         cur.append(s)
+        cur_p |= p_t
         cur_t |= t_t
     if cur:
         waves.append(cur)
@@ -218,15 +340,25 @@ def score_batch_fused(dev: DeviceIndex,
     rows: List[int] = []          # query index of each output row
     outs: List[torch.Tensor] = []
     for wave in waves:
-        dense.ensure_tfs(dev, [t for s in wave for t in s["tf_tids"]])
+        plane_tids = [t for s in wave for t in s.get("plane_tids", ())]
+        tf_tids = [t for s in wave for t in s.get("tf_tids", ())]
+        dense.ensure_batch(dev, plane_tids=plane_tids, tf_tids=tf_tids)
         for s in wave:
-            slots = torch.as_tensor(dense.tf_slots_of(dev, s["tf_tids"]),
-                                    device=dev.device)
             idfs = torch.as_tensor(s["idfs"], device=dev.device)
             DISPATCHES[0] += 1
-            outs.append(dense.term_group_body(kind, k1, b, top_k,
-                                              dev.tf_pool, slots,
-                                              dev.doc_lens, idfs, avgdl))
+            if s["gkey"][0] == "dterm":
+                slots = torch.as_tensor(dense.tf_slots_of(dev, s["tf_tids"]),
+                                        device=dev.device)
+                outs.append(dense.term_group_body(kind, k1, b, top_k,
+                                                  dev.tf_pool, slots,
+                                                  dev.doc_lens, idfs, avgdl))
+            else:
+                _, T, plan_key, pattern = s["gkey"]
+                slots = dense.plane_slots_of(dev, s["plane_tids"]).reshape(
+                    len(s["chunk"]), T)
+                outs.append(dense.phrase_group_body(dev, plan_key, pattern,
+                                                    kind, k1, b, top_k,
+                                                    slots, idfs, avgdl))
             rows += [r[0] for r in s["chunk"]]
     for s in specs:
         gkey = s["gkey"]

@@ -1,19 +1,38 @@
-"""Dense tf pool: term tf vectors resident on the device.
+"""Dense engine: term tf vectors and term payload planes resident on the
+device, and exact-phrase scoring over the planes.
 
 A term's per-doc tf vector f32[N] is immutable for an index, so hot terms
-keep theirs in ONE device tensor, the **tf pool** ``f32[Ct, N]`` (term ->
-slot map on the host, LRU eviction).  A term query then scores as a row
-read + elementwise similarity (+ top-k), and a whole serving batch's
-missing rows are filled by one K1 launch each (kind ``none``), written
-straight into their pool rows.
+keep theirs in ONE device tensor, the **tf pool** ``f32[Ct, N]``; a term
+query then scores as a row read + elementwise similarity (+ top-k).  A
+term's payload plane (its 18-bit position bitmaps at the flat address
+``hdr32 = doc << blk_bits | block``) lives in the **plane pool**
+``int32[C, N << blk_bits]``, where every phrase-chain operation is
+positionally aligned:
 
-This is the term subset of the JAX package's dense engine; the plane
-pool, the phrase chain and the phrase-tf cache come with the phrase
-slice.
+* inner bigram matches:   ``L & (R >> 1)``                (same slot)
+* cross-block adjacency:  ``(L[s-1] >> 17) & (R[s] & 1)`` (slot shift)
+* continuations:          in-place payload updates        (same slot)
+* phrase freqs:           per-doc slot sums, min over the chain's steps
+
+The chain itself is K5 (``ops/cuda/score.py:phrase_chain``); its plain
+version is ``ops/kernels.py:phrase_counts_dense_planes``, re-exported here.
+Both pools keep term -> slot maps on the host (LRU eviction).  A batch's
+missing rows are filled by one K4 launch (all plane rows), one K1 launch
+per tf row and one K5 launch per phrase-row recipe, all written straight
+into their pool rows.  A repeated phrase's freq row is cached in the tf
+pool like a term's (the phrase-tf cache): it then scores as one row
+gather.  Launches are stream-ordered, so a row is filled before any later
+read of it and read before any later launch refills its slot.
+
+The port of the JAX package's dense engine (``searcharray_tpu/search/
+dense.py``) for exact phrases on full planes; slop spans and candidate
+rows come with later slices.  Its compile-bounding fill programs
+(``_FILL_CHUNK``, the canonical fill key) and the TPU-only MXU slot sum
+have no counterpart here: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,13 +40,23 @@ import torch
 from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS
+from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (plain K5)
+    phrase_counts_dense_planes,
+)
 
+PLANE_POOL_BYTES = 3 << 30   # device budget for the plane pool
 TF_POOL_BYTES = 768 << 20    # device budget for the tf pool
 DENSE_TERM_BYTES_LIMIT = 1 << 29  # per-plane ceiling; beyond -> ineligible
+PLANE_POOL_MAX_SLOTS = 1024
 TF_POOL_MAX_SLOTS = 4096
 
-# Device work items issued since import: tf-pool fills here, group
-# launches in search/batch.py (which shares this list).
+# A phrase's tf-pool row is filled once it has been seen this many times
+# (the batch classifier counts encounters per (tids, slop) signature).
+PHRASE_TF_MIN_HITS = 2
+
+# Device work items issued since import: pool fills here, group launches
+# in search/batch.py (which shares this list).
 DISPATCHES = [0]
 
 
@@ -39,9 +68,32 @@ def dense_eligible(dev: DeviceIndex) -> bool:
     return 0 < plane_size(dev) * 4 <= DENSE_TERM_BYTES_LIMIT
 
 
+def plane_capacity(dev: DeviceIndex) -> int:
+    per = max(1, plane_size(dev) * 4)
+    return int(min(PLANE_POOL_MAX_SLOTS, max(8, PLANE_POOL_BYTES // per)))
+
+
 def tf_capacity(dev: DeviceIndex) -> int:
     per = max(1, dev.corpus_size * 4)
     return int(min(TF_POOL_MAX_SLOTS, max(16, TF_POOL_BYTES // per)))
+
+
+def phrase_fits_pool(dev: DeviceIndex, tids: Sequence[int]) -> bool:
+    """Whether the dense engine takes a phrase: at most CHAIN_MAX_TERMS
+    terms (K5's cap), whose unique terms fit the plane pool with a slot to
+    spare."""
+    return (len(tids) <= CHAIN_MAX_TERMS
+            and len(set(tids)) <= plane_capacity(dev) - 1)
+
+
+# Pools are allocated lazily per kind: a term-only workload does not pay
+# the multi-GB plane pool, nor a phrase-only one the tf pool.
+def _init_plane_pool(dev: DeviceIndex) -> None:
+    if dev.plane_pool is None:
+        C = plane_capacity(dev)
+        dev.plane_pool = torch.zeros((C, plane_size(dev)), dtype=torch.int32,
+                                     device=dev.device)
+        dev.plane_free = list(range(C - 1, -1, -1))
 
 
 def _init_tf_pool(dev: DeviceIndex) -> None:
@@ -52,18 +104,20 @@ def _init_tf_pool(dev: DeviceIndex) -> None:
         dev.tf_free = list(range(Ct - 1, -1, -1))
 
 
-def _alloc_slots(slot_map, free: list, pin: set, tids: Sequence[int]):
-    """Assign pool slots to the missing ``tids`` (LRU eviction, never
-    evicting ``pin``); returns the list of (tid, slot) newly assigned.
-
-    Raises before touching the map when the request cannot fit, so a
-    failed call never leaves slots assigned to rows that were not
-    filled."""
+def _check_fits(slot_map, free: list, pin: set, tids: Sequence) -> None:
     missing = [t for t in dict.fromkeys(tids) if t not in slot_map]
     evictable = sum(1 for old in slot_map if old not in pin)
     if len(missing) > len(free) + evictable:
         raise RuntimeError(
             "dense pool exhausted by pinned terms; shrink the batch")
+
+
+def _alloc_slots(slot_map, free: list, pin: set, tids: Sequence):
+    """Assign pool slots to the missing ``tids`` (LRU eviction, never
+    evicting ``pin``); returns the list of (tid, slot) newly assigned.
+
+    Raises before touching the map when the request cannot fit."""
+    _check_fits(slot_map, free, pin, tids)
     new = []
     for t in dict.fromkeys(tids):
         if t in slot_map:
@@ -79,25 +133,87 @@ def _alloc_slots(slot_map, free: list, pin: set, tids: Sequence[int]):
     return new
 
 
-def ensure_tfs(dev: DeviceIndex, tids: Sequence[int]) -> None:
-    """Make every term's tf vector pool-resident, evicting none of
-    ``tids``: one K1 launch (kind ``none``) per missing term, written
-    into its pool row.  Launches are stream-ordered, so a row is filled
-    before any later read of it and read before any later launch refills
-    its slot."""
-    if any(isinstance(t, tuple) for t in tids):
-        # the JAX package's guard against a sub-fill outside the fill
-        # program's structure: a request the port cannot serve raises
-        raise NotImplementedError(
-            "phrase-tf rows come with the phrase slice (ROADMAP Queue 1 "
-            "item 7)")
-    if not tids:
-        return
-    _init_tf_pool(dev)
-    new = _alloc_slots(dev.tf_slot, dev.tf_free, set(tids), tids)
-    for tid, slot in new:
+def _release_slots(slot_map, free: list, new) -> None:
+    """Undo ``_alloc_slots``: unmap the newly assigned keys and free their
+    slots (the rows they evicted stay evicted)."""
+    for key, slot in new:
+        del slot_map[key]
+        free.append(slot)
+
+
+def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
+                 tf_tids: Sequence = ()) -> None:
+    """Make every requested term's plane and tf vector pool-resident,
+    evicting none of the requested rows.
+
+    ``tf_tids`` entries may be phrase signatures ((tids, slop) tuples)
+    promoted into the phrase-tf cache (``dev.phrase_recipes`` holds each
+    one's terms and chain structure): a missing one pulls its terms'
+    planes into the same call and is filled by K5 from them.  Both pools
+    are checked before either assigns a slot, so a request that cannot
+    fit raises with the pools untouched, and a fill that raises unmaps
+    every slot this call assigned: no key is ever left on a row that was
+    not filled for it.  Fills: one K4 launch for all missing planes, one
+    K1 launch per missing term tf row, one K5 launch per chain structure
+    of the missing phrase rows."""
+    miss_sigs = [t for t in dict.fromkeys(tf_tids)
+                 if isinstance(t, tuple) and t not in dev.tf_slot]
+    plane_tids = list(plane_tids) + [t for s in miss_sigs
+                                     for t in dev.phrase_recipes[s][0]]
+    pin_p, pin_t = set(plane_tids), set(tf_tids)
+    if plane_tids:
+        _init_plane_pool(dev)
+        _check_fits(dev.plane_slot, dev.plane_free, pin_p, plane_tids)
+    if tf_tids:
+        _init_tf_pool(dev)
+        _check_fits(dev.tf_slot, dev.tf_free, pin_t, tf_tids)
+    new_p = _alloc_slots(dev.plane_slot, dev.plane_free, pin_p, plane_tids)
+    new_t = _alloc_slots(dev.tf_slot, dev.tf_free, pin_t, tf_tids)
+    try:
+        _fill_rows(dev, new_p, new_t)
+    except BaseException:
+        _release_slots(dev.plane_slot, dev.plane_free, new_p)
+        _release_slots(dev.tf_slot, dev.tf_free, new_t)
+        raise
+
+
+def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
+    """Fill the newly assigned plane rows (one K4 launch), term tf rows
+    (K1 each) and phrase tf rows (one K5 launch per chain structure)."""
+    if new_p:
+        spans = [dev.term_span(t)[:2] for t, _ in new_p]
         DISPATCHES[0] += 1
-        _term_tf_k1(dev, tid, out=dev.tf_pool[slot])
+        kernels_cuda.plane_fill(dev.hdrs, dev.pays, [o for o, _ in spans],
+                                [n for _, n in spans],
+                                [s for _, s in new_p], dev.plane_pool)
+    by_recipe: dict = {}
+    for key, slot in new_t:
+        if isinstance(key, tuple):
+            tids, fkey = dev.phrase_recipes[key]
+            by_recipe.setdefault(fkey, []).append((tids, slot))
+            continue
+        DISPATCHES[0] += 1
+        _term_tf_k1(dev, key, out=dev.tf_pool[slot])
+    # the planes above are filled first: stream order puts these reads
+    # after the K4 launch that wrote them
+    for (_, _, plan_key, pattern), rows in by_recipe.items():
+        DISPATCHES[0] += 1
+        kernels_cuda.phrase_chain(
+            dev.plane_pool, [plane_slots_of(dev, tids) for tids, _ in rows],
+            plan_key, pattern, num_docs=dev.corpus_size,
+            blk_bits=dev.blk_bits, out=dev.tf_pool,
+            out_rows=[slot for _, slot in rows])
+
+
+def ensure_planes(dev: DeviceIndex, tids: Sequence[int]) -> None:
+    """Make every term's dense plane resident in the plane pool."""
+    ensure_batch(dev, plane_tids=tids)
+
+
+def ensure_tfs(dev: DeviceIndex, tids: Sequence) -> None:
+    """Make every term's (or promoted phrase's) tf vector resident in the
+    tf pool."""
+    ensure_batch(dev, tf_tids=tids)
 
 
 def _term_tf_k1(dev: DeviceIndex, term_id: int,
@@ -112,10 +228,17 @@ def _term_tf_k1(dev: DeviceIndex, term_id: int,
                                    out=out)
 
 
-def tf_slots_of(dev: DeviceIndex, tids: Sequence[int]) -> np.ndarray:
+def plane_slots_of(dev: DeviceIndex, tids: Sequence[int]) -> np.ndarray:
+    return np.asarray([dev.plane_slot[t] for t in tids], np.int32)
+
+
+def tf_slots_of(dev: DeviceIndex, tids: Sequence) -> np.ndarray:
     return np.asarray([dev.tf_slot[t] for t in tids], np.int64)
 
 
+# ---------------------------------------------------------------------------
+# scoring entry points
+# ---------------------------------------------------------------------------
 def pack_topk(dense: torch.Tensor, k: int) -> torch.Tensor:
     """[..., N] -> int32 [..., 2k]: f32 score bits ‖ int32 doc indices, one
     packed tensor so a whole batch crosses to the host in one copy."""
@@ -155,3 +278,32 @@ def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
     if top_k is None:
         return out
     return pack_topk(out, top_k)
+
+
+def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
+                      kind: str, k1: float, b: float, top_k: Optional[int],
+                      slots, idfs, avgdl):
+    """One exact-phrase group on full planes: one K5 launch reads every
+    query's planes from the pool, then similarity (+ packed top-k).
+    ``slots`` is the host int [Qg, T] array of plane rows."""
+    freqs = kernels_cuda.phrase_chain(dev.plane_pool, slots, plan_key,
+                                      pattern, num_docs=dev.corpus_size,
+                                      blk_bits=dev.blk_bits)
+    out = K.apply_similarity_device(kind, freqs, dev.doc_lens[None, :],
+                                    idfs[:, None], avgdl, k1, b)
+    if top_k is None:
+        return out
+    return pack_topk(out, top_k)
+
+
+def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
+                       pattern, kind: str, k1: float, b: float, idf):
+    """Single-query dense phrase scoring: the plane fill, one K5 launch,
+    the similarity."""
+    ensure_planes(dev, term_ids)
+    freqs = kernels_cuda.phrase_chain(
+        dev.plane_pool, [plane_slots_of(dev, term_ids)], plan, pattern,
+        num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    return K.apply_similarity_device(kind, freqs, dev.doc_lens,
+                                     np.float32(idf), avgdl, k1, b)

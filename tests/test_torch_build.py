@@ -132,6 +132,7 @@ def test_device_index_is_on_the_named_device():
 
 def test_import_loads_no_jax():
     code = ("import searcharray_tpu_torch, sys; "
+            "import searcharray_tpu_torch.search.phrase; "
             "assert not [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -223,9 +223,10 @@ def test_unported_parts_raise(pair, call):
     _, tarr = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "phrase_score":
-            tarr.score(["alpha", "beta"])
+            # exact phrases are ported; windowed ones need the sparse chain
+            tarr.score(["alpha", "beta"], min_posn=0, max_posn=17)
         elif call == "phrase_batch":
-            tarr.score_batch([["alpha", "beta"]], top_k=3)
+            tarr.score_batch([["alpha", "beta"]], top_k=3, slop=2)
         elif call == "setitem":
             tarr[0] = {"a": 1}
         elif call == "positions":
