@@ -28,18 +28,30 @@ entry points a user calls, and checks it:
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results;
 5. each kernel against its plain PyTorch version, on the card, at the
-   shapes the main path gave it (K1 on the slices of its tf fills, K2 on
-   the flat keys of the long-document batch, K4 on the batch's plane
-   rows, K5 on each phrase group of the batch and on tf-pool rows), with
-   their times;
+   shapes the main path gave it (K1 on the slices of its tf fills, one
+   row and many rows per launch, K2 on the flat keys of the
+   long-document batch, K4 on the batch's plane rows, K5 on each phrase
+   group of the batch, on the serving mix's rare phrases and on tf-pool
+   rows), with their times: each kernel's own device time from
+   ``torch.profiler``, the wrapper's time from CUDA events, the bytes its
+   work needs and the bound they give (``ops/cuda/roofline.py``), the
+   plain version's times and, for K2, one ``index_add_`` call's;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
    a serving mix of terms and phrases) and memory, each beside the
    card's name and power limit; the kernels line; the result line.
 
+    python3 chip_smoke.py --parent-csrc DIR
+
+also builds the kernel sources in DIR (an earlier version's
+``searcharray_tpu_torch/csrc``) and times them in turns with the
+current ones (old, new, new, old) at the same shapes.
+
 Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
 """
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -279,7 +291,10 @@ def long_doc_segment_sums(ldev, terms):
 
 
 def cuda_ms(fn, iters=50):
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Wrapper time: the mean time of ``fn`` over ``iters`` back-to-back
+    calls between two CUDA events.  Where a kernel is shorter than the
+    host's work per call (checks, allocation, ctypes, copies of index
+    arrays), this is the host's enqueue rate, not the kernel's time."""
     import torch
 
     for _ in range(3):
@@ -294,7 +309,72 @@ def cuda_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
+class DeviceTimer:
+    """Device time per call of a function, from ``torch.profiler``: the
+    summed self device time of the kernels whose names hold one of
+    ``names`` (of all device work when None) over ``iters`` calls.  With
+    ``flush``, a read of a 64 MB buffer (more than the 50 MB L2; a read,
+    so that no dirty line is left for the call to write back) runs before
+    each call, so the call finds its inputs in device memory as a fresh
+    request does; the read's own kernels are not counted.  With
+    ``counter`` (the wrappers' launch count), the profiled run must show
+    as many of the kernels as the wrappers launched, or it is run again:
+    the profiler has been seen to drop events."""
+
+    def __init__(self, device):
+        import torch
+
+        self.buf = torch.ones(64 << 20, dtype=torch.uint8, device=device)
+        self.flush_keys = set()
+        self.flush_keys = {k for k, _, _ in self._profile(self._flush, 1)}
+
+    def _flush(self):
+        self.buf.max()
+
+    def _profile(self, fn, iters, flush=False):
+        """(kernel name, self device us, count) of every device event."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush:
+                    self._flush()
+                fn()
+            torch.cuda.synchronize()
+        return [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.key not in self.flush_keys]
+
+    def __call__(self, fn, iters=20, names=None, flush=False,
+                 counter=None, attempts=4):
+        """(device ms per call, matched kernel launches per call)."""
+        import torch
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(attempts):
+            before = counter() if counter else 0
+            events = [e for e in self._profile(fn, iters, flush)
+                      if names is None or any(n in e[0] for n in names)]
+            us, seen = sum(e[1] for e in events), sum(e[2] for e in events)
+            launched = counter() - before if counter else seen
+            if us > 0 and seen == launched:
+                return us / 1e3 / iters, seen / iters
+            print(f"profiler: {seen} of {launched} launches of "
+                  f"{names or 'the call'} seen; profiling again", flush=True)
+        raise AssertionError(f"the profiler did not see every launch of "
+                             f"{names or 'the call'}")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", metavar="DIR",
+                    help="also build the kernel sources in DIR and time "
+                         "them in turns with the current ones")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -303,6 +383,7 @@ def main() -> int:
     from bench import PHRASE_QUERIES, TERM_QUERIES, build_corpus
     from bench import serving_queries
     from searcharray_tpu_torch import SearchArray
+    from searcharray_tpu_torch.ops.cuda import roofline as rl
     from searcharray_tpu_torch.ops.cuda import score as kc
     from searcharray_tpu_torch.search import batch, dense, phrase, scoring
 
@@ -325,6 +406,13 @@ def main() -> int:
     so = kc.build()
     print(f"kernels built in {time.perf_counter() - t0:.3f} s -> {so}",
           flush=True)
+    parent = None
+    if args.parent_csrc:
+        t0 = time.perf_counter()
+        parent = kc.load_library(kc.build(
+            args.parent_csrc, os.path.join(kc.BUILD_DIR, "parent")))
+        print(f"parent kernels from {args.parent_csrc} built in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
     phase_done("environment and kernel build")
 
     # ---- 3. main path (counted) -----------------------------------------
@@ -332,6 +420,7 @@ def main() -> int:
     corpus = build_corpus(N_DOCS, seed=42)
     corpus_s = time.perf_counter() - t0
     kc.score_term.launches = 0
+    kc.score_term_rows.launches = 0
     kc.segment_sum.launches = 0
     kc.plane_fill.launches = 0
     kc.phrase_chain.launches = 0
@@ -456,6 +545,7 @@ def main() -> int:
     # the main path ends here: read its launch counts before anything else
     # launches a kernel
     launches = {"score_term": kc.score_term.launches,
+                "score_term_rows": kc.score_term_rows.launches,
                 "segment_sum": kc.segment_sum.launches,
                 "plane_fill": kc.plane_fill.launches,
                 "phrase_chain": kc.phrase_chain.launches}
@@ -485,7 +575,6 @@ def main() -> int:
 
     # ---- 5. kernels vs plain at the main path's shapes --------------------
     k1_err = 0.0
-    k1_pairs = {}
     for term in ("what", "w333", "w4095"):
         tid = arr.term_dict.get_term_id(term)
         h, p = scoring.term_planes(dev, tid)
@@ -503,14 +592,53 @@ def main() -> int:
             k1_err = max(k1_err, err)
             if not ok:
                 raise AssertionError(f"K1 {term}/{kind} differs: {err}")
-        # the tf-pool fill's call: kind none into a fresh f32[N]
-        k1_pairs[term] = (h.numel(), *(
-            lambda fn=fn, h=h, p=p: fn(h, p, dev.doc_lens, 0.0, 1.0,
-                                       num_docs=n, blk_bits=dev.blk_bits,
-                                       kind="none")
-            for fn in (kc.score_term, kc.score_term_plain)))
     check(True, f"K1 equals its plain version (tf exact, scores rtol 1e-6) "
           f"on 3 terms x 4 kinds, max abs err {k1_err:.3g}")
+
+    # the multi-row K1 on two waves of tf rows, as ensure_batch fills them:
+    # 30 rare query terms (4096-doc blocks) and the batches' dense terms
+    # with 20 rare ones ("what" has 2.9M words: 1024-doc blocks), each
+    # against its plain version and one single-row launch per row, bit for
+    # bit
+    kwr = dict(num_docs=n, blk_bits=dev.blk_bits)
+
+    def k1_single(planes, pool):
+        return lambda: [kc.score_term(h, p, dev.doc_lens, 0.0, 1.0,
+                                      kind="none", out=pool[i], **kwr)
+                        for i, (h, p) in enumerate(planes)]
+
+    def k1_rows_fill(fn, rows, pool):
+        return lambda: fn(dev.hdrs, dev.pays, *rows[:2], pool, rows[2],
+                          **kwr)
+
+    dense_terms = list(dict.fromkeys(
+        list(TERM_QUERIES) + [t for q in PHRASE_QUERIES for t in q]))
+    k1r_err = 0.0
+    waves = {}
+    for name, terms, wide in (("rare", rare[:30], True),
+                              ("dense and rare", dense_terms + rare[:20],
+                               False)):
+        tids = [arr.term_dict.get_term_id(t) for t in terms]
+        spans = np.asarray([dev.term_span(t)[:2] for t in tids])
+        planes = [scoring.term_planes(dev, t) for t in tids]
+        rows = (spans[:, 0], spans[:, 1], np.arange(len(tids)))
+        pools = [torch.full((len(tids), n), -1.0, device=dev.device)
+                 for _ in range(3)]
+        k1_rows_fill(kc.score_term_rows, rows, pools[0])()
+        k1_rows_fill(kc.score_term_rows_plain, rows, pools[1])()
+        k1_single(planes, pools[2])()
+        k1r_err = max(k1r_err, (pools[0] - pools[1]).abs().max().item())
+        # the kernel's block width: 4096 docs when every row has at most
+        # one word per 4 docs (score_term.cu, wide())
+        check((int(spans[:, 1].max()) * 4 <= n) == wide
+              and torch.equal(pools[0], pools[1])
+              and torch.equal(pools[0], pools[2]),
+              f"multi-row K1 equals its plain version and {len(tids)} "
+              f"single-row K1 launches bit for bit on the tf rows of "
+              f"{len(tids)} {name} terms ({int(spans[:, 1].sum())} words, "
+              f"{4096 if wide else 1024}-doc blocks)")
+        waves[name] = (rows, planes, pools)
+    k1_rows, rare_planes, k1_pools = waves["rare"]
 
     # K2 on the flat keys _flat_segment_sum built for the long-document
     # score_batch: one launch per (term, bucket) group
@@ -597,47 +725,33 @@ def main() -> int:
         if not (torch.equal(got, want) and torch.equal(rows5[2:], want)
                 and bool((rows5[:2] == -1).all())):
             raise AssertionError(f"K5 differs on {plan_key} {pattern}")
+    # and on the serving mix's chain launch: the rare two-term phrases of
+    # one bench.serving_queries call (new every call, so never cached)
+    serve_tids = [[arr.term_dict.get_term_id(t) for t in q]
+                  for q in serving_queries(3)
+                  if not isinstance(q, str)
+                  and all(t[0] == "w" and t[1:].isdigit() for t in q)]
+    serve_keys = {phrase.chain_key(dev, ts) for ts in serve_tids}
+    check(len(serve_keys) == 1 and len(serve_tids) == 10,
+          f"the serving mix's rare phrases form one K5 group of "
+          f"{len(serve_tids)} two-term queries")
+    serve_plan, serve_pattern = serve_keys.pop()
+
+    def serve_slots():
+        dense.ensure_planes(dev, [t for ts in serve_tids for t in ts])
+        return np.stack([dense.plane_slots_of(dev, ts) for ts in serve_tids])
+
+    got = kc.phrase_chain(dev.plane_pool, serve_slots(), serve_plan,
+                          serve_pattern, **kw5)
+    serve_want = kc.phrase_chain_plain(dev.plane_pool, serve_slots(),
+                                       serve_plan, serve_pattern, **kw5)
+    if not torch.equal(got, serve_want):
+        raise AssertionError("K5 differs on the serving mix's launch")
     check(True, f"K5 equals its plain version bit for bit on the "
-          f"{len(k5_specs)} phrase groups of the mixed batch, and in the "
-          "tf-row form")
+          f"{len(k5_specs)} phrase groups of the mixed batch, on the "
+          "serving mix's launch, and in the tf-row form")
 
     phase_done("kernels vs plain: checks")
-
-    # kernel and plain version in turns: kernel, plain, plain, kernel
-    k1_times = {}
-    for term, (words, run, plain) in k1_pairs.items():
-        t = [cuda_ms(run), cuda_ms(plain), cuda_ms(plain), cuda_ms(run)]
-        k1_times[term] = (words, t)
-    k1_ms, k1_plain_ms = k1_times["what"][1][0], k1_times["what"][1][1]
-    # K2 time: all launches of the long-document batch, per batch
-    def k2_batch(fn):
-        return lambda: [fn(f, v, num_docs=m) for f, v, m in k2_calls]
-
-    k2_run, k2_plain = k2_batch(kc.segment_sum), k2_batch(kc.segment_sum_plain)
-    k2_ms, k2_plain_ms = cuda_ms(k2_run), cuda_ms(k2_plain)
-    k2_plain_ms2, k2_ms2 = cuda_ms(k2_plain), cuda_ms(k2_run)
-
-    def k4_fill(fn):
-        return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
-
-    k4_t = [cuda_ms(k4_fill(kc.plane_fill)),
-            cuda_ms(k4_fill(kc.plane_fill_plain), iters=10),
-            cuda_ms(k4_fill(kc.plane_fill_plain), iters=10),
-            cuda_ms(k4_fill(kc.plane_fill))]
-    # K5 time: every group launch of the first mixed batch, per batch
-    def k5_batch(fn):
-        return lambda: [fn(dev.plane_pool, s, pk, pt, **kw5)
-                        for s, pk, pt in k5_specs]
-
-    k5_t = [cuda_ms(k5_batch(kc.phrase_chain)),
-            cuda_ms(k5_batch(kc.phrase_chain_plain), iters=10),
-            cuda_ms(k5_batch(kc.phrase_chain_plain), iters=10),
-            cuda_ms(k5_batch(kc.phrase_chain))]
-    k5_each = [((len(s), len(pt), len(pk)), cuda_ms(
-        lambda s=s, pk=pk, pt=pt: kc.phrase_chain(
-            dev.plane_pool, s, pk, pt, **kw5))) for s, pk, pt in k5_specs]
-
-    phase_done("kernels vs plain: timing")
 
     # ---- 6. evidence -------------------------------------------------------
     def host_ms(fn, iters):
@@ -653,15 +767,18 @@ def main() -> int:
 
     # score_batch qps over WINDOWS windows.  "hot": the same 206 queries
     # every call (most tf rows stay in the pool); "cold": every call a
-    # fresh set of 200 rare terms, so each call fills ~200 rows with K1
+    # fresh set of 200 rare terms, so each call fills ~200 tf rows (K1)
+    def k1_launches():
+        return kc.score_term.launches + kc.score_term_rows.launches
+
     def qps_windows(window, n_queries):
         rates, fills = [], 0
         for w in range(WINDOWS):
-            k1_before = kc.score_term.launches
+            k1_before = k1_launches()
             t0 = time.perf_counter()
             calls = window(w)
             rates.append(calls * n_queries / (time.perf_counter() - t0))
-            fills += kc.score_term.launches - k1_before
+            fills += k1_launches() - k1_before
         return rates, fills / (WINDOWS * calls)
 
     def hot_blocking(w):
@@ -722,6 +839,158 @@ def main() -> int:
     tf_ph_ms = host_ms(lambda: arr.termfreqs(ph4), 30)
     phase_done("qps windows and latencies")
 
+    # ---- 5, continued: kernel timing ---------------------------------------
+    # Each unit of work is timed by its kernels' own device time
+    # (torch.profiler) and by CUDA events around the wrapper calls, beside
+    # the bound of the bytes and operations it needs and the plain
+    # version's times.  With --parent-csrc the parent's kernels run the
+    # same calls in turns: old, new, new, old.  This runs after the
+    # end-to-end windows above, so that none of them runs in a process
+    # the profiler has been attached to.
+    timer = DeviceTimer(dev.device)
+    names = {"K1": ("score_term_kernel",), "K2": ("segment_sum_kernel",),
+             "K4": ("plane_fill_kernel",),
+             "K5": ("chain_warp_kernel", "chain_tile_kernel",
+                    "phrase_chain_kernel")}
+    counters = {"K1": lambda: (kc.score_term.launches
+                               + kc.score_term_rows.launches),
+                "K2": lambda: kc.segment_sum.launches,
+                "K4": lambda: kc.plane_fill.launches,
+                "K5": lambda: kc.phrase_chain.launches}
+
+    def with_lib(lib, fn):
+        """``fn`` with the kernels of ``lib`` in place of the current
+        ones."""
+        def run():
+            saved = kc._lib
+            kc._lib = lib
+            try:
+                return fn()
+            finally:
+                kc._lib = saved
+        return run
+
+    def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
+                flush=False, old=True, library=None, per=1):
+        """Time one unit of work; ``per`` divides every time into the
+        time per launch or row the unit is made of."""
+        turns = ([with_lib(parent, fn), fn, fn, with_lib(parent, fn)]
+                 if parent is not None and old else [fn, fn])
+        dev_ms = [timer(f, iters, names[kernel], flush, counters[kernel])
+                  for f in turns]
+        rec = {"unit": unit, "per": per,
+               "device_ms": [t / per for t, _ in dev_ms],
+               "launches_per_unit": dev_ms[1][1],
+               "ms": cuda_ms(fn, iters) / per,
+               "plain_ms": cuda_ms(plain, plain_iters) / per,
+               "plain_device_ms": timer(plain, plain_iters, None,
+                                        flush)[0] / per,
+               "bytes": work["bytes"] / per, "ops": work["ops"] / per,
+               "bound_ms": work["bound_ms"] / per,
+               "bound_by": work["bound_by"], "old": len(turns) == 4}
+        new_ms = float(np.mean(rec["device_ms"][1:3] if rec["old"]
+                               else rec["device_ms"]))
+        rec["new_device_ms"] = new_ms
+        rec["share"] = rec["bound_ms"] / new_ms
+        if rec["old"]:
+            old_ms = float(np.mean([rec["device_ms"][0],
+                                    rec["device_ms"][3]]))
+            rec["old_device_ms"] = old_ms
+            rec["old_share"] = rec["bound_ms"] / old_ms
+        if library is not None:
+            rec["library_ms"] = cuda_ms(library, iters) / per
+            rec["library_device_ms"] = timer(library, iters, None,
+                                             flush)[0] / per
+        print(f"timing: {unit}: {json.dumps(rec)} {tag}", flush=True)
+        return rec
+
+    bb = dev.blk_bits
+    what_id = arr.term_dict.get_term_id("what")
+    h_what, p_what = scoring.term_planes(dev, what_id)
+    t_what = measure(
+        '"what" tf fill, one K1 launch (kind none), L2 flushed before '
+        'each', "K1",
+        lambda: kc.score_term(h_what, p_what, dev.doc_lens, 0.0, 1.0,
+                              kind="none", out=k1_pools[2][0], **kwr),
+        lambda: kc.score_term_plain(h_what, p_what, dev.doc_lens, 0.0, 1.0,
+                                    kind="none", **kwr),
+        rl.k1_work(h_what.numel(), n, "none"), flush=True)
+    t_rare = measure(
+        f"tf fill of one rare term, {len(rare_planes)} single-row K1 launches "
+        f"into {len(rare_planes)} tf rows, per launch", "K1",
+        k1_single(rare_planes, k1_pools[2]),
+        k1_rows_fill(kc.score_term_rows_plain, k1_rows, k1_pools[1]),
+        rl.k1_rows_work(k1_rows[1], n), per=len(rare_planes))
+    t_rows = measure(
+        f"tf fill of one rare term, one multi-row K1 launch filling "
+        f"{len(rare_planes)} tf rows, per row", "K1",
+        k1_rows_fill(kc.score_term_rows, k1_rows, k1_pools[0]),
+        k1_rows_fill(kc.score_term_rows_plain, k1_rows, k1_pools[1]),
+        rl.k1_rows_work(k1_rows[1], n),
+        old=hasattr(parent, "sa_score_term_rows"), per=len(rare_planes))
+
+    # K2: all launches of the long-document batch, per batch; the library
+    # call is one index_add_ per launch on the in-range prefix of its keys
+    # (found here, untimed), as K2's plain version adds them
+    k2_prefix = [(f[:m], v[:m], n_out) for f, v, n_out in k2_calls
+                 for m in [int((f < n_out).sum().item())]]
+
+    def k2_batch(fn):
+        return lambda: [fn(f, v, num_docs=m) for f, v, m in k2_calls]
+
+    t_k2 = measure(
+        f"long-document batch, {len(k2_calls)} K2 launches", "K2",
+        k2_batch(kc.segment_sum), k2_batch(kc.segment_sum_plain),
+        rl.total(rl.k2_work(f.numel(), n_out) for f, _, n_out in k2_prefix),
+        library=lambda: [torch.zeros(n_out, device=ldev.device).index_add_(
+            0, f, v) for f, v, n_out in k2_prefix])
+
+    def k4_fill(fn):
+        return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
+
+    t_k4 = measure(
+        f"one K4 launch filling the mixed batch's {len(ph_tids)} plane "
+        "rows", "K4", k4_fill(kc.plane_fill), k4_fill(kc.plane_fill_plain),
+        rl.k4_work(k4_rows[1], NS), iters=10)
+
+    # K5: every group launch of the first mixed batch, per batch, its bound
+    # counting each plane row distinct across the batch once (the launches
+    # fetch a shared plane once each); then the serving mix's launch (its
+    # planes made resident first)
+    def k5_batch(fn):
+        return lambda: [fn(dev.plane_pool, s, pk, pt, **kw5)
+                        for s, pk, pt in k5_specs]
+
+    t_k5 = measure(
+        f"first mixed batch, {len(k5_specs)} K5 group launches", "K5",
+        k5_batch(kc.phrase_chain), k5_batch(kc.phrase_chain_plain),
+        rl.k5_batch_work([(s, pk) for s, pk, _ in k5_specs], n, 1 << bb),
+        iters=10)
+    k5_planes = (len(np.unique(np.concatenate([s.ravel()
+                                                for s, _, _ in k5_specs]))),
+                 rl.k5_plane_reads([(s, pk) for s, pk, _ in k5_specs]))
+    k5_each = [((len(s), len(pt), len(pk)), rl.k5_work(s, pk, n, 1 << bb),
+                timer(lambda s=s, pk=pk, pt=pt: kc.phrase_chain(
+                    dev.plane_pool, s, pk, pt, **kw5), 10, names["K5"],
+                    counter=counters["K5"]))
+               for s, pk, pt in k5_specs]
+    slots_serve = serve_slots()
+    t_serve = measure(
+        f"serving mix's chain launch, {len(serve_tids)} rare two-term "
+        "phrases", "K5",
+        lambda: kc.phrase_chain(dev.plane_pool, slots_serve, serve_plan,
+                                serve_pattern, **kw5),
+        lambda: kc.phrase_chain_plain(dev.plane_pool, slots_serve,
+                                      serve_plan, serve_pattern, **kw5),
+        rl.k5_work(slots_serve, serve_plan, n, 1 << bb), iters=10)
+    if parent is not None:
+        check(torch.equal(with_lib(parent, lambda: kc.phrase_chain(
+            dev.plane_pool, slots_serve, serve_plan, serve_pattern,
+            **kw5))(), serve_want),
+              "the parent's K5 returns the same freqs on the serving launch")
+
+    phase_done("kernels: timing")
+
     evidence = [
         ("corpus generation s", corpus_s),
         ("host build s (SearchArray.index)", build_s),
@@ -730,7 +999,7 @@ def main() -> int:
         ("p50 score('what') ms", score_ms),
         ("p50 topk('star', k=10) ms", topk_ms),
         *((f"score_batch qps {name}, {WINDOWS} windows of {calls} calls "
-           f"(median; windows; K1 fills per call)",
+           f"(median; windows; K1 launches per call)",
            f"{float(np.median(rates))}; {rates}; {fills}")
           for name, calls, rates, fills in (
               (f"hot blocking ({len(queries)} terms, top_k=10)",
@@ -748,18 +1017,20 @@ def main() -> int:
         ("serving mix K4 and K5 launches per call", k45_per_call),
         (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
         (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
-        *((f"K1 ms kernel, plain, plain, kernel ({term!r}, {words} words, "
-           "kind none)", " ".join(map(str, t)))
-          for term, (words, t) in k1_times.items()),
-        (f"K2 ms kernel, plain, plain, kernel (long-document batch: "
-         f"{len(k2_calls)} launches, {k2_keys} flat keys, {k2_slots} slots)",
-         f"{k2_ms} {k2_plain_ms} {k2_plain_ms2} {k2_ms2}"),
-        (f"K4 ms kernel, plain, plain, kernel (one launch: "
-         f"{len(ph_tids)} plane rows of {NS} slots)",
-         " ".join(map(str, k4_t))),
-        (f"K5 ms kernel, plain, plain, kernel (first mixed batch: "
-         f"{len(k5_specs)} group launches)", " ".join(map(str, k5_t))),
-        ("K5 ms per group launch (queries, terms, plan halves)", k5_each),
+        *((f"{rec['unit']}: device ms "
+           f"({'old, new, new, old' if rec['old'] else 'new, new'}); bound "
+           "ms; share of the bound (new, old)",
+           f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
+           f"{rec.get('old_share')}")
+          for rec in (t_what, t_rare, t_rows, t_k2, t_k4, t_k5, t_serve)),
+        ("K5 plane rows of the first mixed batch (distinct across the "
+         "batch, which the bound counts; fetched, each launch's distinct "
+         "rows summed over its launches)",
+         f"{k5_planes[0]}; {k5_planes[1]} of "
+         f"{4 * n * (1 << bb)} bytes each"),
+        ("K5 per group launch of the first mixed batch (queries, terms, "
+         "plan halves; bound ms; device ms)",
+         [(shape, w["bound_ms"], ms) for shape, w, (ms, _) in k5_each]),
         ("plane pool bytes", dev.plane_pool.numel() * 4),
         ("max memory allocated bytes (main path)", peak_bytes),
         ("wall s per phase", phases),
@@ -767,27 +1038,38 @@ def main() -> int:
     ]
     for name, value in evidence:
         print(f"evidence: {name} = {value} {tag}", flush=True)
+    def entry(name, source, replaces, n_launches, err, rec):
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": n_launches,
+               "max_abs_err": err, "unit": rec["unit"], "ms": rec["ms"],
+               "device_ms": rec["new_device_ms"],
+               "plain_ms": rec["plain_ms"],
+               "plain_device_ms": rec["plain_device_ms"],
+               "bytes": rec["bytes"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "share_of_bound": rec["share"],
+               "library_ms": rec.get("library_ms"),
+               "library_device_ms": rec.get("library_device_ms")}
+        if rec["old"]:
+            out["parent_device_ms"] = rec["old_device_ms"]
+        return out
+
+    csrc = "searcharray_tpu_torch/csrc/"
+    k1_tpu = "searcharray_tpu/ops/pallas/score.py:86"
     print(json.dumps({"kernels": [
-        {"name": "score_term (K1)", "route": "cuda",
-         "source": "searcharray_tpu_torch/csrc/score_term.cu",
-         "replaces": "searcharray_tpu/ops/pallas/score.py:86",
-         "launches": launches["score_term"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "segment_sum (K2)", "route": "cuda",
-         "source": "searcharray_tpu_torch/csrc/segment_sum.cu",
-         "replaces": "searcharray_tpu/ops/pallas/score.py:196",
-         "launches": launches["segment_sum"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "plane_fill (K4)", "route": "cuda",
-         "source": "searcharray_tpu_torch/csrc/plane_fill.cu",
-         "replaces": "searcharray_tpu/search/dense.py:222",
-         "launches": launches["plane_fill"], "max_abs_err": k4_err,
-         "ms": k4_t[0], "plain_ms": k4_t[1]},
-        {"name": "phrase_chain (K5)", "route": "cuda",
-         "source": "searcharray_tpu_torch/csrc/phrase_chain.cu",
-         "replaces": "searcharray_tpu/search/dense.py:558",
-         "launches": launches["phrase_chain"], "max_abs_err": k5_err,
-         "ms": k5_t[0], "plain_ms": k5_t[1]},
+        entry("score_term (K1)", csrc + "score_term.cu", k1_tpu,
+              launches["score_term"], k1_err, t_what),
+        entry("score_term_rows (K1, multi-row tf fill)",
+              csrc + "score_term.cu", k1_tpu, launches["score_term_rows"],
+              k1r_err, t_rows),
+        entry("segment_sum (K2)", csrc + "segment_sum.cu",
+              "searcharray_tpu/ops/pallas/score.py:196",
+              launches["segment_sum"], k2_err, t_k2),
+        entry("plane_fill (K4)", csrc + "plane_fill.cu",
+              "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
+              k4_err, t_k4),
+        entry("phrase_chain (K5)", csrc + "phrase_chain.cu",
+              "searcharray_tpu/search/dense.py:558",
+              launches["phrase_chain"], k5_err, t_k5),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

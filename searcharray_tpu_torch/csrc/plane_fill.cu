@@ -9,7 +9,8 @@
 // batch:
 //
 //   * block (g, r) owns flat slots [g*TILE, g*TILE + TILE) of row r and
-//     binary-searches its word range in the term's doc-sorted slice
+//     finds its word range in the term's doc-sorted slice with the warp
+//     search of segmented.cuh
 //     (hdr32 is the flat slot index doc << blk_bits | block, unique and
 //     increasing within a term; words past the plane, such as PAD_HDR32,
 //     fall outside every range and are dropped);
@@ -20,7 +21,7 @@
 //
 // Bound on the card: the 4 bytes written per slot of each row (32 MB per
 // row at 1M docs and 8 slots per doc), plus 8 bytes read per posting
-// word and two ~log2(n)-step binary searches per block.
+// word, and one ~log33(n)-round warp search per block.
 
 #include <cuda_runtime.h>
 
@@ -52,10 +53,7 @@ plane_fill_kernel(const int32_t* __restrict__ hdrs,
   const int32_t* p = pays + off;
 
   for (int i = threadIdx.x; i < FILL_TILE; i += blockDim.x) tile[i] = 0;
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] =
-        sa::lower_bound_key(h, ns[row], 0, threadIdx.x == 0 ? p0 : p1);
-  }
+  sa::block_range(h, ns[row], 0, p0, p1, range);
   __syncthreads();
 
   const int64_t w_hi = range[1];

@@ -1,5 +1,5 @@
 // K1: fused term scoring -- per-doc popcount tf with the BM25 family in
-// the epilogue.
+// the epilogue -- and its multi-row form, the tf-pool fill.
 //
 // Replaces the TPU kernel score_term_pallas
 // (searcharray_tpu/ops/pallas/score.py:86, body _kernel at :30).  The
@@ -8,22 +8,35 @@
 // no fast scatter.  Hopper has fast shared-memory integer atomics, so
 // here the same computation is a segmented reduction:
 //
-//   * block g owns docs [g*D, g*D + D) and binary-searches its word range
-//     [w_lo, w_hi) in the term's doc-sorted slice (hdr >> blk_bits is the
-//     doc key; PAD words sort last and fall outside every range);
+//   * block (g, r) owns docs [g*D, g*D + D) of row r (D = 1024, or 4096
+//     for a launch of rare terms: see WIDE), and warp 0 finds
+//     its word range [w_lo, w_hi) in the row's doc-sorted slice with the
+//     warp search of segmented.cuh (hdr >> blk_bits is the doc key; PAD
+//     words sort last and fall outside every range): ~log33(M) dependent
+//     loads instead of a thread's log2(M);
 //   * its threads stride over the range with coalesced 4-byte loads of
-//     hdr32 and pay32, take __popc of the payload and add it into an int
-//     counter per doc in shared memory.  Integer adds are exact, so the
-//     result does not depend on the order the atomics land in;
+//     hdr32 and pay32, four words each in flight, take __popc of the
+//     payload and add it into an int counter per doc in shared memory.
+//     Integer adds are exact, so the result does not depend on the order
+//     the atomics land in;
 //   * the epilogue converts each count to float, applies the similarity
 //     with the association of scoring.apply_similarity_device (explicit
 //     round-to-nearest intrinsics, so no fused multiply-add changes the
-//     float32 result) and writes each output doc exactly once.
+//     float32 result) and writes each output doc exactly once, four docs
+//     per thread with 16-byte loads of the counts and doc lengths and a
+//     16-byte store where the row is 16-byte aligned.
+//
+// sa_score_term fills one f32[N] row with any similarity kind.
+// sa_score_term_rows fills many tf rows (kind none) of the tf pool in one
+// launch, grid = doc blocks x rows, each row its own slice of the posting
+// planes, as K4 (plane_fill.cu) fills plane rows.
 //
 // Bound on the card: the 8 bytes of hdr32 + pay32 read per posting word,
 // plus 4 bytes written (and 4 read for the doc length) per output doc.
-// For a hot term at 1M docs the output row dominates: a dense f32[N] is
-// written whatever the posting length.
+// For a rare term at 1M docs the output row dominates: a dense f32[N] is
+// written whatever the posting length, 1.25 us at 3.35 TB/s.  What stood
+// between the old kernel and that was the dependent chain of a block's
+// search before its first store; the warp search cuts it to ~2 loads.
 
 #include <cuda_runtime.h>
 
@@ -59,58 +72,176 @@ __device__ __forceinline__ float similarity(int kind, float tf, float dl,
   return tf;  // unreachable: the wrapper validates kind
 }
 
-__global__ void __launch_bounds__(sa::THREADS)
+constexpr int THREADS = 256;
+constexpr int UNROLL = 4;   // posting words per thread in flight
+// Docs per block.  A launch whose every row has at most one word per
+// SPARSE docs takes WIDE blocks: a thread then has UNROLL words or fewer
+// on average, and a block's fixed cost (its search, its barriers) buys
+// 16 KB of output instead of 4 KB.  Denser rows keep NARROW blocks,
+// whose threads walk 4x fewer words each.
+constexpr int NARROW = 1024;
+constexpr int WIDE = 4096;
+constexpr int SPARSE = WIDE / (THREADS * UNROLL);
+
+bool wide(int64_t max_words, int64_t num_docs) {
+  return max_words * SPARSE <= num_docs;
+}
+
+struct Similarity {
+  int kind;
+  float idf, avgdl, k1, b;
+};
+
+// Row r = blockIdx.y: words [offs[r], offs[r] + ns[r]) of hdrs/pays into
+// out[out_rows[r]]; with offs null, the single row hdrs[0, n_words) into
+// out itself.  At most 32 registers, so that 2048 threads fit on an SM:
+// a rare term's block is mostly latency, which resident blocks hide.
+template <int DOCS>
+__global__ void __launch_bounds__(THREADS, 2048 / THREADS)
 score_term_kernel(const int32_t* __restrict__ hdrs,
-                  const int32_t* __restrict__ pays, int64_t n_words,
-                  const float* __restrict__ doc_lens, float* __restrict__ out,
-                  int64_t num_docs, int blk_bits, int kind, float idf,
-                  float avgdl, float k1, float b) {
-  __shared__ int tf[sa::DOCS_PER_BLOCK];
+                  const int32_t* __restrict__ pays,
+                  const int64_t* __restrict__ offs,
+                  const int64_t* __restrict__ ns, int64_t n_words,
+                  const int64_t* __restrict__ out_rows,
+                  float* __restrict__ out, int64_t out_stride,
+                  const float* __restrict__ doc_lens, int64_t num_docs,
+                  int blk_bits, const Similarity sim) {
+  __shared__ __align__(16) int tf[DOCS];
   __shared__ int64_t range[2];
 
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * sa::DOCS_PER_BLOCK;
-  const int64_t d1 = d0 + sa::DOCS_PER_BLOCK < num_docs
-                         ? d0 + sa::DOCS_PER_BLOCK
-                         : num_docs;
-  for (int i = threadIdx.x; i < sa::DOCS_PER_BLOCK; i += blockDim.x) tf[i] = 0;
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] = sa::lower_bound_key(hdrs, n_words, blk_bits,
-                                             threadIdx.x == 0 ? d0 : d1);
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * DOCS;
+  const int64_t d1 = d0 + DOCS < num_docs ? d0 + DOCS : num_docs;
+  if (offs) {
+    hdrs += offs[blockIdx.y];
+    pays += offs[blockIdx.y];
+    n_words = ns[blockIdx.y];
+    out += out_rows[blockIdx.y] * out_stride;
   }
+  int4* tf4 = reinterpret_cast<int4*>(tf);
+  for (int i = threadIdx.x; i < DOCS / 4; i += blockDim.x) {
+    tf4[i] = make_int4(0, 0, 0, 0);
+  }
+  sa::block_range(hdrs, n_words, blk_bits, d0, d1, range);
   __syncthreads();
 
+  // UNROLL words per thread in flight: their loads issue before any add.
+  // A block with no words (most of a rare term's) skips the loop and its
+  // barrier: each thread reads back only zeros the first barrier ordered.
   const int64_t w_hi = range[1];
-  for (int64_t w = range[0] + threadIdx.x; w < w_hi; w += blockDim.x) {
+  int64_t w = range[0] + threadIdx.x;
+  const bool any = range[0] < w_hi;
+  for (; w + (UNROLL - 1) * THREADS < w_hi; w += UNROLL * THREADS) {
+    int h[UNROLL], p[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      h[u] = hdrs[w + u * THREADS];
+      p[u] = pays[w + u * THREADS];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int pc = __popc(static_cast<uint32_t>(p[u]));
+      if (pc) atomicAdd(&tf[(h[u] >> blk_bits) - d0], pc);
+    }
+  }
+  for (; w < w_hi; w += THREADS) {
     const int pc = __popc(static_cast<uint32_t>(pays[w]));
     if (pc) atomicAdd(&tf[(hdrs[w] >> blk_bits) - d0], pc);
   }
-  __syncthreads();
+  if (any) __syncthreads();
 
-  for (int i = threadIdx.x; i < d1 - d0; i += blockDim.x) {
-    const int64_t d = d0 + i;
-    const float dl = kind == KIND_NONE ? 0.0f : doc_lens[d];
-    out[d] = similarity(kind, static_cast<float>(tf[i]), dl, idf, avgdl, k1,
-                        b);
+  const bool dl = sim.kind != KIND_NONE;
+  const bool vec =
+      d1 - d0 == DOCS &&
+      reinterpret_cast<uintptr_t>(out + d0) % 16 == 0 &&
+      (!dl || reinterpret_cast<uintptr_t>(doc_lens + d0) % 16 == 0);
+  if (vec) {
+    float4* dst = reinterpret_cast<float4*>(out + d0);
+    const float4* lens = reinterpret_cast<const float4*>(doc_lens + d0);
+    for (int i = threadIdx.x; i < DOCS / 4; i += blockDim.x) {
+      const int4 t = tf4[i];
+      const float4 l = dl ? lens[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[i] = make_float4(
+          similarity(sim.kind, static_cast<float>(t.x), l.x, sim.idf,
+                     sim.avgdl, sim.k1, sim.b),
+          similarity(sim.kind, static_cast<float>(t.y), l.y, sim.idf,
+                     sim.avgdl, sim.k1, sim.b),
+          similarity(sim.kind, static_cast<float>(t.z), l.z, sim.idf,
+                     sim.avgdl, sim.k1, sim.b),
+          similarity(sim.kind, static_cast<float>(t.w), l.w, sim.idf,
+                     sim.avgdl, sim.k1, sim.b));
+    }
+  } else {
+    for (int i = threadIdx.x; i < d1 - d0; i += blockDim.x) {
+      const float len = dl ? doc_lens[d0 + i] : 0.0f;
+      out[d0 + i] = similarity(sim.kind, static_cast<float>(tf[i]), len,
+                               sim.idf, sim.avgdl, sim.k1, sim.b);
+    }
   }
+}
+
+template <int DOCS>
+int launch(const int32_t* hdrs, const int32_t* pays, const int64_t* offs,
+           const int64_t* ns, int64_t n_words, const int64_t* out_rows,
+           int64_t n_rows, float* out, int64_t out_stride,
+           const float* doc_lens, int64_t num_docs, int blk_bits,
+           const Similarity& sim, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((num_docs + DOCS - 1) / DOCS),
+                  static_cast<unsigned>(n_rows));
+  score_term_kernel<DOCS><<<grid, THREADS, 0, stream>>>(
+      hdrs, pays, offs, ns, n_words, out_rows, out, out_stride, doc_lens,
+      num_docs, blk_bits, sim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_any(bool is_wide, const void* hdrs, const void* pays,
+               const void* offs, const void* ns, int64_t n_words,
+               const void* out_rows, int64_t n_rows, void* out,
+               int64_t out_stride, const void* doc_lens, int64_t num_docs,
+               int blk_bits, const Similarity& sim, void* stream) {
+  auto* h = static_cast<const int32_t*>(hdrs);
+  auto* p = static_cast<const int32_t*>(pays);
+  auto* o = static_cast<const int64_t*>(offs);
+  auto* n = static_cast<const int64_t*>(ns);
+  auto* r = static_cast<const int64_t*>(out_rows);
+  auto* dst = static_cast<float*>(out);
+  auto* dl = static_cast<const float*>(doc_lens);
+  auto st = static_cast<cudaStream_t>(stream);
+  return is_wide ? launch<WIDE>(h, p, o, n, n_words, r, n_rows, dst,
+                                out_stride, dl, num_docs, blk_bits, sim, st)
+                 : launch<NARROW>(h, p, o, n, n_words, r, n_rows, dst,
+                                  out_stride, dl, num_docs, blk_bits, sim,
+                                  st);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  Pointers are device pointers of contiguous
+// Plain C entries for ctypes.  Pointers are device pointers of contiguous
 // tensors checked by the Python wrapper; the kernel runs on ``stream``
-// and nothing here synchronises.  Returns cudaGetLastError().
+// and nothing here synchronises.  Each returns cudaGetLastError().
 extern "C" int sa_score_term(const void* hdrs, const void* pays,
                              int64_t n_words, const void* doc_lens, void* out,
                              int64_t num_docs, int blk_bits, int kind,
                              float idf, float avgdl, float k1, float b,
                              int device, void* stream) {
   cudaSetDevice(device);
-  const int64_t grid =
-      (num_docs + sa::DOCS_PER_BLOCK - 1) / sa::DOCS_PER_BLOCK;
-  score_term_kernel<<<static_cast<unsigned>(grid), sa::THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(hdrs), static_cast<const int32_t*>(pays),
-      n_words, static_cast<const float*>(doc_lens), static_cast<float*>(out),
-      num_docs, blk_bits, kind, idf, avgdl, k1, b);
-  return static_cast<int>(cudaGetLastError());
+  return launch_any(wide(n_words, num_docs), hdrs, pays, nullptr, nullptr,
+                    n_words, nullptr, 1, out, 0, doc_lens, num_docs,
+                    blk_bits, Similarity{kind, idf, avgdl, k1, b}, stream);
+}
+
+// ``offs``/``ns``/``out_rows`` are device int64 arrays of ``n_rows``
+// entries: row r's words are [offs[r], offs[r] + ns[r]) of hdrs/pays and
+// its tf goes to out + out_rows[r] * out_stride (kind none).
+// ``max_words`` is the largest ns[r], from the host.
+extern "C" int sa_score_term_rows(const void* hdrs, const void* pays,
+                                  const void* offs, const void* ns,
+                                  const void* out_rows, int64_t n_rows,
+                                  int64_t max_words, void* out,
+                                  int64_t out_stride, int64_t num_docs,
+                                  int blk_bits, int device, void* stream) {
+  cudaSetDevice(device);
+  return launch_any(wide(max_words, num_docs), hdrs, pays, offs, ns, 0,
+                    out_rows, n_rows, out, out_stride, nullptr, num_docs,
+                    blk_bits, Similarity{KIND_NONE, 0.f, 1.f, 0.f, 0.f},
+                    stream);
 }

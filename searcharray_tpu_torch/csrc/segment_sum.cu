@@ -5,9 +5,10 @@
 // (searcharray_tpu/ops/pallas/score.py:196, body _segsum_kernel at :166),
 // which reduces each word tile with a one-hot compare-and-sum for want of
 // a fast scatter on the TPU.  Here it is the same segmented reduction as
-// K1 (score_term.cu): block g owns slots [g*D, g*D + D), binary-searches
-// its run of ids, strides over it with coalesced loads and adds into a
-// float row in shared memory, then writes each slot once.
+// K1 (score_term.cu): block g owns slots [g*D, g*D + D), finds its run
+// of ids with the warp search of segmented.cuh, strides over it with
+// coalesced loads and adds into a float row in shared memory, then writes
+// each slot once.
 //
 // Many ids of one slot in a row (a long document holds thousands of one
 // term's words) make every lane of a warp add into the same shared float,
@@ -31,6 +32,11 @@
 
 namespace {
 
+// Output slots per block.  One block of 256 threads reduces into a
+// 4 KB shared-memory row.
+constexpr int DOCS_PER_BLOCK = 1024;
+constexpr int THREADS = 256;
+
 // Lanes hold non-decreasing keys.  Afterwards the first lane of each run
 // of equal keys holds the run's sum of v, and the call returns true
 // there.  All 32 lanes of the warp must call it.
@@ -48,24 +54,21 @@ __device__ __forceinline__ bool warp_run_sum(int key, float& v) {
   return lane == 0 || prev != key;
 }
 
-__global__ void __launch_bounds__(sa::THREADS)
+__global__ void __launch_bounds__(THREADS)
 segment_sum_kernel(const int32_t* __restrict__ ids,
                    const float* __restrict__ values, int64_t m,
                    float* __restrict__ out, int64_t num_out) {
-  __shared__ float acc[sa::DOCS_PER_BLOCK];
+  __shared__ float acc[DOCS_PER_BLOCK];
   __shared__ int64_t range[2];
 
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * sa::DOCS_PER_BLOCK;
-  const int64_t d1 = d0 + sa::DOCS_PER_BLOCK < num_out
-                         ? d0 + sa::DOCS_PER_BLOCK
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * DOCS_PER_BLOCK;
+  const int64_t d1 = d0 + DOCS_PER_BLOCK < num_out
+                         ? d0 + DOCS_PER_BLOCK
                          : num_out;
-  for (int i = threadIdx.x; i < sa::DOCS_PER_BLOCK; i += blockDim.x) {
+  for (int i = threadIdx.x; i < DOCS_PER_BLOCK; i += blockDim.x) {
     acc[i] = 0.0f;
   }
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] =
-        sa::lower_bound_key(ids, m, 0, threadIdx.x == 0 ? d0 : d1);
-  }
+  sa::block_range(ids, m, 0, d0, d1, range);
   __syncthreads();
 
   // a warp-uniform trip count, so every lane takes part in the shuffles;
@@ -76,7 +79,7 @@ segment_sum_kernel(const int32_t* __restrict__ ids,
        base += blockDim.x) {
     const int64_t i = base + lane;
     const int slot =
-        i < hi ? static_cast<int>(ids[i] - d0) : sa::DOCS_PER_BLOCK;
+        i < hi ? static_cast<int>(ids[i] - d0) : DOCS_PER_BLOCK;
     float v = i < hi ? values[i] : 0.0f;
     if (warp_run_sum(slot, v) && v != 0.0f) atomicAdd(&acc[slot], v);
   }
@@ -93,8 +96,8 @@ extern "C" int sa_segment_sum(const void* ids, const void* values, int64_t m,
                               void* out, int64_t num_out, int device,
                               void* stream) {
   cudaSetDevice(device);
-  const int64_t grid = (num_out + sa::DOCS_PER_BLOCK - 1) / sa::DOCS_PER_BLOCK;
-  segment_sum_kernel<<<static_cast<unsigned>(grid), sa::THREADS, 0,
+  const int64_t grid = (num_out + DOCS_PER_BLOCK - 1) / DOCS_PER_BLOCK;
+  segment_sum_kernel<<<static_cast<unsigned>(grid), THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const float*>(values), m,
       static_cast<float*>(out), num_out);

@@ -1,0 +1,118 @@
+"""The least time the card could take for each kernel's work: its bound.
+
+A kernel's work is counted from its inputs, as ``chip_smoke.py`` prints
+it: each input byte it needs read once, each output byte written once
+(a plane row that several queries of one K5 launch read counts once; the
+halo K5 reads twice and the words a block's search probes do not count),
+and the 32-bit integer operations its formulas need.  The bound is the
+larger of bytes over the card's memory rate and operations over its
+32-bit integer rate.  Nothing here launches or times anything.
+
+Rates: one NVIDIA H100 SXM at its full 700 W limit.  Memory: 3.35 TB/s of
+HBM3 (NVIDIA's data sheet).  Integer: the data sheet's 67 TFLOP/s is the
+float32 rate (128 lanes per SM per clock, an FMA counted as two); the
+integer pipe issues 64 32-bit adds, shifts or logic operations per SM per
+clock and 16 popcounts (CUDA C++ Programming Guide, arithmetic instruction
+throughput, compute capability 9.0), over 132 SMs at the 1.98 GHz boost
+clock: 16.7 T/s.  Operations are counted in those issue slots, so a
+popcount counts 4.  The similarity's few float operations per doc are
+counted at the integer rate too; they never decide a bound.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12
+SMS, BOOST_HZ = 132, 1.98e9
+INT32_OPS_PER_S = 64 * SMS * BOOST_HZ
+POPC = 4                 # issue slots of one popcount (16 per SM per clock)
+
+# integer issue slots per element, from the formulas each kernel computes
+K1_OPS_PER_WORD = POPC + 3   # popcount, key shift, subtract, add
+K1_OPS_PER_DOC = {"none": 1, "bm25": 9, "bm25_impact": 8, "bm25_legacy": 10}
+K2_OPS_PER_KEY = 2       # subtract, add
+K4_OPS_PER_WORD = 2      # subtract, store
+K5_OPS_PER_SLOT_STEP = POPC + 11  # popcount; ands, shifts, adds, or
+K5_OPS_PER_DOC_STEP = 1    # the min over steps
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """``{"bytes", "ops", "bound_ms", "bound_by"}`` of a piece of work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def k1_work(n_words: int, num_docs: int, kind: str = "none") -> dict:
+    """One K1 row: hdr32 + pay32 of each posting word in the row's doc
+    range read, the f32 row written, the doc lengths read for the BM25
+    kinds."""
+    per_doc = 4 + (4 if kind != "none" else 0)
+    return bound(8 * n_words + per_doc * num_docs,
+                 K1_OPS_PER_WORD * n_words + K1_OPS_PER_DOC[kind] * num_docs)
+
+
+def k1_rows_work(ns: Iterable[int], num_docs: int) -> dict:
+    """Many K1 tf rows (kind none), in one launch or one each: the sum of
+    their rows' work."""
+    ns = [int(n) for n in ns]
+    return bound(8 * sum(ns) + 4 * num_docs * len(ns),
+                 K1_OPS_PER_WORD * sum(ns) + num_docs * len(ns))
+
+
+def k2_work(n_keys: int, num_out: int) -> dict:
+    """One K2 launch: the id and value of each key below ``num_out`` read
+    (the pad tail is dropped unread), each output slot written."""
+    return bound(8 * n_keys + 4 * num_out, K2_OPS_PER_KEY * n_keys)
+
+
+def k4_work(ns: Sequence[int], plane_size: int) -> dict:
+    """One K4 launch: the posting words of each row read, each row of
+    ``plane_size`` int32 slots written whole."""
+    words = int(sum(int(n) for n in ns))
+    return bound(8 * words + 4 * plane_size * len(ns),
+                 K4_OPS_PER_WORD * words)
+
+
+def k5_work(slots, plan, num_docs: int, slots_per_doc: int) -> dict:
+    """One K5 launch over a group: each DISTINCT plane row of ``slots``
+    ([queries, terms] plane-pool rows) read once, the query's row of
+    per-doc freqs written, and the slot array read; the halo is not
+    work."""
+    return k5_batch_work([(slots, plan)], num_docs, slots_per_doc)
+
+
+def k5_batch_work(groups, num_docs: int, slots_per_doc: int) -> dict:
+    """K5 over several groups ``[(slots, plan), ...]``, one launch each, as
+    one batch: each plane row DISTINCT across the batch read once.  A
+    plane that two launches share counts once, though each launch reads
+    it; ``k5_plane_reads`` counts those reads."""
+    plane = num_docs * slots_per_doc
+    distinct = np.unique(np.concatenate(
+        [np.asarray(s).ravel() for s, _ in groups]))
+    nbytes, ops = 4 * plane * len(distinct), 0
+    for slots, plan in groups:
+        slots = np.asarray(slots)
+        steps = sum(len(idxs) - 1 for _, idxs in plan)
+        nbytes += 4 * num_docs * slots.shape[0] + 4 * slots.size
+        ops += slots.shape[0] * steps * (K5_OPS_PER_SLOT_STEP * plane
+                                         + K5_OPS_PER_DOC_STEP * num_docs)
+    return bound(nbytes, ops)
+
+
+def k5_plane_reads(groups) -> int:
+    """The plane rows K5 fetches over ``[(slots, plan), ...]``: each
+    launch's distinct rows, summed over the launches."""
+    return int(sum(len(np.unique(np.asarray(s))) for s, _ in groups))
+
+
+def total(works: Iterable[dict]) -> dict:
+    """The bound of several launches run one after another: their bytes
+    and operations add up."""
+    works = list(works)
+    return bound(sum(w["bytes"] for w in works),
+                 sum(w["ops"] for w in works))

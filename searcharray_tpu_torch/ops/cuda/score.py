@@ -10,8 +10,9 @@ sources) and loaded with ctypes.
 Each wrapper takes its plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
-(``score_term.launches``, ``segment_sum.launches``,
-``plane_fill.launches``, ``phrase_chain.launches``).
+(``score_term.launches``, ``score_term_rows.launches``,
+``segment_sum.launches``, ``plane_fill.launches``,
+``phrase_chain.launches``).
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
-                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+def _sources(csrc_dir: str = CSRC_DIR):
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu"))
+                  + glob.glob(os.path.join(csrc_dir, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -64,27 +65,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> str:
+def library_path(csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> str:
     h = hashlib.sha256()
-    for path in _sources():
+    for path in _sources(csrc_dir):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libsa_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"libsa_kernels-{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels if no library for the current sources exists;
+def build(csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> str:
+    """Compile the kernels of ``csrc_dir`` (the package's own by default)
+    into ``build_dir`` if no library for those sources exists there;
     returns its path.  One nvcc per source, all started together, then
     one link.  Raises with the compiler's output on failure."""
-    so = library_path()
+    so = library_path(csrc_dir, build_dir)
     if os.path.exists(so):
         return so
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         jobs = []
-        for src in (p for p in _sources() if p.endswith(".cu")):
+        for src in (p for p in _sources(csrc_dir) if p.endswith(".cu")):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             jobs.append((obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
@@ -107,29 +109,40 @@ def build() -> str:
     return so
 
 
+_vp, _i64, _int, _f = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_float)
+# the C entries of the library and their argument types
+_ENTRIES = {
+    "sa_score_term": [_vp, _vp, _i64, _vp, _vp, _i64, _int, _int, _f, _f,
+                      _f, _f, _int, _vp],
+    "sa_score_term_rows": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp, _i64,
+                           _i64, _int, _int, _vp],
+    "sa_segment_sum": [_vp, _vp, _i64, _vp, _i64, _int, _vp],
+    "sa_plane_fill": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _int, _vp],
+    "sa_phrase_chain": [_vp, _i64, _vp, _i64, _int, _vp, _i64, _int, _vp,
+                        _i64, _vp, _int, _vp],
+}
+
+
+def load_library(path: str):
+    """Load a kernel library built by ``build`` and declare the argument
+    types of the C entries it has."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _ENTRIES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _int
+    return lib
+
+
 def _get_lib():
     global _lib
     if _lib is not None:
         return _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i64, c_int, c_f = (ctypes.c_void_p, ctypes.c_int64,
-                                   ctypes.c_int, ctypes.c_float)
-            lib.sa_score_term.argtypes = [vp, vp, i64, vp, vp, i64, c_int,
-                                          c_int, c_f, c_f, c_f, c_f, c_int,
-                                          vp]
-            lib.sa_score_term.restype = c_int
-            lib.sa_segment_sum.argtypes = [vp, vp, i64, vp, i64, c_int, vp]
-            lib.sa_segment_sum.restype = c_int
-            lib.sa_plane_fill.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64,
-                                          c_int, vp]
-            lib.sa_plane_fill.restype = c_int
-            lib.sa_phrase_chain.argtypes = [vp, i64, vp, i64, c_int, vp,
-                                            i64, c_int, vp, i64, vp, c_int,
-                                            vp]
-            lib.sa_phrase_chain.restype = c_int
-            _lib = lib
+            _lib = load_library(build())
     return _lib
 
 
@@ -227,6 +240,64 @@ def score_term(hdrs: torch.Tensor, pays: torch.Tensor,
 
 
 score_term.launches = 0
+
+
+def score_term_rows_plain(hdrs, pays, offs, ns, out, out_rows, *,
+                          num_docs: int, blk_bits: int) -> torch.Tensor:
+    """Plain PyTorch multi-row K1: one ``score_term_plain`` (kind none)
+    per row."""
+    for off, n, row in zip(offs.tolist(), ns.tolist(), out_rows.tolist()):
+        out[row] = score_term_plain(hdrs[off: off + n], pays[off: off + n],
+                                    None, 0.0, 1.0, num_docs=num_docs,
+                                    blk_bits=blk_bits, kind="none")
+    return out
+
+
+def score_term_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns,
+                    out: torch.Tensor, out_rows, *, num_docs: int,
+                    blk_bits: int) -> torch.Tensor:
+    """Per-doc tf (kind none) of many terms in one launch: for each row r,
+    ``out[out_rows[r]]`` = the tf of the words ``[offs[r], offs[r] +
+    ns[r])`` of the doc-sorted ``hdrs``/``pays`` planes.
+
+    ``out`` is an f32 [R, num_docs] tensor (the tf pool), filled in place
+    and returned; ``offs``/``ns``/``out_rows`` are host integer sequences,
+    one entry per row."""
+    dev = out.device
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(pays, "pays", torch.int32, dev)
+    _check(out, "out", torch.float32, dev, ndim=2)
+    if pays.shape != hdrs.shape or out.shape[1] != num_docs:
+        raise ValueError("hdrs/pays lengths differ or out rows are not "
+                         "num_docs wide")
+    offs = _host_index(offs, "offs", hdrs.shape[0] + 1)
+    ns = np.asarray(ns, dtype=np.int64)
+    rows = _host_index(out_rows, "out_rows", out.shape[0])
+    if not (offs.shape == ns.shape == rows.shape) or offs.ndim != 1:
+        raise ValueError("offs, ns and out_rows must be 1-D of one length")
+    if ns.size and (ns.min() < 0 or (offs + ns).max() > hdrs.shape[0]):
+        raise ValueError("a posting slice runs past the planes")
+    if len(set(rows.tolist())) != len(rows):
+        raise ValueError("a tf row is filled twice in one call")
+    if dev.type == "cpu":
+        return score_term_rows_plain(hdrs, pays, offs, ns, out, rows,
+                                     num_docs=num_docs, blk_bits=blk_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {dev}")
+    if len(rows) == 0 or num_docs == 0:
+        return out
+    meta = torch.as_tensor(np.stack([offs, ns, rows]), device=dev)
+    err = _get_lib().sa_score_term_rows(
+        hdrs.data_ptr(), pays.data_ptr(), meta[0].data_ptr(),
+        meta[1].data_ptr(), meta[2].data_ptr(), len(rows), int(ns.max()),
+        out.data_ptr(), out.stride(0), num_docs, blk_bits, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "score_term_rows")
+    score_term_rows.launches += 1
+    return out
+
+
+score_term_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

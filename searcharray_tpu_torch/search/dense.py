@@ -17,12 +17,13 @@ positionally aligned:
 The chain itself is K5 (``ops/cuda/score.py:phrase_chain``); its plain
 version is ``ops/kernels.py:phrase_counts_dense_planes``, re-exported here.
 Both pools keep term -> slot maps on the host (LRU eviction).  A batch's
-missing rows are filled by one K4 launch (all plane rows), one K1 launch
-per tf row and one K5 launch per phrase-row recipe, all written straight
-into their pool rows.  A repeated phrase's freq row is cached in the tf
-pool like a term's (the phrase-tf cache): it then scores as one row
-gather.  Launches are stream-ordered, so a row is filled before any later
-read of it and read before any later launch refills its slot.
+missing rows are filled by one K4 launch (all plane rows), one multi-row
+K1 launch (all term tf rows) and one K5 launch per phrase-row recipe, all
+written straight into their pool rows.  A repeated phrase's freq row is
+cached in the tf pool like a term's (the phrase-tf cache): it then scores
+as one row gather.  Launches are stream-ordered, so a row is filled
+before any later read of it and read before any later launch refills its
+slot.
 
 The port of the JAX package's dense engine (``searcharray_tpu/search/
 dense.py``) for exact phrases on full planes; slop spans and candidate
@@ -154,8 +155,8 @@ def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
     fit raises with the pools untouched, and a fill that raises unmaps
     every slot this call assigned: no key is ever left on a row that was
     not filled for it.  Fills: one K4 launch for all missing planes, one
-    K1 launch per missing term tf row, one K5 launch per chain structure
-    of the missing phrase rows."""
+    multi-row K1 launch for all missing term tf rows, one K5 launch per
+    chain structure of the missing phrase rows."""
     miss_sigs = [t for t in dict.fromkeys(tf_tids)
                  if isinstance(t, tuple) and t not in dev.tf_slot]
     plane_tids = list(plane_tids) + [t for s in miss_sigs
@@ -179,7 +180,8 @@ def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
 
 def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
     """Fill the newly assigned plane rows (one K4 launch), term tf rows
-    (K1 each) and phrase tf rows (one K5 launch per chain structure)."""
+    (one multi-row K1 launch) and phrase tf rows (one K5 launch per chain
+    structure)."""
     if new_p:
         spans = [dev.term_span(t)[:2] for t, _ in new_p]
         DISPATCHES[0] += 1
@@ -187,13 +189,20 @@ def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
                                 [n for _, n in spans],
                                 [s for _, s in new_p], dev.plane_pool)
     by_recipe: dict = {}
+    term_rows = []
     for key, slot in new_t:
         if isinstance(key, tuple):
             tids, fkey = dev.phrase_recipes[key]
             by_recipe.setdefault(fkey, []).append((tids, slot))
-            continue
+        else:
+            term_rows.append((dev.term_span(key)[:2], slot))
+    if term_rows:
         DISPATCHES[0] += 1
-        _term_tf_k1(dev, key, out=dev.tf_pool[slot])
+        kernels_cuda.score_term_rows(
+            dev.hdrs, dev.pays, [o for (o, _), _ in term_rows],
+            [n for (_, n), _ in term_rows], dev.tf_pool,
+            [slot for _, slot in term_rows], num_docs=dev.corpus_size,
+            blk_bits=dev.blk_bits)
     # the planes above are filled first: stream order puts these reads
     # after the K4 launch that wrote them
     for (_, _, plan_key, pattern), rows in by_recipe.items():
@@ -216,16 +225,14 @@ def ensure_tfs(dev: DeviceIndex, tids: Sequence) -> None:
     ensure_batch(dev, tf_tids=tids)
 
 
-def _term_tf_k1(dev: DeviceIndex, term_id: int,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _term_tf_k1(dev: DeviceIndex, term_id: int) -> torch.Tensor:
     """One term's f32[N] tf vector from one K1 launch (kind ``none``)."""
     off, n, _ = dev.term_span(term_id)
     h, p = K.take_term_planes(dev.hdrs, dev.pays, off, n, bucket=n,
                               blk_bits=dev.blk_bits)
     return kernels_cuda.score_term(h, p, dev.doc_lens, 0.0, 1.0,
                                    num_docs=dev.corpus_size,
-                                   blk_bits=dev.blk_bits, kind="none",
-                                   out=out)
+                                   blk_bits=dev.blk_bits, kind="none")
 
 
 def plane_slots_of(dev: DeviceIndex, tids: Sequence[int]) -> np.ndarray:

@@ -258,3 +258,218 @@ def test_phrase_path_on_card_matches_cpu(card):
             np.testing.assert_array_equal(got[1], want[1])
             np.testing.assert_allclose(got[0], want[0], rtol=1e-6,
                                        atol=1e-7)
+
+
+# --- the Hopper designs: K5's warp and tile paths, K1's warp search and
+# --- vector epilogue, the multi-row K1
+
+K5_SHAPES = [
+    # (S = 2^blk_bits, num_docs): no num_docs is a multiple of a warp
+    # window (248 or fewer counted slots), a block (8 windows) or a tile
+    (0, 2999), (1, 2999), (3, 3001), (4, 1501), (5, 777), (6, 301),
+    (12, 37),
+]
+K5_CHAINS = [
+    # (terms as plane-pool rows, plan split): T = 2, 3, 31, 32, both plan
+    # shapes and same-term first steps
+    ([0, 1], 0),
+    ([3, 3], 0),
+    ([0, 1, 2], 0),
+    ([2, 1, 1], 2),
+    ([1, 2, 3, 4, 5], 2),
+    ([3, 3, 4, 5, 5, 5], 3),
+    ([i % 6 for i in range(31)], 0),
+    ([(i * 5) % 7 for i in range(31)], 30),
+    ([i % 7 for i in range(32)], 0),
+    ([i % 5 for i in range(32)], 31),
+    ([0, 0, 1, 2, 3] * 6 + [4, 4], 14),
+]
+
+
+@pytest.mark.parametrize("terms,split", K5_CHAINS)
+@pytest.mark.parametrize("blk_bits,num_docs", K5_SHAPES)
+def test_k5_design_matches_plain(card, terms, split, blk_bits, num_docs):
+    """The warp kernel (S <= 32: 4-byte and 16-byte copies, 1-8 docs per
+    lane, 2-4 lanes per doc) and the tile kernel (S >= 64) bit for bit."""
+    pool = chain_pool(blk_bits * 1000 + len(terms), num_docs, blk_bits,
+                      8).to(card)
+    T = len(terms)
+    pattern = [terms.index(t) for t in terms]
+    rng = np.random.default_rng(T + split)
+    perm = [np.arange(8), rng.permutation(8), rng.permutation(8)]
+    slots = np.asarray([[p[t] for t in terms] for p in perm], np.int32)
+    kw = dict(num_docs=num_docs, blk_bits=blk_bits)
+    got = kc.phrase_chain(pool, slots, _plan(T, split), pattern, **kw)
+    want = kc.phrase_chain_plain(pool, slots, _plan(T, split), pattern, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blk_bits,num_docs", [(3, 40_001), (1, 3333),
+                                               (5, 999)])
+def test_k5_group_sharing_planes_matches_plain(card, blk_bits, num_docs):
+    """A group of 40 two-term queries over 6 planes: every plane is read
+    by many queries of one launch, and each warp's ring wraps many
+    times."""
+    pool = chain_pool(blk_bits, num_docs, blk_bits, 6).to(card)
+    pairs = [(a, b) for a in range(6) for b in range(6) if a != b]
+    slots = np.asarray(pairs[:40] if len(pairs) >= 40 else
+                       (pairs * 2)[:40], np.int32)
+    kw = dict(num_docs=num_docs, blk_bits=blk_bits)
+    got = kc.phrase_chain(pool, slots, _plan(2, 0), (0, 1), **kw)
+    want = kc.phrase_chain_plain(pool, slots, _plan(2, 0), (0, 1), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(want.max()) > 0
+
+
+@pytest.mark.parametrize("blk_bits", [0, 3, 4, 6])
+def test_k5_design_writes_into_tf_pool_rows(card, blk_bits):
+    num_docs = 2001
+    pool = chain_pool(blk_bits + 3, num_docs, blk_bits, 6).to(card)
+    tfpool = torch.full((12, num_docs), -1.0, device=card)
+    slots = np.asarray([[0, 1, 2, 3], [3, 4, 5, 0], [5, 1, 1, 2]], np.int32)
+    plan = _plan(4, 2)
+    rows = [11, 0, 6]
+    kw = dict(num_docs=num_docs, blk_bits=blk_bits)
+    kc.phrase_chain(pool, slots, plan, (0, 1, 2, 3), out=tfpool,
+                    out_rows=rows, **kw)
+    want = kc.phrase_chain_plain(pool, slots, plan, (0, 1, 2, 3), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tfpool[rows], want)
+    keep = [i for i in range(12) if i not in rows]
+    assert bool((tfpool[keep] == -1).all())
+
+
+def k1_slice(docs, num_docs, seed, blk_bits=3, pad=16):
+    """A doc-sorted (hdr32, pay32) slice of words in ``docs`` (sorted),
+    with a PAD tail, and random doc lengths."""
+    rng = np.random.default_rng(seed)
+    docs = np.sort(np.asarray(docs, np.int64))
+    hdr = (docs << blk_bits | rng.integers(0, 1 << blk_bits,
+                                           len(docs))).astype(np.int32)
+    hdr = np.sort(hdr)
+    pay = rng.integers(0, 1 << 18, len(docs)).astype(np.int32)
+    hdr = np.concatenate([hdr, np.full(pad, PAD_HDR32, np.int32)])
+    pay = np.concatenate([pay, np.zeros(pad, np.int32)])
+    dl = rng.integers(1, 90, num_docs).astype(np.float32)
+    return (torch.from_numpy(hdr), torch.from_numpy(pay),
+            torch.from_numpy(dl))
+
+
+K1_NUM_DOCS = 1_000_003  # not a multiple of the 1024-doc block
+
+
+def k1_case(name):
+    rng = np.random.default_rng(len(name))
+    n = K1_NUM_DOCS
+    if name.startswith("m="):
+        return rng.integers(0, n, int(name[2:]))
+    if name == "one block":
+        return rng.integers(2048, 3072, 5000)
+    if name.startswith("block edges"):
+        edges = np.arange(1024, n, 1024)
+        words = [edges - 1, edges, [0, n - 1]]
+        if name.endswith("dense"):  # more than n / 4 words: 1024-doc blocks
+            words.append(rng.integers(0, n, 300_000))
+        return np.concatenate(words)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", ["m=0", "m=1", "m=31", "m=32", "m=33",
+                                  "m=1023", "m=2900000", "one block",
+                                  "block edges", "block edges, dense"])
+def test_k1_design_matches_plain(card, kind, case):
+    """The warp search and the vector epilogue, in 4096-doc blocks (rows
+    of at most one word per 4 docs) and 1024-doc blocks (denser rows)."""
+    h, p, dl = (t.to(card) for t in k1_slice(k1_case(case), K1_NUM_DOCS,
+                                             len(case)))
+    kw = dict(num_docs=K1_NUM_DOCS, blk_bits=3, kind=kind)
+    got = kc.score_term(h, p, dl, 1.25, 37.5, **kw)
+    want = kc.score_term_plain(h, p, dl, 1.25, 37.5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [9000, 1000])
+def test_k1_unaligned_pool_rows_match_plain(card, m):
+    """Rows of an f32 [R, N] pool with N % 4 != 0 are not 16-byte aligned:
+    the epilogue stores them one float at a time."""
+    n = 5003
+    h, p, dl = (t.to(card) for t in k1_slice(
+        np.random.default_rng(1).integers(0, n, m), n, 2))
+    pool = torch.full((3, n), -1.0, device=card)
+    for kind in KINDS:
+        kc.score_term(h, p, dl, 0.5, 20.0, num_docs=n, blk_bits=3, kind=kind,
+                      out=pool[1])
+        want = kc.score_term_plain(h, p, dl, 0.5, 20.0, num_docs=n,
+                                   blk_bits=3, kind=kind)
+        assert torch.equal(pool[1], want)
+    assert bool((pool[0] == -1).all() and (pool[2] == -1).all())
+
+
+@pytest.mark.parametrize("num_docs", [1, 1000, 5003, 70_001, 100_003])
+def test_k1_rows_match_single_row_calls(card, num_docs):
+    """One multi-row launch against a loop of single-row K1 calls: rows of
+    every size (empty, one word, whole blocks), written to scattered tf
+    rows; the rows it does not name keep their contents."""
+    rng = np.random.default_rng(num_docs)
+    sizes = [0, 1, 33, 1500, 20_000, 0, 7]
+    hs, ps, offs, ns = [], [], [], []
+    at = 0
+    for i, m in enumerate(sizes):
+        h, p, _ = k1_slice(rng.integers(0, num_docs, m), num_docs, i, pad=3)
+        hs.append(h)
+        ps.append(p)
+        offs.append(at)
+        ns.append(m)
+        at += len(h)
+    hdrs, pays = torch.cat(hs).to(card), torch.cat(ps).to(card)
+    out_rows = [9, 2, 0, 11, 5, 6, 1]
+    pool = torch.full((12, num_docs), -3.0, device=card)
+    before = kc.score_term_rows.launches
+    kc.score_term_rows(hdrs, pays, offs, ns, pool, out_rows,
+                       num_docs=num_docs, blk_bits=3)
+    torch.cuda.synchronize()
+    assert kc.score_term_rows.launches == before + 1
+    dl = torch.ones(num_docs, device=card)
+    for off, m, row in zip(offs, ns, out_rows):
+        want = kc.score_term(hdrs[off: off + m], pays[off: off + m], dl, 0.0,
+                             1.0, num_docs=num_docs, blk_bits=3, kind="none")
+        assert torch.equal(pool[row], want)
+    keep = [i for i in range(12) if i not in out_rows]
+    assert bool((pool[keep] == -3).all())
+    # and the plain multi-row version agrees
+    plain = torch.full((12, num_docs), -3.0, device=card)
+    kc.score_term_rows_plain(hdrs, pays, np.asarray(offs), np.asarray(ns),
+                             plain, np.asarray(out_rows), num_docs=num_docs,
+                             blk_bits=3)
+    assert torch.equal(pool, plain)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_and_k4_with_the_warp_search(card, seed):
+    """K2 and K4 take the shared warp search: ranges on block edges, empty
+    blocks, and ids past the output."""
+    rng = np.random.default_rng(seed)
+    n_out = 10_241
+    edges = np.arange(0, n_out, 1024)
+    ids = np.sort(np.concatenate([rng.integers(0, n_out, 30_000), edges,
+                                  edges[1:] - 1,
+                                  np.full(50, n_out + 7),
+                                  np.full(50, 2**30)])).astype(np.int32)
+    vals = rng.integers(0, 18, len(ids)).astype(np.float32)
+    gi, gv = torch.from_numpy(ids).to(card), torch.from_numpy(vals).to(card)
+    assert torch.equal(kc.segment_sum(gi, gv, num_docs=n_out),
+                       kc.segment_sum_plain(gi, gv, num_docs=n_out))
+    hdrs, pays, offs, ns = plane_rows(seed + 20, 4097, 3, 4)
+    NS = 4097 << 3
+    pools = [torch.full((6, NS), -7, dtype=torch.int32, device=card)
+             for _ in range(2)]
+    h, p = hdrs.to(card), pays.to(card)
+    kc.plane_fill(h, p, offs, ns, [5, 1, 0, 3], pools[0])
+    kc.plane_fill_plain(h, p, np.asarray(offs), np.asarray(ns),
+                        np.asarray([5, 1, 0, 3]), pools[1])
+    torch.cuda.synchronize()
+    assert torch.equal(pools[0], pools[1])

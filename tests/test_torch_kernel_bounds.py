@@ -1,0 +1,190 @@
+"""The work and bound arithmetic that chip_smoke.py prints for each kernel
+(``ops/cuda/roofline.py``) on hand-made shapes, and the multi-row K1's
+plain version against the JAX package's tf-pool rows on the same
+numpy-seeded corpus."""
+import numpy as np
+import pytest
+import torch
+
+from searcharray_tpu import SearchArray as JSearchArray
+from searcharray_tpu.search import dense as jdense
+from searcharray_tpu_torch import SearchArray
+from searcharray_tpu_torch.ops.cuda import roofline as rl
+from searcharray_tpu_torch.ops.cuda import score as kc
+from searcharray_tpu_torch.search import dense
+from searcharray_tpu_torch.search.phrase import _plan
+
+
+def test_bound_is_bytes_or_operations_over_the_card_rates():
+    w = rl.bound(3_350_000_000, 1)
+    assert w["bound_ms"] == pytest.approx(1.0) and w["bound_by"] == "bytes"
+    w = rl.bound(1, 16_727_040_000)
+    assert w["bound_ms"] == pytest.approx(1.0)
+    assert w["bound_by"] == "operations"
+
+
+def test_integer_rate_is_the_issue_rate_not_the_float_rate():
+    # 64 lanes x 132 SMs x 1.98 GHz, a quarter of the float32 FMA rate;
+    # a popcount takes four of those issue slots
+    assert rl.INT32_OPS_PER_S == pytest.approx(16.727e12, rel=1e-4)
+    assert rl.k1_work(1, 0)["ops"] == rl.POPC + 3
+
+
+@pytest.mark.parametrize("kind,per_doc", [("none", 4), ("bm25", 8),
+                                          ("bm25_impact", 8),
+                                          ("bm25_legacy", 8)])
+def test_k1_work_is_the_words_plus_the_row(kind, per_doc):
+    # "what" at 1M docs: 2,931,452 words of 8 bytes and a 4 MB row
+    w = rl.k1_work(2_931_452, 1_000_000, kind)
+    assert w["bytes"] == 8 * 2_931_452 + per_doc * 1_000_000
+    assert w["bound_by"] == "bytes"
+    # a rare term: the f32 row alone is 1.19 us at 3.35 TB/s
+    rare = rl.k1_work(0, 1_000_000, "none")
+    assert rare["bound_ms"] == pytest.approx(4e6 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("ns", [[949], [0, 1, 2_931_452], [5] * 30])
+def test_k1_rows_work_adds_up_the_single_rows(ns):
+    rows = rl.k1_rows_work(ns, 123_457)
+    singles = [rl.k1_work(n, 123_457, "none") for n in ns]
+    assert rows["bytes"] == sum(w["bytes"] for w in singles)
+    assert rows["ops"] == sum(w["ops"] for w in singles)
+    assert rl.total(singles)["bound_ms"] == pytest.approx(rows["bound_ms"])
+
+
+def test_k2_work_counts_the_keys_in_range_and_the_slots():
+    w = rl.k2_work(215_720, 6 * 40_960)
+    assert w["bytes"] == 8 * 215_720 + 4 * 6 * 40_960
+
+
+def test_k4_work_writes_whole_rows():
+    w = rl.k4_work([10, 0, 5], 8_000_000)
+    assert w["bytes"] == 8 * 15 + 3 * 4 * 8_000_000
+
+
+@pytest.mark.parametrize("slots,distinct", [
+    ([[0, 1]], 2),
+    ([[0, 1], [2, 3], [4, 5]], 6),
+    ([[0, 1], [1, 2], [2, 0], [1, 0]], 3),   # shared planes count once
+    ([[3, 3]], 1),                          # a repeated term: one plane
+    ([[7, 1, 7, 2, 7]], 3),
+])
+def test_k5_work_counts_each_distinct_plane_once(slots, distinct):
+    n, S = 1_000_000, 8
+    T = len(slots[0])
+    w = rl.k5_work(slots, _plan(T, 0), n, S)
+    q = len(slots)
+    assert w["bytes"] == 4 * n * S * distinct + 4 * n * q + 4 * q * T
+    assert w["bound_by"] == "bytes"
+
+
+def test_k5_work_has_no_halo():
+    """A 32-term chain reads each of its planes once: the bytes do not
+    grow with the steps, only the operations do."""
+    n, S = 1001, 8
+    short = rl.k5_work([[0, 1]], _plan(2, 0), n, S)
+    long = rl.k5_work([[0, 1] * 16], _plan(32, 0), n, S)
+    assert long["bytes"] - short["bytes"] == 4 * 30  # the slot ints only
+    assert long["ops"] == 31 * short["ops"]
+
+
+def test_first_batch_bound_matches_the_plane_count():
+    """Six launches of the shapes of chip_smoke's first mixed batch: the
+    batch's bound reads each 32 MB plane row DISTINCT across the batch once
+    (7), while the launches fetch 23 between them, and its 18 chain steps
+    over 8M slots make it bound by operations."""
+    n, S = 1_000_000, 8
+    launches = [([[0, 1], [2, 3], [4, 5]], 2), ([[0, 1, 4, 6]], 4),
+                ([[4, 4]], 2), ([[0, 1, 6, 6]], 4),
+                ([[1, 4, 6, 5, 4]], 5), ([[0, 1, 4, 6, 5]], 5)]
+    groups = [(s, _plan(T, 0)) for s, T in launches]
+    queries = 8
+    batch = rl.k5_batch_work(groups, n, S)
+    want = 4 * n * S * 7 + 4 * n * queries + 4 * (6 + 4 + 2 + 4 + 5 + 5)
+    assert batch["bytes"] == want
+    assert rl.k5_plane_reads(groups) == 6 + 4 + 1 + 3 + 4 + 5
+    works = [rl.k5_work(s, p, n, S) for s, p in groups]
+    assert rl.total(works)["bytes"] - want == 4 * n * S * (23 - 7)
+    assert batch["ops"] == rl.total(works)["ops"]
+    query_steps = sum(len(s) * sum(len(idxs) - 1 for _, idxs in p)
+                      for s, p in groups)
+    assert query_steps == 18
+    assert batch["ops"] == 18 * (rl.K5_OPS_PER_SLOT_STEP * n * S + n)
+    assert batch["bound_by"] == "operations"
+    assert batch["bound_ms"] == pytest.approx(
+        batch["ops"] / rl.INT32_OPS_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("slots", [[[0, 1]], [[0, 1], [1, 2], [2, 0]],
+                                   [[7, 1, 7, 2, 7]]])
+def test_k5_batch_of_one_launch_is_that_launch(slots):
+    p = _plan(len(slots[0]), 0)
+    assert rl.k5_batch_work([(slots, p)], 1001, 8) == rl.k5_work(
+        slots, p, 1001, 8)
+
+
+# ---------------------------------------------------------------------------
+# the multi-row K1's plain version against the JAX package's tf-pool rows
+# ---------------------------------------------------------------------------
+def make_docs(n, seed, max_len):
+    rng = np.random.default_rng(seed)
+    vocab = ["red", "fox", "the", "dog"] + [f"w{i}" for i in range(40)]
+    return [" ".join(rng.choice(vocab, size=rng.integers(1, max_len)))
+            for _ in range(n)]
+
+
+@pytest.fixture(scope="module", params=[(1001, 4, 30), (2049, 5, 90)])
+def pair(request):
+    docs = make_docs(*request.param)
+    return (JSearchArray.index(docs, autowarm=False),
+            SearchArray.index(docs, device="cpu", autowarm=False))
+
+
+def test_rows_plain_matches_jax_tf_pool(pair):
+    jarr, tarr = pair
+    terms = ["red", "the", "w7", "w39", "dog", "w0"]
+    tids = [tarr.term_dict.get_term_id(t) for t in terms]
+    assert tids == [jarr.term_dict.get_term_id(t) for t in terms]
+    jdense.ensure_tfs(jarr.dev, tids)
+    dev = tarr.dev
+    spans = [dev.term_span(t)[:2] for t in tids]
+    out = torch.full((len(tids) + 3, dev.corpus_size), -1.0)
+    rows = [4, 0, 8, 2, 6, 5]
+    before = kc.score_term_rows.launches
+    kc.score_term_rows(dev.hdrs, dev.pays, [o for o, _ in spans],
+                       [m for _, m in spans], out, rows,
+                       num_docs=dev.corpus_size, blk_bits=dev.blk_bits)
+    assert kc.score_term_rows.launches == before  # the CPU launches nothing
+    for t, row in zip(tids, rows):
+        want = np.asarray(jarr.dev.tf_pool[jarr.dev.tf_slot[t]])
+        np.testing.assert_array_equal(out[row].numpy(), want)
+    keep = [i for i in range(len(tids) + 3) if i not in rows]
+    assert bool((out[keep] == -1).all())
+
+
+def test_pool_fill_of_a_wave_matches_jax(pair):
+    """``ensure_tfs`` fills every missing term row of a wave with one
+    multi-row K1 call; the rows equal the JAX package's."""
+    jarr, tarr = pair
+    tids = list(range(0, 30, 3))
+    jdense.ensure_tfs(jarr.dev, tids)
+    dense.ensure_tfs(tarr.dev, tids)
+    for t in tids:
+        want = np.asarray(jarr.dev.tf_pool[jarr.dev.tf_slot[t]])
+        got = tarr.dev.tf_pool[tarr.dev.tf_slot[t]].numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_rows_reject_bad_requests():
+    hdrs = torch.tensor([0, 8, 16], dtype=torch.int32)
+    pays = torch.tensor([1, 3, 7], dtype=torch.int32)
+    out = torch.zeros((2, 4))
+    kw = dict(num_docs=4, blk_bits=3)
+    with pytest.raises(ValueError, match="twice"):
+        kc.score_term_rows(hdrs, pays, [0, 1], [1, 1], out, [1, 1], **kw)
+    with pytest.raises(ValueError, match="past the planes"):
+        kc.score_term_rows(hdrs, pays, [2], [2], out, [0], **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        kc.score_term_rows(hdrs, pays, [0], [1], out, [2], **kw)
+    kc.score_term_rows(hdrs, pays, [0, 1], [1, 2], out, [1, 0], **kw)
+    assert out.tolist() == [[0, 2, 3, 0], [1, 0, 0, 0]]
