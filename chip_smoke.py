@@ -26,25 +26,30 @@ entry points a user calls, and checks it:
    the sparse term group (K2); the launch counts are read right after it
    and every kernel must have run;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
-   1M-doc index, held to the dense ``dterm`` results;
+   1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
+   launches (each bucket's pad tail a run on the row's last slot) and on
+   a control of as many keys spread uniformly, exactly equal to plain;
 5. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gave it (K1 on the slices of its tf fills, one
    row and many rows per launch, K2 on the flat keys of the
-   long-document batch, K4 on the batch's plane rows, K5 on each phrase
+   long-document batch, of the 1M sparse term group and of its uniform
+   control, K4 on the batch's plane rows, K5 on each phrase
    group of the batch, on the serving mix's rare phrases and on tf-pool
    rows), with their times: each kernel's own device time from
    ``torch.profiler``, the wrapper's time from CUDA events, the bytes its
    work needs and the bound they give (``ops/cuda/roofline.py``), the
    plain version's times and, for K2, one ``index_add_`` call's;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
-   a serving mix of terms and phrases) and memory, each beside the
-   card's name and power limit; the kernels line; the result line.
+   a serving mix of terms and phrases; the long-document index) and
+   memory, each beside the card's name and power limit; the kernels
+   line; the result line.
 
     python3 chip_smoke.py --parent-csrc DIR
 
 also builds the kernel sources in DIR (an earlier version's
 ``searcharray_tpu_torch/csrc``) and times them in turns with the
-current ones (old, new, new, old) at the same shapes.
+current ones (old, new, new, old) at the same shapes, and takes the
+long-document and serving-mix qps in the same turns.
 
 Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
@@ -66,6 +71,7 @@ WINDOWS = 5       # score_batch qps windows
 HOT_CALLS = 25    # calls per hot window (~0.5 s on an H100)
 COLD_CALLS = 10   # calls per cold window
 MIX_CALLS = 10    # calls per serving-mix window
+LONG_CALLS = 40   # calls per long-document window
 # phrases beside bench.PHRASE_QUERIES: a repeated term in a left-to-right
 # chain and in a right-to-left one, and a chain split in two halves at its
 # rarest term ("purpose")
@@ -270,24 +276,57 @@ def check_ranking(dev, terms, scores, idx, what):
           f"{what} agrees with the numpy oracle on {len(terms)} queries")
 
 
+def k2_inputs(dev, offs, ns, bucket):
+    """(flat keys, values, num_docs) of the K2 launch of one sparse term
+    group: the posting slices ``offs``/``ns`` in one bucket, built as
+    ``batch._term_group_fn`` builds them (each row's pad tail clamped onto
+    its last slot, values 0)."""
+    from searcharray_tpu_torch.search import batch
+
+    keys, pops = batch._slice_keys(dev.hdrs, dev.pays, offs, ns, bucket,
+                                   dev.blk_bits)
+    Npad = batch._npad(dev.corpus_size)
+    return (batch._flat_keys(keys, len(offs), Npad),
+            pops.reshape(-1).contiguous(), len(offs) * Npad)
+
+
 def long_doc_segment_sums(ldev, terms):
-    """(flat keys, values, num_docs) of every K2 launch ``score_batch``
-    makes for ``terms`` on an index that is not dense-eligible, rebuilt as
-    ``batch._flat_segment_sum`` builds them, by ascending bucket."""
+    """The inputs of every K2 launch ``score_batch`` makes for ``terms`` on
+    an index that is not dense-eligible, by ascending bucket."""
     from searcharray_tpu_torch.search import batch
 
     tids = [[ldev.vocab.get_term_id(t)] for t in terms if t in ldev.vocab]
     groups = batch._classify(ldev, tids, "bm25")
-    Npad = batch._npad(ldev.corpus_size)
     calls = []
     for (kind, bucket), rows in sorted(groups.items()):
         assert kind == "term", kind
-        keys, pops = batch._slice_keys(
-            ldev.hdrs, ldev.pays, [r[1][0] for r in rows],
-            [r[2][0] for r in rows], bucket, ldev.blk_bits)
-        calls.append((batch._flat_keys(keys, len(rows), Npad),
-                      pops.reshape(-1).contiguous(), len(rows) * Npad))
+        calls.append(k2_inputs(ldev, [r[1][0] for r in rows],
+                               [r[2][0] for r in rows], bucket))
     return calls
+
+
+def spread_like(calls, seed=4):
+    """A control for K2 launches: for each (flat keys, values, num_docs),
+    as many keys, spread uniformly over the slots (sorted, so runs are
+    short), with integer values 0-17."""
+    import torch
+
+    out = []
+    for flat, _, n_out in calls:
+        g = torch.Generator(device=flat.device)
+        g.manual_seed(seed + len(out))
+        ids = torch.randint(0, n_out, (flat.numel(),), generator=g,
+                            device=flat.device, dtype=torch.int32)
+        vals = torch.randint(0, 18, (flat.numel(),), generator=g,
+                             device=flat.device).to(torch.float32)
+        out.append((torch.sort(ids).values, vals, n_out))
+    return out
+
+
+def longest_run(ids) -> int:
+    import torch
+
+    return int(torch.unique_consecutive(ids, return_counts=True)[1].max())
 
 
 def cuda_ms(fn, iters=50):
@@ -414,6 +453,18 @@ def main() -> int:
         print(f"parent kernels from {args.parent_csrc} built in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
     phase_done("environment and kernel build")
+
+    def with_lib(lib, fn):
+        """``fn`` with the kernels of ``lib`` in place of the current
+        ones."""
+        def run():
+            saved = kc._lib
+            kc._lib = lib
+            try:
+                return fn()
+            finally:
+                kc._lib = saved
+        return run
 
     # ---- 3. main path (counted) -----------------------------------------
     t0 = time.perf_counter()
@@ -570,6 +621,28 @@ def main() -> int:
     check(np.allclose(sparse, dense_want, rtol=1e-6, atol=0),
           "sparse term group (K2) equals the dterm results within rtol 1e-6 "
           f"(max abs err {np.abs(sparse - dense_want).max():.3g})")
+    # the K2 launches of those groups (timing unit 2): one per term, each
+    # bucket's pad tail a run of equal keys on the row's last slot; and a
+    # control of as many keys spread uniformly (unit 3)
+    sparse_k2 = []
+    for term in TERM_QUERIES:
+        off, length, bucket = dev.term_span(arr.term_dict.get_term_id(term))
+        sparse_k2.append(k2_inputs(dev, [off], [length], bucket))
+    control_k2 = spread_like(sparse_k2)
+    for name, calls in (("the 1M sparse term group", sparse_k2),
+                        ("its uniform control", control_k2)):
+        for flat, fvals, n_out in calls:
+            if not torch.equal(kc.segment_sum(flat, fvals, num_docs=n_out),
+                               kc.segment_sum_plain(flat, fvals,
+                                                    num_docs=n_out)):
+                raise AssertionError(f"K2 differs on {name}, "
+                                     f"{flat.numel()} keys")
+    pad_runs = [longest_run(f) for f, _, _ in sparse_k2]
+    check(max(longest_run(f) for f, _, _ in control_k2) <= 32,
+          f"K2 equals its plain version exactly on the {len(sparse_k2)} "
+          f"launches of the 1M sparse term group "
+          f"({sum(f.numel() for f, _, _ in sparse_k2)} keys, longest runs "
+          f"{pad_runs}) and on a uniform control with no run over 32")
 
     phase_done("sparse term group vs dterm")
 
@@ -659,14 +732,16 @@ def main() -> int:
         want = kc.segment_sum_plain(flat, fvals, num_docs=n_out)
         err = (got - want).abs().max().item()
         k2_err = max(k2_err, err)
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        # integer-valued popcounts: exact in any order of adds
+        if not torch.equal(got, want):
             raise AssertionError(f"K2 differs on {flat.numel()} keys: {err}")
     k2_keys = sum(c[0].numel() for c in k2_calls)
     k2_slots = sum(c[2] for c in k2_calls)
-    check(True, f"K2 equals its plain version within rtol 1e-5 on the "
+    check(True, f"K2 equals its plain version exactly on the "
           f"{len(k2_calls)} groups of the long-document batch ({k2_keys} "
-          f"flat keys, {k2_slots} slots) and with a 2^30 pad tail, max abs "
-          f"err {k2_err:.3g}")
+          f"flat keys, {k2_slots} slots, longest run "
+          f"{max(longest_run(c[0]) for c in k2_calls)}) and with a 2^30 pad "
+          "tail")
 
     # K4 on the plane rows of the mixed batch's phrases, all in one launch
     # as ensure_batch fills them, into scratch pools; the rows must also
@@ -837,6 +912,37 @@ def main() -> int:
         (kc.plane_fill.launches, kc.phrase_chain.launches), k45_before)]
     score_ph_ms = host_ms(lambda: arr.score(ph3), 30)
     tf_ph_ms = host_ms(lambda: arr.termfreqs(ph4), 30)
+
+    # the long-document score_batch (K2's end-to-end path) and the serving
+    # mix, with the parent's kernels in turns when given (parent, new,
+    # new, parent; only K2 differs between them)
+    def long_window(w):
+        for _ in range(LONG_CALLS):
+            larr.score_batch(TERM_QUERIES, top_k=TOP_K)
+        return LONG_CALLS
+
+    def mix_turn(w):
+        for c in range(MIX_CALLS):
+            arr.score_batch(serving_queries(3000 + w * MIX_CALLS + c),
+                            top_k=TOP_K)
+        return MIX_CALLS
+
+    e2e_turns = ([("parent", parent), ("new", None), ("new", None),
+                  ("parent", parent)] if parent is not None
+                 else [("new", None)])
+    e2e = {}
+    for name, window, n_q in (("long-document", long_window,
+                               len(TERM_QUERIES)),
+                              ("serving mix", mix_turn, mix_n)):
+        for t, (label, lib) in enumerate(e2e_turns):
+            def turn(w, window=window):
+                return window(w) if lib is None else with_lib(
+                    lib, lambda: window(w))()
+            turn(100 + t)  # warm, on other queries
+            t0 = time.perf_counter()
+            calls = turn(t)
+            e2e.setdefault(name, []).append(
+                (label, calls * n_q / (time.perf_counter() - t0)))
     phase_done("qps windows and latencies")
 
     # ---- 5, continued: kernel timing ---------------------------------------
@@ -857,18 +963,6 @@ def main() -> int:
                 "K2": lambda: kc.segment_sum.launches,
                 "K4": lambda: kc.plane_fill.launches,
                 "K5": lambda: kc.phrase_chain.launches}
-
-    def with_lib(lib, fn):
-        """``fn`` with the kernels of ``lib`` in place of the current
-        ones."""
-        def run():
-            saved = kc._lib
-            kc._lib = lib
-            try:
-                return fn()
-            finally:
-                kc._lib = saved
-        return run
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1):
@@ -929,21 +1023,29 @@ def main() -> int:
         rl.k1_rows_work(k1_rows[1], n),
         old=hasattr(parent, "sa_score_term_rows"), per=len(rare_planes))
 
-    # K2: all launches of the long-document batch, per batch; the library
-    # call is one index_add_ per launch on the in-range prefix of its keys
-    # (found here, untimed), as K2's plain version adds them
-    k2_prefix = [(f[:m], v[:m], n_out) for f, v, n_out in k2_calls
-                 for m in [int((f < n_out).sum().item())]]
+    # K2, per unit of several launches: the long-document batch, the 1M
+    # sparse term group and its uniform control.  The library call is one
+    # index_add_ per launch on the in-range prefix of its keys (found
+    # here, untimed), as K2's plain version adds them
+    def k2_unit(unit, calls):
+        prefix = [(f[:m], v[:m], n_out) for f, v, n_out in calls
+                  for m in [int((f < n_out).sum().item())]]
 
-    def k2_batch(fn):
-        return lambda: [fn(f, v, num_docs=m) for f, v, m in k2_calls]
+        def batch_of(fn):
+            return lambda: [fn(f, v, num_docs=m) for f, v, m in calls]
 
-    t_k2 = measure(
-        f"long-document batch, {len(k2_calls)} K2 launches", "K2",
-        k2_batch(kc.segment_sum), k2_batch(kc.segment_sum_plain),
-        rl.total(rl.k2_work(f.numel(), n_out) for f, _, n_out in k2_prefix),
-        library=lambda: [torch.zeros(n_out, device=ldev.device).index_add_(
-            0, f, v) for f, v, n_out in k2_prefix])
+        return measure(
+            f"{unit}, {len(calls)} K2 launches", "K2",
+            batch_of(kc.segment_sum), batch_of(kc.segment_sum_plain),
+            rl.total(rl.k2_flat_work(f, n_out) for f, _, n_out in calls),
+            library=lambda: [torch.zeros(n_out, device=f.device).index_add_(
+                0, f, v) for f, v, n_out in prefix])
+
+    t_k2 = k2_unit("long-document batch", k2_calls)
+    t_k2s = k2_unit("1M sparse term group (bench.TERM_QUERIES, each "
+                    "bucket's pad run on its last slot)", sparse_k2)
+    t_k2c = k2_unit("uniform control of the 1M sparse term group (as many "
+                    "keys and slots, no run over 32)", control_k2)
 
     def k4_fill(fn):
         return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
@@ -1015,6 +1117,9 @@ def main() -> int:
                "queries, half phrases, top_k=10)", MIX_CALLS, qps_mixp,
                fills_mixp))),
         ("serving mix K4 and K5 launches per call", k45_per_call),
+        *((f"{name} score_batch qps, one window a turn "
+           f"({'parent, new, new, parent' if parent else 'new'})", turns)
+          for name, turns in e2e.items()),
         (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
         (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
         *((f"{rec['unit']}: device ms "
@@ -1022,7 +1127,12 @@ def main() -> int:
            "ms; share of the bound (new, old)",
            f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
            f"{rec.get('old_share')}")
-          for rec in (t_what, t_rare, t_rows, t_k2, t_k4, t_k5, t_serve)),
+          for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k4, t_k5,
+                      t_serve)),
+        ("K2 1M sparse term group over its uniform control, device ms "
+         "(new; old)",
+         f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
+         f"{t_k2s['old_device_ms'] / t_k2c['old_device_ms'] if t_k2s['old'] else None}"),
         ("K5 plane rows of the first mixed batch (distinct across the "
          "batch, which the bound counts; fetched, each launch's distinct "
          "rows summed over its launches)",
@@ -1053,6 +1163,11 @@ def main() -> int:
             out["parent_device_ms"] = rec["old_device_ms"]
         return out
 
+    def unit_of(rec):
+        keys = ("unit", "new_device_ms", "old_device_ms", "bound_ms",
+                "share", "library_device_ms")
+        return {k: rec[k] for k in keys if k in rec}
+
     csrc = "searcharray_tpu_torch/csrc/"
     k1_tpu = "searcharray_tpu/ops/pallas/score.py:86"
     print(json.dumps({"kernels": [
@@ -1061,9 +1176,10 @@ def main() -> int:
         entry("score_term_rows (K1, multi-row tf fill)",
               csrc + "score_term.cu", k1_tpu, launches["score_term_rows"],
               k1r_err, t_rows),
-        entry("segment_sum (K2)", csrc + "segment_sum.cu",
-              "searcharray_tpu/ops/pallas/score.py:196",
-              launches["segment_sum"], k2_err, t_k2),
+        {**entry("segment_sum (K2)", csrc + "segment_sum.cu",
+                 "searcharray_tpu/ops/pallas/score.py:196",
+                 launches["segment_sum"], k2_err, t_k2),
+         "more_units": [unit_of(t_k2s), unit_of(t_k2c)]},
         entry("plane_fill (K4)", csrc + "plane_fill.cu",
               "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
               k4_err, t_k4),

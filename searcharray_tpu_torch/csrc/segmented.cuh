@@ -1,7 +1,8 @@
-// The search of the segmented kernels (score_term.cu, segment_sum.cu,
-// plane_fill.cu): each thread block owns a run of consecutive output
-// slots and finds its word range in the key-sorted input, so blocks need
-// no bounds array and no inter-block communication.
+// The search of the segmented kernels (score_term.cu, plane_fill.cu):
+// each thread block owns a run of consecutive output slots and finds its
+// word range in the key-sorted input, so blocks need no bounds array and
+// no inter-block communication.  segment_sum.cu searches its merge path
+// with the same probes in 32-bit.
 #pragma once
 
 #include <cstdint>

@@ -70,6 +70,13 @@ def k2_work(n_keys: int, num_out: int) -> dict:
     return bound(8 * n_keys + 4 * num_out, K2_OPS_PER_KEY * n_keys)
 
 
+def k2_flat_work(flat_keys, num_out: int) -> dict:
+    """One K2 launch on the flat keys it is given (a numpy array or a
+    tensor): the keys below ``num_out`` are its in-range keys, the clamped
+    pad run of ``_flat_keys`` among them; a 2^30 tail is not."""
+    return k2_work(int((flat_keys < num_out).sum()), num_out)
+
+
 def k4_work(ns: Sequence[int], plane_size: int) -> dict:
     """One K4 launch: the posting words of each row read, each row of
     ``plane_size`` int32 slots written whole."""

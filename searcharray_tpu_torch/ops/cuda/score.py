@@ -304,9 +304,10 @@ score_term_rows.launches = 0
 # K2: sorted segment-sum
 # ---------------------------------------------------------------------------
 def segment_sum_plain(sorted_ids, values, *, num_docs: int) -> torch.Tensor:
-    """Plain PyTorch K2: ``index_add_`` of the in-range ids."""
+    """Plain PyTorch K2: ``index_add_`` of the in-range ids, in the dtype
+    of ``values`` (float64 values give a reference for float32 sums)."""
     ok = (sorted_ids >= 0) & (sorted_ids < num_docs)
-    out = torch.zeros(num_docs, dtype=torch.float32, device=values.device)
+    out = torch.zeros(num_docs, dtype=values.dtype, device=values.device)
     return out.index_add_(0, sorted_ids[ok], values[ok])
 
 
@@ -314,12 +315,16 @@ def segment_sum(sorted_ids: torch.Tensor, values: torch.Tensor, *,
                 num_docs: int) -> torch.Tensor:
     """Dense f32[num_docs] sums of ``values`` grouped by ``sorted_ids``
     (non-decreasing int32; ids >= num_docs, such as a 2^30 pad, are
-    dropped)."""
+    dropped).  One launch, split evenly over keys and output slots
+    (csrc/segment_sum.cu), so a long run of one id costs what as many
+    spread ids cost."""
     dev = sorted_ids.device
     _check(sorted_ids, "sorted_ids", torch.int32, dev)
     _check(values, "values", torch.float32, dev)
     if values.shape != sorted_ids.shape:
         raise ValueError("sorted_ids and values lengths differ")
+    if not 0 <= num_docs < 2**31 or sorted_ids.shape[0] >= 2**31:
+        raise ValueError("K2 takes fewer than 2^31 keys and slots")
     if dev.type == "cpu":
         return segment_sum_plain(sorted_ids, values, num_docs=num_docs)
     if dev.type != "cuda":

@@ -14,6 +14,7 @@ import torch
 from searcharray_tpu_torch import SearchArray
 from searcharray_tpu_torch.ops.cuda import score as kc
 from searcharray_tpu_torch.ops.kernels import PAD_HDR32
+from searcharray_tpu_torch.search import batch
 from searcharray_tpu_torch.search.phrase import _plan
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +98,106 @@ def test_k2_kernel_matches_plain(card, seed, hot):
         np.float32)).to(card)
     assert torch.equal(kc.segment_sum(gi, ints, num_docs=50_000),
                        kc.segment_sum_plain(gi, ints, num_docs=50_000))
+
+
+K2_SHARE = 2048   # merged keys + slot ends per block, csrc/segment_sum.cu
+
+
+def k2_case(name, rng):
+    """(sorted int32 ids, num_out) of one K2 case."""
+    spread = lambda n, hi: rng.integers(0, hi, n)  # noqa: E731
+    if name.startswith("run "):
+        n = {"run 200k": 200_000, "run 1M": 1_000_000}[name]
+        return np.sort(np.concatenate([spread(1000, 5000),
+                                       np.full(n, 777)])), 5000
+    if name == "runs across the share":
+        # run i of id 2i, lengths one off each side of several share sizes
+        lens = [K2_SHARE * j + e for j in (1, 2, 3, 8) for e in (-1, 0, 1)]
+        ids = np.concatenate([np.full(n, 2 * i) for i, n in enumerate(lens)])
+        return ids, 2 * len(lens) + 1
+    if name == "3 keys over 4M slots":
+        return np.array([5, 2_000_000, 3_999_999]), 4_000_000
+    if name == "no key in range":  # m_in == 0 with num_out > 0
+        return np.concatenate([np.full(500, 3000), np.full(100, 2**30)]), 3000
+    if name == "empty":
+        return np.zeros(0), 3001
+    if name == "all pad":
+        return np.full(5000, 2**30), 5000
+    if name == "ids past num_out":
+        past = rng.integers(9000, 2**30, 20_000)
+        return np.sort(np.concatenate([spread(20_000, 9000), past])), 9000
+    if name == "odd num_out":
+        return np.sort(spread(70_000, 10_007)), 10_007
+    if name.startswith("flat keys"):
+        # _flat_keys of Qg rows of one bucket: doc keys, then the PAD tail
+        # clamped onto the row's last slot
+        Qg, N, bucket = int(name.split("=")[1]), 30_000, 40_960
+        Npad = batch._npad(N)
+        keys = np.full((Qg, bucket), PAD_HDR32 >> 3, np.int32)
+        for q in range(Qg):
+            n = int(rng.integers(bucket * 3 // 4, bucket))
+            keys[q, :n] = np.sort(spread(n, N))
+        flat = batch._flat_keys(torch.from_numpy(keys), Qg, Npad).numpy()
+        return flat, Qg * Npad
+    raise KeyError(name)
+
+
+K2_CASES = ["run 200k", "run 1M", "runs across the share",
+            "3 keys over 4M slots", "no key in range", "empty", "all pad",
+            "ids past num_out", "odd num_out", "flat keys Qg=1",
+            "flat keys Qg=3", "flat keys Qg=8"]
+
+
+@pytest.mark.parametrize("values", ["integers", "floats"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_design_matches_plain(card, case, values):
+    """K2's merge-path shares: exact on integer values; on random floats
+    within rtol 1e-5 of the plain version summed in float64 (a float32
+    sum of a 1M-key run is itself ~3e-5 off)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ids, n_out = k2_case(case, rng)
+    if values == "integers":
+        vals = rng.integers(0, 18, len(ids)).astype(np.float32)
+    else:
+        vals = rng.random(len(ids)).astype(np.float32)
+    gi = torch.from_numpy(ids.astype(np.int32)).to(card)
+    gv = torch.from_numpy(vals).to(card)
+    before = kc.segment_sum.launches
+    got = kc.segment_sum(gi, gv, num_docs=n_out)
+    torch.cuda.synchronize()
+    assert kc.segment_sum.launches == before + 1
+    if values == "integers":
+        assert torch.equal(got, kc.segment_sum_plain(gi, gv, num_docs=n_out))
+    else:
+        want = kc.segment_sum_plain(gi, gv.double(), num_docs=n_out)
+        torch.testing.assert_close(got, want.float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k2_on_unaligned_views(card, offset):
+    """Views that start off a 16-byte boundary take K2's 4-byte loads."""
+    rng = np.random.default_rng(offset)
+    ids = np.sort(np.concatenate([rng.integers(0, 6000, 30_000),
+                                  np.full(9000, 1234)])).astype(np.int32)
+    vals = rng.integers(0, 18, len(ids)).astype(np.float32)
+    gi = torch.from_numpy(ids).to(card)[offset:]
+    gv = torch.from_numpy(vals).to(card)[offset:]
+    assert torch.equal(kc.segment_sum(gi, gv, num_docs=6000),
+                       kc.segment_sum_plain(gi, gv, num_docs=6000))
+
+
+def test_k2_calls_of_many_sizes_in_a_row(card):
+    """K2's scratch (one carry per share and the ticket counter) is reused
+    and grown across calls on one stream."""
+    rng = np.random.default_rng(9)
+    for n_out, m in [(100, 10), (2_000_000, 3_000_000), (50, 0),
+                     (5000, 200_000), (3, 7)]:
+        ids = np.sort(rng.integers(0, n_out, m)).astype(np.int32)
+        vals = rng.integers(0, 18, m).astype(np.float32)
+        gi = torch.from_numpy(ids).to(card)
+        gv = torch.from_numpy(vals).to(card)
+        assert torch.equal(kc.segment_sum(gi, gv, num_docs=n_out),
+                           kc.segment_sum_plain(gi, gv, num_docs=n_out))
 
 
 def test_main_path_on_card_matches_cpu(card):

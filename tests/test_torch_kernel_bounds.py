@@ -1,5 +1,6 @@
 """The work and bound arithmetic that chip_smoke.py prints for each kernel
-(``ops/cuda/roofline.py``) on hand-made shapes, and the multi-row K1's
+(``ops/cuda/roofline.py``) on hand-made shapes and on the sparse term
+group's flat keys, and the multi-row K1's
 plain version against the JAX package's tf-pool rows on the same
 numpy-seeded corpus."""
 import numpy as np
@@ -9,9 +10,11 @@ import torch
 from searcharray_tpu import SearchArray as JSearchArray
 from searcharray_tpu.search import dense as jdense
 from searcharray_tpu_torch import SearchArray
+from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import roofline as rl
 from searcharray_tpu_torch.ops.cuda import score as kc
-from searcharray_tpu_torch.search import dense
+from searcharray_tpu_torch.ops.kernels import bucket_of
+from searcharray_tpu_torch.search import batch, dense
 from searcharray_tpu_torch.search.phrase import _plan
 
 
@@ -55,6 +58,42 @@ def test_k1_rows_work_adds_up_the_single_rows(ns):
 def test_k2_work_counts_the_keys_in_range_and_the_slots():
     w = rl.k2_work(215_720, 6 * 40_960)
     assert w["bytes"] == 8 * 215_720 + 4 * 6 * 40_960
+
+
+def test_k2_work_of_the_1m_sparse_group():
+    """"what" at 1M docs: 2,931,452 words in a 3,145,728-word bucket, so
+    its K2 launch reads the whole bucket (the 214,276-key pad run on slot
+    Npad - 1 included) and writes 1,000,448 slots: ~8.7 us."""
+    assert bucket_of(2_931_452) == 3_145_728
+    Npad = batch._npad(1_000_000)
+    assert Npad == 1_000_448
+    flat = batch._flat_keys(torch.cat([
+        torch.arange(2_931_452, dtype=torch.int32) // 3,
+        torch.full((3_145_728 - 2_931_452,), K.PAD_HDR32 >> 3,
+                   dtype=torch.int32)])[None, :], 1, Npad)
+    assert int((flat == Npad - 1).sum()) == 214_276
+    w = rl.k2_flat_work(flat, Npad)
+    assert w["bytes"] == 8 * 3_145_728 + 4 * 1_000_448
+    assert w["bound_by"] == "bytes"
+    assert w["bound_ms"] == pytest.approx(0.008706, rel=1e-3)
+
+
+@pytest.mark.parametrize("Qg", [1, 3, 8])
+def test_k2_work_drops_a_2_30_tail(Qg):
+    """Keys at 2^30 are dropped unread: a tail of them adds no work, and
+    every launch writes Qg * Npad slots."""
+    rng = np.random.default_rng(Qg)
+    Npad, bucket = batch._npad(5000), 4096
+    keys = np.full((Qg, bucket), K.PAD_HDR32 >> 3, np.int32)
+    for q in range(Qg):
+        n = int(rng.integers(1, bucket))
+        keys[q, :n] = np.sort(rng.integers(0, 5000, n))
+    flat = batch._flat_keys(torch.from_numpy(keys), Qg, Npad)
+    tail = torch.full((777,), 2**30, dtype=torch.int32)
+    w = rl.k2_flat_work(flat, Qg * Npad)
+    assert w == rl.k2_flat_work(torch.cat([flat, tail]), Qg * Npad)
+    assert w == rl.k2_flat_work(torch.cat([flat, tail]).numpy(), Qg * Npad)
+    assert w["bytes"] == 8 * Qg * bucket + 4 * Qg * Npad
 
 
 def test_k4_work_writes_whole_rows():
@@ -173,6 +212,30 @@ def test_pool_fill_of_a_wave_matches_jax(pair):
         want = np.asarray(jarr.dev.tf_pool[jarr.dev.tf_slot[t]])
         got = tarr.dev.tf_pool[tarr.dev.tf_slot[t]].numpy()
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("Qg", [1, 3, 8])
+def test_k2_work_of_sparse_groups_on_an_index(pair, Qg):
+    """The flat keys of a sparse term group, as ``_term_group_fn`` builds
+    them: each row's PAD tail is clamped onto the row's last slot with
+    count 0, so every key is in range and counts as K2's work."""
+    _, tarr = pair
+    dev = tarr.dev
+    terms = ["red", "the", "w7", "w39", "dog", "w0", "fox", "w1"][:Qg]
+    spans = [dev.term_span(tarr.term_dict.get_term_id(t)) for t in terms]
+    bucket = max(b for _, _, b in spans)
+    keys, pops = batch._slice_keys(dev.hdrs, dev.pays,
+                                   [o for o, _, _ in spans],
+                                   [n for _, n, _ in spans], bucket,
+                                   dev.blk_bits)
+    Npad = batch._npad(dev.corpus_size)
+    flat = batch._flat_keys(keys, Qg, Npad)
+    for q, (_, n, _) in enumerate(spans):
+        row = flat[q * bucket:(q + 1) * bucket]
+        assert bool((row[n:] == q * Npad + Npad - 1).all())
+        assert bool((pops[q, n:] == 0).all())
+    w = rl.k2_flat_work(flat, Qg * Npad)
+    assert w == rl.k2_work(Qg * bucket, Qg * Npad)
 
 
 def test_rows_reject_bad_requests():

@@ -70,7 +70,22 @@ def test_k2_empty_and_all_padding():
     np.testing.assert_array_equal(out.numpy(), np.zeros(3, np.float32))
 
 
-@pytest.mark.parametrize("case", ["dtype", "length", "values"])
+def test_plain_k2_sums_in_the_dtype_of_the_values():
+    """The float64 plain sum is the reference the card tests hold K2's
+    float32 sums to."""
+    ids, vals, N = sorted_ids(7)
+    gi, gv = torch.from_numpy(ids), torch.from_numpy(vals)
+    wide = kc.segment_sum_plain(gi, gv.double(), num_docs=N)
+    assert wide.dtype == torch.float64
+    ok = ids < N
+    np.testing.assert_allclose(
+        wide.numpy(), np.bincount(ids[ok], weights=vals[ok], minlength=N),
+        rtol=1e-12)
+    np.testing.assert_allclose(kc.segment_sum_plain(gi, gv, num_docs=N),
+                               wide.float(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["dtype", "length", "values", "slots"])
 def test_k2_wrapper_rejects_bad_input(case):
     ids = torch.arange(10, dtype=torch.int32)
     vals = torch.ones(10)
@@ -79,10 +94,10 @@ def test_k2_wrapper_rejects_bad_input(case):
         ids, exc = ids.to(torch.int64), TypeError
     elif case == "length":
         vals = vals[:9]
-    else:
+    elif case == "values":
         vals, exc = vals.to(torch.float64), TypeError
     with pytest.raises(exc):
-        kc.segment_sum(ids, vals, num_docs=10)
+        kc.segment_sum(ids, vals, num_docs=2**31 if case == "slots" else 10)
 
 
 @pytest.mark.parametrize("terms", [["alpha"], ["alpha", "w0"], TERMS])
