@@ -9,8 +9,9 @@ entry points a user calls, and checks it:
 1. environment: a CUDA device, torch/CUDA versions, the card's name and
    power limit;
 2. build: the hand-written kernels K1 (csrc/score_term.cu), K2
-   (csrc/segment_sum.cu), K4 (csrc/plane_fill.cu) and K5
-   (csrc/phrase_chain.cu) compile with nvcc for sm_90a;
+   (csrc/segment_sum.cu), K4 (csrc/plane_fill.cu), K5
+   (csrc/phrase_chain.cu) and K7 (csrc/merge_step.cu) compile with nvcc
+   for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
    ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
@@ -23,25 +24,33 @@ entry points a user calls, and checks it:
    from the host postings (phrase freqs exactly, scores to rtol 1e-6).
    Then the same term ``score_batch`` on a 40k-doc index with one
    ~220k-token document, which is too large for dense planes and takes
-   the sparse term group (K2); the launch counts are read right after it
+   the sparse term group (K2).  Then the sparse phrase chain (K7, each
+   step reduced by K2): on the 1M index every phrase with a position
+   window (``score`` in positions 0-17, ``termfreqs`` in 18-53) and a
+   40-term phrase (above K5's cap) through ``score`` and ``score_batch``;
+   on the long-document index the serving mix of terms and phrases,
+   blocking and ``block=False``.  The launch counts are read right after
    and every kernel must have run;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
    a control of as many keys spread uniformly, exactly equal to plain;
+   the sparse phrase group (``batch._phrase_group_fn``, K7 and K2) on the
+   1M-doc index, held exactly to the dense engine's results;
 5. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gave it (K1 on the slices of its tf fills, one
    row and many rows per launch, K2 on the flat keys of the
    long-document batch, of the 1M sparse term group and of its uniform
    control, K4 on the batch's plane rows, K5 on each phrase
    group of the batch, on the serving mix's rare phrases and on tf-pool
-   rows), with their times: each kernel's own device time from
-   ``torch.profiler``, the wrapper's time from CUDA events, the bytes its
+   rows, K7 on every step the windowed phrases and the long-document mix
+   launched, K2 on those steps' keys), with their times: each kernel's
+   own device time from ``torch.profiler``, the wrapper's time from CUDA events, the bytes its
    work needs and the bound they give (``ops/cuda/roofline.py``), the
    plain version's times and, for K2, one ``index_add_`` call's;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
-   a serving mix of terms and phrases; the long-document index) and
-   memory, each beside the card's name and power limit; the kernels
+   a serving mix of terms and phrases; the long-document index, terms
+   and the mix), a windowed phrase's latency and memory, each beside the card's name and power limit; the kernels
    line; the result line.
 
     python3 chip_smoke.py --parent-csrc DIR
@@ -72,6 +81,9 @@ HOT_CALLS = 25    # calls per hot window (~0.5 s on an H100)
 COLD_CALLS = 10   # calls per cold window
 MIX_CALLS = 10    # calls per serving-mix window
 LONG_CALLS = 40   # calls per long-document window
+LMIX_CALLS = 5    # calls per long-document serving-mix window
+WIN_SCORE = dict(min_posn=0, max_posn=17)    # a title-sized window
+WIN_FREQS = dict(min_posn=18, max_posn=53)   # the two blocks after it
 # phrases beside bench.PHRASE_QUERIES: a repeated term in a left-to-right
 # chain and in a right-to-left one, and a chain split in two halves at its
 # rarest term ("purpose")
@@ -196,43 +208,132 @@ def oracle_chain(planes, tags, direction, n_docs, slots):
     return out
 
 
+def oracle_words(post, tid, blk_bits, window=None):
+    """A term's posting words as (int64 flat slots doc << blk_bits |
+    block, uint32 bitmaps), the bitmaps outside the block window
+    zeroed."""
+    words = post.term_slice(tid)
+    keys = (words >> np.uint64(36)).astype(np.int64)
+    blks = ((words >> np.uint64(18)) & np.uint64(0x3FFFF)).astype(np.int64)
+    pay = (words & np.uint64(0x3FFFF)).astype(np.uint32)
+    if window is not None:
+        pay = np.where((blks >= window[0]) & (blks <= window[1]), pay,
+                       np.uint32(0))
+    return (keys << blk_bits) | blks, pay
+
+
+def oracle_chain_sparse(lists, tags, direction, n_docs, blk_bits):
+    """``oracle_chain`` on (flat slots, bitmaps) lists instead of dense
+    planes: the same formulas, evaluated only at the slots of the side a
+    step's counts can be non-zero at, the other side's bitmap (at the
+    slot, the one before or the one after) looked up by a numpy search.
+    For indexes whose dense planes would not fit the host."""
+    top, one = np.uint32(17), np.uint32(1)
+
+    def at(side, slots):
+        h, p = side
+        if len(h) == 0:
+            return np.zeros(len(slots), np.uint32)
+        j = np.minimum(np.searchsorted(h, slots), len(h) - 1)
+        return np.where(h[j] == slots, p[j], np.uint32(0))
+
+    def same_counts(p):
+        ov = p & ((p << one) & LSB18)
+        consec = popcount_u32(ov & (ov << one) & LSB18)
+        return popcount_u32(ov) - (consec + 1) // 2, ov
+
+    out, carry = [], None
+    order = (range(1, len(lists)) if direction == "l2r"
+             else range(len(lists) - 2, -1, -1))
+    for i in order:
+        if direction == "l2r":
+            h, R = lists[i]
+            if carry is None and tags[i] == tags[i - 1]:
+                counts, ov = same_counts(R)
+                adj = (at(lists[i], h - 1) >> top) & R & one
+                cont = ov | adj
+            else:
+                L = lists[i - 1] if carry is None else carry
+                inner = at(L, h) & (R >> one)
+                adj = (at(L, h - 1) >> top) & R & one
+                counts = popcount_u32(inner)
+                cont = ((inner << one) & LSB18) | adj
+        else:
+            h, L = lists[i]
+            if carry is None and tags[i] == tags[i + 1]:
+                counts, _ = same_counts(L)
+                adj = (L >> top) & at(lists[i], h + 1) & one
+                cont = (L & (L >> one)) | (adj << top)
+            else:
+                R = lists[i + 1] if carry is None else carry
+                ov = L & (at(R, h) >> one)
+                adj = (L >> top) & at(R, h + 1) & one
+                counts = popcount_u32(ov)
+                cont = ov | (adj << top)
+        counts = counts + adj.astype(np.int32)
+        out.append(np.bincount(h >> blk_bits, weights=counts,
+                               minlength=n_docs)[:n_docs].astype(np.int64))
+        carry = (h, cont)
+    return out
+
+
 _PLANES: dict = {}
 _FREQS: dict = {}
 _ORACLE: dict = {}
+DENSE_ORACLE_SLOTS = 1 << 24   # larger planes take the sparse oracle
 
 
-def oracle_phrase_freqs(dev, terms):
+def oracle_phrase_freqs(dev, terms, window=None, sparse=None):
     """Exact phrase freqs: the min over every chain step's per-doc count
     (not a positional match count: the two differ where the plan splits
-    a phrase of four or more terms).  Memoized per (index, phrase)."""
-    key = (id(dev), tuple(terms))
+    a phrase of four or more terms).  ``window`` is a (min_posn,
+    max_posn) pair: bitmaps outside its blocks are zeroed first.  On
+    dense planes, or (``sparse``; by default where the planes would pass
+    DENSE_ORACLE_SLOTS) on the posting lists.  Memoized per (index,
+    phrase, window, form)."""
+    if sparse is None:
+        sparse = dev.corpus_size << dev.blk_bits > DENSE_ORACLE_SLOTS
+    key = (id(dev), tuple(terms), window, sparse)
     if key not in _FREQS:
-        _FREQS[key] = _oracle_phrase_freqs(dev, terms)
+        _FREQS[key] = _oracle_phrase_freqs(dev, terms, window, sparse)
     return _FREQS[key]
 
 
-def _oracle_phrase_freqs(dev, terms):
+def _oracle_phrase_freqs(dev, terms, window, sparse):
     n, bb = dev.corpus_size, dev.blk_bits
     tids = [dev.vocab.get_term_id(t) for t in terms]
     lengths = [int(dev.postings.lengths[t]) for t in tids]
     pattern = [tids.index(t) for t in tids]
-    for t in tids:
-        if (id(dev), t) not in _PLANES:
-            _PLANES[(id(dev), t)] = oracle_plane(dev.postings, t, n, bb)
+    blocks = None if window is None else (window[0] // 18, window[1] // 18)
+    if sparse:
+        sides = {t: oracle_words(dev.postings, t, bb, blocks)
+                 for t in set(tids)}
+    else:
+        for t in tids:
+            if (id(dev), t) not in _PLANES:
+                _PLANES[(id(dev), t)] = oracle_plane(dev.postings, t, n, bb)
+        sides = {t: _PLANES[(id(dev), t)] for t in set(tids)}
+        if blocks is not None:
+            blk = np.arange(n << bb) & ((1 << bb) - 1)
+            outside = (blk < blocks[0]) | (blk > blocks[1])
+            sides = {t: np.where(outside, np.uint32(0), p)
+                     for t, p in sides.items()}
     freqs = None
     for direction, idxs in oracle_plan(len(tids), int(np.argmin(lengths))):
-        for c in oracle_chain([_PLANES[(id(dev), tids[i])] for i in idxs],
-                              [pattern[i] for i in idxs], direction, n,
-                              1 << bb):
+        sub = [sides[tids[i]] for i in idxs]
+        tags = [pattern[i] for i in idxs]
+        steps = (oracle_chain_sparse(sub, tags, direction, n, bb) if sparse
+                 else oracle_chain(sub, tags, direction, n, 1 << bb))
+        for c in steps:
             freqs = c if freqs is None else np.minimum(freqs, c)
     return freqs.astype(np.float32)
 
 
-def oracle_scores(dev, query):
+def oracle_scores(dev, query, window=None, sparse=None):
     """BM25 of one term or exact phrase over the corpus of a DeviceIndex,
     from its host postings (zeros for a vocabulary miss)."""
     terms = [query] if isinstance(query, str) else list(query)
-    key = (id(dev), tuple(terms))
+    key = (id(dev), tuple(terms), window, sparse)
     if key in _ORACLE:
         return _ORACLE[key]
     n = dev.corpus_size
@@ -240,7 +341,7 @@ def oracle_scores(dev, query):
         return np.zeros(n, np.float32)
     tids = [dev.vocab.get_term_id(t) for t in terms]
     tf = (oracle_tf(dev.postings, tids[0], n) if len(tids) == 1
-          else oracle_phrase_freqs(dev, terms))
+          else oracle_phrase_freqs(dev, terms, window, sparse))
     _ORACLE[key] = oracle_bm25(tf, dev.doc_lens_np,
                                [int(dev.doc_freqs[t]) for t in tids], n,
                                dev.avg_doc_length)
@@ -261,12 +362,12 @@ def oracle_topk(scores, k):
     return cand[order]
 
 
-def check_ranking(dev, terms, scores, idx, what):
+def check_ranking(dev, terms, scores, idx, what, sparse=None):
     """Top-k scores within rtol 1e-6 of the oracle's, indices equal
     wherever the k-th score is > 0 (below it the zero tail ties).
     ``terms`` are the queries: terms or phrases."""
     for term, got_s, got_i in zip(terms, scores, idx):
-        want = oracle_scores(dev, term)
+        want = oracle_scores(dev, term, sparse=sparse)
         want_i = oracle_topk(want, len(got_i))
         if not np.allclose(got_s, want[want_i], rtol=1e-6, atol=0):
             raise AssertionError(f"{what}: top-k scores of {term!r} differ")
@@ -475,6 +576,11 @@ def main() -> int:
     kc.segment_sum.launches = 0
     kc.plane_fill.launches = 0
     kc.phrase_chain.launches = 0
+    kc.merge_step.launches = 0
+    # a phrase above K5's cap that matches at least one doc: the first 40
+    # tokens of the first doc that has as many
+    long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
+        doc.split() for doc in corpus) if len(t) >= 40)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     arr = SearchArray.index(corpus, device=DEVICE, autowarm=False)
@@ -593,18 +699,98 @@ def main() -> int:
     check_ranking(ldev, TERM_QUERIES, l_scores, l_idx,
                   f"long-document score_batch(top_k={TOP_K})")
 
+    phase_done("long-document index: build, term drive, checks")
+
+    # the sparse phrase chain: every step one K7 launch, its (doc key,
+    # count) pairs summed by one K2 launch.  Windowed phrases on the 1M
+    # index (the stopword phrases merge posting lists of millions of
+    # words), a 40-term phrase (K5 takes 32) through score and score_batch,
+    # and the serving mix of terms and phrases on the long-document index
+    k72_before = (kc.merge_step.launches, kc.segment_sum.launches)
+    win_scores = [arr.score(q, **WIN_SCORE) for q in phrases]
+    win_freqs = [arr.termfreqs(q, **WIN_FREQS) for q in phrases]
+    k7_windows = kc.merge_step.launches - k72_before[0]
+    s_long = arr.score(long_ph)
+    f_long = arr.termfreqs(long_ph)
+    bl_scores, bl_idx = arr.score_batch(["star", long_ph], top_k=TOP_K)
+    k7_long = kc.merge_step.launches - k72_before[0] - k7_windows
+    lmix = serving_queries(0) + [["the", "of"]] + EXTRA_PHRASES
+    lm_scores, lm_idx = larr.score_batch(lmix, top_k=TOP_K)
+    lp_scores, lp_idx = larr.score_batch(lmix, top_k=TOP_K, block=False)()
+    k7_lmix = (kc.merge_step.launches - k72_before[0] - k7_windows
+               - k7_long)
+    k2_chain = kc.segment_sum.launches - k72_before[1]
+
     # the main path ends here: read its launch counts before anything else
     # launches a kernel
     launches = {"score_term": kc.score_term.launches,
                 "score_term_rows": kc.score_term_rows.launches,
                 "segment_sum": kc.segment_sum.launches,
                 "plane_fill": kc.plane_fill.launches,
-                "phrase_chain": kc.phrase_chain.launches}
+                "phrase_chain": kc.phrase_chain.launches,
+                "merge_step": kc.merge_step.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"main path launches: {launches}", flush=True)
-    phase_done("long-document index: build, drive, checks")
+    phase_done("sparse phrase chain: drive")
     check(all(v > 0 for v in launches.values()),
           "every kernel of the path launched in the main-path run")
+    check(min(k7_windows, k7_long, k7_lmix) > 0
+          and k2_chain >= k7_windows + k7_long + k7_lmix,
+          f"the sparse chain launched K7 {k7_windows} times for the "
+          f"windowed phrases, {k7_long} for the {len(long_ph)}-term phrase "
+          f"and {k7_lmix} for the long-document mix, and K2 {k2_chain} "
+          "times on their steps and the mix's term groups")
+    win_s = (WIN_SCORE["min_posn"], WIN_SCORE["max_posn"])
+    win_f = (WIN_FREQS["min_posn"], WIN_FREQS["max_posn"])
+    win_err, win_matches = 0.0, [0, 0]
+    for q, got_s, got_f in zip(phrases, win_scores, win_freqs):
+        want_s = oracle_scores(dev, q, window=win_s)
+        want_f = oracle_phrase_freqs(dev, q, win_f)
+        if not (got_s.shape == (n,) and np.all(np.isfinite(got_s))
+                and np.allclose(got_s, want_s, rtol=1e-6, atol=0)):
+            raise AssertionError(f"score({q}, {WIN_SCORE}) differs from "
+                                 "the oracle")
+        if not np.array_equal(got_f, want_f):
+            raise AssertionError(f"termfreqs({q}, {WIN_FREQS}) differs "
+                                 "from the oracle")
+        win_err = max(win_err, float(np.abs(got_s - want_s).max()))
+        win_matches[0] += int((want_s > 0).sum())
+        win_matches[1] += int(want_f.sum())
+    check(min(win_matches) > 0,
+          f"score(phrase, {WIN_SCORE}) within rtol 1e-6 of the oracle (max "
+          f"abs err {win_err:.3g}, {win_matches[0]} matching docs) and "
+          f"termfreqs(phrase, {WIN_FREQS}) equal to it exactly "
+          f"({win_matches[1]} matches) on all {len(phrases)} phrases, the "
+          "oracle's planes zeroed outside the window")
+    # the sparse oracle, which the 40-term phrase and the long-document
+    # index need, against the dense-plane one
+    for q in (ph4, phrases[-1], phrases[-3]):
+        if not np.array_equal(oracle_phrase_freqs(dev, q, win_f, sparse=True),
+                              oracle_phrase_freqs(dev, q, win_f)):
+            raise AssertionError(f"the two oracles differ on {q}")
+    check(np.array_equal(oracle_phrase_freqs(dev, ph4, sparse=True),
+                         oracle_phrase_freqs(dev, ph4)),
+          "the posting-list oracle equals the dense-plane oracle")
+    want = oracle_scores(dev, long_ph, sparse=True)
+    check(np.array_equal(f_long, oracle_phrase_freqs(dev, long_ph,
+                                                     sparse=True))
+          and f_long[long_doc] >= 1
+          and np.allclose(s_long, want, rtol=1e-6, atol=0),
+          f"termfreqs and score of the first {len(long_ph)} tokens of doc "
+          f"{long_doc} (above K5's cap of {dense.CHAIN_MAX_TERMS}) equal "
+          f"the oracle ({int(f_long.sum())} matching docs)")
+    check_ranking(dev, ["star", long_ph], bl_scores, bl_idx,
+                  f"score_batch of a term and the {len(long_ph)}-term "
+                  "phrase", sparse=True)
+    check_ranking(ldev, lmix, lm_scores, lm_idx,
+                  f"long-document serving mix score_batch(top_k={TOP_K})")
+    check(np.array_equal(lp_idx, lm_idx)
+          and np.array_equal(lp_scores, lm_scores)
+          and sum(1 for q in lmix if not isinstance(q, str)) * 2
+          >= len(lmix),
+          "the long-document mix with block=False equals the blocking "
+          f"call ({len(lmix)} queries, half of them phrases)")
+    phase_done("sparse phrase chain: oracle checks")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
@@ -644,7 +830,38 @@ def main() -> int:
           f"({sum(f.numel() for f, _, _ in sparse_k2)} keys, longest runs "
           f"{pad_runs}) and on a uniform control with no run over 32")
 
-    phase_done("sparse term group vs dterm")
+    # the sparse phrase group on the 1M index, run directly as the term
+    # group above (score_batch routes these phrases to the dense engine
+    # here): held exactly to the dense engine's rows for the same phrases
+    ph_tids_all = [[arr.term_dict.get_term_id(t) for t in q]
+                   for q in phrases]
+    dphrase_want = torch.as_tensor(
+        batch.score_batch_fused(dev, ph_tids_all), device=dev.device)
+    sparse_groups = {}
+    for qi, tids in enumerate(ph_tids_all):
+        spans = phrase.trim_spans(dev, [dev.term_span(t) for t in tids])
+        idf = scoring.host_idf("bm25", [int(dev.doc_freqs[t]) for t in tids],
+                               n, avgdl)
+        sparse_groups.setdefault(phrase.chain_key(dev, tids), []).append(
+            (qi, [s[0] for s in spans], [s[1] for s in spans], idf))
+    k7_before = kc.merge_step.launches
+    for (plan_key, pattern), rows in sparse_groups.items():
+        fn = batch._phrase_group_fn(dev, plan_key, pattern, "bm25", 1.2,
+                                    0.75, None)
+        got = fn(dev.hdrs, dev.pays, dev.doc_lens, np.float32(avgdl),
+                 [r[1] for r in rows], [r[2] for r in rows],
+                 [r[3] for r in rows])
+        if not torch.equal(got, dphrase_want[[r[0] for r in rows]]):
+            raise AssertionError(f"the sparse phrase group {plan_key} "
+                                 "differs from the dense engine")
+    steps = sum(sum(len(ix) - 1 for _, ix in pk) for pk, _ in sparse_groups)
+    check(kc.merge_step.launches - k7_before == steps,
+          f"sparse phrase group (K7, K2) equals the dense engine's rows "
+          f"exactly on {len(phrases)} phrases in {len(sparse_groups)} "
+          f"groups, {steps} K7 launches (one per chain step of a group)")
+    del dphrase_want
+
+    phase_done("sparse term and phrase groups vs the dense engine")
 
     # ---- 5. kernels vs plain at the main path's shapes --------------------
     k1_err = 0.0
@@ -826,6 +1043,74 @@ def main() -> int:
           f"{len(k5_specs)} phrase groups of the mixed batch, on the "
           "serving mix's launch, and in the tf-row form")
 
+    # K7 on every step the windowed phrases and the long-document mix
+    # launch, recorded from the wrapper's own calls (single-query steps
+    # with a window, both sides, the same-term step, carry steps; then
+    # without a window: the 40-term phrase; then the mix's batched
+    # launches), and K2 on each step's keys
+    k7_calls = []
+
+    class RecordingKernels:
+        """The kernel module as search/phrase.py sees it, its K7 calls
+        noted."""
+
+        def __getattr__(self, name):
+            return getattr(kc, name)
+
+        def merge_step(self, *a, **kw):
+            k7_calls.append((a, kw))
+            return kc.merge_step(*a, **kw)
+
+    phrase.kernels_cuda = RecordingKernels()
+    try:
+        for q in phrases:
+            arr.termfreqs(q, **WIN_SCORE)
+        n_windowed = len(k7_calls)
+        arr.termfreqs(long_ph)
+        n_single = len(k7_calls)
+        larr.score_batch(lmix, top_k=TOP_K)
+    finally:
+        phrase.kernels_cuda = kc
+    k7_err, k7_k2 = 0.0, []
+    for a, kw in k7_calls:
+        got = kc.merge_step(*a, **kw)
+        want = kc.merge_step_plain(*a, **{k: v for k, v in kw.items()
+                                          if k != "need_cont"})
+        k7_err = max(k7_err, (got[1] - want[1]).abs().max().item())
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and (got[2] is None or torch.equal(got[2], want[2]))):
+            raise AssertionError(f"K7 differs from its plain version: "
+                                 f"{kw}, {int(np.sum(a[4]))} base words")
+        n_out = len(a[4]) * kw["key_stride"]
+        k7_k2.append((got[0], got[1], n_out))
+        if not torch.equal(kc.segment_sum(got[0], got[1], num_docs=n_out),
+                           kc.segment_sum_plain(got[0], got[1],
+                                                num_docs=n_out)):
+            raise AssertionError(f"K2 differs on the keys of a K7 step: "
+                                 f"{got[0].numel()} keys, {n_out} slots")
+    seen = set()
+    for a, kw in k7_calls:
+        seen |= {kw["cont_side"], "same-term" if kw["same_term"] else "merge",
+                 "window" if kw["min_blk"] is not None else "no window",
+                 "carry" if a[2] is not a[1] else "raw",
+                 "batched" if len(a[4]) > 1 else "single"}
+    check(seen == {"rhs", "lhs", "same-term", "merge", "window", "no window",
+                   "carry", "raw", "batched", "single"}
+          and len(k7_calls) - n_single == k7_lmix // 2,
+          f"K7 equals its plain version bit for bit (counts, keys and "
+          f"continuations) on the {len(k7_calls)} steps of the windowed "
+          f"phrases ({n_windowed}), the {len(long_ph)}-term phrase "
+          f"({n_single - n_windowed}) and the long-document mix "
+          f"({len(k7_calls) - n_single} batched launches): both sides, "
+          "same-term, carry and windowed steps; K2 equals its plain "
+          "version exactly on every step's keys")
+    # timing units: the largest single step of the windowed phrases, and
+    # one long-document mix call's launches
+    k7_big = max(k7_calls[:n_windowed],
+                 key=lambda c: int(np.sum(c[0][4]) + np.sum(c[0][6])))
+    k7_batch = k7_calls[n_single:]
+    big_k2 = k7_k2[next(i for i, c in enumerate(k7_calls) if c is k7_big)]
+
     phase_done("kernels vs plain: checks")
 
     # ---- 6. evidence -------------------------------------------------------
@@ -913,6 +1198,22 @@ def main() -> int:
     score_ph_ms = host_ms(lambda: arr.score(ph3), 30)
     tf_ph_ms = host_ms(lambda: arr.termfreqs(ph4), 30)
 
+    # the sparse chain end to end: a windowed stopword phrase (one step
+    # of two ~2.5M-word lists), a windowed five-term phrase, and the
+    # serving mix on the long-document index (terms and phrases both
+    # sparse groups there), new rare queries every call
+    win_ph_ms = [host_ms(lambda q=q: arr.score(q, **WIN_SCORE), 30)
+                 for q in (phrases[0], phrases[3])]
+
+    def lmix_blocking(w):
+        for c in range(LMIX_CALLS):
+            larr.score_batch(serving_queries(5000 + w * LMIX_CALLS + c)
+                             + lmix[120:], top_k=TOP_K)
+        return LMIX_CALLS
+
+    lmix_blocking(-1)
+    qps_lmix, _ = qps_windows(lmix_blocking, len(lmix))
+
     # the long-document score_batch (K2's end-to-end path) and the serving
     # mix, with the parent's kernels in turns when given (parent, new,
     # new, parent; only K2 differs between them)
@@ -957,12 +1258,14 @@ def main() -> int:
     names = {"K1": ("score_term_kernel",), "K2": ("segment_sum_kernel",),
              "K4": ("plane_fill_kernel",),
              "K5": ("chain_warp_kernel", "chain_tile_kernel",
-                    "phrase_chain_kernel")}
+                    "phrase_chain_kernel"),
+             "K7": ("merge_step_kernel",)}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
                 "K4": lambda: kc.plane_fill.launches,
-                "K5": lambda: kc.phrase_chain.launches}
+                "K5": lambda: kc.phrase_chain.launches,
+                "K7": lambda: kc.merge_step.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1):
@@ -1046,6 +1349,46 @@ def main() -> int:
                     "bucket's pad run on its last slot)", sparse_k2)
     t_k2c = k2_unit("uniform control of the 1M sparse term group (as many "
                     "keys and slots, no run over 32)", control_k2)
+    t_k2w = k2_unit(f"the keys of the largest windowed-phrase step "
+                    f"({big_k2[0].numel()} keys, {big_k2[2]} slots)",
+                    [big_k2])
+
+    # K7: the largest single step of the windowed phrases, and the
+    # launches of one long-document mix call.  No one PyTorch call
+    # computes a step, so there is no library time
+    def k7_run(fn, calls):
+        plain = fn is kc.merge_step_plain
+        return lambda: [fn(*a, **{k: v for k, v in kw.items()
+                                  if not (plain and k == "need_cont")})
+                        for a, kw in calls]
+
+    def k7_work(calls):
+        return rl.total(rl.k7_work(a[4], a[6], kw["need_cont"],
+                                   kw["same_term"]) for a, kw in calls)
+
+    def k7_words(calls):
+        return (int(sum(np.sum(a[4]) for a, _ in calls)),
+                int(sum(np.sum(a[6]) for a, kw in calls
+                        if not kw["same_term"])))
+
+    has_k7 = hasattr(parent, "sa_merge_step")
+    t_k7 = measure(
+        "largest step of the windowed phrases, one K7 launch: %d base "
+        "words against %d (side %s, window blocks %s-%s)" % (
+            *k7_words([k7_big]), k7_big[1]["cont_side"],
+            k7_big[1]["min_blk"], k7_big[1]["max_blk"]), "K7",
+        k7_run(kc.merge_step, [k7_big]),
+        k7_run(kc.merge_step_plain, [k7_big]), k7_work([k7_big]),
+        old=has_k7)
+    t_k7b = measure(
+        "one long-document mix call, %d batched K7 launches over %d "
+        "phrase queries: %d base words against %d" % (
+            len(k7_batch), sum(1 for q in set(map(tuple, (
+                q for q in lmix if not isinstance(q, str))))),
+            *k7_words(k7_batch)), "K7",
+        k7_run(kc.merge_step, k7_batch),
+        k7_run(kc.merge_step_plain, k7_batch), k7_work(k7_batch),
+        old=has_k7)
 
     def k4_fill(fn):
         return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
@@ -1122,13 +1465,21 @@ def main() -> int:
           for name, turns in e2e.items()),
         (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
         (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
+        (f"p50 score(phrase, {WIN_SCORE}) ms for {phrases[0]} and "
+         f"{phrases[3]} (the sparse chain: K7 and K2 per step)", win_ph_ms),
+        (f"long-document serving mix score_batch qps ({len(lmix)} queries, "
+         f"half phrases, top_k=10), {WINDOWS} windows of {LMIX_CALLS} calls "
+         "(median; windows)",
+         f"{float(np.median(qps_lmix))}; {qps_lmix}"),
+        ("K7 launches on the main path (windowed phrases; 40-term phrase; "
+         "long-document mix, two calls)", [k7_windows, k7_long, k7_lmix]),
         *((f"{rec['unit']}: device ms "
            f"({'old, new, new, old' if rec['old'] else 'new, new'}); bound "
            "ms; share of the bound (new, old)",
            f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
            f"{rec.get('old_share')}")
-          for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k4, t_k5,
-                      t_serve)),
+          for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
+                      t_k5, t_serve, t_k7, t_k7b)),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -1179,13 +1530,17 @@ def main() -> int:
         {**entry("segment_sum (K2)", csrc + "segment_sum.cu",
                  "searcharray_tpu/ops/pallas/score.py:196",
                  launches["segment_sum"], k2_err, t_k2),
-         "more_units": [unit_of(t_k2s), unit_of(t_k2c)]},
+         "more_units": [unit_of(t_k2s), unit_of(t_k2c), unit_of(t_k2w)]},
         entry("plane_fill (K4)", csrc + "plane_fill.cu",
               "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
               k4_err, t_k4),
         entry("phrase_chain (K5)", csrc + "phrase_chain.cu",
               "searcharray_tpu/search/dense.py:558",
               launches["phrase_chain"], k5_err, t_k5),
+        {**entry("merge_step (K7)", csrc + "merge_step.cu",
+                 "searcharray_tpu/search/phrase.py:123",
+                 launches["merge_step"], k7_err, t_k7),
+         "more_units": [unit_of(t_k7b)]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

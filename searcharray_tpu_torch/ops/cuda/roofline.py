@@ -4,7 +4,9 @@ A kernel's work is counted from its inputs, as ``chip_smoke.py`` prints
 it: each input byte it needs read once, each output byte written once
 (a plane row that several queries of one K5 launch read counts once; the
 halo K5 reads twice and the words a block's search probes do not count),
-and the 32-bit integer operations its formulas need.  The bound is the
+of a K7 step's other list the words a search would probe where those
+are fewer than the list), and the 32-bit integer operations its formulas
+need.  The bound is the
 larger of bytes over the card's memory rate and operations over its
 32-bit integer rate.  Nothing here launches or times anything.
 
@@ -36,6 +38,8 @@ K2_OPS_PER_KEY = 2       # subtract, add
 K4_OPS_PER_WORD = 2      # subtract, store
 K5_OPS_PER_SLOT_STEP = POPC + 11  # popcount; ands, shifts, adds, or
 K5_OPS_PER_DOC_STEP = 1    # the min over steps
+K7_OPS_PER_PROBE = 3     # compare, add, shift of one search or merge step
+K7_OPS_PER_WORD = POPC + 12  # popcount; window test, ands, shifts, or, key
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -115,6 +119,27 @@ def k5_plane_reads(groups) -> int:
     """The plane rows K5 fetches over ``[(slots, plan), ...]``: each
     launch's distinct rows, summed over the launches."""
     return int(sum(len(np.unique(np.asarray(s))) for s, _ in groups))
+
+
+def k7_work(base_ns: Iterable[int], other_ns: Iterable[int],
+            need_cont: bool = True, same_term: bool = False) -> dict:
+    """One K7 launch over a chunk of queries: hdr32 + pay32 of each base
+    word read once, and per base word the key, the count and (with
+    ``need_cont``) the continuation written.  A base word's partners are
+    found by the cheaper of a search of the other list (log2 probes a
+    word) or one merge walk of both lists: that many operations, and of
+    the other list the 8 bytes of each word so touched, never more than
+    the list.  The same-term step has one list and needs neither."""
+    base_ns = [int(n) for n in base_ns]
+    other_ns = [0] * len(base_ns) if same_term else [int(n) for n in other_ns]
+    B = sum(base_ns)
+    searched = [nb * int(na).bit_length()
+                for nb, na in zip(base_ns, other_ns)]
+    touched = sum(min(s, na) for s, na in zip(searched, other_ns))
+    probes = sum(min(s, na + nb)
+                 for s, na, nb in zip(searched, other_ns, base_ns))
+    return bound(8 * B + 8 * touched + (12 if need_cont else 8) * B,
+                 K7_OPS_PER_WORD * B + K7_OPS_PER_PROBE * probes)
 
 
 def total(works: Iterable[dict]) -> dict:

@@ -1,6 +1,7 @@
-"""K1 (fused term scoring), K2 (sorted segment-sum), K4 (plane fill) and
-K5 (the exact-phrase bigram chain): Hopper kernels, their plain PyTorch
-versions, and the build of the one kernel library.
+"""K1 (fused term scoring), K2 (sorted segment-sum), K4 (plane fill), K5
+(the exact-phrase bigram chain on dense planes) and K7 (a bigram step of
+the sparse phrase chain): Hopper kernels, their plain PyTorch versions,
+and the build of the one kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -12,7 +13,7 @@ CUDA tensor it launches the kernel or raises; it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
 (``score_term.launches``, ``score_term_rows.launches``,
 ``segment_sum.launches``, ``plane_fill.launches``,
-``phrase_chain.launches``).
+``phrase_chain.launches``, ``merge_step.launches``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     apply_similarity_device,
+    merge_step_plain,
     phrase_counts_dense_planes,
     popcount_i32,
 )
@@ -121,6 +123,9 @@ _ENTRIES = {
     "sa_plane_fill": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _int, _vp],
     "sa_phrase_chain": [_vp, _i64, _vp, _i64, _int, _vp, _i64, _int, _vp,
                         _i64, _vp, _int, _vp],
+    "sa_merge_step": [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int, _int,
+                      _int, _int, _vp, _vp, _vp, _int, _vp],
+    "sa_merge_step_tile": [],
 }
 
 
@@ -491,3 +496,110 @@ def phrase_chain(pool: torch.Tensor, slots, plan, pattern, *, num_docs: int,
 
 
 phrase_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: one bigram step of the sparse exact-phrase chain
+# ---------------------------------------------------------------------------
+def prefix_offsets(ns) -> np.ndarray:
+    """Where each query's words start in a step's outputs: the exclusive
+    prefix sum of the base lengths, int64."""
+    ns = np.asarray(ns, dtype=np.int64)
+    return np.concatenate([[0], np.cumsum(ns)[:-1]]).astype(np.int64)
+
+
+def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
+               other_pays: torch.Tensor, base_off, base_n, other_off,
+               other_n, other_pay_off, *, cont_side: str,
+               same_term: bool = False, blk_bits: int, key_stride: int = 0,
+               min_blk=None, max_blk=None, need_cont: bool = True):
+    """One bigram step of the sparse phrase chain for a chunk of queries.
+
+    Query q matches its *base* words ``hdrs/base_pays[base_off[q] :
+    base_off[q] + base_n[q]]`` (the raw term the continuation is shaped
+    like: the right term of a left-to-right step, ``cont_side="rhs"``, the
+    left one of a right-to-left step, ``"lhs"``) against its *other*
+    words: headers ``hdrs[other_off[q] : + other_n[q]]`` with payloads
+    ``other_pays[other_pay_off[q] : + other_n[q]]`` (the posting payloads
+    for a raw term, the previous step's continuation for a carry).  Both
+    lists are sorted by unique header.  With ``same_term`` (both sides the
+    same list, the first step of a chain) the other arguments are not
+    read.  ``min_blk``/``max_blk`` (both or neither) zero the payloads of
+    words whose block is outside the window; the words stay.
+
+    Returns (keys int32[M], counts f32[M], cont int32[M] or None) over all
+    base words, M = sum(base_n), query q's at ``prefix_offsets(base_n)[q]``
+    in its own order: the flat doc key ``q * key_stride + (hdr >>
+    blk_bits)``, the match count, and the continuation payload (None
+    without ``need_cont``).  Keys are non-decreasing, as K2 takes them.
+    The offsets are host integer sequences, one entry per query."""
+    if cont_side not in ("rhs", "lhs"):
+        raise ValueError(f"cont_side must be rhs or lhs, got {cont_side!r}")
+    dev = hdrs.device
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(base_pays, "base_pays", torch.int32, dev)
+    _check(other_pays, "other_pays", torch.int32, dev)
+    if base_pays.shape != hdrs.shape:
+        raise ValueError("hdrs/base_pays lengths differ")
+    W = hdrs.shape[0]
+    base_off = _host_index(base_off, "base_off", W + 1)
+    base_n = np.asarray(base_n, dtype=np.int64)
+    if same_term:
+        other_off, other_n, other_pay_off = base_off, base_n, base_off
+        other_pays = base_pays
+    other_off = _host_index(other_off, "other_off", W + 1)
+    other_n = np.asarray(other_n, dtype=np.int64)
+    other_pay_off = _host_index(other_pay_off, "other_pay_off",
+                                other_pays.shape[0] + 1)
+    Q = len(base_off)
+    if any(a.shape != (Q,) for a in (base_n, other_off, other_n,
+                                     other_pay_off)):
+        raise ValueError("the per-query offsets must be 1-D of one length")
+    if Q and (base_n.min() < 0 or other_n.min() < 0
+              or (base_off + base_n).max() > W
+              or (other_off + other_n).max() > W
+              or (other_pay_off + other_n).max() > other_pays.shape[0]):
+        raise ValueError("a posting slice runs past its tensor")
+    M = int(base_n.sum())
+    if M >= 2**31 or not 0 <= Q * key_stride < 2**31:
+        raise ValueError("K7 takes fewer than 2^31 base words and keys")
+    if (min_blk is None) != (max_blk is None):
+        raise ValueError("a block window needs min_blk and max_blk")
+    if dev.type == "cpu":
+        keys, counts, cont = merge_step_plain(
+            hdrs, base_pays, other_pays, base_off, base_n, other_off,
+            other_n, other_pay_off, cont_side=cont_side, same_term=same_term,
+            blk_bits=blk_bits, key_stride=key_stride, min_blk=min_blk,
+            max_blk=max_blk)
+        return keys, counts, (cont if need_cont else None)
+    if dev.type != "cuda":
+        raise ValueError(f"no K7 kernel for device {dev}")
+    keys = torch.empty(M, dtype=torch.int32, device=dev)
+    counts = torch.empty(M, dtype=torch.float32, device=dev)
+    cont = (torch.empty(M, dtype=torch.int32, device=dev) if need_cont
+            else None)
+    if M == 0:
+        return keys, counts, cont
+    lib = _get_lib()
+    tile = lib.sa_merge_step_tile()
+    n_tiles = -(-base_n // tile)
+    # the query table, one column per query, then each tile's query
+    queries = np.arange(Q, dtype=np.int64)
+    meta = torch.as_tensor(np.concatenate([
+        base_off, base_n, other_off, other_n, other_pay_off,
+        prefix_offsets(base_n), queries * key_stride,
+        prefix_offsets(n_tiles), np.repeat(queries, n_tiles)]), device=dev)
+    window = ((0, (1 << 18) - 1) if min_blk is None
+              else (int(min_blk), int(max_blk)))
+    err = lib.sa_merge_step(
+        hdrs.data_ptr(), base_pays.data_ptr(), other_pays.data_ptr(),
+        meta.data_ptr(), Q, int(n_tiles.sum()), blk_bits, *window,
+        int(cont_side == "rhs"), int(same_term), keys.data_ptr(),
+        counts.data_ptr(), None if cont is None else cont.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "merge_step")
+    merge_step.launches += 1
+    return keys, counts, cont
+
+
+merge_step.launches = 0

@@ -160,10 +160,7 @@ def take_term_planes(hdrs: torch.Tensor, pays: torch.Tensor, off: int,
         valid = torch.arange(bucket, device=hdrs.device) < n
         h = torch.where(valid, h, PAD_HDR32)
         p = torch.where(valid, p, 0)
-    if min_blk is not None:
-        blk = h & ((1 << blk_bits) - 1)
-        in_win = (blk >= min_blk) & (blk <= max_blk)
-        p = torch.where(in_win, p, 0)
+    p = window_payloads(h, p, min_blk, max_blk, blk_bits)
     return h.contiguous(), p.contiguous()
 
 
@@ -262,3 +259,99 @@ def phrase_counts_dense_planes(planes, pattern, plan, num_docs: int,
             freqs = per_doc if freqs is None else torch.minimum(freqs,
                                                                 per_doc)
     return freqs
+
+
+# ---------------------------------------------------------------------------
+# the exact-phrase chain on doc-sorted posting slices: the plain version of
+# K7 (int32 headers and 18-bit payloads)
+# ---------------------------------------------------------------------------
+def window_payloads(h, p, min_blk, max_blk, blk_bits: int):
+    """Payloads with the words outside the block window zeroed (the words
+    stay, as in take_term_planes); unchanged without a window."""
+    if min_blk is None:
+        return p
+    blk = h & ((1 << blk_bits) - 1)
+    return torch.where((blk >= min_blk) & (blk <= max_blk), p, 0)
+
+
+def _same_term_words(h, p, cont_side: str):
+    """The same-term bigram step on one list (lhs and rhs the same words):
+    per word the adjusted count and the continuation payload.  The
+    cross-block partner is the neighbouring word of the list itself."""
+    counts, overlap = _same_counts_dense(p)
+    if cont_side == "rhs":
+        ph = F.pad(h[:-1], (1, 0), value=-2)
+        adj = ((ph == h - 1) & ((_shift_up(p) >> _TOP) & p & 1).bool())
+        cont = overlap | adj.to(p.dtype)
+    else:
+        nh = F.pad(h[1:], (0, 1), value=-2)
+        adj = ((nh == h + 1) & ((p >> _TOP) & _shift_down(p) & 1).bool())
+        cont = (p & (p >> 1)) | (adj.to(p.dtype) << _TOP)
+    return counts + adj.to(torch.float32), cont
+
+
+def _merge_words(bh, bp, oh, op, cont_side: str):
+    """One bigram step of base words (bh, bp) against other words (oh,
+    op), both sorted by unique header: per base word the match count and
+    the continuation payload.  A lower bound of each base header in
+    ``oh`` finds the same-header partner; the adjacent-block partner
+    (header - 1 for ``rhs``, header + 1 for ``lhs``) is its neighbour."""
+    A = oh.shape[0]
+    if A == 0:
+        inner = adjp = torch.zeros_like(bp)
+    else:
+        j = torch.searchsorted(oh, bh)
+        jc = j.clamp(max=A - 1)
+        hit = (j < A) & (oh[jc] == bh)
+        inner = torch.where(hit, op[jc], 0)
+        if cont_side == "rhs":
+            k = (j - 1).clamp(min=0)
+            ok = (j > 0) & (oh[k] == bh - 1)
+        else:
+            k = (j + hit).clamp(max=A - 1)
+            ok = (j + hit < A) & (oh[k] == bh + 1)
+        adjp = torch.where(ok, op[k], 0)
+    if cont_side == "rhs":
+        overlap = inner & (bp >> 1)
+        adj = (adjp >> _TOP) & bp & 1
+        cont = ((overlap << 1) & _LSB32) | adj
+    else:
+        overlap = bp & (inner >> 1)
+        adj = (bp >> _TOP) & adjp & 1
+        cont = overlap | (adj << _TOP)
+    return _popcount_f32(overlap) + adj.to(torch.float32), cont
+
+
+def merge_step_plain(hdrs, base_pays, other_pays, base_off, base_n,
+                     other_off, other_n, other_pay_off, *, cont_side: str,
+                     same_term: bool = False, blk_bits: int,
+                     key_stride: int = 0, min_blk=None, max_blk=None):
+    """Plain PyTorch K7: one bigram step of the sparse phrase chain for a
+    chunk of queries (the arguments of ``ops/cuda/score.py:merge_step``).
+    Returns (keys int32[M], counts f32[M], cont int32[M]) over the base
+    words of all queries, query q's at the prefix offset of ``base_n``."""
+    keys, counts, conts = [], [], []
+    for q in range(len(base_n)):
+        bo, bn = int(base_off[q]), int(base_n[q])
+        if bn == 0:
+            continue
+        bh = hdrs[bo: bo + bn]
+        bp = window_payloads(bh, base_pays[bo: bo + bn], min_blk, max_blk,
+                             blk_bits)
+        if same_term:
+            c, cont = _same_term_words(bh, bp, cont_side)
+        else:
+            oo, on, po = int(other_off[q]), int(other_n[q]), int(
+                other_pay_off[q])
+            oh = hdrs[oo: oo + on]
+            op = window_payloads(oh, other_pays[po: po + on], min_blk,
+                                 max_blk, blk_bits)
+            c, cont = _merge_words(bh, bp, oh, op, cont_side)
+        keys.append((bh >> blk_bits) + q * key_stride)
+        counts.append(c)
+        conts.append(cont)
+    if not keys:
+        empty = hdrs.new_empty(0)
+        return empty, empty.to(torch.float32), empty.clone()
+    return (torch.cat(keys).to(torch.int32), torch.cat(counts),
+            torch.cat(conts).to(torch.int32))

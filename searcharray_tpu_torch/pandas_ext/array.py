@@ -404,25 +404,22 @@ class SearchArray(ExtensionArray):
         return [self._resolve_tid(t) for t in tokens]
 
     @staticmethod
-    def _check_phrase_options(token, slop, min_posn, max_posn) -> None:
-        """Raise for the phrase options the port does not take yet."""
+    def _check_phrase_options(token, slop) -> None:
+        """Raise for the phrase option the port does not take yet."""
         if isinstance(token, list) and slop:
             raise NotImplementedError(phrase_mod.SLOP_TODO)
-        if isinstance(token, list) and (min_posn is not None
-                                        or max_posn is not None):
-            raise NotImplementedError(phrase_mod.SPARSE_TODO)
 
     def termfreqs(self, token: Union[List[str], str], slop: int = 0,
                   min_posn: Optional[int] = None,
                   max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        self._check_phrase_options(token, slop, min_posn, max_posn)
+        self._check_phrase_options(token, slop)
         tids = self._resolve_tids(token)
         if min(tids) < 0:
             return np.zeros(len(self), dtype=np.float32)
         if isinstance(token, list):
             return self._gather_rows(phrase_mod.phrase_freqs_dense(
-                self.dev, tids))
+                self.dev, tids, min_posn, max_posn))
         return self._gather_rows(
             scoring.termfreqs_dense(self.dev, tids[0], min_posn, max_posn))
 
@@ -440,7 +437,7 @@ class SearchArray(ExtensionArray):
               min_posn: Optional[int] = None,
               max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        self._check_phrase_options(token, slop, min_posn, max_posn)
+        self._check_phrase_options(token, slop)
         tokens = [token] if isinstance(token, str) else token
         # idf covers every query term (a vocabulary miss has df 0)
         dfs = [self.docfreq(t) for t in tokens]
@@ -462,13 +459,16 @@ class SearchArray(ExtensionArray):
             return self._gather_rows(scoring.score_term_dense(
                 self.dev, tids[0], kind=kind, k1=k1, b=b, min_posn=min_posn,
                 max_posn=max_posn, idf=idf))
-        # a repeated phrase scores from the phrase-tf cache (one row
-        # gather + similarity)
-        dense = batch_mod.score_phrase_cached_single(self.dev, tids, kind,
-                                                     k1, b, idf)
+        dense = None
+        if min_posn is None and max_posn is None:
+            # a repeated phrase scores from the phrase-tf cache (one row
+            # gather + similarity); a position window changes the freqs
+            dense = batch_mod.score_phrase_cached_single(self.dev, tids,
+                                                         kind, k1, b, idf)
         if dense is None:
-            dense = phrase_mod.phrase_freqs_dense(self.dev, tids, kind=kind,
-                                                  k1=k1, b=b, idf=idf)
+            dense = phrase_mod.phrase_freqs_dense(
+                self.dev, tids, min_posn, max_posn, kind=kind, k1=k1, b=b,
+                idf=idf)
         return self._gather_rows(dense)
 
     def score_batch(self, queries: List[Union[str, List[str]]],
@@ -495,7 +495,7 @@ class SearchArray(ExtensionArray):
             raise ValueError("per-query slop length must match queries")
         tokens = [self._check_token_arg(q) for q in queries]
         for t, s in zip(tokens, slops):
-            self._check_phrase_options(t, s, None, None)
+            self._check_phrase_options(t, s)
         if fused is None:
             dense = np.stack([self.score(t, similarity=similarity)
                               for t in tokens])

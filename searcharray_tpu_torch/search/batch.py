@@ -13,12 +13,16 @@ Queries are deduplicated, classified and grouped:
   freqs of every query in the group, then similarity + top-k;
 * ``term`` (corpus too large for dense planes): every query's posting
   slice is offset into a flat query-major key space (``q * Npad + doc``)
-  and reduced by ONE sorted segment-sum, K2, for the whole group.
+  and reduced by ONE sorted segment-sum, K2, for the whole group;
+* ``phrase`` (exact phrases the dense engine does not take: the corpus
+  is too large for dense planes, or the phrase has more terms than K5 or
+  the plane pool takes): the sparse chain on the posting slices, each
+  chain step ONE K7 launch for all queries of the chunk, reduced by ONE
+  K2 launch over the same flat key space; then the min over steps.
 
 With ``top_k`` every group's result is packed into int32 [Qg, 2k] (f32
 score bits ‖ doc indices), so one device-to-host copy returns a batch.
-Phrases off the dense engine and the candidate-subset engine are not
-ported yet and raise ``NotImplementedError`` (slop phrases are rejected
+The candidate-subset engine is not ported yet (slop phrases are rejected
 by the facade).
 """
 from __future__ import annotations
@@ -32,7 +36,11 @@ from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.search import dense
-from searcharray_tpu_torch.search.phrase import SPARSE_TODO, chain_key
+from searcharray_tpu_torch.search.phrase import (
+    chain_key,
+    sparse_chain_freqs,
+    trim_spans,
+)
 from searcharray_tpu_torch.search.scoring import (
     apply_similarity_device,
     host_idf,
@@ -47,7 +55,8 @@ _DOC_BLOCK = 1024  # Npad is a multiple of it (keeps query rows aligned)
 # flat key space (Qchunk * Npad) stays below 2**29 per group launch
 _MAX_FLAT = 1 << 29
 
-# max sliced posting words per sparse group launch
+# max sliced posting words per sparse group launch (term: its bucket per
+# query; phrase: the words of all terms of the chunk's queries)
 _SPARSE_CHUNK_WORDS = 1 << 26
 
 
@@ -108,6 +117,48 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
         return dense.pack_topk(out, top_k)
 
     return f
+
+
+def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
+                     kind: str, k1: float, b: float, top_k: Optional[int]):
+    """The sparse phrase group: fn(hdrs, pays, doc_lens, avgdl, offs, ns,
+    idfs) -> f32[Qg, N] scores, or the packed top-k with ``top_k``.
+    ``offs``/``ns`` are host int [Qg, T] arrays of exact posting slices
+    (no bucket padding: K7 takes each query's own lengths)."""
+    N = dev.corpus_size
+    Npad = _npad(N)
+    blk_bits = dev.blk_bits
+
+    def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
+        freqs = sparse_chain_freqs(hdrs, pays, offs, ns, plan_key, pattern,
+                                   blk_bits=blk_bits, key_stride=Npad)[:, :N]
+        idf_t = torch.as_tensor(np.asarray(idfs, np.float32),
+                                device=hdrs.device)
+        out = apply_similarity_device(kind, freqs, doc_lens[None, :],
+                                      idf_t[:, None], avgdl, k1, b)
+        if top_k is None:
+            return out
+        return dense.pack_topk(out, top_k)
+
+    return f
+
+
+def _phrase_chunks(grows, max_rows: int):
+    """Cut a sparse phrase group into chunks of at most ``max_rows``
+    queries and _SPARSE_CHUNK_WORDS posting words (a query larger than
+    that is a chunk of its own)."""
+    chunks, cur, words = [], [], 0
+    for row in grows:
+        w = int(row[2].sum())
+        if cur and (len(cur) >= max_rows
+                    or words + w > _SPARSE_CHUNK_WORDS):
+            chunks.append(cur)
+            cur, words = [], 0
+        cur.append(row)
+        words += w
+    if cur:
+        chunks.append(cur)
+    return chunks
 
 
 def _phrase_tf_route(dev: DeviceIndex, sig, tids, fkey, budget) -> bool:
@@ -176,7 +227,10 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     rare terms and phrases take the dense groups too.  Term queries on
     corpora too large for dense planes are ``term``, keyed by posting
     bucket; phrases there, and phrases of more than CHAIN_MAX_TERMS terms
-    (K5's cap), need the sparse chain and raise before any routing."""
+    (K5's cap) or more unique terms than the plane pool takes, are
+    ``phrase`` (the sparse chain, keyed by term count, plan and pattern;
+    their rows hold the slices trimmed to the rarest term's doc range) and
+    never take a tf-pool slot."""
     dense_ok = dense.dense_eligible(dev)
     ptf_budget = _ptf_budget(dev) if dense_ok else [0]
     groups: dict = {}
@@ -194,20 +248,24 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
         else:
             if min(lengths) == 0:
                 continue
-            if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
-                raise NotImplementedError(SPARSE_TODO)
+            # the plan splits at the rarest term by the untrimmed lengths
             plan_key, pattern = chain_key(dev, tids)
             sig = (tuple(tids), 0)
-            if _phrase_tf_route(dev, sig, tids,
-                                ("ph", len(tids), plan_key, pattern),
-                                ptf_budget):
+            if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
+                spans = trim_spans(dev, spans)  # rarest-term pre-slice
+                lengths = [s[1] for s in spans]
+                gkey, row_tids = ("phrase", len(tids), plan_key,
+                                  pattern), tids
+            elif _phrase_tf_route(dev, sig, tids,
+                                  ("ph", len(tids), plan_key, pattern),
+                                  ptf_budget):
                 gkey, row_tids = ("dterm",), [sig]
             else:
                 gkey, row_tids = ("dphrase", len(tids), plan_key,
                                   pattern), tids
         groups.setdefault(gkey, []).append(
-            (qi, np.asarray([s[0] for s in spans], np.int32),
-             np.asarray(lengths, np.int32), idf, row_tids))
+            (qi, np.asarray([s[0] for s in spans], np.int64),
+             np.asarray(lengths, np.int64), idf, row_tids))
     return groups
 
 
@@ -271,11 +329,13 @@ def score_batch_fused(dev: DeviceIndex,
             # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
             # rows must fit the pool beside one free slot
             max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
-        else:
+        elif gkey[0] == "term":
             # bound by the flat segment-sum key space AND by sliced
             # posting-bucket words
             max_chunk = max(1, min(_MAX_FLAT // Npad,
                                    _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
+        else:
+            max_chunk = max(1, _MAX_FLAT // Npad)  # words: _phrase_chunks
         if gkey[0] == "dterm":
             # a row keyed by a phrase signature whose tf row is not yet
             # filled pulls its terms' planes into the wave's fill: cut
@@ -295,6 +355,8 @@ def score_batch_fused(dev: DeviceIndex,
                 cur_planes |= p_t
             if cur_rows:
                 chunks.append(cur_rows)
+        elif gkey[0] == "phrase":
+            chunks = _phrase_chunks(grows, max_chunk)
         else:
             chunks = [grows[c0: c0 + max_chunk]
                       for c0 in range(0, len(grows), max_chunk)]
@@ -305,6 +367,9 @@ def score_batch_fused(dev: DeviceIndex,
                 spec["tf_tids"] = [r[4][0] for r in chunk]
             elif gkey[0] == "dphrase":
                 spec["plane_tids"] = [t for r in chunk for t in r[4]]
+            elif gkey[0] == "phrase":
+                spec["offs"] = np.stack([r[1] for r in chunk])
+                spec["ns"] = np.stack([r[2] for r in chunk])
             else:
                 spec["offs"] = np.asarray([r[1][0] for r in chunk], np.int64)
                 spec["ns"] = np.asarray([r[2][0] for r in chunk], np.int64)
@@ -318,7 +383,7 @@ def score_batch_fused(dev: DeviceIndex,
     cur_p: set = set()
     cur_t: set = set()
     for s in specs:
-        if s["gkey"][0] == "term":
+        if s["gkey"][0] in ("term", "phrase"):
             continue
         p_t = set(s.get("plane_tids", ()))
         t_t = set(s.get("tf_tids", ()))
@@ -362,11 +427,14 @@ def score_batch_fused(dev: DeviceIndex,
             rows += [r[0] for r in s["chunk"]]
     for s in specs:
         gkey = s["gkey"]
-        if gkey[0] != "term":
+        if gkey[0] not in ("term", "phrase"):
             continue
         DISPATCHES[0] += 1
-        fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
-                            top_k)
+        if gkey[0] == "term":
+            fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
+                                top_k)
+        else:
+            fn = _phrase_group_fn(dev, gkey[2], gkey[3], kind, k1, b, top_k)
         outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl, s["offs"],
                        s["ns"], s["idfs"]))
         rows += [r[0] for r in s["chunk"]]

@@ -139,3 +139,24 @@ def test_import_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=repo)
     assert res.returncode == 0, res.stderr
+
+
+def test_c_entries_match_their_declared_argument_types():
+    """Every ``extern "C"`` entry of csrc/ is declared in the wrapper
+    module with as many argument types as the source gives it
+    parameters (ctypes checks no signature itself)."""
+    import glob
+    import os
+    import re
+
+    from searcharray_tpu_torch.ops.cuda import score as kc
+
+    found = {}
+    for path in glob.glob(os.path.join(kc.CSRC_DIR, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert found == {name: len(types)
+                     for name, types in kc._ENTRIES.items()}

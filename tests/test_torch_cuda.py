@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K4 and K5 against their plain PyTorch
+"""The CUDA kernels K1, K2, K4, K5 and K7 against their plain PyTorch
 versions, and the port's main path on a card against the same path on
 the CPU.
 
@@ -574,3 +574,157 @@ def test_k2_and_k4_with_the_warp_search(card, seed):
                         np.asarray([5, 1, 0, 3]), pools[1])
     torch.cuda.synchronize()
     assert torch.equal(pools[0], pools[1])
+
+
+# ---------------------------------------------------------------------------
+# K7: the merge step of the sparse phrase chain
+# ---------------------------------------------------------------------------
+K7_BLK_BITS = 3
+
+
+def posting_lists(seed, sizes, num_docs):
+    """Doc-sorted lists of unique int32 headers (num_docs docs of 8
+    blocks) with 18-bit payloads, bits 17 and 0 often set, laid end to end
+    with their (offsets, lengths)."""
+    rng = np.random.default_rng(seed)
+    NS = num_docs << K7_BLK_BITS
+    hs, ps = [], []
+    for n in sizes:
+        h = np.unique(rng.integers(0, NS, n)).astype(np.int32)
+        p = rng.integers(0, 1 << 18, len(h))
+        p[rng.random(len(h)) < 0.3] |= (1 << 17) | 1
+        hs.append(h)
+        ps.append(p.astype(np.int32))
+    ns = np.asarray([len(h) for h in hs], np.int64)
+    return (torch.from_numpy(np.concatenate(hs + [np.zeros(1, np.int32)])),
+            torch.from_numpy(np.concatenate(ps + [np.zeros(1, np.int32)])),
+            kc.prefix_offsets(ns), ns)
+
+
+def k7_both(card, args, **kw):
+    """K7 and its plain version on the same card tensors: bit-equal."""
+    before = kc.merge_step.launches
+    got = kc.merge_step(*args, **kw)
+    want = kc.merge_step_plain(*args, **{k: v for k, v in kw.items()
+                                         if k != "need_cont"})
+    torch.cuda.synchronize()
+    M = int(np.sum(args[4]))
+    assert kc.merge_step.launches == before + (1 if M else 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kw.get("need_cont", True):
+        assert torch.equal(got[2], want[2])
+    else:
+        assert got[2] is None
+    return got
+
+
+@pytest.mark.parametrize("window", [None, (0, 0), (2, 5)])
+@pytest.mark.parametrize("cont_side", ["rhs", "lhs"])
+@pytest.mark.parametrize("sizes", [(0, 0), (0, 1000), (1000, 0), (1, 1),
+                                   (1023, 1025), (5000, 5000),
+                                   (300, 2_000_000), (2_000_000, 300),
+                                   (3_000_000, 2_500_000)])
+def test_k7_kernel_matches_plain(card, sizes, cont_side, window):
+    num_docs = max(50, max(sizes) // 3)
+    hdrs, pays, offs, ns = posting_lists(sum(sizes) + 1, sizes, num_docs)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    mb = dict(min_blk=window[0], max_blk=window[1]) if window else {}
+    for need_cont in (True, False):
+        k7_both(card, (hdrs, pays, pays, [offs[0]], [ns[0]], [offs[1]],
+                       [ns[1]], [offs[1]]), cont_side=cont_side,
+                blk_bits=K7_BLK_BITS, need_cont=need_cont, **mb)
+
+
+@pytest.mark.parametrize("window", [None, (1, 6)])
+@pytest.mark.parametrize("cont_side", ["rhs", "lhs"])
+@pytest.mark.parametrize("n", [1, 1024, 1025, 700_000])
+def test_k7_same_term_step_matches_plain(card, n, cont_side, window):
+    hdrs, pays, offs, ns = posting_lists(n, (n,), max(10, n // 5))
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    mb = dict(min_blk=window[0], max_blk=window[1]) if window else {}
+    _, counts, _ = k7_both(card, (hdrs, pays, pays, offs, ns, offs, ns, offs),
+                           cont_side=cont_side, same_term=True,
+                           blk_bits=K7_BLK_BITS, **mb)
+    assert n < 1000 or counts.sum() > 0
+
+
+@pytest.mark.parametrize("cont_side", ["rhs", "lhs"])
+def test_k7_carry_step_and_unaligned_views(card, cont_side):
+    """A second step reads the first step's continuation buffer beside the
+    first base's headers; the planes are views at an odd word offset."""
+    hdrs, pays, offs, ns = posting_lists(3, (40_000, 50_000, 45_000), 30_000)
+    pad = torch.zeros(3, dtype=torch.int32)
+    hdrs = torch.cat([pad, hdrs]).to(card)[3:]
+    pays = torch.cat([pad, pays]).to(card)[3:]
+    kw = dict(cont_side=cont_side, blk_bits=K7_BLK_BITS)
+    _, _, cont = k7_both(card, (hdrs, pays, pays, [offs[1]], [ns[1]],
+                                [offs[0]], [ns[0]], [offs[0]]), **kw)
+    carry = torch.cat([pad[:1].to(card), cont])[1:]
+    _, counts, _ = k7_both(card, (hdrs, pays, carry, [offs[2]], [ns[2]],
+                                  [offs[1]], [ns[1]], [0]), **kw)
+    assert counts.sum() > 0
+
+
+def test_k7_batched_form_with_empty_slices(card):
+    sizes = (3000, 200_000, 0, 70_000, 1024, 5, 2048)
+    hdrs, pays, offs, ns = posting_lists(9, sizes, 60_000)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    base = [1, 2, 0, 4, 3, 6, 5]    # query 1 has no base words,
+    other = [0, 1, 2, 3, 4, 5, 6]   # query 2 no other words
+    stride = 60_416
+    keys, counts, _ = k7_both(
+        card, (hdrs, pays, pays, offs[base], ns[base], offs[other],
+               ns[other], offs[other]), cont_side="rhs",
+        blk_bits=K7_BLK_BITS, key_stride=stride)
+    assert bool((keys[1:] >= keys[:-1]).all())
+    got = kc.segment_sum(keys, counts, num_docs=len(base) * stride)
+    want = kc.segment_sum_plain(keys, counts, num_docs=len(base) * stride)
+    assert torch.equal(got, want)
+    assert not got.reshape(len(base), stride)[2].any()
+
+
+def test_k7_rejects_bad_requests(card):
+    hdrs, pays, offs, ns = posting_lists(2, (100, 100), 50)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    args = [hdrs, pays, pays, [offs[0]], [ns[0]], [offs[1]], [ns[1]],
+            [offs[1]]]
+    with pytest.raises(ValueError, match="cont_side"):
+        kc.merge_step(*args, cont_side="mid", blk_bits=K7_BLK_BITS)
+    with pytest.raises(ValueError, match="past"):
+        kc.merge_step(*args[:6], [ns[1] + 2], [offs[1]], cont_side="rhs",
+                      blk_bits=K7_BLK_BITS)
+    with pytest.raises(ValueError):
+        kc.merge_step(hdrs, pays.cpu(), pays, *args[3:], cont_side="rhs",
+                      blk_bits=K7_BLK_BITS)
+
+
+def test_sparse_phrase_path_on_card_matches_cpu(card, monkeypatch):
+    """Windowed phrases, and a corpus that is not dense-eligible, through
+    the facade on the card and on the CPU."""
+    from searcharray_tpu_torch.search import dense
+
+    rng = np.random.default_rng(31)
+    vocab = ["red", "fox", "the", "dog"] + [f"w{i}" for i in range(12)]
+    docs = [" ".join(rng.choice(vocab, size=rng.integers(1, 70)))
+            for _ in range(5000)]
+    cpu = SearchArray.index(docs, device="cpu")
+    gpu = SearchArray.index(docs, device="cuda")
+    qs = [["red", "fox"], ["the", "the"], "dog", ["the", "red", "fox", "w3"],
+          ["fox", "red", "fox"], ["w1", "the", "red", "w2", "fox"]]
+    before = kc.merge_step.launches
+    for q in qs:
+        if isinstance(q, list):
+            win = dict(min_posn=18, max_posn=53)
+            np.testing.assert_array_equal(gpu.termfreqs(q, **win),
+                                          cpu.termfreqs(q, **win))
+            np.testing.assert_allclose(gpu.score(q, **win),
+                                       cpu.score(q, **win), rtol=1e-6,
+                                       atol=1e-7)
+    monkeypatch.setattr(dense, "DENSE_TERM_BYTES_LIMIT", 0)
+    for block in (True, False):
+        ws, wi = cpu.score_batch(qs, top_k=10)
+        out = gpu.score_batch(qs, top_k=10, block=block)
+        gs, gi = out if block else out()
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+    assert kc.merge_step.launches > before

@@ -117,6 +117,35 @@ def test_k5_work_counts_each_distinct_plane_once(slots, distinct):
     assert w["bound_by"] == "bytes"
 
 
+def test_k7_work_is_both_lists_read_and_the_base_written():
+    # lists of like size: a merge walk (A + B compares) beats B searches
+    w = rl.k7_work([1000], [1000])
+    assert w["bytes"] == 8 * 1000 + 8 * 1000 + 12 * 1000
+    assert w["ops"] == rl.K7_OPS_PER_WORD * 1000 + rl.K7_OPS_PER_PROBE * 2000
+    # no continuation on a chain's last step: 8 bytes written a word
+    assert rl.k7_work([1000], [1000], need_cont=False)["bytes"] == 24 * 1000
+    # a rare base against a stopword: 21 probes a word, and only the
+    # probed words of the other list
+    w = rl.k7_work([10], [2_000_000])
+    assert w["bytes"] == 8 * 10 + 8 * 210 + 12 * 10
+    assert w["ops"] == rl.K7_OPS_PER_WORD * 10 + rl.K7_OPS_PER_PROBE * 210
+    # a stopword base against a rare other list: the list whole
+    w = rl.k7_work([2_000_000], [10])
+    assert w["bytes"] == 20 * 2_000_000 + 8 * 10
+    # nothing to search: no other list, or the same-term step
+    for w in (rl.k7_work([500], [0]),
+              rl.k7_work([500], [500], same_term=True)):
+        assert w["bytes"] == 20 * 500
+        assert w["ops"] == rl.K7_OPS_PER_WORD * 500
+    # a chunk is the sum of its queries
+    both = rl.k7_work([1000, 10], [1000, 2_000_000])
+    parts = rl.total([rl.k7_work([1000], [1000]),
+                      rl.k7_work([10], [2_000_000])])
+    assert both == parts
+    # at the card's rates a large step is bound by its bytes
+    assert rl.k7_work([3_000_000], [2_500_000])["bound_by"] == "bytes"
+
+
 def test_k5_work_has_no_halo():
     """A 32-term chain reads each of its planes once: the bytes do not
     grow with the steps, only the operations do."""

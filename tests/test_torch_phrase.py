@@ -1,7 +1,7 @@
 """Port parity for exact phrases on the dense plane engine: the plane fill
 (K4's plain version), the bigram chain (K5's plain version) and the
 facade's phrase paths, against the JAX package on the same numpy-seeded
-inputs."""
+inputs.  The sparse chain's own cases are in test_torch_sparse_phrase.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -253,12 +253,17 @@ def test_plane_pool_exhaustion_raises_like_jax(monkeypatch):
     gs, gi = tarr.score_batch(qs, top_k=5)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
-    # a phrase with more unique terms than the pool takes needs the sparse
-    # chain, which the JAX package runs and the port does not have yet
+    # a phrase with more unique terms than the pool takes runs the sparse
+    # chain in both packages
+    docs = make_docs(seed=3)
     long = [f"w{i}" for i in range(8)]
-    assert np.all(np.isfinite(jarr.score(long)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tarr.score(long)
+    docs[4] = " ".join(long) + " " + docs[4]
+    jarr, tarr = make_pair(docs, autowarm=False)
+    assert not dense.phrase_fits_pool(tarr.dev, list(range(8)))
+    np.testing.assert_array_equal(tarr.termfreqs(long), jarr.termfreqs(long))
+    assert tarr.termfreqs(long)[4] >= 1
+    np.testing.assert_allclose(tarr.score(long), jarr.score(long), rtol=1e-6,
+                               atol=1e-7)
 
 
 def phrase_sigs(dev):
@@ -267,21 +272,27 @@ def phrase_sigs(dev):
 
 @pytest.mark.parametrize("call", ["score", "termfreqs", "score_batch"])
 def test_phrase_above_the_chain_cap_raises_every_time(call):
-    """A phrase of more than CHAIN_MAX_TERMS terms is routed nowhere: every
-    encounter raises, and no tf-pool slot or recipe is left for it (a
-    promoted signature whose K5 fill raised would otherwise read a row
-    that was never filled)."""
-    jarr, tarr = make_pair(make_docs(seed=11))
+    """A phrase of more than CHAIN_MAX_TERMS terms no longer raises: it
+    takes the sparse chain, equals the JAX package's result every time,
+    and no tf-pool slot or recipe is left for it (a promoted signature
+    would have K5 fill a row it cannot take)."""
+    docs = make_docs(seed=11)
     long = (["red", "fox", "the", "dog"] * 9)[:dense.CHAIN_MAX_TERMS + 1]
-    assert np.all(np.isfinite(jarr.score(long)))
+    docs[2] = " ".join(long) + " " + docs[2]
+    jarr, tarr = make_pair(docs)
     for _ in range(3):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            if call == "score":
-                tarr.score(long)
-            elif call == "termfreqs":
-                tarr.termfreqs(long)
-            else:
-                tarr.score_batch(["red", long], top_k=3)
+        if call == "score":
+            got, want = tarr.score(long), jarr.score(long)
+        elif call == "termfreqs":
+            got, want = tarr.termfreqs(long), jarr.termfreqs(long)
+            np.testing.assert_array_equal(got, want)
+        else:
+            got, want = (a.score_batch(["red", long], top_k=3)
+                         for a in (tarr, jarr))
+            np.testing.assert_array_equal(got[1], want[1])
+            got, want = got[0], want[0]
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        assert got.max() > 0
     assert not phrase_sigs(tarr.dev) and not tarr.dev.phrase_recipes
     capped = long[:dense.CHAIN_MAX_TERMS]
     np.testing.assert_array_equal(tarr.termfreqs(capped),
@@ -368,8 +379,12 @@ def test_last_slot_bit17_reads_across_the_doc_boundary(terms):
 def test_unported_phrase_paths_raise(pair, call, monkeypatch):
     _, tarr = pair
     if call == "window":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tarr.termfreqs(["red", "fox"], min_posn=0, max_posn=17)
+        # ported: a windowed phrase equals the JAX package's freqs
+        jarr, _ = pair
+        got = tarr.termfreqs(["red", "fox"], min_posn=0, max_posn=17)
+        np.testing.assert_array_equal(
+            got, jarr.termfreqs(["red", "fox"], min_posn=0, max_posn=17))
+        assert 0 < got.sum() < tarr.termfreqs(["red", "fox"]).sum()
     elif call == "slop":
         with pytest.raises(NotImplementedError, match="item 9"):
             tarr.score(["red", "fox"], slop=1)
@@ -377,8 +392,13 @@ def test_unported_phrase_paths_raise(pair, call, monkeypatch):
         with pytest.raises(NotImplementedError, match="item 9"):
             tarr.score_batch(["red", ["red", "fox"]], slop=[0, 2], top_k=3)
     else:
-        arr = SearchArray.index(make_docs(n=50), device="cpu")
+        # ported: phrases on a corpus that is not dense-eligible
+        jarr, arr = make_pair(make_docs(n=50))
         monkeypatch.setattr(dense, "DENSE_TERM_BYTES_LIMIT", 0)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            arr.score_batch([["red", "fox"]], top_k=3)
+        monkeypatch.setattr(jdense, "DENSE_TERM_BYTES_LIMIT", 0)
+        ws, wi = jarr.score_batch([["red", "fox"]], top_k=3)
+        gs, gi = arr.score_batch([["red", "fox"]], top_k=3)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+        assert gs[0, 0] > 0
         assert arr.score_batch(["red", "fox"], top_k=3)[0].shape == (2, 3)

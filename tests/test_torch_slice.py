@@ -220,12 +220,17 @@ def test_pool_exhaustion_raises_like_jax(monkeypatch):
                                   "setitem", "positions", "mesh",
                                   "data_dir"])
 def test_unported_parts_raise(pair, call):
-    _, tarr = pair
+    jarr, tarr = pair
+    if call == "phrase_score":
+        # ported: a windowed phrase takes the sparse chain
+        got = tarr.score(["alpha", "beta"], min_posn=0, max_posn=17)
+        np.testing.assert_allclose(
+            got, jarr.score(["alpha", "beta"], min_posn=0, max_posn=17),
+            rtol=1e-6, atol=1e-7)
+        assert got.max() > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "phrase_score":
-            # exact phrases are ported; windowed ones need the sparse chain
-            tarr.score(["alpha", "beta"], min_posn=0, max_posn=17)
-        elif call == "phrase_batch":
+        if call == "phrase_batch":
             tarr.score_batch([["alpha", "beta"]], top_k=3, slop=2)
         elif call == "setitem":
             tarr[0] = {"a": 1}
