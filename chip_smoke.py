@@ -9,9 +9,9 @@ entry points a user calls, and checks it:
 1. environment: a CUDA device, torch/CUDA versions, the card's name and
    power limit;
 2. build: the hand-written kernels K1 (csrc/score_term.cu), K2
-   (csrc/segment_sum.cu), K4 (csrc/plane_fill.cu), K5
-   (csrc/phrase_chain.cu) and K7 (csrc/merge_step.cu) compile with nvcc
-   for sm_90a;
+   (csrc/segment_sum.cu), K3 (csrc/topk.cu), K4 (csrc/plane_fill.cu), K5
+   (csrc/phrase_chain.cu), K6 (csrc/span_window.cu) and K7
+   (csrc/merge_step.cu) compile with nvcc for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
    ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
@@ -22,6 +22,15 @@ entry points a user calls, and checks it:
    the cached rows), with phrases that repeat a term and one whose chain
    splits in two halves.  Each result is held to a numpy oracle computed
    from the host postings (phrase freqs exactly, scores to rtol 1e-6).
+   Every ranked result is K3's.  Then slop phrases on the dense planes
+   (K6): three ``score_batch`` calls of bench.py's mixed request (120
+   term and phrase queries and 24 slop-2 phrases, per-query ``slop``):
+   the window groups, the promotion into tf-pool rows that K6 fills, the
+   cached rows; ``score`` and ``termfreqs`` of each slop shape and of a
+   repeated-term stopword phrase at the widest window (w = 17), held to
+   an oracle that counts each term's positions per window by prefix
+   sums; and slop phrases the dense window cannot take, which must raise
+   and leave the pools alone.
    Then the same term ``score_batch`` on a 40k-doc index with one
    ~220k-token document, which is too large for dense planes and takes
    the sparse term group (K2).  Then the sparse phrase chain (K7, each
@@ -43,15 +52,23 @@ entry points a user calls, and checks it:
    long-document batch, of the 1M sparse term group and of its uniform
    control, K4 on the batch's plane rows, K5 on each phrase
    group of the batch, on the serving mix's rare phrases and on tf-pool
-   rows, K7 on every step the windowed phrases and the long-document mix
-   launched, K2 on those steps' keys), with their times: each kernel's
-   own device time from ``torch.profiler``, the wrapper's time from CUDA events, the bytes its
-   work needs and the bound they give (``ops/cuda/roofline.py``), the
-   plain version's times and, for K2, one ``index_add_`` call's;
+   rows, K3 on the score blocks of a mixed request for k on both sides of
+   its sort cap, on a one-value row and on a [150, 1M] block with ties
+   planted at tile edges, K6 on every window launch and tf-row fill of a
+   mixed request, K7 on every step the windowed phrases and the
+   long-document mix launched, K2 on those steps' keys), with their
+   times: each kernel's own device time from ``torch.profiler``, the
+   wrapper's time from CUDA events, the bytes its work needs and the
+   bound they give (``ops/cuda/roofline.py``), the plain version's times
+   and, for K2, one ``index_add_`` call's, for K3 the plain
+   composition's;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
-   a serving mix of terms and phrases; the long-document index, terms
-   and the mix), a windowed phrase's latency and memory, each beside the card's name and power limit; the kernels
-   line; the result line.
+   a serving mix of terms and phrases, with and without the 24 slop
+   phrases; the long-document index, terms and the mix), a profile of
+   one ``block=False`` serving call (its kernels by device time, and
+   that nothing synchronises before ``collect()``), a windowed phrase's
+   latency and memory, each beside the card's name and power limit; the
+   kernels line; the result line.
 
     python3 chip_smoke.py --parent-csrc DIR
 
@@ -89,6 +106,9 @@ WIN_FREQS = dict(min_posn=18, max_posn=53)   # the two blocks after it
 # rarest term ("purpose")
 EXTRA_PHRASES = [["the", "the"], ["what", "is", "purpose", "purpose"],
                  ["is", "the", "purpose", "of", "the"]]
+SLOP = 2                       # bench.py's slop phrases
+WIDE_SLOP = (["the", "of", "the"], 15)   # w = 17, "the" twice
+K3_TILE = 16384                # elements of a row per block (csrc/topk.cu)
 LSB18 = np.uint32((1 << 18) - 1)
 
 
@@ -281,6 +301,7 @@ _PLANES: dict = {}
 _FREQS: dict = {}
 _ORACLE: dict = {}
 DENSE_ORACLE_SLOTS = 1 << 24   # larger planes take the sparse oracle
+RARE_ORACLE_WORDS = 1 << 14    # and so do phrases with a rarer term
 
 
 def oracle_phrase_freqs(dev, terms, window=None, sparse=None):
@@ -289,10 +310,16 @@ def oracle_phrase_freqs(dev, terms, window=None, sparse=None):
     a phrase of four or more terms).  ``window`` is a (min_posn,
     max_posn) pair: bitmaps outside its blocks are zeroed first.  On
     dense planes, or (``sparse``; by default where the planes would pass
-    DENSE_ORACLE_SLOTS) on the posting lists.  Memoized per (index,
+    DENSE_ORACLE_SLOTS or a term has fewer than RARE_ORACLE_WORDS words)
+    on the posting lists.  Memoized per (index,
     phrase, window, form)."""
     if sparse is None:
-        sparse = dev.corpus_size << dev.blk_bits > DENSE_ORACLE_SLOTS
+        # a phrase with a rare term costs the posting-list form a few
+        # searches, the dense form passes over whole planes
+        rarest = min(int(dev.postings.lengths[dev.vocab.get_term_id(t)])
+                     for t in terms)
+        sparse = (dev.corpus_size << dev.blk_bits > DENSE_ORACLE_SLOTS
+                  or rarest < RARE_ORACLE_WORDS)
     key = (id(dev), tuple(terms), window, sparse)
     if key not in _FREQS:
         _FREQS[key] = _oracle_phrase_freqs(dev, terms, window, sparse)
@@ -329,23 +356,86 @@ def _oracle_phrase_freqs(dev, terms, window, sparse):
     return freqs.astype(np.float32)
 
 
-def oracle_scores(dev, query, window=None, sparse=None):
-    """BM25 of one term or exact phrase over the corpus of a DeviceIndex,
-    from its host postings (zeros for a vocabulary miss)."""
+def oracle_scores(dev, query, window=None, sparse=None, slop=0):
+    """BM25 of one term, exact phrase or (``slop``) slop phrase over the
+    corpus of a DeviceIndex, from its host postings (zeros for a
+    vocabulary miss)."""
     terms = [query] if isinstance(query, str) else list(query)
-    key = (id(dev), tuple(terms), window, sparse)
+    if len(terms) == 1:
+        slop = 0   # a one-term query ignores it
+    key = (id(dev), tuple(terms), window, sparse, slop)
     if key in _ORACLE:
         return _ORACLE[key]
     n = dev.corpus_size
     if any(t not in dev.vocab for t in terms):
         return np.zeros(n, np.float32)
     tids = [dev.vocab.get_term_id(t) for t in terms]
-    tf = (oracle_tf(dev.postings, tids[0], n) if len(tids) == 1
-          else oracle_phrase_freqs(dev, terms, window, sparse))
+    if len(tids) == 1:
+        tf = oracle_tf(dev.postings, tids[0], n)
+    elif slop:
+        tf = oracle_span_freqs(dev, terms, slop)
+    else:
+        tf = oracle_phrase_freqs(dev, terms, window, sparse)
     _ORACLE[key] = oracle_bm25(tf, dev.doc_lens_np,
                                [int(dev.doc_freqs[t]) for t in tids], n,
                                dev.avg_doc_length)
     return _ORACLE[key]
+
+
+def oracle_span_freqs(dev, terms, slop):
+    """Slop phrase freqs per doc: the anchor term's positions (the
+    distinct term with the fewest posting words, the first of them) that
+    lie in some window of w + 1 = n + slop positions holding every
+    distinct term at least as often as the query names it.  Counted from
+    each doc's positions: per term a prefix sum of its position raster
+    gives every window's count; a prefix sum of the windows that pass
+    gives, per anchor position, whether one of them covers it.  No
+    dilation and no shift across slots.  Memoized."""
+    key = (id(dev), tuple(terms), "slop", slop)
+    if key in _FREQS:
+        return _FREQS[key]
+    n, bb = dev.corpus_size, dev.blk_bits
+    S = 1 << bb
+    tids = [dev.vocab.get_term_id(t) for t in terms]
+    uniq = list(dict.fromkeys(tids))
+    mults = [tids.count(t) for t in uniq]
+    w = len(tids) + slop - 1
+    anchor = uniq[int(np.argmin([int(dev.postings.lengths[t])
+                                 for t in uniq]))]
+    for t in uniq:
+        if (id(dev), t) not in _PLANES:
+            _PLANES[(id(dev), t)] = oracle_plane(dev.postings, t, n, bb)
+    planes = {t: _PLANES[(id(dev), t)].reshape(n, S) for t in uniq}
+    has_all = np.ones(n, bool)
+    for t in uniq:
+        has_all &= planes[t].any(axis=1)
+    docs = np.flatnonzero(has_all)   # only these can hold a window
+    freqs = np.zeros(n, np.float32)
+    L = S * 18
+    for lo in range(0, len(docs), 1 << 16):
+        d = docs[lo: lo + (1 << 16)]
+        ok = np.ones((len(d), L), bool)
+        for t, m in zip(uniq, mults):
+            # the 18 position bits of every slot, as bytes of 0 and 1
+            raster = np.unpackbits(
+                planes[t][d].astype("<u4").view(np.uint8).reshape(
+                    len(d), S, 4), axis=2, bitorder="little")[:, :, :18]
+            raster = raster.reshape(len(d), L)
+            if t == anchor:
+                anchor_bits = raster.astype(bool)
+            # csum[:, s] = occurrences before position s, the doc padded
+            # with w + 1 empty positions
+            csum = np.zeros((len(d), L + w + 2), np.int16)
+            np.cumsum(raster, axis=1, dtype=np.int16, out=csum[:, 1: L + 1])
+            csum[:, L + 1:] = csum[:, L: L + 1]
+            ok &= csum[:, w + 1: w + 1 + L] - csum[:, :L] >= m
+        # windows [s, s + w] that pass, s in [p - w, p], for position p
+        osum = np.zeros((len(d), L + w + 1), np.int16)
+        np.cumsum(ok, axis=1, dtype=np.int16, out=osum[:, w + 1:])
+        covered = osum[:, w + 1:] != osum[:, :L]
+        freqs[d] = (anchor_bits & covered).sum(axis=1)
+    _FREQS[key] = freqs
+    return freqs
 
 
 def oracle_topk(scores, k):
@@ -362,12 +452,14 @@ def oracle_topk(scores, k):
     return cand[order]
 
 
-def check_ranking(dev, terms, scores, idx, what, sparse=None):
+def check_ranking(dev, terms, scores, idx, what, sparse=None, slops=None):
     """Top-k scores within rtol 1e-6 of the oracle's, indices equal
     wherever the k-th score is > 0 (below it the zero tail ties).
-    ``terms`` are the queries: terms or phrases."""
-    for term, got_s, got_i in zip(terms, scores, idx):
-        want = oracle_scores(dev, term, sparse=sparse)
+    ``terms`` are the queries: terms or phrases, with ``slops`` one slop
+    each."""
+    slops = [0] * len(terms) if slops is None else slops
+    for term, slop, got_s, got_i in zip(terms, slops, scores, idx):
+        want = oracle_scores(dev, term, sparse=sparse, slop=slop)
         want_i = oracle_topk(want, len(got_i))
         if not np.allclose(got_s, want[want_i], rtol=1e-6, atol=0):
             raise AssertionError(f"{what}: top-k scores of {term!r} differ")
@@ -521,7 +613,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from bench import PHRASE_QUERIES, TERM_QUERIES, build_corpus
-    from bench import serving_queries
+    from bench import serving_queries, slop_queries
     from searcharray_tpu_torch import SearchArray
     from searcharray_tpu_torch.ops.cuda import roofline as rl
     from searcharray_tpu_torch.ops.cuda import score as kc
@@ -577,6 +669,8 @@ def main() -> int:
     kc.plane_fill.launches = 0
     kc.phrase_chain.launches = 0
     kc.merge_step.launches = 0
+    kc.topk.launches = 0
+    kc.span_window.launches = 0
     # a phrase above K5's cap that matches at least one doc: the first 40
     # tokens of the first doc that has as many
     long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
@@ -683,6 +777,100 @@ def main() -> int:
           "exactly")
     phase_done("phrases: oracle checks")
 
+    # slop phrases on the dense planes (K6).  bench.py's mixed request:
+    # 120 term and phrase queries and 24 slop-2 phrases in one batch, with
+    # a slop per query.  The first call runs the window groups (one K6
+    # launch per (distinct terms, window, multiplicities)), the second
+    # promotes each slop phrase and K6 fills its tf-pool row, the third
+    # reads the cached rows.  Then score and termfreqs of each distinct
+    # slop shape and of a stopword phrase that repeats a term at the
+    # widest window the dense path takes.
+    def mixed_request(r):
+        return (serving_queries(r) + slop_queries(r),
+                [0] * len(serving_queries(r)) + [SLOP] * len(slop_queries(r)))
+
+    sq, ss = mixed_request(0)
+    slop_shapes = [list(q) for q in dict.fromkeys(map(tuple,
+                                                      slop_queries(0)))]
+    k6_before = kc.span_window.launches
+    slop_runs = [arr.score_batch(sq, top_k=TOP_K, slop=ss)]
+    k6_group = kc.span_window.launches - k6_before
+    slop_runs.append(arr.score_batch(sq, top_k=TOP_K, slop=ss,
+                                     block=False)())
+    k6_fill = kc.span_window.launches - k6_before - k6_group
+    slop_runs.append(arr.score_batch(sq, top_k=TOP_K, slop=ss))
+    k6_cached = kc.span_window.launches - k6_before - k6_group - k6_fill
+    slop_sigs = {k for k in dev.phrase_recipes if k[1] == SLOP}
+    slop_scores = [arr.score(q, slop=SLOP) for q in slop_shapes]
+    slop_freqs = [arr.termfreqs(q, slop=SLOP) for q in slop_shapes]
+    wide_q, wide_slop = WIDE_SLOP
+    s_wide = arr.score(wide_q, slop=wide_slop)
+    f_wide = arr.termfreqs(wide_q, slop=wide_slop)
+    # what the dense window cannot take raises and leaves the pools alone
+    pools = lambda: (dict(dev.plane_slot), dict(dev.tf_slot),  # noqa: E731
+                     list(dev.plane_free), list(dev.tf_free))
+    pools_before = pools()
+    refused = 0
+    for call in (
+            lambda: arr.termfreqs(["what", "purpose"], slop=SLOP, **WIN_SCORE),
+            lambda: arr.score(["what", "purpose"], slop=18),       # w = 19
+            lambda: arr.score_batch(["star", ["the", "the", "the"]],
+                                    top_k=TOP_K, slop=SLOP)):      # 3 times
+        try:
+            call()
+        except NotImplementedError as e:
+            refused += "item 9" in str(e)
+    check(refused == 3 and pools() == pools_before,
+          "slop phrases with a position window, a window of 19 positions "
+          "and a term three times raise NotImplementedError naming ROADMAP "
+          "Queue 1 item 9, the pools unchanged")
+    phase_done("slop: drive")
+
+    check_ranking(dev, sq, *slop_runs[0],
+                  f"mixed request with slop, score_batch(top_k={TOP_K}), "
+                  "window groups", slops=ss)
+    check(all(np.array_equal(r[0], slop_runs[0][0])
+              and np.array_equal(r[1], slop_runs[0][1])
+              for r in slop_runs[1:]),
+          "the promotion (block=False) and cached-row batches of the mixed "
+          "request return the first batch's top-k bit for bit")
+    tid_of = arr.term_dict.get_term_id
+    check(k6_group > 0 and k6_fill > 0 and k6_cached <= k6_fill
+          and slop_sigs == {(tuple(tid_of(t) for t in q), SLOP)
+                            for q in slop_shapes},
+          f"slop phrases ran {k6_group} K6 group launches in the first "
+          f"batch, were promoted on their second hit ({k6_fill} K6 launches "
+          f"filling tf-pool rows, {len(slop_sigs)} slop phrases cached) and "
+          "then read their rows with no K6 launch")
+    slop_err, slop_matches = 0.0, 0
+    for q, slop, got_s, got_f in [
+            *zip(slop_shapes, [SLOP] * len(slop_shapes), slop_scores,
+                 slop_freqs), (wide_q, wide_slop, s_wide, f_wide)]:
+        want_f = oracle_span_freqs(dev, q, slop)
+        want_s = oracle_scores(dev, q, slop=slop)
+        if not np.array_equal(got_f, want_f):
+            raise AssertionError(f"termfreqs({q}, slop={slop}) differs from "
+                                 "the oracle")
+        if not (got_s.shape == (n,) and np.all(np.isfinite(got_s))
+                and np.allclose(got_s, want_s, rtol=1e-6, atol=0)):
+            raise AssertionError(f"score({q}, slop={slop}) differs from the "
+                                 "oracle")
+        # each exact occurrence covers an anchor position of its own
+        # (held on the repeating shapes, whose exact planes are there)
+        if (q in slop_shapes[:3] + [wide_q]
+                and not (want_f >= oracle_phrase_freqs(dev, q)).all()):
+            raise AssertionError(f"slop freqs of {q} below its exact freqs")
+        slop_err = max(slop_err, float(np.abs(got_s - want_s).max()))
+        slop_matches += int(want_f.sum())
+    check(slop_matches > 0 and float(f_wide.sum()) > 0,
+          f"termfreqs(phrase, slop) equal the oracle exactly and "
+          f"score(phrase, slop) is within rtol 1e-6 of it (max abs err "
+          f"{slop_err:.3g}) on the {len(slop_shapes)} slop-{SLOP} shapes and "
+          f"on {wide_q} at slop {wide_slop} ({slop_matches} covered anchor "
+          "positions; the repeating shapes never below their exact "
+          "phrase's freqs)")
+    phase_done("slop: oracle checks")
+
     # long documents: one ~220k-token doc needs 14 block bits, so dense
     # planes would pass the per-plane limit and score_batch takes the
     # sparse term group, reduced by K2
@@ -728,7 +916,9 @@ def main() -> int:
                 "segment_sum": kc.segment_sum.launches,
                 "plane_fill": kc.plane_fill.launches,
                 "phrase_chain": kc.phrase_chain.launches,
-                "merge_step": kc.merge_step.launches}
+                "merge_step": kc.merge_step.launches,
+                "topk": kc.topk.launches,
+                "span_window": kc.span_window.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"main path launches: {launches}", flush=True)
     phase_done("sparse phrase chain: drive")
@@ -766,10 +956,11 @@ def main() -> int:
     # index need, against the dense-plane one
     for q in (ph4, phrases[-1], phrases[-3]):
         if not np.array_equal(oracle_phrase_freqs(dev, q, win_f, sparse=True),
-                              oracle_phrase_freqs(dev, q, win_f)):
+                              oracle_phrase_freqs(dev, q, win_f,
+                                                  sparse=False)):
             raise AssertionError(f"the two oracles differ on {q}")
     check(np.array_equal(oracle_phrase_freqs(dev, ph4, sparse=True),
-                         oracle_phrase_freqs(dev, ph4)),
+                         oracle_phrase_freqs(dev, ph4, sparse=False)),
           "the posting-list oracle equals the dense-plane oracle")
     want = oracle_scores(dev, long_ph, sparse=True)
     check(np.array_equal(f_long, oracle_phrase_freqs(dev, long_ph,
@@ -1111,6 +1302,118 @@ def main() -> int:
     k7_batch = k7_calls[n_single:]
     big_k2 = k7_k2[next(i for i, c in enumerate(k7_calls) if c is k7_big)]
 
+    # K3 and K6 at the shapes one mixed request gives them, recorded from
+    # the wrappers' own calls: the request twice (new rare queries, so
+    # the first call launches the window groups and the second promotes
+    # them and fills their tf-pool rows)
+    k36_calls = []
+
+    class RecordingDense:
+        """The kernel module as search/dense.py sees it, its K3 and K6
+        calls noted."""
+
+        def __getattr__(self, name):
+            return getattr(kc, name)
+
+        def topk(self, *a, **kw):
+            k36_calls.append(("topk", a, kw))
+            return kc.topk(*a, **kw)
+
+        def span_window(self, *a, **kw):
+            k36_calls.append(("span_window", a, kw))
+            return kc.span_window(*a, **kw)
+
+    rq, rs = mixed_request(7)
+    dense.kernels_cuda = RecordingDense()
+    try:
+        arr.score_batch(rq, top_k=TOP_K, slop=rs)
+        n_first = len(k36_calls)
+        arr.score_batch(rq, top_k=TOP_K, slop=rs)
+    finally:
+        dense.kernels_cuda = kc
+    k6_groups = [(a, kw) for name, a, kw in k36_calls[:n_first]
+                 if name == "span_window"]
+    k6_fills = [(a, kw) for name, a, kw in k36_calls[n_first:]
+                if name == "span_window"]
+    k3_calls = [(a[0], a[1]) for name, a, _ in k36_calls[:n_first]
+                if name == "topk"]
+    check(k6_groups and k6_fills
+          and all("out" not in kw for _, kw in k6_groups)
+          and all(kw.get("out") is dev.tf_pool for _, kw in k6_fills),
+          f"one mixed request launched K6 {len(k6_groups)} times on its "
+          f"window groups ({sum(len(a[1]) for a, _ in k6_groups)} queries) "
+          f"and K3 {len(k3_calls)} times "
+          f"({sum(x.shape[0] for x, _ in k3_calls)} rows of {n}); its second "
+          f"call filled tf-pool rows with {len(k6_fills)} K6 launches")
+    k6_err = 0.0
+    for a, kw in k6_groups + k6_fills:
+        plain_kw = {k: v for k, v in kw.items() if k not in ("out",
+                                                             "out_rows")}
+        want = kc.span_window_plain(*a, **plain_kw)
+        if "out" in kw:   # the rows the main path's fill left in the pool
+            got = dev.tf_pool[torch.as_tensor(np.asarray(kw["out_rows"]),
+                                              device=dev.device)]
+        else:
+            got = kc.span_window(*a, **kw)
+        k6_err = max(k6_err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 differs from its plain version: w "
+                                 f"{a[2]}, multiplicities {a[3]}")
+    wide_tids = [arr.term_dict.get_term_id(t) for t in wide_q]
+    wide_uniq, _, wide_key = batch._slop_structure(dev, wide_tids, wide_slop)
+    dense.ensure_planes(dev, wide_uniq)
+    wide_args = (dev.plane_pool, [dense.plane_slots_of(dev, wide_uniq)],
+                 wide_key[3], wide_key[4])
+    kw6 = dict(anchor=0, num_docs=n, blk_bits=dev.blk_bits)
+    got = kc.span_window(*wide_args, **kw6)
+    if not (torch.equal(got, kc.span_window_plain(*wide_args, **kw6))
+            and np.array_equal(got[0].cpu().numpy(), f_wide)):
+        raise AssertionError(f"K6 differs on {wide_q} at slop {wide_slop}")
+    check(True, f"K6 equals its plain version bit for bit on the "
+          f"{len(k6_groups)} window launches and {len(k6_fills)} tf-row "
+          f"fills of a mixed request and on {wide_q} at w = {wide_key[3]}, "
+          f"multiplicities {wide_key[4]}")
+
+    def k3_same(x, k):
+        """K3 against its plain version: indices equal, values equal bit
+        for bit; returns the largest difference of values."""
+        vals, idx = kc.topk(x, k)
+        want_v, want_i = kc.topk_plain(x, k)
+        if not (torch.equal(idx.long(), want_i)
+                and torch.equal(vals.view(torch.int32),
+                                want_v.view(torch.int32))):
+            raise AssertionError(f"K3 differs from its plain version on "
+                                 f"{tuple(x.shape)}, k = {k}")
+        return (vals - want_v).abs().nan_to_num(0.0).max().item()
+
+    sort_cap = kc._get_lib().sa_topk_sort_cap()
+    k3_ks = (1, 10, 100, 1000, sort_cap, sort_cap + 952)
+    k3_big = max(k3_calls, key=lambda c: c[0].shape[0])[0]
+    k3_err = max([k3_same(x, k) for x, k in k3_calls]
+                 + [k3_same(k3_big, k) for k in k3_ks]
+                 + [k3_same(torch.full((1, n), 2.5, device=dev.device), k)
+                    for k in (1, TOP_K, sort_cap + 952)])
+    # a [150, 1M] block of scores like BM25's (mostly 0, many equal) with
+    # runs of one value planted across the edges of the kernel's tiles:
+    # k places among k + 3 ties that start before, at and after an edge
+    g = torch.Generator(device=dev.device)
+    g.manual_seed(3)
+    ties = torch.randint(0, 40, (150, n), generator=g,
+                         device=dev.device).to(torch.float32) / 3
+    ties[torch.rand((150, n), generator=g, device=dev.device) < 0.9] = 0.0
+    for r in range(150):
+        at = (1 + r % 50) * K3_TILE - (r % 7)
+        ties[r, at: at + TOP_K + 3] = 50.0 + r
+    ties[100:, :] = torch.where(ties[100:, :] > 40, ties[100:, :], 0.0)
+    k3_err = max([k3_err] + [k3_same(ties, k) for k in (1, TOP_K, 100,
+                                                        sort_cap + 952)])
+    check(True, f"K3 equals its plain version (indices, and values bit for "
+          f"bit) on the {len(k3_calls)} score blocks of a mixed request at "
+          f"k = {TOP_K}, on its largest ({k3_big.shape[0]} rows) at k = "
+          f"{k3_ks}, on a row of one value, and on a [150, {n}] block with "
+          "ties planted across tile edges (50 rows of them with fewer than "
+          "k positive scores)")
+
     phase_done("kernels vs plain: checks")
 
     # ---- 6. evidence -------------------------------------------------------
@@ -1186,6 +1489,28 @@ def main() -> int:
         pending()
         return MIX_CALLS
 
+    # the mixed request of bench.py: the serving mix and 24 slop-2 phrases
+    # in one batch, the rare tail of both new every call
+    mixs_n = len(sq)
+
+    def mixs_blocking(w):
+        for c in range(MIX_CALLS):
+            arr.score_batch(mixed_request(2000 + w * MIX_CALLS + c)[0],
+                            top_k=TOP_K, slop=ss)
+        return MIX_CALLS
+
+    def mixs_pipelined(w):
+        pending = None
+        for c in range(MIX_CALLS):
+            nxt = arr.score_batch(
+                mixed_request(4000 + w * MIX_CALLS + c)[0], top_k=TOP_K,
+                slop=ss, block=False)
+            if pending is not None:
+                pending()
+            pending = nxt
+        pending()
+        return MIX_CALLS
+
     arr.score_batch(queries, top_k=TOP_K)
     qps_hot, fills_hot = qps_windows(hot_blocking, len(queries))
     qps_pipe, fills_pipe = qps_windows(hot_pipelined, len(queries))
@@ -1195,6 +1520,14 @@ def main() -> int:
     qps_mixp, fills_mixp = qps_windows(mix_pipelined, mix_n)
     k45_per_call = [(a - b) / (2 * WINDOWS * MIX_CALLS) for a, b in zip(
         (kc.plane_fill.launches, kc.phrase_chain.launches), k45_before)]
+    k36_before = (kc.topk.launches, kc.span_window.launches)
+    qps_mixs, fills_mixs = qps_windows(mixs_blocking, mixs_n)
+    qps_mixsp, fills_mixsp = qps_windows(mixs_pipelined, mixs_n)
+    k36_per_call = [(a - b) / (2 * WINDOWS * MIX_CALLS) for a, b in zip(
+        (kc.topk.launches, kc.span_window.launches), k36_before)]
+    slop_ms = [host_ms(lambda q=q: arr.score(q, slop=SLOP), 30)
+               for q in (slop_shapes[0], slop_shapes[2])]
+    tf_wide_ms = host_ms(lambda: arr.termfreqs(wide_q, slop=wide_slop), 30)
     score_ph_ms = host_ms(lambda: arr.score(ph3), 30)
     tf_ph_ms = host_ms(lambda: arr.termfreqs(ph4), 30)
 
@@ -1259,13 +1592,21 @@ def main() -> int:
              "K4": ("plane_fill_kernel",),
              "K5": ("chain_warp_kernel", "chain_tile_kernel",
                     "phrase_chain_kernel"),
-             "K7": ("merge_step_kernel",)}
+             "K7": ("merge_step_kernel",),
+             "K3": ("topk_hist_kernel", "topk_select_kernel",
+                    "topk_tiescan_kernel", "topk_filter_kernel",
+                    "topk_sort_kernel", "topk_unpack_kernel"),
+             "K6": ("span_window_kernel",)}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
                 "K4": lambda: kc.plane_fill.launches,
                 "K5": lambda: kc.phrase_chain.launches,
-                "K7": lambda: kc.merge_step.launches}
+                "K7": lambda: kc.merge_step.launches,
+                # one K3 launch enqueues a fixed number of kernels
+                "K3": lambda: (kc.topk.launches
+                               * kc.TOPK_KERNELS_PER_LAUNCH),
+                "K6": lambda: kc.span_window.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1):
@@ -1434,7 +1775,152 @@ def main() -> int:
             **kw5))(), serve_want),
               "the parent's K5 returns the same freqs on the serving launch")
 
+    # K3: the top-k launches of one mixed request (every group's score
+    # block, k = 10) and the [150, 1M] block with planted ties.  K3 and K6
+    # have no parent kernel.  The library time is the one PyTorch route to
+    # the same function: the plain composition (torch.topk, cumsum,
+    # nonzero, gather, sort), which synchronises the host twice a call.
+    def k3_run(fn, calls):
+        return lambda: [fn(x, k) for x, k in calls]
+
+    k3_rows = sum(x.shape[0] for x, _ in k3_calls)
+    t_k3 = measure(
+        f"the top-k launches of one mixed request: {len(k3_calls)} K3 "
+        f"launches, {k3_rows} rows of {n}, k = {TOP_K}", "K3",
+        k3_run(kc.topk, k3_calls), k3_run(kc.topk_plain, k3_calls),
+        rl.total(rl.k3_work(x.shape[0], n, k) for x, k in k3_calls),
+        iters=10, old=False, library=k3_run(kc.topk_plain, k3_calls))
+    t_k3t = measure(
+        f"a [150, {n}] block with ties planted across tile edges, one K3 "
+        f"launch, k = {TOP_K}", "K3", k3_run(kc.topk, [(ties, TOP_K)]),
+        k3_run(kc.topk_plain, [(ties, TOP_K)]), rl.k3_work(150, n, TOP_K),
+        iters=10, old=False, library=k3_run(kc.topk_plain, [(ties, TOP_K)]))
+    k3_each = [(x.shape[0], rl.k3_work(x.shape[0], n, k)["bound_ms"],
+                timer(lambda x=x, k=k: kc.topk(x, k), 10, names["K3"],
+                      counter=counters["K3"])[0]) for x, k in k3_calls]
+
+    # K6: the window launches of one mixed request none of whose slop
+    # phrases is cached yet, as the first one ran them (its planes made
+    # resident first), and the widest repeated-term query
+    def k6_slots():
+        """The recorded launches with their queries' planes resident and
+        the slot arrays they have now."""
+        out = []
+        for spec in k6_specs:
+            dense.ensure_planes(dev, [t for ts in spec[0] for t in ts])
+            out.append((np.stack([dense.plane_slots_of(dev, ts)
+                                  for ts in spec[0]]), *spec[1:]))
+        return out
+
+    # the groups of a request, as (term ids per query, w, mults)
+    k6_specs = {}
+    for q in dict.fromkeys(map(tuple, slop_queries(7))):
+        uniq, _, fkey = batch._slop_structure(
+            dev, [arr.term_dict.get_term_id(t) for t in q], SLOP)
+        k6_specs.setdefault(fkey[3:], []).append(uniq)
+    k6_specs = [(qs, w, mults) for (w, mults), qs in k6_specs.items()]
+    check({(w, mults) for _, w, mults in k6_specs}
+          >= {(a[2], tuple(a[3])) for a, _ in k6_groups},
+          f"a mixed request's {sum(len(qs) for qs, _, _ in k6_specs)} "
+          f"distinct slop queries form {len(k6_specs)} K6 groups when none "
+          "is cached yet: (queries, w, multiplicities) "
+          f"{[(len(qs), w, m) for qs, w, m in k6_specs]}")
+    k6_now = k6_slots()
+
+    def k6_run(fn):
+        return lambda: [fn(dev.plane_pool, sl, w, mults, **kw6)
+                        for sl, w, mults in k6_now]
+
+    t_k6 = measure(
+        f"the window launches of one mixed request: {len(k6_now)} K6 "
+        f"launches, {sum(len(sl) for sl, _, _ in k6_now)} slop-{SLOP} "
+        "queries", "K6", k6_run(kc.span_window),
+        k6_run(kc.span_window_plain),
+        rl.k6_batch_work(k6_now, n, 1 << bb), iters=10, old=False)
+    k6_planes = len(np.unique(np.concatenate([sl.ravel()
+                                              for sl, _, _ in k6_now])))
+    k6_each = [((len(sl), w, mults), rl.k6_work(sl, w, mults, n, 1 << bb),
+                timer(lambda sl=sl, w=w, mults=mults: kc.span_window(
+                    dev.plane_pool, sl, w, mults, **kw6), 10, names["K6"],
+                    counter=counters["K6"])[0])
+               for sl, w, mults in k6_now]
+    dense.ensure_planes(dev, wide_uniq)
+    wide_now = (dev.plane_pool, [dense.plane_slots_of(dev, wide_uniq)],
+                wide_key[3], wide_key[4])
+    t_k6w = measure(
+        f"{wide_q} at slop {wide_slop}: one K6 launch, w = {wide_key[3]}, "
+        f"multiplicities {wide_key[4]}", "K6",
+        lambda: kc.span_window(*wide_now, **kw6),
+        lambda: kc.span_window_plain(*wide_now, **kw6),
+        rl.k6_work(wide_now[1], wide_key[3], wide_key[4], n, 1 << bb),
+        iters=10, old=False)
+
     phase_done("kernels: timing")
+
+    # one block=False serving call under the profiler: nothing may make the
+    # host wait for the device between the call and collect(), the packed
+    # result crosses in one copy, and its kernels by device time say where
+    # a call's time goes.  Last, so that no qps window above ran in a
+    # process the profiler had attached to.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaStreamWaitEvent")
+
+    def profile_call(request, slops):
+        for attempt in range(4):
+            arr.score_batch(request(attempt), top_k=TOP_K, slop=slops)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with record_function("sa_enqueue"):
+                    collect = arr.score_batch(request(10 + attempt),
+                                              top_k=TOP_K, slop=slops,
+                                              block=False)
+                enqueue_ms = (time.perf_counter() - t0) * 1e3
+                with record_function("sa_collect"):
+                    collect()
+                call_ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+            events = list(prof.events())
+            enq = [e for e in events if e.name == "sa_enqueue"]
+            launches = [e for e in events if e.name == "cudaLaunchKernel"]
+            if enq and launches:
+                break
+            print("profiler: no launch events seen; profiling again",
+                  flush=True)
+        else:
+            raise AssertionError("the profiler saw no kernel launch")
+        end = enq[0].time_range.end
+        waits = [e.name for e in events if e.name in SYNCS[:3]
+                 and e.time_range.start < end]
+        d2h = [e for e in events if e.device_type == DeviceType.CUDA
+               and "Memcpy DtoH" in e.name]
+        # the two ranges above show as device-side annotations: not work
+        dev_us = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in ("sa_enqueue", "sa_collect")]
+        dev_us.sort(key=lambda e: -e[1])
+        return {"enqueue_ms": enqueue_ms, "call_ms": call_ms,
+                "waits_before_collect": waits, "d2h_copies": len(d2h),
+                "kernel_launches": len(launches),
+                "device_ms": sum(e[1] for e in dev_us) / 1e3,
+                "top": [(k[:60], us / 1e3, c) for k, us, c in dev_us[:12]]}
+
+    prof_mix = profile_call(lambda i: serving_queries(7000 + i),
+                            [0] * mix_n)
+    prof_mixs = profile_call(lambda i: mixed_request(8000 + i)[0], ss)
+    for name, p in (("serving mix", prof_mix),
+                    ("mixed request with slop", prof_mixs)):
+        check(not p["waits_before_collect"] and p["d2h_copies"] == 1,
+              f"a block=False {name} call enqueues {p['kernel_launches']} "
+              f"kernels in {p['enqueue_ms']:.3f} ms with no host "
+              "synchronisation before collect(), and its result crosses in "
+              "one device-to-host copy")
+    phase_done("serving call profile")
 
     evidence = [
         ("corpus generation s", corpus_s),
@@ -1458,8 +1944,41 @@ def main() -> int:
                fills_mix),
               (f"serving mix pipelined (bench.serving_queries, {mix_n} "
                "queries, half phrases, top_k=10)", MIX_CALLS, qps_mixp,
-               fills_mixp))),
+               fills_mixp),
+              (f"mixed request blocking (bench.serving_queries + "
+               f"bench.slop_queries, {mixs_n} queries, 24 of them slop-"
+               f"{SLOP} phrases, top_k=10)", MIX_CALLS, qps_mixs,
+               fills_mixs),
+              (f"mixed request pipelined (bench.serving_queries + "
+               f"bench.slop_queries, {mixs_n} queries, 24 of them slop-"
+               f"{SLOP} phrases, top_k=10)", MIX_CALLS, qps_mixsp,
+               fills_mixsp))),
         ("serving mix K4 and K5 launches per call", k45_per_call),
+        ("mixed request K3 and K6 launches per call", k36_per_call),
+        (f"p50 score(phrase, slop={SLOP}) ms for {slop_shapes[0]} and "
+         f"{slop_shapes[2]} (cached phrase-tf rows)", slop_ms),
+        (f"p50 termfreqs({wide_q}, slop={wide_slop}) ms (K6 every call)",
+         tf_wide_ms),
+        *((f"one block=False {name} call under the profiler: enqueue ms; "
+           "call ms; device ms; kernel launches; host waits before "
+           "collect(); device-to-host copies",
+           f"{p['enqueue_ms']}; {p['call_ms']}; {p['device_ms']}; "
+           f"{p['kernel_launches']}; {p['waits_before_collect']}; "
+           f"{p['d2h_copies']}")
+          for name, p in (("serving mix", prof_mix),
+                          ("mixed request with slop", prof_mixs))),
+        *((f"one {name} call, device ms by kernel (name, ms, launches), "
+           "the 12 largest", p["top"])
+          for name, p in (("serving mix", prof_mix),
+                          ("mixed request with slop", prof_mixs))),
+        ("K3 per launch of one mixed request (rows; bound ms; device ms)",
+         k3_each),
+        ("K6 per window launch of one mixed request ((queries, w, "
+         "multiplicities); bound ms, by; device ms)",
+         [(shape, w["bound_ms"], w["bound_by"], ms)
+          for shape, w, ms in k6_each]),
+        ("K6 distinct plane rows of one mixed request's window launches",
+         f"{k6_planes} of {4 * n * (1 << bb)} bytes each"),
         *((f"{name} score_batch qps, one window a turn "
            f"({'parent, new, new, parent' if parent else 'new'})", turns)
           for name, turns in e2e.items()),
@@ -1479,7 +1998,8 @@ def main() -> int:
            f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
            f"{rec.get('old_share')}")
           for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
-                      t_k5, t_serve, t_k7, t_k7b)),
+                      t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3t, t_k6,
+                      t_k6w)),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -1531,12 +2051,20 @@ def main() -> int:
                  "searcharray_tpu/ops/pallas/score.py:196",
                  launches["segment_sum"], k2_err, t_k2),
          "more_units": [unit_of(t_k2s), unit_of(t_k2c), unit_of(t_k2w)]},
+        {**entry("topk (K3)", csrc + "topk.cu",
+                 "searcharray_tpu/ops/kernels.py:101", launches["topk"],
+                 k3_err, t_k3),
+         "more_units": [unit_of(t_k3t)]},
         entry("plane_fill (K4)", csrc + "plane_fill.cu",
               "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
               k4_err, t_k4),
         entry("phrase_chain (K5)", csrc + "phrase_chain.cu",
               "searcharray_tpu/search/dense.py:558",
               launches["phrase_chain"], k5_err, t_k5),
+        {**entry("span_window (K6)", csrc + "span_window.cu",
+                 "searcharray_tpu/search/dense.py:625",
+                 launches["span_window"], k6_err, t_k6),
+         "more_units": [unit_of(t_k6w)]},
         {**entry("merge_step (K7)", csrc + "merge_step.cu",
                  "searcharray_tpu/search/phrase.py:123",
                  launches["merge_step"], k7_err, t_k7),

@@ -1,10 +1,13 @@
 """searcharray_tpu_torch — the PyTorch/CUDA port of searcharray_tpu.
 
-Ranked term retrieval over a positional roaringish index held on a torch
-device: host build (numpy + the C++ runtime) -> posting planes on the
-device -> per-term tf from the hand-written Hopper kernel K1 with the BM25
-family fused -> exact top-k -> batched serving.  Every device is named
-explicitly: ``SearchArray.index(strings, device="cuda")``.
+Ranked retrieval of terms, exact phrases and slop phrases over a
+positional roaringish index held on a torch device: host build (numpy +
+the C++ runtime) -> posting planes on the device -> per-term tf (kernel
+K1, the BM25 family fused), exact phrases on dense planes (K4, K5) or on
+the posting slices (K7, K2), slop phrases on dense planes (K6) -> exact
+top-k (K3) -> batched serving with one copy to the host.  Every kernel is
+written by hand for Hopper.  Every device is named explicitly:
+``SearchArray.index(strings, device="cuda")``.
 """
 from searcharray_tpu_torch.pandas_ext.array import SearchArray, Terms, TermsDtype  # noqa: F401
 from searcharray_tpu_torch.search.similarity import (  # noqa: F401

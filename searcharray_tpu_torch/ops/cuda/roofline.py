@@ -2,13 +2,13 @@
 
 A kernel's work is counted from its inputs, as ``chip_smoke.py`` prints
 it: each input byte it needs read once, each output byte written once
-(a plane row that several queries of one K5 launch read counts once; the
-halo K5 reads twice and the words a block's search probes do not count),
-of a K7 step's other list the words a search would probe where those
-are fewer than the list), and the 32-bit integer operations its formulas
-need.  The bound is the
-larger of bytes over the card's memory rate and operations over its
-32-bit integer rate.  Nothing here launches or times anything.
+(a plane row that several queries of one K5 or K6 launch read counts
+once; the halo K5 reads twice and the words a block's search probes do not
+count; K3's rows count once, though a radix select reads them again; of
+a K7 step's other list the words a search would probe where those are
+fewer than the list), and the 32-bit integer operations its formulas
+need.  The bound is the larger of bytes over the card's memory rate and
+operations over its 32-bit integer rate.  Nothing here launches or times anything.
 
 Rates: one NVIDIA H100 SXM at its full 700 W limit.  Memory: 3.35 TB/s of
 HBM3 (NVIDIA's data sheet).  Integer: the data sheet's 67 TFLOP/s is the
@@ -38,6 +38,9 @@ K2_OPS_PER_KEY = 2       # subtract, add
 K4_OPS_PER_WORD = 2      # subtract, store
 K5_OPS_PER_SLOT_STEP = POPC + 11  # popcount; ands, shifts, adds, or
 K5_OPS_PER_DOC_STEP = 1    # the min over steps
+K3_OPS_PER_ELEMENT = 4   # the key: sign test, flip, digit shift, compare
+K6_OPS_PER_SHIFT = 4     # a position shift: two shifts, or, mask
+K6_WINDOW = 18           # positions a slot holds: a shift by it is a move
 K7_OPS_PER_PROBE = 3     # compare, add, shift of one search or merge step
 K7_OPS_PER_WORD = POPC + 12  # popcount; window test, ands, shifts, or, key
 
@@ -81,6 +84,13 @@ def k2_flat_work(flat_keys, num_out: int) -> dict:
     return k2_work(int((flat_keys < num_out).sum()), num_out)
 
 
+def k3_work(n_rows: int, n: int, k: int) -> dict:
+    """One K3 call: f32[n_rows, n] read once, k values and k indices
+    written per row."""
+    return bound(4 * n_rows * n + 8 * n_rows * k,
+                 K3_OPS_PER_ELEMENT * n_rows * n)
+
+
 def k4_work(ns: Sequence[int], plane_size: int) -> dict:
     """One K4 launch: the posting words of each row read, each row of
     ``plane_size`` int32 slots written whole."""
@@ -119,6 +129,60 @@ def k5_plane_reads(groups) -> int:
     """The plane rows K5 fetches over ``[(slots, plan), ...]``: each
     launch's distinct rows, summed over the launches."""
     return int(sum(len(np.unique(np.asarray(s))) for s, _ in groups))
+
+
+def _k6_dilate_ops(length: int) -> int:
+    """The log-step dilation over ``length`` offsets: per step a position
+    shift and an or."""
+    ops, cur = 0, 1
+    while cur < length:
+        k = min(cur, length - cur)
+        ops += (0 if k == K6_WINDOW else K6_OPS_PER_SHIFT) + 1
+        cur += k
+    return ops
+
+
+def k6_ops_per_slot(w: int, mults: Sequence[int]) -> int:
+    """Integer operations per plane slot of one K6 query, counted from
+    the plain version (``ops/kernels.py:span_counts_dense_planes_plain``):
+    per term of multiplicity 1 the dilation down over w + 1 starts; per
+    term of multiplicity 2, for every distance d = 1..w, a shift, an and,
+    the dilation over w + 1 - d and an or; the and over the terms; the
+    dilation up over w + 1; the and with the anchor, the popcount and the
+    add into the doc's sum."""
+    ops = len(mults) - 1 + _k6_dilate_ops(w + 1) + 1 + POPC + 1
+    for m in mults:
+        if m == 1:
+            ops += _k6_dilate_ops(w + 1)
+        else:
+            for d in range(1, w + 1):
+                ops += ((0 if d == K6_WINDOW else K6_OPS_PER_SHIFT) + 1
+                        + _k6_dilate_ops(w + 1 - d) + (1 if d > 1 else 0))
+    return ops
+
+
+def k6_work(slots, w: int, mults: Sequence[int], num_docs: int,
+            slots_per_doc: int) -> dict:
+    """One K6 launch over a group: each DISTINCT plane row of ``slots``
+    ([queries, distinct terms] plane-pool rows) read once, each query's
+    row of per-doc counts written, and the slot array read."""
+    return k6_batch_work([(slots, w, mults)], num_docs, slots_per_doc)
+
+
+def k6_batch_work(groups, num_docs: int, slots_per_doc: int) -> dict:
+    """K6 over several groups ``[(slots, w, mults), ...]``, one launch
+    each, as one batch: each plane row DISTINCT across the batch read
+    once, as ``k5_batch_work`` counts them."""
+    plane = num_docs * slots_per_doc
+    distinct = np.unique(np.concatenate(
+        [np.asarray(s).ravel() for s, _, _ in groups]))
+    nbytes, ops = 4 * plane * len(distinct), 0
+    for slots, w, mults in groups:
+        slots = np.asarray(slots)
+        nbytes += 4 * num_docs * slots.shape[0] + 4 * slots.size
+        ops += slots.shape[0] * (k6_ops_per_slot(w, mults) * plane
+                                 + num_docs)
+    return bound(nbytes, ops)
 
 
 def k7_work(base_ns: Iterable[int], other_ns: Iterable[int],

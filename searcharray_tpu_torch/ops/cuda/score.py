@@ -1,7 +1,8 @@
-"""K1 (fused term scoring), K2 (sorted segment-sum), K4 (plane fill), K5
-(the exact-phrase bigram chain on dense planes) and K7 (a bigram step of
-the sparse phrase chain): Hopper kernels, their plain PyTorch versions,
-and the build of the one kernel library.
+"""K1 (fused term scoring), K2 (sorted segment-sum), K3 (exact top-k), K4
+(plane fill), K5 (the exact-phrase bigram chain on dense planes), K6 (the
+slop window coverage on dense planes) and K7 (a bigram step of the sparse
+phrase chain): Hopper kernels, their plain PyTorch versions, and the build
+of the one kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -12,8 +13,10 @@ Each wrapper takes its plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
 wrapper counts its kernel launches in a plain int attribute
 (``score_term.launches``, ``score_term_rows.launches``,
-``segment_sum.launches``, ``plane_fill.launches``,
-``phrase_chain.launches``, ``merge_step.launches``).
+``segment_sum.launches``, ``topk.launches``, ``plane_fill.launches``,
+``phrase_chain.launches``, ``span_window.launches``,
+``merge_step.launches``).  A K3 launch is one call of its C entry, which
+enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     merge_step_plain,
     phrase_counts_dense_planes,
     popcount_i32,
+    span_counts_dense_planes_plain,
+    topk_exact,
 )
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -47,6 +52,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KINDS = {"none": 0, "bm25": 1, "bm25_impact": 2, "bm25_legacy": 3}
 
 CHAIN_MAX_TERMS = 32         # K5 takes phrases of at most this many terms
+SPAN_MAX_TERMS = 32          # K6 takes at most this many distinct terms
+SPAN_MAX_WINDOW = 18         # K6's window: one slot's positions
+TOPK_KERNELS_PER_LAUNCH = 9  # three histogram and select passes, the tie
+                             # scan, the filter, and the sort or the unpack
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -126,6 +135,12 @@ _ENTRIES = {
     "sa_merge_step": [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int, _int,
                       _int, _int, _vp, _vp, _vp, _int, _vp],
     "sa_merge_step_tile": [],
+    "sa_topk": [_vp, _i64, _i64, _i64, _vp, _vp, _i64, _vp, _vp, _int, _vp],
+    "sa_topk_unpack": [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _int, _vp],
+    "sa_topk_sort_cap": [],
+    "sa_topk_row_scratch_bytes": [],
+    "sa_span_window": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp, _i64,
+                       _int, _vp, _i64, _vp, _int, _vp],
 }
 
 
@@ -168,6 +183,18 @@ def _host_index(values, name: str, bound: int) -> np.ndarray:
     if arr.size and (arr.min() < 0 or arr.max() >= bound):
         raise ValueError(f"{name} out of range [0, {bound})")
     return arr
+
+
+def host_to_device(values, device) -> torch.Tensor:
+    """A small host array (slots, offsets, idfs) as a tensor on
+    ``device``.  On a card it goes through pinned memory with a
+    non-blocking copy: a plain copy from pageable memory makes the host
+    wait for everything enqueued before it, once per wrapper call."""
+    arr = np.ascontiguousarray(values)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.as_tensor(arr, device=device)
+    return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -291,7 +318,7 @@ def score_term_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns,
         raise ValueError(f"no K1 kernel for device {dev}")
     if len(rows) == 0 or num_docs == 0:
         return out
-    meta = torch.as_tensor(np.stack([offs, ns, rows]), device=dev)
+    meta = host_to_device(np.stack([offs, ns, rows]), dev)
     err = _get_lib().sa_score_term_rows(
         hdrs.data_ptr(), pays.data_ptr(), meta[0].data_ptr(),
         meta[1].data_ptr(), meta[2].data_ptr(), len(rows), int(ns.max()),
@@ -351,6 +378,75 @@ segment_sum.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K3: exact top-k
+# ---------------------------------------------------------------------------
+# Plain PyTorch K3 (``ops/kernels.py:topk_exact``): values and int64
+# indices.
+topk_plain = topk_exact
+
+
+def topk(x: torch.Tensor, k: int):
+    """The k largest of each row of f32[..., N] (a 1-D row is a batch of
+    one): (values f32[..., k] descending, indices int32[..., k]), ties to
+    the smallest index; -0.0 and +0.0 tie.  Rows must hold no NaN.
+
+    On a CUDA tensor this is K3 (csrc/topk.cu): a radix select on the
+    64-bit keys of ``ops/kernels.py:topk_keys``, for every k, with nothing
+    read by the host.  The k survivors are ordered in the kernel up to
+    ``sa_topk_sort_cap()`` of them (2048); above that their [Q, k] 64-bit
+    keys are ordered by one ``torch.sort`` on the device, which is a sort
+    of the survivors, not the selection.  Raises for k outside [1, N],
+    rows that are not contiguous, and 2^31 elements or more."""
+    dev = x.device
+    if x.dtype != torch.float32:
+        raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
+    if x.dim() < 1:
+        raise ValueError("x must have a last axis to rank")
+    n = x.shape[-1]
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, {n}], got {k}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.numel() >= 2**31:
+        raise ValueError("K3 takes fewer than 2^31 elements")
+    if dev.type == "cpu":
+        vals, idx = topk_plain(x, k)
+        return vals, idx.to(torch.int32)
+    if dev.type != "cuda":
+        raise ValueError(f"no K3 kernel for device {dev}")
+    lead = x.shape[:-1]
+    rows = x.numel() // n
+    vals = torch.empty(lead + (k,), dtype=torch.float32, device=dev)
+    idx = torch.empty(lead + (k,), dtype=torch.int32, device=dev)
+    if rows == 0:
+        return vals, idx
+    lib = _get_lib()
+    sort_cap = lib.sa_topk_sort_cap()
+    cap = max(k, sort_cap)
+    scratch = torch.empty(rows * lib.sa_topk_row_scratch_bytes(),
+                          dtype=torch.uint8, device=dev)
+    cand = torch.empty((rows, cap), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.sa_topk(x.data_ptr(), rows, n, k, scratch.data_ptr(),
+                      cand.data_ptr(), cap, vals.data_ptr(), idx.data_ptr(),
+                      dev.index, stream)
+    _raise_on(err, "topk")
+    if k > sort_cap:
+        # unsigned order as signed order: flip the top bit (the unpack
+        # reads only the low half)
+        keys = torch.sort(cand ^ (-2**63), dim=-1, descending=True).values
+        err = lib.sa_topk_unpack(x.data_ptr(), rows, n, keys.data_ptr(), k,
+                                 vals.data_ptr(), idx.data_ptr(), dev.index,
+                                 stream)
+        _raise_on(err, "topk unpack")
+    topk.launches += 1
+    return vals, idx
+
+
+topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K4: plane fill
 # ---------------------------------------------------------------------------
 def plane_fill_plain(hdrs, pays, offs, ns, slots, pool) -> torch.Tensor:
@@ -397,7 +493,7 @@ def plane_fill(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, slots,
         raise ValueError(f"no K4 kernel for device {dev}")
     if len(slots) == 0 or pool.shape[1] == 0:
         return pool
-    rows = torch.as_tensor(np.stack([offs, ns, slots]), device=dev)
+    rows = host_to_device(np.stack([offs, ns, slots]), dev)
     err = _get_lib().sa_plane_fill(
         hdrs.data_ptr(), pays.data_ptr(), rows[0].data_ptr(),
         rows[1].data_ptr(), rows[2].data_ptr(), len(slots), pool.data_ptr(),
@@ -483,8 +579,8 @@ def phrase_chain(pool: torch.Tensor, slots, plan, pattern, *, num_docs: int,
         raise ValueError(f"no K5 kernel for device {dev}")
     if Qg == 0 or num_docs == 0:
         return out
-    slots_t = torch.as_tensor(slots.astype(np.int32), device=dev)
-    rows_t = None if rows is None else torch.as_tensor(rows, device=dev)
+    slots_t = host_to_device(slots.astype(np.int32), dev)
+    rows_t = None if rows is None else host_to_device(rows, dev)
     err = _get_lib().sa_phrase_chain(
         pool.data_ptr(), pool.shape[1], slots_t.data_ptr(), Qg, T,
         plan_ints.ctypes.data, num_docs, blk_bits, out.data_ptr(),
@@ -496,6 +592,100 @@ def phrase_chain(pool: torch.Tensor, slots, plan, pattern, *, num_docs: int,
 
 
 phrase_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: slop window coverage on the plane pool
+# ---------------------------------------------------------------------------
+def span_window_plain(pool, slots, w: int, mults, *, anchor: int = 0,
+                      num_docs: int, blk_bits: int) -> torch.Tensor:
+    """Plain PyTorch K6: per query, gather its planes, then the window
+    coverage (one query at a time: the dilations hold several planes of
+    temporaries)."""
+    slots = np.asarray(slots, np.int64)
+    out = torch.empty((slots.shape[0], num_docs), dtype=torch.float32,
+                      device=pool.device)
+    for q, row in enumerate(slots):
+        out[q] = span_counts_dense_planes_plain(
+            [pool[int(s)] for s in row], anchor, w, num_docs, 1 << blk_bits,
+            mults=tuple(mults))
+    return out
+
+
+def span_window(pool: torch.Tensor, slots, w: int, mults, *, anchor: int = 0,
+                num_docs: int, blk_bits: int, out: torch.Tensor = None,
+                out_rows=None) -> torch.Tensor:
+    """Per-doc slop span counts of a group of queries sharing one window
+    ``w`` (query length + slop - 1), anchor column and multiplicities,
+    read from the plane pool.
+
+    ``pool`` is the int32 [C, num_docs << blk_bits] plane pool, ``slots``
+    a host int [Qg, T] array of the plane rows of each query's DISTINCT
+    terms, ``mults`` each column's multiplicity in the query (1 or 2) and
+    ``anchor`` the column whose covered positions are counted.  Returns
+    f32 [Qg, num_docs]; with ``out`` (an f32 [R, num_docs] tensor such as
+    the tf pool) writes query q's counts into row ``out_rows[q]`` instead
+    and returns ``out``."""
+    dev = pool.device
+    _check(pool, "pool", torch.int32, dev, ndim=2)
+    if pool.shape[1] != num_docs << blk_bits:
+        raise ValueError("pool rows are not num_docs << blk_bits wide")
+    slots = _host_index(slots, "slots", pool.shape[0])
+    if slots.ndim != 2:
+        raise ValueError("slots must be [queries, terms]")
+    Qg, T = slots.shape
+    mults = np.asarray(mults, np.int32)
+    if mults.shape != (T,) or not 1 <= T <= SPAN_MAX_TERMS:
+        raise ValueError(f"K6 takes 1 to {SPAN_MAX_TERMS} distinct terms "
+                         "and one multiplicity for each")
+    if T and (mults.min() < 1 or mults.max() > 2):
+        raise ValueError("K6 takes multiplicities of 1 and 2")
+    if not 1 <= w <= SPAN_MAX_WINDOW:
+        raise ValueError(f"K6 takes a window 1 <= w <= {SPAN_MAX_WINDOW}, "
+                         f"got {w}")
+    if not 0 <= anchor < T:
+        raise ValueError(f"anchor {anchor} is not a column of the query")
+    if out is None:
+        out = torch.empty((Qg, num_docs), dtype=torch.float32, device=dev)
+        rows = None
+    else:
+        _check(out, "out", torch.float32, dev, ndim=2)
+        if out.shape[1] != num_docs:
+            raise ValueError("out rows are not num_docs wide")
+        rows = _host_index(out_rows, "out_rows", out.shape[0])
+        if rows.shape != (Qg,) or len(set(rows.tolist())) != Qg:
+            raise ValueError("out_rows must name one distinct row per query")
+    if dev.type == "cpu":
+        freqs = span_window_plain(pool, slots, w, mults, anchor=anchor,
+                                  num_docs=num_docs, blk_bits=blk_bits)
+        if rows is None:
+            return freqs
+        out[torch.as_tensor(rows)] = freqs
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"no K6 kernel for device {dev}")
+    if Qg == 0 or num_docs == 0:
+        return out
+    slots_t = host_to_device(slots.astype(np.int32), dev)
+    rows_t = None if rows is None else host_to_device(rows, dev)
+    if blk_bits > 8:
+        # a doc of more than 256 slots spans warps: the kernel adds each
+        # warp's sum into rows zeroed here
+        if rows_t is None:
+            out.zero_()
+        else:
+            out.index_fill_(0, rows_t, 0.0)
+    err = _get_lib().sa_span_window(
+        pool.data_ptr(), pool.shape[1], slots_t.data_ptr(), Qg, T, int(w),
+        int(anchor), mults.ctypes.data, num_docs, blk_bits, out.data_ptr(),
+        num_docs, None if rows_t is None else rows_t.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "span_window")
+    span_window.launches += 1
+    return out
+
+
+span_window.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -585,10 +775,10 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
     n_tiles = -(-base_n // tile)
     # the query table, one column per query, then each tile's query
     queries = np.arange(Q, dtype=np.int64)
-    meta = torch.as_tensor(np.concatenate([
+    meta = host_to_device(np.concatenate([
         base_off, base_n, other_off, other_n, other_pay_off,
         prefix_offsets(base_n), queries * key_stride,
-        prefix_offsets(n_tiles), np.repeat(queries, n_tiles)]), device=dev)
+        prefix_offsets(n_tiles), np.repeat(queries, n_tiles)]), dev)
     window = ((0, (1 << 18) - 1) if min_blk is None
               else (int(min_blk), int(max_blk)))
     err = lib.sa_merge_step(

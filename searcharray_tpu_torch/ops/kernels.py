@@ -1,5 +1,6 @@
 """Posting-plane layout helpers: host derivation (numpy) and device slicing,
-similarity math, exact top-k and the exact-phrase bigram chain (torch).
+similarity math, exact top-k, the exact-phrase bigram chain and the slop
+window coverage on dense planes (torch).
 
 Posting slices are cut from the padded planes; tails past a term's words
 are rewritten to a sentinel header (max value, empty payload) so
@@ -147,6 +148,29 @@ def topk_exact(x: torch.Tensor, k: int):
     return vals, torch.gather(idx, -1, order)
 
 
+def topk_keys(x: torch.Tensor) -> torch.Tensor:
+    """The total order K3 (csrc/topk.cu) selects by, as int64 keys: the
+    float's bits mapped to an order-preserving unsigned 32-bit value key
+    (-0.0 as +0.0, so the two compare equal as floats do) in the high
+    half, ``~index`` in the low half, the top bit flipped so that signed
+    order is the unsigned order.  No two keys of a row are equal, and the
+    k largest are the top-k with ties to the smallest index.  Rows hold no
+    NaN."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, torch.zeros_like(b), b)
+    vkey = torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b | 0x80000000)
+    idx = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    return ((vkey - 0x80000000) << 32) | (0xFFFFFFFF - idx)
+
+
+def topk_by_keys(x: torch.Tensor, k: int):
+    """``topk_exact`` by a descending sort of ``topk_keys``: the order the
+    K3 kernel computes, in plain PyTorch."""
+    keys = torch.sort(topk_keys(x), dim=-1, descending=True).values[..., :k]
+    idx = 0xFFFFFFFF - (keys & 0xFFFFFFFF)
+    return torch.gather(x, -1, idx), idx
+
+
 def take_term_planes(hdrs: torch.Tensor, pays: torch.Tensor, off: int,
                      n: int, min_blk=None, max_blk=None, *, bucket: int,
                      blk_bits: int):
@@ -259,6 +283,82 @@ def phrase_counts_dense_planes(planes, pattern, plan, num_docs: int,
             freqs = per_doc if freqs is None else torch.minimum(freqs,
                                                                 per_doc)
     return freqs
+
+
+# ---------------------------------------------------------------------------
+# slop window coverage on dense planes: the plain version of K6.  A plane
+# is a bit string over the flat slot axis, 18 positions per slot; values
+# are masked before a left shift so that int32 never overflows
+# ---------------------------------------------------------------------------
+def _shift_posns_down(x, k: int):
+    """y(p) = x(p + k), 1 <= k <= LSB_BITS (pulls from the next slot)."""
+    nxt = _shift_down(x)
+    if k == LSB_BITS:
+        return nxt
+    return (x >> k) | ((nxt & ((1 << k) - 1)) << (LSB_BITS - k))
+
+
+def _shift_posns_up(x, k: int):
+    """y(p) = x(p - k), 1 <= k <= LSB_BITS (pulls from the previous slot
+    of the flat axis)."""
+    prv = _shift_up(x)
+    if k == LSB_BITS:
+        return prv
+    return ((x & ((1 << (LSB_BITS - k)) - 1)) << k) | (prv >> (LSB_BITS - k))
+
+
+def _dilate(x, length: int, shifter):
+    """OR of ``x`` shifted by every offset in [0, length), in log steps."""
+    y = x
+    cur = 1
+    while cur < length:
+        k = min(cur, length - cur)
+        y = y | shifter(y, k)
+        cur += k
+    return y
+
+
+def _win_pair_starts(x, w: int):
+    """Window starts s where [s, s+w] holds at least two set bits of
+    ``x``: positions p and p+d are both set iff ``x & (x >> d)`` has bit
+    p, and such a pair lies in [s, s+w] iff s is in [p-(w-d), p], a
+    down-dilation of length w-d+1; OR over d = 1..w."""
+    ok = None
+    for d in range(1, w + 1):
+        pair = x & _shift_posns_down(x, d)
+        cover = _dilate(pair, w + 1 - d, _shift_posns_down)
+        ok = cover if ok is None else ok | cover
+    return ok
+
+
+def span_counts_dense_planes_plain(planes, anchor_i: int, w: int,
+                                   num_docs: int, slots: int, mults=None):
+    """Per-doc slop span counts on dense planes ([..., NS] int32 each):
+    the plain version of K6.
+
+    An anchor position p (of term ``anchor_i``) is covered iff some window
+    [s, s+w] with s <= p <= s+w holds at least ``mults[t]`` bits of every
+    term t.  ok(s) = AND over terms of the window's presence (a dilation
+    down over [0, w]; the pair trick for multiplicity 2); covered(p) = OR
+    of ok over [p-w, p] (a dilation up); the count is the per-doc popcount
+    of the covered anchor bits.  Valid for w <= LSB_BITS (a shift never
+    crosses two slots) and multiplicities <= 2."""
+    if not 1 <= w <= LSB_BITS:
+        raise ValueError(f"the dense span window takes 1 <= w <= {LSB_BITS}")
+    ok = None
+    for i, pl in enumerate(planes):
+        m = 1 if mults is None else mults[i]
+        if m == 1:
+            present = _dilate(pl, w + 1, _shift_posns_down)
+        elif m == 2:
+            present = _win_pair_starts(pl, w)
+        else:
+            raise ValueError("the dense span window takes multiplicities "
+                             "<= 2")
+        ok = present if ok is None else ok & present
+    covered = _dilate(ok, w + 1, _shift_posns_up)
+    counts = _popcount_f32(planes[anchor_i] & covered)
+    return counts.reshape(counts.shape[:-1] + (num_docs, slots)).sum(-1)
 
 
 # ---------------------------------------------------------------------------

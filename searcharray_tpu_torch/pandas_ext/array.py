@@ -5,8 +5,11 @@ device as an explicit argument: ``SearchArray.index(strings,
 device="cuda")``.  Search methods run over the whole corpus on that device
 and gather the view's rows at the end.  The dtype registers as
 ``"tokenized_text_torch"``, so pandas take/concat hand back this package's
-arrays.  Terms, and exact phrases on the dense plane engine, are ported;
-windowed and slop phrases, mutation and sharding raise
+arrays.  Terms, exact phrases (dense planes, or the sparse chain for
+position windows and corpora the planes cannot hold) and slop phrases on
+dense planes are ported; slop phrases outside the dense window kernel
+(a position window, ``n + slop - 1 > 18``, a term more than twice, a
+corpus that is not dense-eligible), mutation and sharding raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ from searcharray_tpu_torch.search import batch as batch_mod
 from searcharray_tpu_torch.search import dense as dense_mod
 from searcharray_tpu_torch.search import phrase as phrase_mod
 from searcharray_tpu_torch.search import scoring
+from searcharray_tpu_torch.search import spans as spans_mod
 from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
 
 
@@ -321,6 +325,16 @@ class SearchArray(ExtensionArray):
                 other[:], dtype=object)
         if isinstance(other, Terms):
             return np.asarray([t == other for t in self[:]], dtype=bool)
+        if is_list_like(other):
+            # row by row against an array built from the list
+            if len(self) != len(other):
+                return False
+            if len(other) == 0:
+                return np.array([], dtype=bool)
+            other = SearchArray(other, tokenizer=self.tokenizer,
+                                device=self.device)
+            return np.asarray(self[:], dtype=object) == np.asarray(
+                other[:], dtype=object)
         return np.full(len(self), False)
 
     def isna(self):
@@ -403,20 +417,16 @@ class SearchArray(ExtensionArray):
         tokens = [token] if isinstance(token, str) else token
         return [self._resolve_tid(t) for t in tokens]
 
-    @staticmethod
-    def _check_phrase_options(token, slop) -> None:
-        """Raise for the phrase option the port does not take yet."""
-        if isinstance(token, list) and slop:
-            raise NotImplementedError(phrase_mod.SLOP_TODO)
-
     def termfreqs(self, token: Union[List[str], str], slop: int = 0,
                   min_posn: Optional[int] = None,
                   max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        self._check_phrase_options(token, slop)
         tids = self._resolve_tids(token)
         if min(tids) < 0:
             return np.zeros(len(self), dtype=np.float32)
+        if isinstance(token, list) and slop:
+            return self._gather_rows(spans_mod.span_freqs_dense(
+                self.dev, tids, slop, min_posn, max_posn))
         if isinstance(token, list):
             return self._gather_rows(phrase_mod.phrase_freqs_dense(
                 self.dev, tids, min_posn, max_posn))
@@ -437,7 +447,6 @@ class SearchArray(ExtensionArray):
               min_posn: Optional[int] = None,
               max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        self._check_phrase_options(token, slop)
         tokens = [token] if isinstance(token, str) else token
         # idf covers every query term (a vocabulary miss has df 0)
         dfs = [self.docfreq(t) for t in tokens]
@@ -445,7 +454,8 @@ class SearchArray(ExtensionArray):
         if fused is None:
             # Custom (user) similarity: honour the reference protocol
             # exactly -- subset-shaped numpy tfs/doc_lens in, scores out.
-            tfs = self.termfreqs(token, min_posn=min_posn, max_posn=max_posn)
+            tfs = self.termfreqs(token, slop=slop, min_posn=min_posn,
+                                 max_posn=max_posn)
             scores = similarity(tfs, np.asarray(dfs), self.doclengths(),
                                 self.avg_doc_length, self.corpus_size)
             return np.asarray(scores, dtype=np.float32)
@@ -463,9 +473,13 @@ class SearchArray(ExtensionArray):
         if min_posn is None and max_posn is None:
             # a repeated phrase scores from the phrase-tf cache (one row
             # gather + similarity); a position window changes the freqs
-            dense = batch_mod.score_phrase_cached_single(self.dev, tids,
-                                                         kind, k1, b, idf)
-        if dense is None:
+            dense = batch_mod.score_phrase_cached_single(
+                self.dev, tids, slop, kind, k1, b, idf)
+        if dense is None and slop:
+            dense = spans_mod.span_freqs_dense(
+                self.dev, tids, slop, min_posn, max_posn, kind=kind, k1=k1,
+                b=b, idf=idf)
+        elif dense is None:
             dense = phrase_mod.phrase_freqs_dense(
                 self.dev, tids, min_posn, max_posn, kind=kind, k1=k1, b=b,
                 idf=idf)
@@ -474,15 +488,19 @@ class SearchArray(ExtensionArray):
     def score_batch(self, queries: List[Union[str, List[str]]],
                     similarity: Similarity = default_bm25, slop=0,
                     top_k: Optional[int] = None, block: bool = True):
-        """Score a batch of terms and exact phrases with one host copy.
+        """Score a batch of terms, exact phrases and slop phrases with one
+        host copy.
 
         Returns float32[Q, len(self)], or with ``top_k`` set,
         ``(scores[Q, k], indices[Q, k])`` ranked on the device.  With
         ``block=False`` (requires ``top_k``, a fused similarity and a full
         un-sliced view) the call returns a zero-arg ``collect()`` once all
         device work is enqueued; invoking it waits for the one copy.
-        ``slop`` (an int, or one per query) must be 0 for phrases: slop
-        phrases are not ported yet."""
+        ``slop`` is an int for every query or one per query, so a request
+        mixing exact and slop phrases is ONE batch (one pool-fill wave); a
+        one-term query ignores it.  A slop phrase the dense window kernel
+        cannot take raises ``NotImplementedError`` before any pool is
+        touched."""
         fused = getattr(similarity, "_fused", None)
         if not block and not (fused is not None and top_k is not None
                               and self._full_view):
@@ -494,19 +512,19 @@ class SearchArray(ExtensionArray):
         if len(slops) != len(queries):
             raise ValueError("per-query slop length must match queries")
         tokens = [self._check_token_arg(q) for q in queries]
-        for t, s in zip(tokens, slops):
-            self._check_phrase_options(t, s)
         if fused is None:
-            dense = np.stack([self.score(t, similarity=similarity)
-                              for t in tokens])
+            dense = np.stack([self.score(t, similarity=similarity, slop=s)
+                              for t, s in zip(tokens, slops)])
         else:
             kind, k1, b = fused
             qtids = [self._resolve_tids(t) for t in tokens]
             if self._full_view and top_k is not None:
                 return batch_mod.score_batch_fused(
                     self.dev, qtids, kind, k1, b,
-                    top_k=min(top_k, len(self)), defer=not block)
-            dense = batch_mod.score_batch_fused(self.dev, qtids, kind, k1, b)
+                    top_k=min(top_k, len(self)), defer=not block,
+                    slop=slops)
+            dense = batch_mod.score_batch_fused(self.dev, qtids, kind, k1, b,
+                                                slop=slops)
             if not self._full_view:
                 dense = dense[:, self.rows]
         if top_k is None:

@@ -1,5 +1,5 @@
-"""Batched multi-query scoring of terms and exact phrases: the serving
-path.
+"""Batched multi-query scoring of terms, exact phrases and slop phrases:
+the serving path.
 
 Queries are deduplicated, classified and grouped:
 
@@ -20,10 +20,12 @@ Queries are deduplicated, classified and grouped:
   chain step ONE K7 launch for all queries of the chunk, reduced by ONE
   K2 launch over the same flat key space; then the min over steps.
 
-With ``top_k`` every group's result is packed into int32 [Qg, 2k] (f32
-score bits ‖ doc indices), so one device-to-host copy returns a batch.
-The candidate-subset engine is not ported yet (slop phrases are rejected
-by the facade).
+With ``top_k`` every group's result is ranked by K3 and packed into int32
+[Qg, 2k] (f32 score bits ‖ doc indices), so one device-to-host copy
+returns a batch and nothing before it waits for the device.  A slop
+phrase outside the ``dspan`` shapes needs the sparse span kernel, which
+is not ported yet: the batch raises before it touches a pool.  The
+candidate-subset engine is not ported yet either.
 """
 from __future__ import annotations
 
@@ -44,6 +46,11 @@ from searcharray_tpu_torch.search.phrase import (
 from searcharray_tpu_torch.search.scoring import (
     apply_similarity_device,
     host_idf,
+)
+from searcharray_tpu_torch.search.spans import (
+    check_dense_span,
+    dense_window_ok,
+    unique_terms,
 )
 
 # Device work items issued since import: tf-pool fills and group launches.
@@ -87,8 +94,8 @@ def _slice_keys(hdrs, pays, offs, ns, bucket: int, blk_bits: int):
     """Per-query posting slices -> (doc keys int32[Qp, bucket], popcounts
     f32[Qp, bucket]); the tail past each slice is PAD with count 0."""
     device = hdrs.device
-    offs_t = torch.as_tensor(np.asarray(offs, np.int64), device=device)
-    ns_t = torch.as_tensor(np.asarray(ns, np.int64), device=device)
+    offs_t = kernels_cuda.host_to_device(np.asarray(offs, np.int64), device)
+    ns_t = kernels_cuda.host_to_device(np.asarray(ns, np.int64), device)
     col = torch.arange(bucket, device=device)
     idx = offs_t[:, None] + col[None, :]
     valid = col[None, :] < ns_t[:, None]
@@ -109,7 +116,8 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
         device = hdrs.device
         keys, pops = _slice_keys(hdrs, pays, offs, ns, bucket, blk_bits)
         tfs = _flat_segment_sum(keys, pops, Qp, Npad)[:, :N]
-        idf_t = torch.as_tensor(np.asarray(idfs, np.float32), device=device)
+        idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
+                                            device)
         out = apply_similarity_device(kind, tfs, doc_lens[None, :],
                                       idf_t[:, None], avgdl, k1, b)
         if top_k is None:
@@ -132,8 +140,8 @@ def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
     def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
         freqs = sparse_chain_freqs(hdrs, pays, offs, ns, plan_key, pattern,
                                    blk_bits=blk_bits, key_stride=Npad)[:, :N]
-        idf_t = torch.as_tensor(np.asarray(idfs, np.float32),
-                                device=hdrs.device)
+        idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
+                                            hdrs.device)
         out = apply_similarity_device(kind, freqs, doc_lens[None, :],
                                       idf_t[:, None], avgdl, k1, b)
         if top_k is None:
@@ -185,35 +193,74 @@ def _ptf_budget(dev: DeviceIndex) -> list:
     return [max(0, dense.tf_capacity(dev) // 2 - n_sigs)]
 
 
-def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], kind: str,
-                               k1: float, b: float, idf):
-    """Single-query fast path of an exact phrase through the phrase-tf
-    cache, or None.
+def _canon_slop(uniq: List[int], mults: List[int], u_spans: List[tuple]):
+    """Anchor-first canonical order of a slop query's distinct terms.
 
-    Mirrors _classify's dphrase structure.  A hit or a promotion scores
-    as one tf-row gather + similarity, the dterm group at one row."""
+    The window test is symmetric in every term but the anchor (an AND of
+    per-term window presence), so the anchor (the counted term: the one
+    with the fewest posting words) can always sit at index 0, and a
+    ``dspan`` group never varies by where the anchor sat in the query."""
+    ai = int(np.argmin([s[1] for s in u_spans]))
+    order = [ai] + [i for i in range(len(uniq)) if i != ai]
+    return ([uniq[i] for i in order], [mults[i] for i in order],
+            [u_spans[i] for i in order])
+
+
+def _slop_structure(dev: DeviceIndex, tids: List[int], slop: int):
+    """(distinct terms anchor first, their spans, fill key) of a slop
+    phrase the dense window kernel takes."""
+    uniq, mults = unique_terms(tids)
+    uniq, mults, u_spans = _canon_slop(uniq, mults,
+                                       [dev.term_span(t) for t in uniq])
+    return uniq, u_spans, ("phs", len(uniq), 0, len(tids) + slop - 1,
+                           tuple(mults))
+
+
+def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], slop: int,
+                               kind: str, k1: float, b: float, idf):
+    """Single-query fast path of an exact or slop phrase through the
+    phrase-tf cache, or None.
+
+    Mirrors _classify's dphrase and dspan structures.  A hit or a
+    promotion scores as one tf-row gather + similarity, the dterm group
+    at one row."""
     if not dense.dense_eligible(dev) or len(tids) < 2:
         return None
     if min(dev.term_span(t)[1] for t in tids) == 0:
         return None
-    if not dense.phrase_fits_pool(dev, tids):
-        return None
-    plan_key, pattern = chain_key(dev, tids)
-    sig = (tuple(tids), 0)
-    if not _phrase_tf_route(dev, sig, tids,
-                            ("ph", len(tids), plan_key, pattern),
-                            _ptf_budget(dev)):
+    if slop > 0:
+        uniq, mults = unique_terms(tids)
+        if not (dense_window_ok(len(tids), slop, mults)
+                and dense.phrase_fits_pool(dev, uniq)):
+            return None
+        rec, _, fkey = _slop_structure(dev, tids, slop)
+    else:
+        if not dense.phrase_fits_pool(dev, tids):
+            return None
+        plan_key, pattern = chain_key(dev, tids)
+        rec, fkey = tids, ("ph", len(tids), plan_key, pattern)
+    sig = (tuple(tids), slop)
+    if not _phrase_tf_route(dev, sig, rec, fkey, _ptf_budget(dev)):
         return None
     dense.ensure_batch(dev, tf_tids=[sig])
-    slots = torch.as_tensor(dense.tf_slots_of(dev, [sig]), device=dev.device)
-    idfs = torch.as_tensor(np.asarray([idf], np.float32), device=dev.device)
+    slots = kernels_cuda.host_to_device(dense.tf_slots_of(dev, [sig]),
+                                        dev.device)
+    idfs = kernels_cuda.host_to_device(np.asarray([idf], np.float32),
+                                       dev.device)
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return dense.term_group_body(kind, k1, b, None, dev.tf_pool, slots,
                                  dev.doc_lens, idfs, avgdl)[0]
 
 
+def _is_slop_phrase(tids, slop: int) -> bool:
+    """A resolved query of two or more terms with slop: a one-term query
+    ignores its slop."""
+    return (slop > 0 and tids is not None and len(tids) > 1
+            and all(t >= 0 for t in tids))
+
+
 def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
-              kind: str):
+              kind: str, slop=0):
     """Split queries into structure groups.
 
     Returns a dict mapping a structural key to a list of (query_index,
@@ -222,7 +269,13 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     engine (corpus dense-eligible) term queries use pooled tf rows
     (``dterm``) and exact phrases the chain on pooled planes (``dphrase``,
     keyed by term count, plan and pattern), or, once repeated, their
-    cached freq row (a ``dterm`` row keyed by the phrase signature).  The
+    cached freq row (a ``dterm`` row keyed by the phrase signature).
+    ``slop`` is an int for every query or one per query: a query of two
+    or more terms with slop > 0 is a slop phrase, a ``dspan`` group keyed
+    by (distinct terms, anchor column 0, window, multiplicities) whose
+    rows hold the distinct terms anchor first, or its cached freq row.  A
+    slop phrase the dense window kernel cannot take raises
+    ``NotImplementedError`` before any query is counted or promoted.  The
     candidate-subset engine is not ported yet (ROADMAP Queue 1 item 10):
     rare terms and phrases take the dense groups too.  Term queries on
     corpora too large for dense planes are ``term``, keyed by posting
@@ -232,6 +285,12 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     their rows hold the slices trimmed to the rarest term's doc range) and
     never take a tf-pool slot."""
     dense_ok = dense.dense_eligible(dev)
+    slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
+             else [int(s) for s in slop])
+    for tids, sl in zip(queries_tids, slops):
+        if (_is_slop_phrase(tids, sl)
+                and min(dev.term_span(t)[1] for t in tids) > 0):
+            check_dense_span(dev, tids, sl)
     ptf_budget = _ptf_budget(dev) if dense_ok else [0]
     groups: dict = {}
     for qi, tids in enumerate(queries_tids):
@@ -241,7 +300,17 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
         idf = host_idf(kind, dfs, dev.corpus_size, dev.avg_doc_length)
         spans = [dev.term_span(t) for t in tids]
         lengths = [s[1] for s in spans]
-        if len(tids) == 1:
+        if _is_slop_phrase(tids, slops[qi]):
+            if min(lengths) == 0:
+                continue
+            sig = (tuple(tids), slops[qi])
+            row_tids, spans, fkey = _slop_structure(dev, tids, slops[qi])
+            lengths = [s[1] for s in spans]
+            if _phrase_tf_route(dev, sig, row_tids, fkey, ptf_budget):
+                gkey, row_tids = ("dterm",), [sig]
+            else:
+                gkey = ("dspan",) + fkey[1:]
+        elif len(tids) == 1:
             gkey = (("dterm",) if dense_ok
                     else ("term", K.bucket_of(max(1, lengths[0]))))
             row_tids = tids
@@ -272,12 +341,15 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
 def score_batch_fused(dev: DeviceIndex,
                       queries_tids: Sequence[Optional[List[int]]],
                       kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
-                      top_k: Optional[int] = None, defer: bool = False):
+                      top_k: Optional[int] = None, defer: bool = False,
+                      slop=0):
     """Score a batch of resolved term-id queries, one launch per group.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
     mark vocabulary misses, making the query score zero), or None; a list
-    of two or more ids is an exact phrase (slop 0).
+    of two or more ids is a phrase.  ``slop`` is an int for the whole
+    batch or one per query: 0 is an exact phrase, more a slop phrase
+    (mixed batches share one wave: one pool fill, then the groups).
 
     Returns float32[Q, num_docs] (numpy), or with ``top_k``: (scores
     float32[Q, k], indices int64[Q, k]).  With ``defer`` (requires
@@ -287,18 +359,24 @@ def score_batch_fused(dev: DeviceIndex,
     """
     if defer and top_k is None:
         raise ValueError("defer requires top_k")
-    # dedup identical queries: serving batches repeat hot queries; each
-    # distinct one is scored once and fanned back out below
+    slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
+             else [int(s) for s in slop])
+    if len(slops) != len(queries_tids):
+        raise ValueError("per-query slop length must match queries")
+    # dedup identical (query, slop) pairs: serving batches repeat hot
+    # queries; each distinct one is scored once and fanned back out below
     keymap: dict = {}
     uniq: List[Optional[List[int]]] = []
+    uniq_slops: List[int] = []
     expand: List[int] = []
-    for tids in queries_tids:
-        kq = None if tids is None else tuple(tids)
+    for tids, sl in zip(queries_tids, slops):
+        kq = None if tids is None else (tuple(tids), sl)
         uid = keymap.get(kq)
         if uid is None:
             uid = len(uniq)
             keymap[kq] = uid
             uniq.append(tids)
+            uniq_slops.append(sl)
         expand.append(uid)
     n_total = len(queries_tids)
     dedup = len(uniq) != n_total
@@ -307,7 +385,8 @@ def score_batch_fused(dev: DeviceIndex,
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     # queries in no group (and every query of a corpus without tokens)
     # keep the all-zero rows
-    groups = _classify(dev, uniq, kind) if dev.avg_doc_length else {}
+    groups = (_classify(dev, uniq, kind, slop=uniq_slops)
+              if dev.avg_doc_length else {})
 
     N = dev.corpus_size
     Npad = _npad(N)
@@ -318,10 +397,10 @@ def score_batch_fused(dev: DeviceIndex,
     # chunk every group into rectangular specs
     specs: List[dict] = []
     for gkey, grows in groups.items():
-        if gkey[0] == "dphrase":
-            # the JAX package's bound on a phrase group (a broadcast plane
-            # gather of ~2 GB there), and the chunk's terms must fit the
-            # plane pool beside one free slot
+        if gkey[0] in ("dphrase", "dspan"):
+            # the JAX package's bound on a phrase or slop group (a broadcast
+            # plane gather of ~2 GB there), and the chunk's terms must fit
+            # the plane pool beside one free slot
             T = gkey[1]
             max_chunk = max(1, min((1 << 29) // (T * max(1, NS)),
                                    (cap_p - 1) // T))
@@ -365,7 +444,7 @@ def score_batch_fused(dev: DeviceIndex,
                     "idfs": np.asarray([r[3] for r in chunk], np.float32)}
             if gkey[0] == "dterm":
                 spec["tf_tids"] = [r[4][0] for r in chunk]
-            elif gkey[0] == "dphrase":
+            elif gkey[0] in ("dphrase", "dspan"):
                 spec["plane_tids"] = [t for r in chunk for t in r[4]]
             elif gkey[0] == "phrase":
                 spec["offs"] = np.stack([r[1] for r in chunk])
@@ -409,21 +488,27 @@ def score_batch_fused(dev: DeviceIndex,
         tf_tids = [t for s in wave for t in s.get("tf_tids", ())]
         dense.ensure_batch(dev, plane_tids=plane_tids, tf_tids=tf_tids)
         for s in wave:
-            idfs = torch.as_tensor(s["idfs"], device=dev.device)
+            idfs = kernels_cuda.host_to_device(s["idfs"], dev.device)
             DISPATCHES[0] += 1
             if s["gkey"][0] == "dterm":
-                slots = torch.as_tensor(dense.tf_slots_of(dev, s["tf_tids"]),
-                                        device=dev.device)
+                slots = kernels_cuda.host_to_device(
+                    dense.tf_slots_of(dev, s["tf_tids"]), dev.device)
                 outs.append(dense.term_group_body(kind, k1, b, top_k,
                                                   dev.tf_pool, slots,
                                                   dev.doc_lens, idfs, avgdl))
             else:
-                _, T, plan_key, pattern = s["gkey"]
                 slots = dense.plane_slots_of(dev, s["plane_tids"]).reshape(
-                    len(s["chunk"]), T)
-                outs.append(dense.phrase_group_body(dev, plan_key, pattern,
-                                                    kind, k1, b, top_k,
-                                                    slots, idfs, avgdl))
+                    len(s["chunk"]), s["gkey"][1])
+                if s["gkey"][0] == "dspan":
+                    _, _, anchor_i, w, mults = s["gkey"]
+                    outs.append(dense.span_group_body(
+                        dev, anchor_i, w, mults, kind, k1, b, top_k, slots,
+                        idfs, avgdl))
+                else:
+                    _, _, plan_key, pattern = s["gkey"]
+                    outs.append(dense.phrase_group_body(
+                        dev, plan_key, pattern, kind, k1, b, top_k, slots,
+                        idfs, avgdl))
             rows += [r[0] for r in s["chunk"]]
     for s in specs:
         gkey = s["gkey"]

@@ -1,5 +1,5 @@
 """Dense engine: term tf vectors and term payload planes resident on the
-device, and exact-phrase scoring over the planes.
+device, and exact-phrase and slop-phrase scoring over the planes.
 
 A term's per-doc tf vector f32[N] is immutable for an index, so hot terms
 keep theirs in ONE device tensor, the **tf pool** ``f32[Ct, N]``; a term
@@ -16,18 +16,23 @@ positionally aligned:
 
 The chain itself is K5 (``ops/cuda/score.py:phrase_chain``); its plain
 version is ``ops/kernels.py:phrase_counts_dense_planes``, re-exported here.
+A slop phrase (window ``w = n + slop - 1`` of at most 18 positions, no
+term more than twice) is K6 (``span_window``) on the same planes: window
+starts that hold every term often enough, dilated back over the anchor
+term's positions.  Every ranked result is K3 (``topk``), packed by
+``pack_topk``.
 Both pools keep term -> slot maps on the host (LRU eviction).  A batch's
 missing rows are filled by one K4 launch (all plane rows), one multi-row
-K1 launch (all term tf rows) and one K5 launch per phrase-row recipe, all
-written straight into their pool rows.  A repeated phrase's freq row is
+K1 launch (all term tf rows) and one K5 or K6 launch per phrase-row
+recipe, all written straight into their pool rows.  A repeated phrase's freq row is
 cached in the tf pool like a term's (the phrase-tf cache): it then scores
 as one row gather.  Launches are stream-ordered, so a row is filled
 before any later read of it and read before any later launch refills its
 slot.
 
 The port of the JAX package's dense engine (``searcharray_tpu/search/
-dense.py``) for exact phrases on full planes; slop spans and candidate
-rows come with later slices.  Its compile-bounding fill programs
+dense.py``) for exact and slop phrases on full planes; candidate rows
+come with a later slice.  Its compile-bounding fill programs
 (``_FILL_CHUNK``, the canonical fill key) and the TPU-only MXU slot sum
 have no counterpart here: PyTorch runs eagerly.
 """
@@ -150,13 +155,14 @@ def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
     ``tf_tids`` entries may be phrase signatures ((tids, slop) tuples)
     promoted into the phrase-tf cache (``dev.phrase_recipes`` holds each
     one's terms and chain structure): a missing one pulls its terms'
-    planes into the same call and is filled by K5 from them.  Both pools
+    planes into the same call and is filled by K5 (an exact phrase) or
+    K6 (a slop phrase) from them.  Both pools
     are checked before either assigns a slot, so a request that cannot
     fit raises with the pools untouched, and a fill that raises unmaps
     every slot this call assigned: no key is ever left on a row that was
     not filled for it.  Fills: one K4 launch for all missing planes, one
-    multi-row K1 launch for all missing term tf rows, one K5 launch per
-    chain structure of the missing phrase rows."""
+    multi-row K1 launch for all missing term tf rows, one K5 or K6 launch
+    per structure of the missing phrase rows."""
     miss_sigs = [t for t in dict.fromkeys(tf_tids)
                  if isinstance(t, tuple) and t not in dev.tf_slot]
     plane_tids = list(plane_tids) + [t for s in miss_sigs
@@ -181,7 +187,9 @@ def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
 def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
     """Fill the newly assigned plane rows (one K4 launch), term tf rows
     (one multi-row K1 launch) and phrase tf rows (one K5 launch per chain
-    structure)."""
+    structure of the exact phrases, ``"ph"`` recipes, and one K6 launch
+    per (terms, anchor, window, multiplicities) of the slop phrases,
+    ``"phs"`` recipes)."""
     if new_p:
         spans = [dev.term_span(t)[:2] for t, _ in new_p]
         DISPATCHES[0] += 1
@@ -205,13 +213,19 @@ def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
             blk_bits=dev.blk_bits)
     # the planes above are filled first: stream order puts these reads
     # after the K4 launch that wrote them
-    for (_, _, plan_key, pattern), rows in by_recipe.items():
+    for fkey, rows in by_recipe.items():
         DISPATCHES[0] += 1
-        kernels_cuda.phrase_chain(
-            dev.plane_pool, [plane_slots_of(dev, tids) for tids, _ in rows],
-            plan_key, pattern, num_docs=dev.corpus_size,
-            blk_bits=dev.blk_bits, out=dev.tf_pool,
-            out_rows=[slot for _, slot in rows])
+        slots = [plane_slots_of(dev, tids) for tids, _ in rows]
+        into = dict(num_docs=dev.corpus_size, blk_bits=dev.blk_bits,
+                    out=dev.tf_pool, out_rows=[slot for _, slot in rows])
+        if fkey[0] == "ph":
+            _, _, plan_key, pattern = fkey
+            kernels_cuda.phrase_chain(dev.plane_pool, slots, plan_key,
+                                      pattern, **into)
+        else:
+            _, _, anchor_i, w, mults = fkey
+            kernels_cuda.span_window(dev.plane_pool, slots, w, mults,
+                                     anchor=anchor_i, **into)
 
 
 def ensure_planes(dev: DeviceIndex, tids: Sequence[int]) -> None:
@@ -248,10 +262,14 @@ def tf_slots_of(dev: DeviceIndex, tids: Sequence) -> np.ndarray:
 # ---------------------------------------------------------------------------
 def pack_topk(dense: torch.Tensor, k: int) -> torch.Tensor:
     """[..., N] -> int32 [..., 2k]: f32 score bits ‖ int32 doc indices, one
-    packed tensor so a whole batch crosses to the host in one copy."""
-    scores, idx = K.topk_exact(dense, k)
-    return torch.cat([scores.view(torch.int32), idx.to(torch.int32)],
-                     dim=-1)
+    packed tensor so a whole batch crosses to the host in one copy.  The
+    ranking is K3 (``ops/cuda/score.py:topk``): nothing here is read by
+    the host."""
+    if k == 0:
+        return torch.empty(dense.shape[:-1] + (0,), dtype=torch.int32,
+                           device=dense.device)
+    scores, idx = kernels_cuda.topk(dense.contiguous(), k)
+    return torch.cat([scores.view(torch.int32), idx], dim=-1)
 
 
 def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
@@ -311,6 +329,40 @@ def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
     freqs = kernels_cuda.phrase_chain(
         dev.plane_pool, [plane_slots_of(dev, term_ids)], plan, pattern,
         num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    return K.apply_similarity_device(kind, freqs, dev.doc_lens,
+                                     np.float32(idf), avgdl, k1, b)
+
+
+def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
+                    kind: str, k1: float, b: float, top_k: Optional[int],
+                    slots, idfs, avgdl):
+    """One slop group on full planes: one K6 launch reads every query's
+    planes from the pool, then similarity (+ packed top-k).  ``slots`` is
+    the host int [Qg, T] array of the plane rows of each query's distinct
+    terms."""
+    freqs = kernels_cuda.span_window(dev.plane_pool, slots, w, mults,
+                                     anchor=anchor_i,
+                                     num_docs=dev.corpus_size,
+                                     blk_bits=dev.blk_bits)
+    out = K.apply_similarity_device(kind, freqs, dev.doc_lens[None, :],
+                                    idfs[:, None], avgdl, k1, b)
+    if top_k is None:
+        return out
+    return pack_topk(out, top_k)
+
+
+def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,
+                     w: int, kind: str, k1: float, b: float, idf,
+                     mults=None):
+    """Single-query dense slop scoring: the plane fill, one K6 launch, the
+    similarity."""
+    ensure_planes(dev, uniq_tids)
+    mults = (1,) * len(uniq_tids) if mults is None else tuple(mults)
+    freqs = kernels_cuda.span_window(
+        dev.plane_pool, [plane_slots_of(dev, uniq_tids)], w, mults,
+        anchor=anchor_i, num_docs=dev.corpus_size,
+        blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
                                      np.float32(idf), avgdl, k1, b)

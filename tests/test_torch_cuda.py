@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K4, K5 and K7 against their plain PyTorch
+"""The CUDA kernels K1 to K7 against their plain PyTorch
 versions, and the port's main path on a card against the same path on
 the CPU.
 
@@ -728,3 +728,294 @@ def test_sparse_phrase_path_on_card_matches_cpu(card, monkeypatch):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
     assert kc.merge_step.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K3: exact top-k
+# ---------------------------------------------------------------------------
+K3_TILE = 16384   # elements of a row per block, csrc/topk.cu
+K3_SORT_CAP = 2048
+
+
+def k3_both(card, x, k):
+    """K3 and its plain version on the same card tensor: values and
+    indices equal exactly."""
+    gx = torch.from_numpy(x).to(card)
+    before = kc.topk.launches
+    vals, idx = kc.topk(gx, k)
+    want_v, want_i = kc.topk_plain(gx, k)
+    torch.cuda.synchronize()
+    assert kc.topk.launches == before + 1
+    assert idx.dtype == torch.int32 and vals.dtype == torch.float32
+    assert vals.shape == idx.shape == gx.shape[:-1] + (k,)
+    assert torch.equal(idx.long(), want_i)
+    # bit for bit: -0.0 comes back as -0.0
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    return vals, idx
+
+
+def k3_rows(name, rng, q, n):
+    if name == "distinct":
+        return rng.random((q, n)).astype(np.float32)
+    if name == "few levels":       # heavy ties at every rank
+        return (rng.integers(0, 5, (q, n)) / 7).astype(np.float32)
+    if name == "one value":
+        return np.full((q, n), 2.5, np.float32)
+    if name == "zeros":
+        return np.zeros((q, n), np.float32)
+    if name == "few positive":     # fewer than k positive scores
+        x = np.zeros((q, n), np.float32)
+        for r in range(q):
+            hot = rng.choice(n, size=min(n, 3), replace=False)
+            x[r, hot] = rng.random(len(hot)).astype(np.float32) + 1
+        return x
+    if name == "signed zeros and -inf":
+        x = rng.standard_normal((q, n)).astype(np.float32)
+        x[rng.random((q, n)) < 0.3] = -np.inf
+        x[rng.random((q, n)) < 0.2] = -0.0
+        x[rng.random((q, n)) < 0.2] = 0.0
+        return x
+    if name == "all -inf":
+        return np.full((q, n), -np.inf, np.float32)
+    if name == "bm25-like":        # mostly zero, positive scores with ties
+        x = np.zeros((q, n), np.float32)
+        mask = rng.random((q, n)) < 0.05
+        x[mask] = (rng.integers(1, 40, int(mask.sum())) / 3).astype(
+            np.float32)
+        return x
+    raise KeyError(name)
+
+
+K3_DATA = ["distinct", "few levels", "one value", "zeros", "few positive",
+           "signed zeros and -inf", "all -inf", "bm25-like"]
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, K3_SORT_CAP, K3_SORT_CAP + 1])
+@pytest.mark.parametrize("data", K3_DATA)
+def test_k3_kernel_matches_plain(card, data, k):
+    """Both sides of the in-kernel sort's cap, N off the tile size and off
+    a multiple of 4 (the 4-byte loads)."""
+    rng = np.random.default_rng(k + len(data))
+    for q, n in ((3, 3 * K3_TILE + 1237), (2, 40_000)):
+        k3_both(card, k3_rows(data, rng, q, n), k)
+
+
+@pytest.mark.parametrize("q", [1, 2, 7, 64, 150])
+def test_k3_row_counts(card, q):
+    rng = np.random.default_rng(q)
+    k3_both(card, k3_rows("bm25-like", rng, q, 70_001), 10)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 5), (5, 1), (2049, 2049),
+                                 (K3_TILE, K3_TILE), (3 * K3_TILE + 5, 5000),
+                                 (100_003, 100_003)])
+def test_k3_k_up_to_n(card, n, k):
+    rng = np.random.default_rng(n + k)
+    for data in ("distinct", "few levels", "zeros"):
+        k3_both(card, k3_rows(data, rng, 2, n), k)
+
+
+@pytest.mark.parametrize("k", [1, 10, 3000])
+def test_k3_ties_across_tile_edges(card, k):
+    """Runs of the k-th value that start, end and straddle tile edges: the
+    earliest indices win."""
+    n = 4 * K3_TILE
+    x = np.zeros((4, n), np.float32)
+    for r, at in enumerate((K3_TILE - 2, K3_TILE - 1, K3_TILE,
+                            2 * K3_TILE - k // 2)):
+        x[r, at: at + k + 3] = 7.0       # k + 3 ties for k places
+        x[r, 3 * K3_TILE + 5] = 9.0      # and one score above them
+    vals, idx = k3_both(card, x, k)
+    assert idx[0, 0].item() == 3 * K3_TILE + 5
+    if k > 1:
+        assert idx[1, 1].item() == K3_TILE - 1
+
+
+def test_k3_one_dimensional_row_and_leading_axes(card):
+    rng = np.random.default_rng(3)
+    k3_both(card, k3_rows("few levels", rng, 1, 50_000)[0], 10)
+    k3_both(card, k3_rows("bm25-like", rng, 6, 9000).reshape(2, 3, 9000), 7)
+
+
+def test_k3_rejects_bad_requests(card):
+    x = torch.zeros((3, 100), device=card)
+    for k in (0, 101):
+        with pytest.raises(ValueError, match="k must be"):
+            kc.topk(x, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.topk(x.t(), 2)
+    with pytest.raises(TypeError):
+        kc.topk(x.double(), 2)
+
+
+def test_k3_enqueues_without_a_host_sync(card):
+    """The wrapper reads nothing back: with synchronisation warnings
+    raised to errors a call still goes through."""
+    x = torch.from_numpy(k3_rows("bm25-like", np.random.default_rng(0), 8,
+                                 50_000)).to(card)
+    kc.topk(x, 10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vals, idx = kc.topk(x, 10)
+        big_v, big_i = kc.topk(x, K3_SORT_CAP + 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want_v, want_i = kc.topk_plain(x, 10)
+    assert torch.equal(idx.long(), want_i) and torch.equal(vals, want_v)
+    assert torch.equal(big_i.long(), kc.topk_plain(x, K3_SORT_CAP + 5)[1])
+
+
+# ---------------------------------------------------------------------------
+# K6: the slop window on dense planes
+# ---------------------------------------------------------------------------
+def k6_both(card, pool, slots, w, mults, anchor, num_docs, blk_bits):
+    kw = dict(anchor=anchor, num_docs=num_docs, blk_bits=blk_bits)
+    before = kc.span_window.launches
+    got = kc.span_window(pool, slots, w, mults, **kw)
+    want = kc.span_window_plain(pool, slots, w, mults, **kw)
+    torch.cuda.synchronize()
+    assert kc.span_window.launches == before + 1
+    assert torch.equal(got, want)  # integer counts: bit-equal
+    return want
+
+
+K6_SHAPES = [
+    # (blk_bits, num_docs): S = 1 .. 64 and two shapes whose docs span
+    # lanes of several warps (S = 512, 4096); no plane is a multiple of a
+    # warp's 256 slots
+    (0, 2999), (1, 2999), (2, 1001), (3, 3001), (4, 1501), (5, 777),
+    (6, 301), (9, 41), (12, 5),
+]
+
+
+@pytest.mark.parametrize("w", list(range(1, 19)))
+@pytest.mark.parametrize("blk_bits,num_docs", K6_SHAPES)
+def test_k6_kernel_matches_plain(card, blk_bits, num_docs, w):
+    """Every window width (two slots a word up to w = 14, one above), with
+    multiplicity 1, 2 on one term and 2 on two terms, three queries of a
+    group, each anchor column."""
+    pool = chain_pool(blk_bits * 100 + w, num_docs, blk_bits, 8,
+                      density=0.25).to(card)
+    rng = np.random.default_rng(w)
+    for T, mults in ((2, (1, 1)), (3, (1, 2, 1)), (3, (2, 1, 2)),
+                     (1, (2,))):
+        slots = np.stack([rng.permutation(8)[:T] for _ in range(3)])
+        want = k6_both(card, pool, slots, w, mults, T - 1, num_docs,
+                       blk_bits)
+        if w >= 3 and num_docs > 1000 and max(mults) == 1:
+            assert float(want.max()) > 0
+
+
+@pytest.mark.parametrize("T", [2, 3, 5, 8])
+def test_k6_term_counts_and_sparse_planes(card, T):
+    """T = 2..8 distinct terms on sparse planes (few windows hold them
+    all), every anchor."""
+    num_docs = 20_001
+    pool = chain_pool(T, num_docs, 3, 8, density=0.05).to(card)
+    slots = np.stack([np.roll(np.arange(8), r)[:T] for r in range(4)])
+    for anchor in range(T):
+        k6_both(card, pool, slots, min(18, T + 3), (1,) * T, anchor,
+                num_docs, 3)
+
+
+def test_k6_empty_anchor_plane_and_shared_planes(card):
+    """A group of 30 queries over 6 planes (every plane read by many
+    queries of one launch); plane 5 is empty, so queries anchored on it
+    count nothing and queries holding it match nothing."""
+    num_docs = 40_001
+    pool = chain_pool(6, num_docs, 3, 6, density=0.3)
+    pool[5] = 0
+    pool = pool.to(card)
+    pairs = np.asarray([(a, b) for a in range(6) for b in range(6)
+                        if a != b], np.int32)
+    want = k6_both(card, pool, pairs, 4, (1, 1), 0, num_docs, 3)
+    empty = (pairs == 5).any(axis=1)
+    assert not want[torch.from_numpy(empty).to(card)].any()
+    assert float(want.max()) > 0
+
+
+@pytest.mark.parametrize("blk_bits", [0, 3, 4, 6, 9])
+def test_k6_writes_into_tf_pool_rows(card, blk_bits):
+    num_docs = 2001 if blk_bits < 9 else 37
+    pool = chain_pool(blk_bits + 5, num_docs, blk_bits, 6,
+                      density=0.3).to(card)
+    tfpool = torch.full((12, num_docs), -1.0, device=card)
+    slots = np.asarray([[0, 1, 2], [3, 4, 5], [5, 1, 2]], np.int32)
+    rows = [11, 0, 6]
+    kw = dict(anchor=0, num_docs=num_docs, blk_bits=blk_bits)
+    kc.span_window(pool, slots, 5, (1, 2, 1), out=tfpool, out_rows=rows,
+                   **kw)
+    want = kc.span_window_plain(pool, slots, 5, (1, 2, 1), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tfpool[rows], want)
+    keep = [i for i in range(12) if i not in rows]
+    assert bool((tfpool[keep] == -1).all())
+
+
+def test_k6_last_slot_bit17_reads_across_the_doc_boundary(card):
+    """Shifts run over the flat slot axis: bit 17 of a doc's last slot and
+    bit 0 of the next doc's first slot are one position apart."""
+    pool = torch.zeros((2, 4), dtype=torch.int32)
+    pool[0, 1] = 1 << 17       # doc 0, last slot, position 35
+    pool[1, 2] = 1             # doc 1, first slot, position 0
+    pool = pool.to(card)
+    for anchor, want in ((0, [1.0, 0.0]), (1, [0.0, 1.0])):
+        got = k6_both(card, pool, [[0, 1]], 1, (1, 1), anchor, 2, 1)
+        assert got[0].tolist() == want
+
+
+def test_k6_unaligned_pool_rows(card):
+    """Pool rows that are not 16-byte aligned take the 4-byte loads."""
+    num_docs = 1001  # 1001 * 2 slots: rows of 8008 bytes, but a view at +1
+    base = chain_pool(2, num_docs, 1, 4, density=0.3)
+    flat = torch.zeros(4 * 2 * num_docs + 1, dtype=torch.int32)
+    flat[1:] = base.reshape(-1)
+    pool = flat.to(card)[1:].view(4, 2 * num_docs)
+    k6_both(card, pool, [[0, 1], [2, 3]], 6, (1, 1), 0, num_docs, 1)
+
+
+def test_k6_rejects_bad_requests(card):
+    pool = chain_pool(1, 100, 3, 4).to(card)
+    kw = dict(num_docs=100, blk_bits=3)
+    with pytest.raises(ValueError, match="window"):
+        kc.span_window(pool, [[0, 1]], 19, (1, 1), **kw)
+    with pytest.raises(ValueError, match="multiplicities"):
+        kc.span_window(pool, [[0, 1]], 5, (1, 3), **kw)
+    with pytest.raises(ValueError, match="anchor"):
+        kc.span_window(pool, [[0, 1]], 5, (1, 1), anchor=2, **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        kc.span_window(pool, [[0, 4]], 5, (1, 1), **kw)
+
+
+def test_slop_path_on_card_matches_cpu(card):
+    """Slop phrases through the facade on the card and on the CPU: score,
+    termfreqs, and three mixed batches (group, promotion, cached rows)."""
+    rng = np.random.default_rng(41)
+    vocab = ["red", "fox", "the", "dog"] + [f"w{i}" for i in range(20)]
+    docs = [" ".join(rng.choice(vocab, size=rng.integers(1, 60)))
+            for _ in range(3000)]
+    gpu = SearchArray.index(docs, device="cuda")
+    cpu = SearchArray.index(docs, device="cpu")
+    cases = [(["red", "fox"], 1), (["the", "red", "the"], 2),
+             (["w1", "the", "fox"], 4), (["dog", "dog"], 15),
+             (["red", "w2"], 3)]
+    before = kc.span_window.launches
+    for ph, slop in cases:
+        np.testing.assert_array_equal(gpu.termfreqs(ph, slop=slop),
+                                      cpu.termfreqs(ph, slop=slop))
+        for _ in range(3):  # window kernel, promotion, cached row
+            np.testing.assert_allclose(gpu.score(ph, slop=slop),
+                                       cpu.score(ph, slop=slop), rtol=1e-6,
+                                       atol=1e-7)
+    qs = ["red", ["red", "fox"], "w3"] + [ph for ph, _ in cases]
+    slops = [0, 0, 0] + [s for _, s in cases]
+    for _ in range(3):
+        want = cpu.score_batch(qs, top_k=10, slop=slops)
+        for got in (gpu.score_batch(qs, top_k=10, slop=slops),
+                    gpu.score_batch(qs, top_k=10, slop=slops,
+                                    block=False)()):
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-6,
+                                       atol=1e-7)
+    assert kc.span_window.launches > before

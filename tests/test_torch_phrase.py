@@ -386,11 +386,28 @@ def test_unported_phrase_paths_raise(pair, call, monkeypatch):
             got, jarr.termfreqs(["red", "fox"], min_posn=0, max_posn=17))
         assert 0 < got.sum() < tarr.termfreqs(["red", "fox"]).sum()
     elif call == "slop":
+        # ported: a slop phrase on dense planes equals the JAX package's
+        jarr, _ = pair
+        np.testing.assert_array_equal(
+            tarr.termfreqs(["red", "fox"], slop=1),
+            jarr.termfreqs(["red", "fox"], slop=1))
+        got = tarr.score(["red", "fox"], slop=1)
+        np.testing.assert_allclose(got, jarr.score(["red", "fox"], slop=1),
+                                   rtol=1e-6, atol=1e-7)
+        assert (got > 0).sum() > (tarr.score(["red", "fox"]) > 0).sum()
+        # what is left of it: the shapes the sparse span kernel takes
         with pytest.raises(NotImplementedError, match="item 9"):
-            tarr.score(["red", "fox"], slop=1)
+            tarr.score(["red", "fox"], slop=18)
     elif call == "slop_batch":
+        # ported: a batch mixing slop 0 and 2
+        jarr, _ = pair
+        qs = ["red", ["red", "fox"], ["fox", "the", "fox"]]
+        ws, wi = jarr.score_batch(qs, slop=[0, 2, 2], top_k=3)
+        gs, gi = tarr.score_batch(qs, slop=[0, 2, 2], top_k=3)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
         with pytest.raises(NotImplementedError, match="item 9"):
-            tarr.score_batch(["red", ["red", "fox"]], slop=[0, 2], top_k=3)
+            tarr.score_batch(["red", ["red", "fox"]], slop=[0, 30], top_k=3)
     else:
         # ported: phrases on a corpus that is not dense-eligible
         jarr, arr = make_pair(make_docs(n=50))

@@ -192,6 +192,48 @@ def test_dtype_survives_concat_and_take(pair):
     assert tarr.copy().device == "cpu" and filled.device == "cpu"
 
 
+@pytest.mark.parametrize("other", ["same rows", "one row differs",
+                                   "shorter", "empty", "empty both",
+                                   "scalar"])
+def test_eq_against_a_list_like_matches_jax(other):
+    """``SearchArray == list``: a SearchArray is built from the list and
+    compared row by row; a length mismatch is False, empty input an empty
+    bool array, anything else all False."""
+    from searcharray_tpu.pandas_ext.array import Terms as JTerms
+    from searcharray_tpu_torch import Terms
+
+    docs = ["alpha beta", "beta gamma epsilon", "", "delta"]
+    jarr, tarr = JSearchArray.index(docs), SearchArray.index(docs,
+                                                             device="cpu")
+    if other == "empty both":
+        jarr, tarr = jarr[:0], tarr[:0]
+
+    def rows(terms_cls, arr):
+        out = [terms_cls(dict(arr[i].terms()), doc_len=arr[i].doc_len)
+               for i in range(len(arr))]
+        if other == "one row differs":
+            out[1] = terms_cls({"beta": 1}, doc_len=1)
+        elif other == "shorter":
+            out = out[:-1]
+        elif other == "empty":
+            out = []
+        return out
+
+    if other == "scalar":
+        want, got = jarr == 7, tarr == 7
+    else:
+        want, got = jarr == rows(JTerms, jarr), tarr == rows(Terms, tarr)
+    if other in ("shorter", "empty"):
+        assert want is False and got is False
+        return
+    assert isinstance(got, np.ndarray) and got.dtype == bool
+    np.testing.assert_array_equal(got, np.asarray(want, dtype=bool))
+    if other == "same rows":
+        assert got.all() and len(got) == 4
+    elif other == "one row differs":
+        assert got.tolist() == [True, False, True, True]
+
+
 def test_pool_exhaustion_raises_like_jax(monkeypatch):
     monkeypatch.setattr(jdense, "TF_POOL_MAX_SLOTS", 16)
     monkeypatch.setattr(dense, "TF_POOL_MAX_SLOTS", 16)
@@ -229,9 +271,17 @@ def test_unported_parts_raise(pair, call):
             rtol=1e-6, atol=1e-7)
         assert got.max() > 0
         return
+    if call == "phrase_batch":
+        # ported: a slop phrase in a batch takes the dense window kernel
+        ws, wi = jarr.score_batch([["alpha", "beta"]], top_k=3, slop=2)
+        gs, gi = tarr.score_batch([["alpha", "beta"]], top_k=3, slop=2)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+        assert gs[0, 0] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "phrase_batch":
-            tarr.score_batch([["alpha", "beta"]], top_k=3, slop=2)
+            # what still raises: a window wider than a slot
+            tarr.score_batch([["alpha", "beta"]], top_k=3, slop=20)
         elif call == "setitem":
             tarr[0] = {"a": 1}
         elif call == "positions":
