@@ -10,8 +10,9 @@ entry points a user calls, and checks it:
    power limit;
 2. build: the hand-written kernels K1 (csrc/score_term.cu), K2
    (csrc/segment_sum.cu), K3 (csrc/topk.cu), K4 (csrc/plane_fill.cu), K5
-   (csrc/phrase_chain.cu), K6 (csrc/span_window.cu) and K7
-   (csrc/merge_step.cu) compile with nvcc for sm_90a;
+   (csrc/phrase_chain.cu), K6 (csrc/span_window.cu), K7
+   (csrc/merge_step.cu) and K9 (csrc/span_sparse.cu) compile with nvcc
+   for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
    ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
@@ -29,8 +30,7 @@ entry points a user calls, and checks it:
    cached rows; ``score`` and ``termfreqs`` of each slop shape and of a
    repeated-term stopword phrase at the widest window (w = 17), held to
    an oracle that counts each term's positions per window by prefix
-   sums; and slop phrases the dense window cannot take, which must raise
-   and leave the pools alone.
+   sums.
    Then the same term ``score_batch`` on a 40k-doc index with one
    ~220k-token document, which is too large for dense planes and takes
    the sparse term group (K2).  Then the sparse phrase chain (K7, each
@@ -38,8 +38,20 @@ entry points a user calls, and checks it:
    window (``score`` in positions 0-17, ``termfreqs`` in 18-53) and a
    40-term phrase (above K5's cap) through ``score`` and ``score_batch``;
    on the long-document index the serving mix of terms and phrases,
-   blocking and ``block=False``.  The launch counts are read right after
-   and every kernel must have run;
+   blocking and ``block=False``.  Then slop phrases on the posting slices
+   (K9, reduced by K2): at 1M docs ``score`` and ``termfreqs`` of every
+   slop shape inside a position window, a phrase at slop 20 (a window of
+   21 positions), a term three times, and one ``score_batch`` whose slop
+   list sends some phrases to K6 and some to K9; on the long-document
+   index the serving mix with bench.py's slop phrases, where every slop
+   phrase takes K9.  Then Solr edismax: a title index (the first 8 tokens
+   of each document) beside the body index in one dataframe, bench.py's
+   configuration (``qf=["title^2", "body"], mm="2<75%", tie=0.1,
+   pf=["title", "body"], pf2=["body"], top_k=10``) and the same with
+   ``ps=2, ps2=1``, per query and as one ``edismax_batch``, held to a
+   numpy composition of the oracle's scores; and the same frame on the
+   long-document corpus with ``ps=2``, whose phases run K7 and K9.  The
+   launch counts are read right after and every kernel must have run;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -56,7 +68,9 @@ entry points a user calls, and checks it:
    its sort cap, on a one-value row and on a [150, 1M] block with ties
    planted at tile edges, K6 on every window launch and tf-row fill of a
    mixed request, K7 on every step the windowed phrases and the
-   long-document mix launched, K2 on those steps' keys), with their
+   long-document mix launched, K2 on those steps' keys, K9 on every
+   launch of the windowed, wide and repeated-term slop phrases and of the
+   long-document request, K2 on their keys), with their
    times: each kernel's own device time from ``torch.profiler``, the
    wrapper's time from CUDA events, the bytes its work needs and the
    bound they give (``ops/cuda/roofline.py``), the plain version's times
@@ -66,9 +80,11 @@ entry points a user calls, and checks it:
    a serving mix of terms and phrases, with and without the 24 slop
    phrases; the long-document index, terms and the mix), a profile of
    one ``block=False`` serving call (its kernels by device time, and
-   that nothing synchronises before ``collect()``), a windowed phrase's
-   latency and memory, each beside the card's name and power limit; the
-   kernels line; the result line.
+   that nothing synchronises before ``collect()``, with a K9 query in the
+   request too) and of one edismax call, edismax latency and
+   ``edismax_batch`` qps, a windowed phrase's latency and memory, each
+   beside the card's name and power limit; the kernels line; the result
+   line.
 
     python3 chip_smoke.py --parent-csrc DIR
 
@@ -108,6 +124,17 @@ EXTRA_PHRASES = [["the", "the"], ["what", "is", "purpose", "purpose"],
                  ["is", "the", "purpose", "of", "the"]]
 SLOP = 2                       # bench.py's slop phrases
 WIDE_SLOP = (["the", "of", "the"], 15)   # w = 17, "the" twice
+WIDER_SLOP = (["what", "purpose"], 20)   # w = 21: past the dense window
+TRIPLE_SLOP = (["the", "the", "the"], 2)  # a term three times
+# bench.py's edismax tier: its queries and its configuration
+ED_QUERIES = ["what is the purpose", "star trek", "purpose of star",
+              "what is w17", "w333 w4095", "star w5 trek", "the purpose of",
+              "w1000 w2000 w3000", "what w42", "star trek purpose",
+              "w7 w8 w9", "w100 w200"]
+ED_KW = dict(qf=["title^2", "body"], mm="2<75%", tie=0.1,
+             pf=["title", "body"], pf2=["body"])
+ED_SLOP = dict(ps=2, ps2=1)
+ED_CALLS = 3      # passes over ED_QUERIES per latency sample set
 K3_TILE = 16384                # elements of a row per block (csrc/topk.cu)
 LSB18 = np.uint32((1 << 18) - 1)
 
@@ -373,7 +400,7 @@ def oracle_scores(dev, query, window=None, sparse=None, slop=0):
     if len(tids) == 1:
         tf = oracle_tf(dev.postings, tids[0], n)
     elif slop:
-        tf = oracle_span_freqs(dev, terms, slop)
+        tf = oracle_span_freqs(dev, terms, slop, window, sparse)
     else:
         tf = oracle_phrase_freqs(dev, terms, window, sparse)
     _ORACLE[key] = oracle_bm25(tf, dev.doc_lens_np,
@@ -382,7 +409,57 @@ def oracle_scores(dev, query, window=None, sparse=None, slop=0):
     return _ORACLE[key]
 
 
-def oracle_span_freqs(dev, terms, slop):
+def oracle_positions(post, tid, window=None):
+    """Every occurrence of a term as (doc int64[], position int64[]),
+    in (doc, position) order, from the host posting words; with a
+    (min_posn, max_posn) window only the occurrences in its blocks."""
+    words = post.term_slice(tid)
+    keys = (words >> np.uint64(36)).astype(np.int64)
+    blks = ((words >> np.uint64(18)) & np.uint64(0x3FFFF)).astype(np.int64)
+    pay = (words & np.uint64(0x3FFFF)).astype("<u4")
+    if window is not None:
+        keep = (blks >= window[0] // 18) & (blks <= window[1] // 18)
+        keys, blks, pay = keys[keep], blks[keep], pay[keep]
+    bits = np.unpackbits(pay.view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")[:, :18]
+    word, bit = np.nonzero(bits)
+    return keys[word], blks[word] * 18 + bit
+
+
+def oracle_span_freqs_sparse(dev, terms, slop, window=None):
+    """``oracle_span_freqs`` from position lists instead of rasters, for
+    indexes whose dense planes would not fit the host: every occurrence
+    becomes one number ``doc * P + position`` with P past the longest
+    document plus a window, so no window reaches another document; a
+    window's count of a term is a difference of two numpy searches; an
+    anchor occurrence at p is covered when one of the starts p - w .. p
+    passes."""
+    n, bb = dev.corpus_size, dev.blk_bits
+    tids = [dev.vocab.get_term_id(t) for t in terms]
+    uniq = list(dict.fromkeys(tids))
+    mults = [tids.count(t) for t in uniq]
+    w = len(tids) + slop - 1
+    anchor = uniq[int(np.argmin([int(dev.postings.lengths[t])
+                                 for t in uniq]))]
+    P = (18 << bb) + w + 2
+    flat = {}
+    for t in uniq:
+        docs, posns = oracle_positions(dev.postings, t, window)
+        flat[t] = docs * P + posns
+    at = flat[anchor]
+    covered = np.zeros(len(at), bool)
+    for back in range(w + 1):
+        start = at - back
+        ok = np.ones(len(at), bool)
+        for t, m in zip(uniq, mults):
+            ok &= (np.searchsorted(flat[t], start + w, "right")
+                   - np.searchsorted(flat[t], start, "left")) >= m
+        covered |= ok
+    return np.bincount(at // P, weights=covered,
+                       minlength=n)[:n].astype(np.float32)
+
+
+def oracle_span_freqs(dev, terms, slop, window=None, sparse=None):
     """Slop phrase freqs per doc: the anchor term's positions (the
     distinct term with the fewest posting words, the first of them) that
     lie in some window of w + 1 = n + slop positions holding every
@@ -390,9 +467,18 @@ def oracle_span_freqs(dev, terms, slop):
     each doc's positions: per term a prefix sum of its position raster
     gives every window's count; a prefix sum of the windows that pass
     gives, per anchor position, whether one of them covers it.  No
-    dilation and no shift across slots.  Memoized."""
-    key = (id(dev), tuple(terms), "slop", slop)
+    dilation and no shift across slots.  ``window`` is a (min_posn,
+    max_posn) pair: bitmaps outside its blocks are zeroed first.  On
+    position lists instead (``oracle_span_freqs_sparse``) with ``sparse``,
+    by default where the planes would pass DENSE_ORACLE_SLOTS.
+    Memoized."""
+    if sparse is None:
+        sparse = dev.corpus_size << dev.blk_bits > DENSE_ORACLE_SLOTS
+    key = (id(dev), tuple(terms), "slop", slop, window, sparse)
     if key in _FREQS:
+        return _FREQS[key]
+    if sparse:
+        _FREQS[key] = oracle_span_freqs_sparse(dev, terms, slop, window)
         return _FREQS[key]
     n, bb = dev.corpus_size, dev.blk_bits
     S = 1 << bb
@@ -406,6 +492,11 @@ def oracle_span_freqs(dev, terms, slop):
         if (id(dev), t) not in _PLANES:
             _PLANES[(id(dev), t)] = oracle_plane(dev.postings, t, n, bb)
     planes = {t: _PLANES[(id(dev), t)].reshape(n, S) for t in uniq}
+    if window is not None:
+        outside = np.ones(S, bool)
+        outside[window[0] // 18: window[1] // 18 + 1] = False
+        planes = {t: np.where(outside[None, :], np.uint32(0), p)
+                  for t, p in planes.items()}
     has_all = np.ones(n, bool)
     for t in uniq:
         has_all &= planes[t].any(axis=1)
@@ -436,6 +527,56 @@ def oracle_span_freqs(dev, terms, slop):
         freqs[d] = (anchor_bits & covered).sum(axis=1)
     _FREQS[key] = freqs
     return freqs
+
+
+def oracle_edismax(devs, q, ps=0, ps2=0):
+    """bench.py's edismax configuration (ED_KW) for one query, composed in
+    numpy float32 from the oracle's scores: per term the better of the
+    boosted title and body scores plus tie times the other; mm "2<75%"
+    (every term up to two, three quarters rounded down above); pf on both
+    fields (the whole query as a phrase, slop ``ps``) and pf2 on the body
+    (every bigram, the final one twice, slop ``ps2``), added where the
+    main query matched.  ``devs`` maps "title" and "body" to their
+    DeviceIndex."""
+    f32 = np.float32
+    terms = q.split()
+    n = devs["body"].corpus_size
+    if not terms:
+        return np.zeros(n, f32)
+    fs = np.stack([np.stack([oracle_scores(devs[f], t) for t in terms])
+                   * f32(boost) for f, boost in (("title", 2.0),
+                                                 ("body", 1.0))])
+    mx = fs.max(axis=0)
+    ts = mx + (fs.sum(axis=0) - mx) * f32(ED_KW["tie"])
+    need = len(terms) if len(terms) <= 2 else len(terms) * 75 // 100
+    qf = np.where((ts > 0).sum(axis=0) >= need, ts.sum(axis=0), f32(0.0))
+    extra = np.zeros(n, f32)
+    if len(terms) >= 2:
+        for f in ("title", "body"):
+            extra = extra + oracle_scores(devs[f], terms, slop=ps)
+        grams = [terms[i: i + 2] for i in range(len(terms) - 1)]
+        for gram in grams + grams[-1:]:
+            extra = extra + oracle_scores(devs["body"], gram, slop=ps2)
+    return qf + np.where(qf > 0, extra, f32(0.0))
+
+
+def check_edismax(devs, queries, ranked, what, k, **slops):
+    """Ranked edismax results against ``oracle_edismax``: the scores
+    within rtol 1e-5 (a sum of up to a dozen float32 scores, each within
+    1e-6) of the oracle's k best, and every returned doc's oracle score
+    within the same of its returned score (so docs that tie may come in
+    either order)."""
+    for q, (scores, idx) in zip(queries, ranked):
+        want = oracle_edismax(devs, q, **slops)
+        best = want[oracle_topk(want, k)]
+        if not (scores.shape == (k,) and np.all(np.isfinite(scores))
+                and np.allclose(scores, best, rtol=1e-5, atol=1e-6)
+                and np.allclose(want[idx], scores, rtol=1e-5, atol=1e-6)):
+            raise AssertionError(f"{what}: edismax({q!r}) differs from the "
+                                 "oracle")
+    check(len(ranked) == len(queries),
+          f"{what} agrees with the numpy composition of the oracle on "
+          f"{len(queries)} queries")
 
 
 def oracle_topk(scores, k):
@@ -614,10 +755,13 @@ def main() -> int:
         return 2
     from bench import PHRASE_QUERIES, TERM_QUERIES, build_corpus
     from bench import serving_queries, slop_queries
-    from searcharray_tpu_torch import SearchArray
+    import pandas as pd
+
+    from searcharray_tpu_torch import SearchArray, edismax, edismax_batch
     from searcharray_tpu_torch.ops.cuda import roofline as rl
     from searcharray_tpu_torch.ops.cuda import score as kc
     from searcharray_tpu_torch.search import batch, dense, phrase, scoring
+    from searcharray_tpu_torch.search import spans as spans_mod
 
     phases = []  # (phase, wall seconds), in the order they ran
     marks = [time.perf_counter()]
@@ -671,6 +815,7 @@ def main() -> int:
     kc.merge_step.launches = 0
     kc.topk.launches = 0
     kc.span_window.launches = 0
+    kc.span_sparse.launches = 0
     # a phrase above K5's cap that matches at least one doc: the first 40
     # tokens of the first doc that has as many
     long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
@@ -687,6 +832,8 @@ def main() -> int:
     arr.warm()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    # the title field of bench.py's edismax tier: each doc's first 8 tokens
+    titles = [" ".join(doc.split()[:8]) for doc in corpus]
     del corpus
     n = len(arr)
     post = dev.postings
@@ -806,24 +953,6 @@ def main() -> int:
     wide_q, wide_slop = WIDE_SLOP
     s_wide = arr.score(wide_q, slop=wide_slop)
     f_wide = arr.termfreqs(wide_q, slop=wide_slop)
-    # what the dense window cannot take raises and leaves the pools alone
-    pools = lambda: (dict(dev.plane_slot), dict(dev.tf_slot),  # noqa: E731
-                     list(dev.plane_free), list(dev.tf_free))
-    pools_before = pools()
-    refused = 0
-    for call in (
-            lambda: arr.termfreqs(["what", "purpose"], slop=SLOP, **WIN_SCORE),
-            lambda: arr.score(["what", "purpose"], slop=18),       # w = 19
-            lambda: arr.score_batch(["star", ["the", "the", "the"]],
-                                    top_k=TOP_K, slop=SLOP)):      # 3 times
-        try:
-            call()
-        except NotImplementedError as e:
-            refused += "item 9" in str(e)
-    check(refused == 3 and pools() == pools_before,
-          "slop phrases with a position window, a window of 19 positions "
-          "and a term three times raise NotImplementedError naming ROADMAP "
-          "Queue 1 item 9, the pools unchanged")
     phase_done("slop: drive")
 
     check_ranking(dev, sq, *slop_runs[0],
@@ -877,6 +1006,7 @@ def main() -> int:
     long_corpus = build_corpus(LONG_DOCS, seed=7)
     long_corpus[0] = " ".join(long_corpus[1:4001])
     larr = SearchArray.index(long_corpus, device=DEVICE)
+    long_titles = [" ".join(doc.split()[:8]) for doc in long_corpus]
     del long_corpus
     ldev = larr.dev
     check(ldev.blk_bits == 14 and not dense.dense_eligible(ldev),
@@ -908,6 +1038,78 @@ def main() -> int:
     k7_lmix = (kc.merge_step.launches - k72_before[0] - k7_windows
                - k7_long)
     k2_chain = kc.segment_sum.launches - k72_before[1]
+    phase_done("sparse phrase chain: drive")
+
+    # slop phrases on the posting slices: every launch is K9, its (doc
+    # key, count) pairs summed by K2.  At 1M docs what the dense window
+    # cannot take: every slop shape inside a position window, a window of
+    # 21 positions, a term three times; and one request whose slop list
+    # sends bench.py's 24 slop-2 phrases to K6 (or their cached rows) and
+    # three more to K9.  On the long-document index no plane fits, so
+    # every slop phrase of the request takes K9.
+    k9_before = kc.span_sparse.launches
+    pools = lambda: (dict(dev.plane_slot), dict(dev.tf_slot),  # noqa: E731
+                     list(dev.plane_free), list(dev.tf_free))
+    pools_before = pools()
+    wins_scores = [arr.score(q, slop=SLOP, **WIN_SCORE) for q in slop_shapes]
+    wins_freqs = [arr.termfreqs(q, slop=SLOP, **WIN_SCORE)
+                  for q in slop_shapes]
+    k9_windows = kc.span_sparse.launches - k9_before
+    k9_singles = [(q, sl, arr.score(q, slop=sl), arr.termfreqs(q, slop=sl))
+                  for q, sl in (WIDER_SLOP, TRIPLE_SLOP)]
+    pools_same = pools() == pools_before
+    k9_extra = [WIDER_SLOP, TRIPLE_SLOP, (["star", "trek"], 18)]
+    k9q = sq + [q for q, _ in k9_extra]
+    k9s = ss + [sl for _, sl in k9_extra]
+    k69_before = (kc.span_window.launches, kc.span_sparse.launches,
+                  kc.topk.launches)
+    k9_scores, k9_idx = arr.score_batch(k9q, top_k=TOP_K, slop=k9s)
+    k69_mixed = (kc.span_window.launches - k69_before[0],
+                 kc.span_sparse.launches - k69_before[1],
+                 kc.topk.launches - k69_before[2])
+    k9_1m = kc.span_sparse.launches - k9_before
+    lsq = lmix + slop_queries(0)
+    lss = [0] * len(lmix) + [SLOP] * len(slop_queries(0))
+    ls_scores, ls_idx = larr.score_batch(lsq, top_k=TOP_K, slop=lss)
+    lsp_scores, lsp_idx = larr.score_batch(lsq, top_k=TOP_K, slop=lss,
+                                           block=False)()
+    k9_long = kc.span_sparse.launches - k9_before - k9_1m
+    phase_done("sparse slop: drive")
+
+    # Solr edismax: a title index beside the body index in one dataframe,
+    # bench.py's configuration, per query and as one batch, exact phases
+    # and slop phases (ps on the whole phrase, ps2 on the bigrams); then
+    # the same frame on the long-document corpus, where the body's exact
+    # bigrams run K7 and its slop phrases K9
+    t0 = time.perf_counter()
+    tarr = SearchArray.index(titles, device=DEVICE)
+    del titles
+    ltarr = SearchArray.index(long_titles, device=DEVICE)
+    del long_titles
+    title_s = time.perf_counter() - t0
+    df = pd.DataFrame({"title": tarr, "body": arr})
+    ldf = pd.DataFrame({"title": ltarr, "body": larr})
+    check(tarr.dev.blk_bits == 1 and dense.dense_eligible(tarr.dev)
+          and dense.dense_eligible(ltarr.dev),
+          f"title indexes of {len(tarr)} and {len(ltarr)} docs (8 tokens "
+          f"each, blk_bits {tarr.dev.blk_bits}) beside the body indexes, "
+          f"built and attached in {title_s:.1f} s")
+    ed_before = {k: getattr(kc, k).launches for k in (
+        "span_sparse", "span_window", "merge_step", "phrase_chain", "topk")}
+    ed_one = [edismax(df, q=q, top_k=TOP_K, **ED_KW) for q in ED_QUERIES]
+    ed_batch = edismax_batch(df, ED_QUERIES, top_k=TOP_K, **ED_KW)
+    ed_dense = [edismax(df, q=q, **ED_KW) for q in ED_QUERIES[:3]]
+    eds_one = [edismax(df, q=q, top_k=TOP_K, **ED_KW, **ED_SLOP)
+               for q in ED_QUERIES]
+    eds_batch = edismax_batch(df, ED_QUERIES, top_k=TOP_K, **ED_KW,
+                              **ED_SLOP)
+    k9_ed_before = kc.span_sparse.launches
+    led_one = [edismax(ldf, q=q, top_k=TOP_K, ps=SLOP, **ED_KW)
+               for q in ED_QUERIES]
+    led_batch = edismax_batch(ldf, ED_QUERIES, top_k=TOP_K, ps=SLOP, **ED_KW)
+    k9_ed = kc.span_sparse.launches - k9_ed_before
+    ed_launches = {k: getattr(kc, k).launches - v
+                   for k, v in ed_before.items()}
 
     # the main path ends here: read its launch counts before anything else
     # launches a kernel
@@ -918,10 +1120,11 @@ def main() -> int:
                 "phrase_chain": kc.phrase_chain.launches,
                 "merge_step": kc.merge_step.launches,
                 "topk": kc.topk.launches,
-                "span_window": kc.span_window.launches}
+                "span_window": kc.span_window.launches,
+                "span_sparse": kc.span_sparse.launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"main path launches: {launches}", flush=True)
-    phase_done("sparse phrase chain: drive")
+    phase_done("edismax: drive")
     check(all(v > 0 for v in launches.values()),
           "every kernel of the path launched in the main-path run")
     check(min(k7_windows, k7_long, k7_lmix) > 0
@@ -982,6 +1185,107 @@ def main() -> int:
           "the long-document mix with block=False equals the blocking "
           f"call ({len(lmix)} queries, half of them phrases)")
     phase_done("sparse phrase chain: oracle checks")
+
+    # the sparse slop results against the prefix-sum oracle, its planes
+    # zeroed outside the window; the long-document ones against the
+    # position-list oracle, which is first held to the other at 1M docs
+    check(k9_windows == 2 * len(slop_shapes) and pools_same
+          and k9_1m - k9_windows == 4 + k69_mixed[1] and k9_long > 0
+          and k69_mixed[1] == len(k9_extra) and k69_mixed[2] > 0,
+          f"slop phrases outside the dense window launched K9 "
+          f"{k9_windows} times for the windowed shapes and "
+          f"{k9_1m - k9_windows} for a window of "
+          f"{len(WIDER_SLOP[0]) + WIDER_SLOP[1] - 1} positions, a term three "
+          f"times and the request that mixes both routes (K6 "
+          f"{k69_mixed[0]}, K9 {k69_mixed[1]} launches: one per (terms, "
+          f"window, multiplicities) group), and {k9_long} times for two "
+          "long-document requests; the single queries left both pools as "
+          "they were")
+    win_b = (WIN_SCORE["min_posn"], WIN_SCORE["max_posn"])
+    ws_err, ws_matches = 0.0, 0
+    for q, sl, got_s, got_f, window in [
+            *((q, SLOP, s_, f_, win_b) for q, s_, f_ in zip(
+                slop_shapes, wins_scores, wins_freqs)),
+            *((q, sl, s_, f_, None) for q, sl, s_, f_ in k9_singles)]:
+        want_f = oracle_span_freqs(dev, q, sl, window)
+        want_s = oracle_scores(dev, q, window=window, slop=sl)
+        if not np.array_equal(got_f, want_f):
+            raise AssertionError(f"termfreqs({q}, slop={sl}, {window}) "
+                                 "differs from the oracle")
+        if not (got_s.shape == (n,) and np.all(np.isfinite(got_s))
+                and np.allclose(got_s, want_s, rtol=1e-6, atol=0)):
+            raise AssertionError(f"score({q}, slop={sl}, {window}) differs "
+                                 "from the oracle")
+        ws_err = max(ws_err, float(np.abs(got_s - want_s).max()))
+        ws_matches += int(want_f.sum())
+    check(ws_matches > 0 and all(f.sum() > 0 for _, _, _, f in k9_singles),
+          f"termfreqs(phrase, slop) equal the oracle exactly and "
+          f"score(phrase, slop) is within rtol 1e-6 of it (max abs err "
+          f"{ws_err:.3g}) on the {len(slop_shapes)} slop-{SLOP} shapes in "
+          f"positions {win_b[0]}-{win_b[1]}, on {WIDER_SLOP[0]} at slop "
+          f"{WIDER_SLOP[1]} and on {TRIPLE_SLOP[0]} at slop "
+          f"{TRIPLE_SLOP[1]} ({ws_matches} covered anchor positions)")
+    for q, sl, window in ((slop_shapes[0], SLOP, win_b),
+                          (slop_shapes[2], SLOP, None),
+                          (WIDER_SLOP[0], WIDER_SLOP[1], None)):
+        if not np.array_equal(
+                oracle_span_freqs(dev, q, sl, window, sparse=True),
+                oracle_span_freqs(dev, q, sl, window, sparse=False)):
+            raise AssertionError(f"the two slop oracles differ on {q}")
+    check(True, "the position-list slop oracle equals the prefix-sum one")
+    check_ranking(dev, k9q, k9_scores, k9_idx,
+                  f"the request mixing K6 and K9 slop phrases, "
+                  f"score_batch(top_k={TOP_K})", slops=k9s)
+    check_ranking(ldev, lsq, ls_scores, ls_idx,
+                  f"long-document serving mix with slop, "
+                  f"score_batch(top_k={TOP_K})", slops=lss)
+    check(np.array_equal(lsp_idx, ls_idx)
+          and np.array_equal(lsp_scores, ls_scores),
+          "the long-document request with slop and block=False equals the "
+          f"blocking call ({len(lsq)} queries, {len(slop_queries(0))} of "
+          "them slop phrases)")
+    phase_done("sparse slop: oracle checks")
+
+    # edismax against the numpy composition of the oracle's scores
+    devs, ldevs = ({"title": tarr.dev, "body": dev},
+                   {"title": ltarr.dev, "body": ldev})
+    check_edismax(devs, ED_QUERIES, [r for r, _ in ed_one],
+                  f"edismax(top_k={TOP_K}) at 1M docs, per query", TOP_K)
+    check_edismax(devs, ED_QUERIES, list(zip(*ed_batch[0])),
+                  f"edismax_batch(top_k={TOP_K}) at 1M docs", TOP_K)
+    for q, (got, _) in zip(ED_QUERIES, ed_dense):
+        want = oracle_edismax(devs, q)
+        if not (got.shape == (n,) and np.all(np.isfinite(got))
+                and np.allclose(got, want, rtol=1e-5, atol=1e-6)
+                and (want > 0).any()):
+            raise AssertionError(f"dense edismax({q!r}) differs from the "
+                                 "oracle")
+    check(True, f"dense edismax scores within rtol 1e-5 of the oracle on "
+          f"{len(ed_dense)} queries")
+    check_edismax(devs, ED_QUERIES[:6], [r for r, _ in eds_one[:6]],
+                  f"edismax(top_k={TOP_K}, ps=2, ps2=1) at 1M docs, per "
+                  "query", TOP_K, **ED_SLOP)
+    check_edismax(devs, ED_QUERIES[:6], list(zip(*eds_batch[0]))[:6],
+                  f"edismax_batch(top_k={TOP_K}, ps=2, ps2=1) at 1M docs",
+                  TOP_K, **ED_SLOP)
+    check_edismax(ldevs, ED_QUERIES, [r for r, _ in led_one],
+                  f"edismax(top_k={TOP_K}, ps=2) on the long-document frame, "
+                  "per query", TOP_K, ps=SLOP)
+    check_edismax(ldevs, ED_QUERIES, list(zip(*led_batch[0])),
+                  f"edismax_batch(top_k={TOP_K}, ps=2) on the long-document "
+                  "frame", TOP_K, ps=SLOP)
+    check(all(exp_b == exp_1 for run_1, run_b in (
+        (ed_one, ed_batch), (eds_one, eds_batch), (led_one, led_batch))
+        for (_, exp_1), exp_b in zip(run_1, run_b[1]))
+          and all(np.allclose(sc_b, sc_1, rtol=1e-6, atol=1e-6)
+                  for (((sc_1, _), _), sc_b) in zip(eds_one[6:],
+                                                    eds_batch[0][0][6:]))
+          and k9_ed > 0 and min(ed_launches.values()) > 0,
+          f"edismax_batch and per-query edismax give the same explain "
+          f"strings and (on the other {len(ED_QUERIES) - 6} slop-phase "
+          f"queries) scores; the edismax phase launched {ed_launches}, K9 "
+          f"{k9_ed} times on the long-document frame")
+    phase_done("edismax: oracle checks")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
@@ -1302,6 +1606,76 @@ def main() -> int:
     k7_batch = k7_calls[n_single:]
     big_k2 = k7_k2[next(i for i, c in enumerate(k7_calls) if c is k7_big)]
 
+    # K9 on every launch of the windowed slop shapes, the wide and the
+    # repeated-term phrase and one long-document request, recorded from the
+    # wrapper's own calls, and K2 on each launch's keys
+    k9_calls = []
+
+    class RecordingSpans:
+        """The kernel module as search/spans.py sees it, its K9 calls
+        noted."""
+
+        def __getattr__(self, name):
+            return getattr(kc, name)
+
+        def span_sparse(self, *a, **kw):
+            k9_calls.append((a, kw))
+            return kc.span_sparse(*a, **kw)
+
+    spans_mod.kernels_cuda = RecordingSpans()
+    try:
+        for q in slop_shapes:
+            arr.termfreqs(q, slop=SLOP, **WIN_SCORE)
+        n_win9 = len(k9_calls)
+        for q, sl in (WIDER_SLOP, TRIPLE_SLOP):
+            arr.termfreqs(q, slop=sl)
+        n_single9 = len(k9_calls)
+        larr.score_batch(lsq, top_k=TOP_K, slop=lss)
+    finally:
+        spans_mod.kernels_cuda = kc
+    k9_err, k9_k2 = 0.0, []
+    for a, kw in k9_calls:
+        got = kc.span_sparse(*a, **kw)
+        want = kc.span_sparse_plain(*a, **kw)
+        k9_err = max(k9_err, (got[1] - want[1]).abs().max().item())
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K9 differs from its plain version: w "
+                                 f"{a[4]}, multiplicities {a[5]}, {kw}")
+        n_out = len(a[2]) * kw["key_stride"]
+        k9_k2.append((got[0], got[1], n_out))
+        if not torch.equal(kc.segment_sum(got[0], got[1], num_docs=n_out),
+                           kc.segment_sum_plain(got[0], got[1],
+                                                num_docs=n_out)):
+            raise AssertionError(f"K2 differs on the keys of a K9 launch: "
+                                 f"{got[0].numel()} keys, {n_out} slots")
+    k9_seen = {(len(a[5]), a[4], tuple(int(m) for m in a[5]))
+               for a, _ in k9_calls}
+    check(n_win9 == len(slop_shapes) and n_single9 - n_win9 == 2
+          and len(k9_calls) - n_single9 == k9_long // 2
+          and any(w > 18 for _, w, _ in k9_seen)
+          and any(max(m) > 2 for _, _, m in k9_seen)
+          and any(len(a[2]) > 1 for a, _ in k9_calls[n_single9:]),
+          f"K9 equals its plain version bit for bit (keys and counts) on "
+          f"the {len(k9_calls)} launches of the windowed slop shapes "
+          f"({n_win9}), the wide and the repeated-term phrase "
+          f"({n_single9 - n_win9}) and a long-document request "
+          f"({len(k9_calls) - n_single9} batched launches): (terms, w, "
+          f"multiplicities) {sorted(k9_seen)}; K2 equals its plain version "
+          "exactly on every launch's keys")
+    # timing units: the windowed launch with the most anchor words, and one
+    # long-document request's launches
+    def anchor_first(a, kw):
+        """(offs, ns) of a recorded K9 call with the anchor's column
+        first."""
+        T = np.asarray(a[2]).shape[1]
+        cols = [kw.get("anchor", 0)] + [c for c in range(T)
+                                         if c != kw.get("anchor", 0)]
+        return np.asarray(a[2])[:, cols], np.asarray(a[3])[:, cols]
+
+    k9_big = max(k9_calls[:n_win9],
+                 key=lambda c: int(anchor_first(*c)[1][:, 0].sum()))
+    k9_batch = k9_calls[n_single9:]
+
     # K3 and K6 at the shapes one mixed request gives them, recorded from
     # the wrappers' own calls: the request twice (new rare queries, so
     # the first call launches the window groups and the second promotes
@@ -1333,8 +1707,12 @@ def main() -> int:
         dense.kernels_cuda = kc
     k6_groups = [(a, kw) for name, a, kw in k36_calls[:n_first]
                  if name == "span_window"]
-    k6_fills = [(a, kw) for name, a, kw in k36_calls[n_first:]
-                if name == "span_window"]
+    # the second call's launches: tf-row fills, and window launches again
+    # for the phrases the phrase-tf cache had no room to promote (at most
+    # half the tf pool holds phrase rows, and edismax's grams share it)
+    k6_second = [(a, kw) for name, a, kw in k36_calls[n_first:]
+                 if name == "span_window"]
+    k6_fills = [(a, kw) for a, kw in k6_second if "out" in kw]
     k3_calls = [(a[0], a[1]) for name, a, _ in k36_calls[:n_first]
                 if name == "topk"]
     check(k6_groups and k6_fills
@@ -1344,9 +1722,11 @@ def main() -> int:
           f"window groups ({sum(len(a[1]) for a, _ in k6_groups)} queries) "
           f"and K3 {len(k3_calls)} times "
           f"({sum(x.shape[0] for x, _ in k3_calls)} rows of {n}); its second "
-          f"call filled tf-pool rows with {len(k6_fills)} K6 launches")
+          f"call filled tf-pool rows with {len(k6_fills)} K6 launches (and "
+          f"ran {len(k6_second) - len(k6_fills)} window launches for "
+          "phrases the cache had no room for)")
     k6_err = 0.0
-    for a, kw in k6_groups + k6_fills:
+    for a, kw in k6_groups + k6_second:
         plain_kw = {k: v for k, v in kw.items() if k not in ("out",
                                                              "out_rows")}
         want = kc.span_window_plain(*a, **plain_kw)
@@ -1547,6 +1927,47 @@ def main() -> int:
     lmix_blocking(-1)
     qps_lmix, _ = qps_windows(lmix_blocking, len(lmix))
 
+    # the long-document request with slop: the serving mix and bench.py's
+    # 24 slop-2 phrases, every one of them K9's there
+    def lsmix_blocking(w):
+        for c in range(LMIX_CALLS):
+            i = 6000 + w * LMIX_CALLS + c
+            larr.score_batch(serving_queries(i) + lmix[120:]
+                             + slop_queries(i), top_k=TOP_K, slop=lss)
+        return LMIX_CALLS
+
+    lsmix_blocking(-1)
+    qps_lsmix, _ = qps_windows(lsmix_blocking, len(lsq))
+
+    # edismax: per-call latency over bench.py's 12 queries and the qps of
+    # one edismax_batch of them, exact phases and slop phases, at 1M docs
+    # and on the long-document frame
+    def ed_latency(frame, **kw):
+        times = []
+        for _ in range(ED_CALLS):
+            for q in ED_QUERIES:
+                t = time.perf_counter()
+                edismax(frame, q=q, top_k=TOP_K, **ED_KW, **kw)
+                times.append((time.perf_counter() - t) * 1e3)
+        return [float(np.percentile(times, 50)),
+                float(np.percentile(times, 95))]
+
+    def ed_batch_qps(frame, **kw):
+        rates = []
+        for _ in range(WINDOWS):
+            t = time.perf_counter()
+            for _ in range(ED_CALLS):
+                edismax_batch(frame, ED_QUERIES, top_k=TOP_K, **ED_KW, **kw)
+            rates.append(ED_CALLS * len(ED_QUERIES)
+                         / (time.perf_counter() - t))
+        return rates
+
+    ed_stats = [(name, ed_latency(frame, **kw), ed_batch_qps(frame, **kw))
+                for name, frame, kw in (
+                    ("1M docs", df, {}),
+                    ("1M docs, ps=2, ps2=1", df, ED_SLOP),
+                    ("long-document frame, ps=2", ldf, {"ps": SLOP}))]
+
     # the long-document score_batch (K2's end-to-end path) and the serving
     # mix, with the parent's kernels in turns when given (parent, new,
     # new, parent; only K2 differs between them)
@@ -1596,7 +2017,8 @@ def main() -> int:
              "K3": ("topk_hist_kernel", "topk_select_kernel",
                     "topk_tiescan_kernel", "topk_filter_kernel",
                     "topk_sort_kernel", "topk_unpack_kernel"),
-             "K6": ("span_window_kernel",)}
+             "K6": ("span_window_kernel",),
+             "K9": ("span_sparse_kernel",)}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
@@ -1606,7 +2028,8 @@ def main() -> int:
                 # one K3 launch enqueues a fixed number of kernels
                 "K3": lambda: (kc.topk.launches
                                * kc.TOPK_KERNELS_PER_LAUNCH),
-                "K6": lambda: kc.span_window.launches}
+                "K6": lambda: kc.span_window.launches,
+                "K9": lambda: kc.span_sparse.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1):
@@ -1855,6 +2278,82 @@ def main() -> int:
         rl.k6_work(wide_now[1], wide_key[3], wide_key[4], n, 1 << bb),
         iters=10, old=False)
 
+    # K9: the windowed launch with the most anchor words, and the launches
+    # of one long-document request.  No one PyTorch call computes it.  The
+    # bound counts, of each term's list, the words inside the anchor's
+    # header range, and of the anchor's words those that keep a position
+    # once the block window is applied
+    def k9_run(fn, calls, **more):
+        return lambda: [fn(*a, **kw, **more) for a, kw in calls]
+
+    def k9_work(calls):
+        works = []
+        for a, kw in calls:
+            hd, pa, _, _, w, _ = a
+            offs, ns = anchor_first(a, kw)
+            C = -(-w // 18)
+            lo_b, hi_b = ((0, (1 << 18) - 1) if kw.get("min_blk") is None
+                          else (kw["min_blk"], kw["max_blk"]))
+            term_ns, live = [], 0
+            for o_row, n_row in zip(offs, ns):
+                ah = hd[o_row[0]: o_row[0] + n_row[0]].cpu().numpy()
+                ap = pa[o_row[0]: o_row[0] + n_row[0]].cpu().numpy()
+                blk = ah & ((1 << kw["blk_bits"]) - 1)
+                live += int(((ap != 0) & (blk >= lo_b) & (blk <= hi_b)).sum())
+                row = [len(ah)]
+                for o, m in zip(o_row[1:], n_row[1:]):
+                    th = hd[o: o + m].cpu().numpy()
+                    row.append(int(np.searchsorted(th, ah[-1] + C, "right")
+                                   - np.searchsorted(th, ah[0] - C))
+                               if len(ah) else 0)
+                term_ns.append(row)
+            works.append(rl.k9_work(term_ns, 0, w, live=live))
+        return rl.total(works), live
+
+    def k9_words(calls):
+        return (int(sum(anchor_first(*c)[1][:, 0].sum() for c in calls)),
+                int(sum(anchor_first(*c)[1][:, 1:].sum() for c in calls)))
+
+    big_work, big_live = k9_work([k9_big])
+    t_k9 = measure(
+        "largest windowed slop launch, one K9 launch: %d anchor words (%d "
+        "with a position in blocks %s-%s) against %d, w = %d, "
+        "multiplicities %s" % (
+            k9_words([k9_big])[0], big_live, k9_big[1]["min_blk"],
+            k9_big[1]["max_blk"], k9_words([k9_big])[1], k9_big[0][4],
+            tuple(int(m) for m in k9_big[0][5])), "K9",
+        k9_run(kc.span_sparse, [k9_big]),
+        k9_run(kc.span_sparse_plain, [k9_big]), big_work,
+        old=hasattr(parent, "sa_span_sparse"))
+    t_k9b = measure(
+        "one long-document request, %d batched K9 launches over %d slop "
+        "queries: %d anchor words against %d" % (
+            len(k9_batch), sum(len(a[2]) for a, _ in k9_batch),
+            *k9_words(k9_batch)), "K9",
+        k9_run(kc.span_sparse, k9_batch),
+        k9_run(kc.span_sparse_plain, k9_batch), k9_work(k9_batch)[0],
+        old=hasattr(parent, "sa_span_sparse"))
+    # the same launches on the kernel's walked path (one start at a time),
+    # which they would take at w > 18 or a multiplicity above 2: the word
+    # path's gain, within this run
+    check(all(a[4] <= kc.SPAN_MAX_WINDOW and max(a[5]) <= 2
+              for a, _ in [k9_big] + k9_batch),
+          "the timed K9 launches take the kernel's 64-bit word path")
+    t_k9w = measure(
+        "largest windowed slop launch on the walked path, one K9 launch",
+        "K9", k9_run(kc.span_sparse, [k9_big], walk=True),
+        k9_run(kc.span_sparse_plain, [k9_big]), big_work, old=False)
+    t_k9bw = measure(
+        "one long-document request on the walked path, %d batched K9 "
+        "launches" % len(k9_batch), "K9",
+        k9_run(kc.span_sparse, k9_batch, walk=True),
+        k9_run(kc.span_sparse_plain, k9_batch), k9_work(k9_batch)[0],
+        old=False)
+    big9_k2 = k9_k2[next(i for i, c in enumerate(k9_calls) if c is k9_big)]
+    t_k2s9 = k2_unit(f"the keys of the largest windowed slop launch "
+                     f"({big9_k2[0].numel()} keys, {big9_k2[2]} slots)",
+                     [big9_k2])
+
     phase_done("kernels: timing")
 
     # one block=False serving call under the profiler: nothing may make the
@@ -1910,16 +2409,58 @@ def main() -> int:
                 "device_ms": sum(e[1] for e in dev_us) / 1e3,
                 "top": [(k[:60], us / 1e3, c) for k, us, c in dev_us[:12]]}
 
+    def profile_edismax(frame, q, **kw):
+        """One edismax call under the profiler: host ms of the call, its
+        device ms by kernel."""
+        for attempt in range(4):
+            edismax(frame, q=q, top_k=TOP_K, **ED_KW, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                edismax(frame, q=q, top_k=TOP_K, **ED_KW, **kw)
+                call_ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+            dev_us = [(e.key, e.self_device_time_total, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            if dev_us:
+                break
+            print("profiler: no device events seen; profiling again",
+                  flush=True)
+        else:
+            raise AssertionError("the profiler saw no device event")
+        dev_us.sort(key=lambda e: -e[1])
+        return {"call_ms": call_ms,
+                "kernel_launches": sum(c for _, _, c in dev_us),
+                "device_ms": sum(e[1] for e in dev_us) / 1e3,
+                "top": [(k[:60], us / 1e3, c) for k, us, c in dev_us[:12]]}
+
     prof_mix = profile_call(lambda i: serving_queries(7000 + i),
                             [0] * mix_n)
     prof_mixs = profile_call(lambda i: mixed_request(8000 + i)[0], ss)
+    k9_before = kc.span_sparse.launches
+    prof_k9 = profile_call(
+        lambda i: mixed_request(9000 + i)[0] + [q for q, _ in k9_extra], k9s)
+    # by the wrapper's counter: the profiler may drop device events
+    k9_profiled = kc.span_sparse.launches - k9_before
+    check(k9_profiled >= 2 * len(k9_extra)
+          and k9_profiled % len(k9_extra) == 0,
+          f"every call of the profiled request with slop phrases outside "
+          f"the dense window launched {len(k9_extra)} K9 kernels")
     for name, p in (("serving mix", prof_mix),
-                    ("mixed request with slop", prof_mixs)):
+                    ("mixed request with slop", prof_mixs),
+                    ("mixed request with K6 and K9 slop phrases", prof_k9)):
         check(not p["waits_before_collect"] and p["d2h_copies"] == 1,
               f"a block=False {name} call enqueues {p['kernel_launches']} "
               f"kernels in {p['enqueue_ms']:.3f} ms with no host "
               "synchronisation before collect(), and its result crosses in "
               "one device-to-host copy")
+    prof_ed = [(name, profile_edismax(frame, ED_QUERIES[0], **kw))
+               for name, frame, kw in (
+                   ("1M docs", df, {}),
+                   ("1M docs, ps=2, ps2=1", df, ED_SLOP),
+                   ("long-document frame, ps=2", ldf, {"ps": SLOP}))]
     phase_done("serving call profile")
 
     evidence = [
@@ -1966,11 +2507,35 @@ def main() -> int:
            f"{p['kernel_launches']}; {p['waits_before_collect']}; "
            f"{p['d2h_copies']}")
           for name, p in (("serving mix", prof_mix),
-                          ("mixed request with slop", prof_mixs))),
+                          ("mixed request with slop", prof_mixs),
+                          ("mixed request with K6 and K9 slop phrases",
+                           prof_k9))),
         *((f"one {name} call, device ms by kernel (name, ms, launches), "
            "the 12 largest", p["top"])
           for name, p in (("serving mix", prof_mix),
-                          ("mixed request with slop", prof_mixs))),
+                          ("mixed request with slop", prof_mixs),
+                          ("mixed request with K6 and K9 slop phrases",
+                           prof_k9))),
+        *((f"edismax(top_k=10), {name}: p50 and p95 ms per call over "
+           f"{ED_CALLS} passes of bench.py's {len(ED_QUERIES)} queries; "
+           f"edismax_batch qps, {WINDOWS} windows of {ED_CALLS} calls "
+           "(median; windows)",
+           f"{lat}; {float(np.median(rates))}; {rates}")
+          for name, lat, rates in ed_stats),
+        *((f"one edismax({ED_QUERIES[0]!r}, top_k=10) call under the "
+           f"profiler, {name}: host ms; device ms; kernel launches; device "
+           "ms by kernel (name, ms, launches), the 12 largest",
+           f"{p['call_ms']}; {p['device_ms']}; {p['kernel_launches']}; "
+           f"{p['top']}") for name, p in prof_ed),
+        ("edismax phase kernel launches on the main path", ed_launches),
+        (f"long-document request with slop score_batch qps ({len(lsq)} "
+         f"queries, {len(slop_queries(0))} of them slop-{SLOP} phrases, "
+         f"top_k=10), {WINDOWS} windows of {LMIX_CALLS} calls (median; "
+         "windows)", f"{float(np.median(qps_lsmix))}; {qps_lsmix}"),
+        ("K9 launches on the main path (windowed shapes; wide, repeated "
+         "and the mixed request; long-document requests, two calls; "
+         "edismax on the long-document frame)",
+         [k9_windows, k9_1m - k9_windows, k9_long, k9_ed]),
         ("K3 per launch of one mixed request (rows; bound ms; device ms)",
          k3_each),
         ("K6 per window launch of one mixed request ((queries, w, "
@@ -1999,7 +2564,7 @@ def main() -> int:
            f"{rec.get('old_share')}")
           for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
                       t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3t, t_k6,
-                      t_k6w)),
+                      t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9)),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -2050,7 +2615,8 @@ def main() -> int:
         {**entry("segment_sum (K2)", csrc + "segment_sum.cu",
                  "searcharray_tpu/ops/pallas/score.py:196",
                  launches["segment_sum"], k2_err, t_k2),
-         "more_units": [unit_of(t_k2s), unit_of(t_k2c), unit_of(t_k2w)]},
+         "more_units": [unit_of(t_k2s), unit_of(t_k2c), unit_of(t_k2w),
+                        unit_of(t_k2s9)]},
         {**entry("topk (K3)", csrc + "topk.cu",
                  "searcharray_tpu/ops/kernels.py:101", launches["topk"],
                  k3_err, t_k3),
@@ -2069,6 +2635,10 @@ def main() -> int:
                  "searcharray_tpu/search/phrase.py:123",
                  launches["merge_step"], k7_err, t_k7),
          "more_units": [unit_of(t_k7b)]},
+        {**entry("span_sparse (K9)", csrc + "span_sparse.cu",
+                 "searcharray_tpu/search/spans.py:54",
+                 launches["span_sparse"], k9_err, t_k9),
+         "more_units": [unit_of(t_k9b), unit_of(t_k9w), unit_of(t_k9bw)]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

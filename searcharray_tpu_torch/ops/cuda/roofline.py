@@ -6,8 +6,9 @@ it: each input byte it needs read once, each output byte written once
 once; the halo K5 reads twice and the words a block's search probes do not
 count; K3's rows count once, though a radix select reads them again; of
 a K7 step's other list the words a search would probe where those are
-fewer than the list), and the 32-bit integer operations its formulas
-need.  The bound is the larger of bytes over the card's memory rate and
+fewer than the list; of a K9 term's list the words of the neighbourhoods
+where those are fewer than the list), and the 32-bit integer operations
+its formulas need.  The bound is the larger of bytes over the card's memory rate and
 operations over its 32-bit integer rate.  Nothing here launches or times anything.
 
 Rates: one NVIDIA H100 SXM at its full 700 W limit.  Memory: 3.35 TB/s of
@@ -43,6 +44,12 @@ K6_OPS_PER_SHIFT = 4     # a position shift: two shifts, or, mask
 K6_WINDOW = 18           # positions a slot holds: a shift by it is a move
 K7_OPS_PER_PROBE = 3     # compare, add, shift of one search or merge step
 K7_OPS_PER_WORD = POPC + 12  # popcount; window test, ands, shifts, or, key
+K9_OPS_PER_STEP = 7      # a term's window step: two bit reads (shift, and
+                         # each), add, subtract, compare with the multiplicity
+K9_OPS_PER_START = 5     # per start: the anchor bit (shift, and), the last
+                         # passing start (compare, select), add
+K9_OPS_PER_WORD = 6      # window test, block, key shift and add, convert
+K9_WINDOW = 18           # positions a posting word holds
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -204,6 +211,36 @@ def k7_work(base_ns: Iterable[int], other_ns: Iterable[int],
                  for s, na, nb in zip(searched, other_ns, base_ns))
     return bound(8 * B + 8 * touched + (12 if need_cont else 8) * B,
                  K7_OPS_PER_WORD * B + K7_OPS_PER_PROBE * probes)
+
+
+def k9_work(term_ns, anchor: int, w: int, live=None) -> dict:
+    """One K9 launch over a chunk of queries.  ``term_ns`` is [queries,
+    distinct terms]: the words of each term's list inside the anchor's
+    header range (the anchor's own column, ``anchor``, holds its words).
+    Bytes: hdr32 + pay32 of each anchor word read once, the key and the
+    count written; of every other term the words of the anchor words'
+    neighbourhoods (2C + 1 headers each, C = ceil(w / 18)), never more
+    than its list; the anchor's own list serves as its term list too.
+    Operations: per anchor word and term one search of log2 probes and
+    w + 18 window steps, and per anchor word the w + 18 starts.  ``live``
+    is the number of anchor words with a position set once the block
+    window has been applied (all of them by default): a word without one
+    covers nothing and needs neither the searches nor the steps."""
+    term_ns = np.asarray(term_ns, dtype=np.int64).reshape(
+        -1, np.shape(term_ns)[-1])
+    C = -(-int(w) // K9_WINDOW)
+    A = term_ns[:, anchor]
+    others = np.delete(term_ns, anchor, axis=1)
+    touched = np.minimum(others, (A * (2 * C + 1))[:, None]).sum()
+    T = term_ns.shape[1]
+    probes = (A[:, None] * np.ceil(np.log2(np.maximum(term_ns, 1) + 1))).sum()
+    steps = int(A.sum()) * (w + K9_WINDOW)
+    if live is not None and A.sum():
+        share = int(live) / int(A.sum())
+        probes, steps = probes * share, int(steps * share)
+    return bound(16 * int(A.sum()) + 8 * int(touched),
+                 K9_OPS_PER_WORD * int(A.sum()) + K7_OPS_PER_PROBE * int(probes)
+                 + steps * (K9_OPS_PER_STEP * T + K9_OPS_PER_START))
 
 
 def total(works: Iterable[dict]) -> dict:

@@ -1,8 +1,9 @@
 """K1 (fused term scoring), K2 (sorted segment-sum), K3 (exact top-k), K4
 (plane fill), K5 (the exact-phrase bigram chain on dense planes), K6 (the
-slop window coverage on dense planes) and K7 (a bigram step of the sparse
-phrase chain): Hopper kernels, their plain PyTorch versions, and the build
-of the one kernel library.
+slop window coverage on dense planes), K7 (a bigram step of the sparse
+phrase chain) and K9 (the slop window coverage on posting slices): Hopper
+kernels, their plain PyTorch versions, and the build of the one kernel
+library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -15,8 +16,8 @@ wrapper counts its kernel launches in a plain int attribute
 (``score_term.launches``, ``score_term_rows.launches``,
 ``segment_sum.launches``, ``topk.launches``, ``plane_fill.launches``,
 ``phrase_chain.launches``, ``span_window.launches``,
-``merge_step.launches``).  A K3 launch is one call of its C entry, which
-enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels.
+``merge_step.launches``, ``span_sparse.launches``).  A K3 launch is one
+call of its C entry, which enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     phrase_counts_dense_planes,
     popcount_i32,
     span_counts_dense_planes_plain,
+    span_neighbourhood_plain,
     topk_exact,
 )
 
@@ -141,6 +143,10 @@ _ENTRIES = {
     "sa_topk_row_scratch_bytes": [],
     "sa_span_window": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp, _i64,
                        _int, _vp, _i64, _vp, _int, _vp],
+    "sa_span_sparse": [_vp, _vp, _vp, _i64, _i64, _int, _int, _int, _int,
+                       _int, _int, _int, _vp, _i64, _vp, _vp, _int, _vp],
+    "sa_span_sparse_tile": [],
+    "sa_span_sparse_local_terms": [],
 }
 
 
@@ -793,3 +799,125 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
 
 
 merge_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: slop window coverage on the posting slices
+# ---------------------------------------------------------------------------
+SPAN_STATE_INTS = 5   # per-term integers of a K9 thread (csrc/span_sparse.cu)
+
+
+def span_sparse_plain(hdrs, pays, offs, ns, w: int, mults, *, anchor: int = 0,
+                      blk_bits: int, key_stride: int = 0, min_blk=None,
+                      max_blk=None):
+    """Plain PyTorch K9: ``span_neighbourhood_plain`` per query, the keys
+    offset into the flat space ``q * key_stride + doc``."""
+    keys, counts = [], []
+    for q, (o, n) in enumerate(zip(np.asarray(offs), np.asarray(ns))):
+        k, c = span_neighbourhood_plain(hdrs, pays, o, n, anchor, mults, w,
+                                        blk_bits=blk_bits, min_blk=min_blk,
+                                        max_blk=max_blk)
+        keys.append(k + q * key_stride)
+        counts.append(c)
+    if not keys:
+        return (hdrs.new_empty(0), torch.empty(0, dtype=torch.float32,
+                                               device=hdrs.device))
+    return torch.cat(keys).to(torch.int32), torch.cat(counts)
+
+
+def span_sparse(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, w: int,
+                mults, *, anchor: int = 0, blk_bits: int,
+                key_stride: int = 0, min_blk=None, max_blk=None,
+                walk: bool = False):
+    """Slop window coverage of a chunk of queries sharing one window ``w``
+    (query length + slop - 1), anchor column and multiplicities, on their
+    doc-sorted posting slices.
+
+    ``offs``/``ns`` are host int [Q, T] arrays: the exact slice of each
+    query's DISTINCT terms in ``hdrs``/``pays`` (sorted by unique header),
+    ``mults`` each column's multiplicity in the query (1 or more) and
+    ``anchor`` the column whose covered positions are counted.  A term's
+    word at header ``h + d`` is read only while ``block + d`` stays in
+    ``[0, 2^blk_bits)``.  ``min_blk``/``max_blk`` (both or neither) zero
+    the payloads of words whose block is outside the window; the words
+    stay.  Every ``w >= 1`` and any number of terms is taken.  The kernel
+    has two paths with one result: where ``w <= 18`` and no multiplicity
+    exceeds 2 a term's neighbourhood is one 64-bit word and the windows
+    are dilations of it; otherwise (or with ``walk``, for tests) the
+    windows are walked one start at a time.
+
+    Returns (keys int32[M], counts f32[M]) over all anchor words, M =
+    sum(ns[:, anchor]), query q's at ``prefix_offsets(ns[:, anchor])[q]``
+    in its own order: the flat doc key ``q * key_stride + (hdr >>
+    blk_bits)`` and the number of the word's positions that some passing
+    window covers.  Keys are non-decreasing, as K2 takes them."""
+    dev = hdrs.device
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(pays, "pays", torch.int32, dev)
+    if pays.shape != hdrs.shape:
+        raise ValueError("hdrs/pays lengths differ")
+    W = hdrs.shape[0]
+    offs = _host_index(offs, "offs", W + 1)
+    ns = np.asarray(ns, dtype=np.int64)
+    if offs.ndim != 2 or ns.shape != offs.shape:
+        raise ValueError("offs and ns must be [queries, terms]")
+    Q, T = offs.shape
+    mults = np.asarray(mults, dtype=np.int64)
+    if T < 1 or mults.shape != (T,) or mults.min() < 1:
+        raise ValueError("K9 takes one multiplicity >= 1 for each of one or "
+                         "more distinct terms")
+    if w < 1:
+        raise ValueError(f"K9 takes a window w >= 1, got {w}")
+    if not 0 <= anchor < T:
+        raise ValueError(f"anchor {anchor} is not a column of the query")
+    if Q and (ns.min() < 0 or (offs + ns).max() > W):
+        raise ValueError("a posting slice runs past the planes")
+    M = int(ns[:, anchor].sum())
+    if M >= 2**31 or (Q and ns.max() >= 2**31) or not (
+            0 <= Q * key_stride < 2**31):
+        raise ValueError("K9 takes fewer than 2^31 words and keys")
+    if (min_blk is None) != (max_blk is None):
+        raise ValueError("a block window needs min_blk and max_blk")
+    if dev.type == "cpu":
+        return span_sparse_plain(hdrs, pays, offs, ns, w, mults,
+                                 anchor=anchor, blk_bits=blk_bits,
+                                 key_stride=key_stride, min_blk=min_blk,
+                                 max_blk=max_blk)
+    if dev.type != "cuda":
+        raise ValueError(f"no K9 kernel for device {dev}")
+    keys = torch.empty(M, dtype=torch.int32, device=dev)
+    counts = torch.empty(M, dtype=torch.float32, device=dev)
+    if M == 0:
+        return keys, counts
+    lib = _get_lib()
+    n_tiles = -(-ns[:, anchor] // lib.sa_span_sparse_tile())
+    words = w <= SPAN_MAX_WINDOW and mults.max() <= 2 and not walk
+    scratch = (torch.empty(SPAN_STATE_INTS * T * M, dtype=torch.int32,
+                           device=dev)
+               if T > lib.sa_span_sparse_local_terms() and not words
+               else None)
+    # the query table, one column per query; the multiplicities; then each
+    # tile's query
+    queries = np.arange(Q, dtype=np.int64)
+    table = np.empty((2 * T + 3, Q), np.int64)
+    table[0: 2 * T: 2] = offs.T
+    table[1: 2 * T: 2] = ns.T
+    table[2 * T] = prefix_offsets(ns[:, anchor])
+    table[2 * T + 1] = queries * key_stride
+    table[2 * T + 2] = prefix_offsets(n_tiles)
+    meta = host_to_device(np.concatenate([
+        table.ravel(), mults, np.repeat(queries, n_tiles)]), dev)
+    window = ((0, (1 << 18) - 1) if min_blk is None
+              else (int(min_blk), int(max_blk)))
+    err = lib.sa_span_sparse(
+        hdrs.data_ptr(), pays.data_ptr(), meta.data_ptr(), Q,
+        int(n_tiles.sum()), T, int(anchor), int(w), blk_bits, *window,
+        int(words), None if scratch is None else scratch.data_ptr(), M,
+        keys.data_ptr(), counts.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "span_sparse")
+    span_sparse.launches += 1
+    return keys, counts
+
+
+span_sparse.launches = 0

@@ -455,3 +455,69 @@ def merge_step_plain(hdrs, base_pays, other_pays, base_off, base_n,
         return empty, empty.to(torch.float32), empty.clone()
     return (torch.cat(keys).to(torch.int32), torch.cat(counts),
             torch.cat(conts).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# slop coverage on doc-sorted posting slices: the plain version of K9.  Per
+# anchor word, every distinct term's payloads at the headers h - C .. h + C
+# are laid out as one bit raster of (2C + 1) * 18 positions; prefix sums
+# over it count each term in every window, prefix sums over the windows
+# that pass say which anchor positions one of them covers
+# ---------------------------------------------------------------------------
+SPAN_PLAIN_CHUNK = 1 << 16   # anchor words per pass: bounds the raster
+
+
+def span_neighbourhood_plain(hdrs, pays, offs, ns, anchor: int, mults,
+                             w: int, *, blk_bits: int, min_blk=None,
+                             max_blk=None):
+    """Plain PyTorch K9 for one query: per word of the anchor term (column
+    ``anchor`` of the exact posting slices ``offs``/``ns``, one per
+    distinct term) the doc key ``hdr >> blk_bits`` and the number of its
+    set positions that lie in some window ``[s, s + w]`` holding at least
+    ``mults[t]`` positions of every term t.  A term's word at header
+    ``h + d`` counts only while ``block + d`` stays inside ``[0,
+    2^blk_bits)``; ``min_blk``/``max_blk`` zero the payloads of words
+    outside the block window first.  Returns (keys int32[A], counts
+    f32[A])."""
+    C = -(-w // LSB_BITS)
+    blk_field = (1 << blk_bits) - 1
+    device = hdrs.device
+    sides = []
+    for off, n in zip(offs, ns):
+        h = hdrs[int(off): int(off) + int(n)]
+        sides.append((h, window_payloads(h, pays[int(off): int(off) + int(n)],
+                                         min_blk, max_blk, blk_bits)))
+    a_hdr_all, a_pay_all = sides[anchor]
+    deltas = torch.arange(-C, C + 1, dtype=torch.int32, device=device)
+    bitpos = torch.arange(LSB_BITS, dtype=torch.int32, device=device)
+    starts = LSB_BITS * C - w + torch.arange(w + LSB_BITS, device=device)
+    m = torch.as_tensor(list(mults), dtype=torch.int32, device=device)
+    counts = []
+    for c0 in range(0, a_hdr_all.shape[0], SPAN_PLAIN_CHUNK):
+        a_hdr = a_hdr_all[c0: c0 + SPAN_PLAIN_CHUNK]
+        a_pay = a_pay_all[c0: c0 + SPAN_PLAIN_CHUNK]
+        A = a_hdr.shape[0]
+        blk = (a_hdr & blk_field)[:, None] + deltas[None, :]
+        blk_ok = (blk >= 0) & (blk <= blk_field)
+        targets = a_hdr[:, None] + deltas[None, :]
+        lanes = []
+        for t_hdr, t_pay in sides:
+            if t_hdr.shape[0] == 0:
+                lanes.append(torch.zeros_like(targets))
+                continue
+            i_c = torch.searchsorted(t_hdr, targets.reshape(-1)).reshape(
+                targets.shape).clamp(max=t_hdr.shape[0] - 1)
+            hit = (t_hdr[i_c] == targets) & blk_ok
+            lanes.append(torch.where(hit, t_pay[i_c], 0))
+        lanes = torch.stack(lanes, dim=1)                   # [A, T, 2C+1]
+        bits = ((lanes[..., None] >> bitpos) & 1).reshape(A, len(sides), -1)
+        prefix = F.pad(torch.cumsum(bits, dim=-1, dtype=torch.int32), (1, 0))
+        cnt = prefix[..., starts + w + 1] - prefix[..., starts]
+        ok = (cnt >= m[None, :, None]).all(dim=1)           # [A, w + 18]
+        okc = F.pad(torch.cumsum(ok, dim=-1, dtype=torch.int32), (1, 0))
+        any_win = okc[:, w + 1: w + 1 + LSB_BITS] > okc[:, :LSB_BITS]
+        a_bits = ((a_pay[:, None] >> bitpos) & 1) == 1
+        counts.append((a_bits & any_win).sum(dim=1).to(torch.float32))
+    counts = (torch.cat(counts) if counts
+              else torch.zeros(0, dtype=torch.float32, device=device))
+    return (a_hdr_all >> blk_bits).to(torch.int32), counts

@@ -6,10 +6,12 @@ device="cuda")``.  Search methods run over the whole corpus on that device
 and gather the view's rows at the end.  The dtype registers as
 ``"tokenized_text_torch"``, so pandas take/concat hand back this package's
 arrays.  Terms, exact phrases (dense planes, or the sparse chain for
-position windows and corpora the planes cannot hold) and slop phrases on
-dense planes are ported; slop phrases outside the dense window kernel
-(a position window, ``n + slop - 1 > 18``, a term more than twice, a
-corpus that is not dense-eligible), mutation and sharding raise
+position windows and corpora the planes cannot hold) and slop phrases
+(the dense window kernel, or the sparse neighbourhood kernel for a
+position window, ``n + slop - 1 > 18``, a term more than twice and
+corpora the planes cannot hold) are ported, and ``score_batch_device``
+for callers that compose on the device (``solr.edismax``); candidate
+``rows=``, persistence, mutation and sharding raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Iterable, List, Optional, Union
 
 import numpy as np
 import pandas as pd
+import torch
 from pandas.api.extensions import (
     ExtensionArray,
     ExtensionDtype,
@@ -37,6 +40,7 @@ from searcharray_tpu_torch.index.builder import (
 from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.index.vocab import TermMissingError
 from searcharray_tpu_torch.ops import encoding as enc
+from searcharray_tpu_torch.ops.cuda.score import host_to_device
 from searcharray_tpu_torch.search import batch as batch_mod
 from searcharray_tpu_torch.search import dense as dense_mod
 from searcharray_tpu_torch.search import phrase as phrase_mod
@@ -499,8 +503,8 @@ class SearchArray(ExtensionArray):
         ``slop`` is an int for every query or one per query, so a request
         mixing exact and slop phrases is ONE batch (one pool-fill wave); a
         one-term query ignores it.  A slop phrase the dense window kernel
-        cannot take raises ``NotImplementedError`` before any pool is
-        touched."""
+        cannot take is scored on its posting slices (``span`` groups,
+        search/batch.py) in the same batch."""
         fused = getattr(similarity, "_fused", None)
         if not block and not (fused is not None and top_k is not None
                               and self._full_view):
@@ -531,6 +535,45 @@ class SearchArray(ExtensionArray):
             return dense
         idx = np.argsort(dense, axis=1)[:, ::-1][:, :top_k]
         return np.take_along_axis(dense, idx, axis=1), idx
+
+    def score_batch_device(self, queries: List[Union[str, List[str]]],
+                           similarity: Similarity = default_bm25, slop=0,
+                           rows: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Like :meth:`score_batch`, but the f32[Q, len(self)] scores stay
+        a tensor on the array's device: nothing is copied to the host.
+        For callers that compose further on the device (``solr.edismax``).
+        ``slop`` is an int or one per query.  A fused similarity on a full
+        view is one ``score_batch_fused(as_device=True)`` call; a custom
+        similarity is scored per query on the host and its stack staged on
+        the device; a sliced view gathers its rows on the device.  ``rows``
+        (scores over a candidate doc-id subset) needs the candidate-subset
+        engine."""
+        if rows is not None:
+            raise _todo("score_batch_device(rows=) (candidate rows)",
+                        "Queue 1 item 10")
+        slops = ([int(slop)] * len(queries) if np.isscalar(slop)
+                 else [int(s) for s in slop])
+        if len(slops) != len(queries):
+            raise ValueError("per-query slop length must match queries")
+        fused = getattr(similarity, "_fused", None)
+        if fused is None:
+            # custom similarity: the reference protocol per query (the
+            # view's rows already), the stack staged for composition
+            if not queries:
+                return torch.zeros((0, len(self)), dtype=torch.float32,
+                                   device=self.dev.device)
+            return torch.as_tensor(
+                np.stack([self.score(q, similarity=similarity, slop=s)
+                          for q, s in zip(queries, slops)]),
+                device=self.dev.device)
+        kind, k1, b = fused
+        qtids = [self._resolve_tids(self._check_token_arg(q))
+                 for q in queries]
+        out = batch_mod.score_batch_fused(self.dev, qtids, kind, k1, b,
+                                          slop=slops, as_device=True)
+        if self._full_view:
+            return out
+        return out[:, host_to_device(self.rows, self.dev.device)]
 
     def topk(self, token: Union[str, List[str]], k: int = 10,
              similarity: Similarity = default_bm25, slop: int = 0):

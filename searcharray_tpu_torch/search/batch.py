@@ -18,14 +18,21 @@ Queries are deduplicated, classified and grouped:
   is too large for dense planes, or the phrase has more terms than K5 or
   the plane pool takes): the sparse chain on the posting slices, each
   chain step ONE K7 launch for all queries of the chunk, reduced by ONE
-  K2 launch over the same flat key space; then the min over steps.
+  K2 launch over the same flat key space; then the min over steps;
+* ``dspan`` (slop phrases the dense window takes: ``n + slop - 1 <= 18``,
+  no term more than twice, planes that fit the pool): ONE K6 launch per
+  (distinct terms, window, multiplicities) on the pooled planes;
+* ``span`` (every other slop phrase, the JAX package's per-query
+  fallbacks): ONE K9 launch per (distinct terms, window, multiplicities)
+  on the posting slices, reduced by ONE K2 launch; the rows of all
+  ``span`` groups are ranked together by one K3 call.
 
 With ``top_k`` every group's result is ranked by K3 and packed into int32
 [Qg, 2k] (f32 score bits ‖ doc indices), so one device-to-host copy
-returns a batch and nothing before it waits for the device.  A slop
-phrase outside the ``dspan`` shapes needs the sparse span kernel, which
-is not ported yet: the batch raises before it touches a pool.  The
-candidate-subset engine is not ported yet either.
+returns a batch and nothing before it waits for the device.  With
+``as_device`` the f32[Q, N] scores stay on the device for a caller that
+composes further (solr.py).  The candidate-subset engine is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -48,8 +55,8 @@ from searcharray_tpu_torch.search.scoring import (
     host_idf,
 )
 from searcharray_tpu_torch.search.spans import (
-    check_dense_span,
-    dense_window_ok,
+    sparse_span_freqs,
+    takes_dense_span,
     unique_terms,
 )
 
@@ -151,6 +158,27 @@ def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
     return f
 
 
+def _span_group_fn(dev: DeviceIndex, w: int, mults: tuple, kind: str,
+                   k1: float, b: float):
+    """The sparse slop group: fn(hdrs, pays, doc_lens, avgdl, offs, ns,
+    idfs) -> f32[Qg, N] scores.  ``offs``/``ns`` are host int [Qg, T]
+    arrays of the exact posting slices of each query's distinct terms,
+    the anchor in column 0."""
+    N = dev.corpus_size
+    Npad = _npad(N)
+    blk_bits = dev.blk_bits
+
+    def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
+        freqs = sparse_span_freqs(hdrs, pays, offs, ns, w, mults, anchor=0,
+                                  blk_bits=blk_bits, key_stride=Npad)[:, :N]
+        idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
+                                            hdrs.device)
+        return apply_similarity_device(kind, freqs, doc_lens[None, :],
+                                       idf_t[:, None], avgdl, k1, b)
+
+    return f
+
+
 def _phrase_chunks(grows, max_rows: int):
     """Cut a sparse phrase group into chunks of at most ``max_rows``
     queries and _SPARSE_CHUNK_WORDS posting words (a query larger than
@@ -229,9 +257,7 @@ def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], slop: int,
     if min(dev.term_span(t)[1] for t in tids) == 0:
         return None
     if slop > 0:
-        uniq, mults = unique_terms(tids)
-        if not (dense_window_ok(len(tids), slop, mults)
-                and dense.phrase_fits_pool(dev, uniq)):
+        if not takes_dense_span(dev, tids, slop):
             return None
         rec, _, fkey = _slop_structure(dev, tids, slop)
     else:
@@ -274,9 +300,12 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     or more terms with slop > 0 is a slop phrase, a ``dspan`` group keyed
     by (distinct terms, anchor column 0, window, multiplicities) whose
     rows hold the distinct terms anchor first, or its cached freq row.  A
-    slop phrase the dense window kernel cannot take raises
-    ``NotImplementedError`` before any query is counted or promoted.  The
-    candidate-subset engine is not ported yet (ROADMAP Queue 1 item 10):
+    slop phrase the dense window kernel cannot take (``w > 18``, a term
+    more than twice, a corpus or phrase the plane pool cannot hold) is a
+    ``span`` group with the same key fields and rows, scored by K9 on the
+    exact posting slices; it never takes a pool slot and is never
+    promoted.  The candidate-subset engine is not ported yet (ROADMAP
+    Queue 1 item 10):
     rare terms and phrases take the dense groups too.  Term queries on
     corpora too large for dense planes are ``term``, keyed by posting
     bucket; phrases there, and phrases of more than CHAIN_MAX_TERMS terms
@@ -287,10 +316,6 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     dense_ok = dense.dense_eligible(dev)
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
-    for tids, sl in zip(queries_tids, slops):
-        if (_is_slop_phrase(tids, sl)
-                and min(dev.term_span(t)[1] for t in tids) > 0):
-            check_dense_span(dev, tids, sl)
     ptf_budget = _ptf_budget(dev) if dense_ok else [0]
     groups: dict = {}
     for qi, tids in enumerate(queries_tids):
@@ -306,7 +331,9 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
             sig = (tuple(tids), slops[qi])
             row_tids, spans, fkey = _slop_structure(dev, tids, slops[qi])
             lengths = [s[1] for s in spans]
-            if _phrase_tf_route(dev, sig, row_tids, fkey, ptf_budget):
+            if not takes_dense_span(dev, tids, slops[qi]):
+                gkey = ("span",) + fkey[1:]
+            elif _phrase_tf_route(dev, sig, row_tids, fkey, ptf_budget):
                 gkey, row_tids = ("dterm",), [sig]
             else:
                 gkey = ("dspan",) + fkey[1:]
@@ -342,7 +369,7 @@ def score_batch_fused(dev: DeviceIndex,
                       queries_tids: Sequence[Optional[List[int]]],
                       kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
                       top_k: Optional[int] = None, defer: bool = False,
-                      slop=0):
+                      slop=0, as_device: bool = False):
     """Score a batch of resolved term-id queries, one launch per group.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
@@ -355,10 +382,14 @@ def score_batch_fused(dev: DeviceIndex,
     float32[Q, k], indices int64[Q, k]).  With ``defer`` (requires
     ``top_k``) returns a zero-arg ``collect()`` instead: all device work
     is enqueued and the packed result is being copied into pinned host
-    memory; collect() waits for that copy's event and unpacks.
+    memory; collect() waits for that copy's event and unpacks.  With
+    ``as_device`` (exclusive with ``top_k``) the f32[Q, num_docs] scores
+    stay a tensor on the index's device and nothing is copied.
     """
     if defer and top_k is None:
         raise ValueError("defer requires top_k")
+    if as_device and top_k is not None:
+        raise ValueError("as_device and top_k are exclusive")
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
     if len(slops) != len(queries_tids):
@@ -413,6 +444,9 @@ def score_batch_fused(dev: DeviceIndex,
             # posting-bucket words
             max_chunk = max(1, min(_MAX_FLAT // Npad,
                                    _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
+        elif gkey[0] == "span":
+            # the flat key space, and the f32[Qg, Npad] sums at ~1 GB
+            max_chunk = max(1, min(_MAX_FLAT, 1 << 28) // Npad)
         else:
             max_chunk = max(1, _MAX_FLAT // Npad)  # words: _phrase_chunks
         if gkey[0] == "dterm":
@@ -434,7 +468,7 @@ def score_batch_fused(dev: DeviceIndex,
                 cur_planes |= p_t
             if cur_rows:
                 chunks.append(cur_rows)
-        elif gkey[0] == "phrase":
+        elif gkey[0] in ("phrase", "span"):
             chunks = _phrase_chunks(grows, max_chunk)
         else:
             chunks = [grows[c0: c0 + max_chunk]
@@ -446,7 +480,7 @@ def score_batch_fused(dev: DeviceIndex,
                 spec["tf_tids"] = [r[4][0] for r in chunk]
             elif gkey[0] in ("dphrase", "dspan"):
                 spec["plane_tids"] = [t for r in chunk for t in r[4]]
-            elif gkey[0] == "phrase":
+            elif gkey[0] in ("phrase", "span"):
                 spec["offs"] = np.stack([r[1] for r in chunk])
                 spec["ns"] = np.stack([r[2] for r in chunk])
             else:
@@ -462,7 +496,7 @@ def score_batch_fused(dev: DeviceIndex,
     cur_p: set = set()
     cur_t: set = set()
     for s in specs:
-        if s["gkey"][0] in ("term", "phrase"):
+        if s["gkey"][0] in ("term", "phrase", "span"):
             continue
         p_t = set(s.get("plane_tids", ()))
         t_t = set(s.get("tf_tids", ()))
@@ -510,11 +544,19 @@ def score_batch_fused(dev: DeviceIndex,
                         dev, plan_key, pattern, kind, k1, b, top_k, slots,
                         idfs, avgdl))
             rows += [r[0] for r in s["chunk"]]
+    span_outs: List[torch.Tensor] = []   # ranked together, after the rest
+    span_rows: List[int] = []
     for s in specs:
         gkey = s["gkey"]
-        if gkey[0] not in ("term", "phrase"):
+        if gkey[0] not in ("term", "phrase", "span"):
             continue
         DISPATCHES[0] += 1
+        if gkey[0] == "span":
+            fn = _span_group_fn(dev, gkey[3], gkey[4], kind, k1, b)
+            span_outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
+                                s["offs"], s["ns"], s["idfs"]))
+            span_rows += [r[0] for r in s["chunk"]]
+            continue
         if gkey[0] == "term":
             fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
                                 top_k)
@@ -523,6 +565,33 @@ def score_batch_fused(dev: DeviceIndex,
         outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl, s["offs"],
                        s["ns"], s["idfs"]))
         rows += [r[0] for r in s["chunk"]]
+    if span_outs:
+        # one K3 call ranks the rows of every span group (cut only where
+        # the stack would pass ~1 GB)
+        stack = torch.cat(span_outs)
+        del span_outs
+        if top_k is None:
+            outs.append(stack)
+        else:
+            step = max(1, (1 << 28) // max(1, N))
+            outs += [dense.pack_topk(stack[r0: r0 + step], top_k)
+                     for r0 in range(0, stack.shape[0], step)]
+        del stack
+        rows += span_rows
+
+    if as_device:
+        if len(outs) == 1 and rows == list(range(Q)):
+            out = outs[0]   # one group, in query order: nothing to place
+        else:
+            out = torch.zeros((Q, N), dtype=torch.float32,
+                              device=dev.device)
+            if outs:
+                out[kernels_cuda.host_to_device(
+                    np.asarray(rows, np.int64), dev.device)] = torch.cat(outs)
+        if dedup:  # fan duplicate queries back out
+            out = out[kernels_cuda.host_to_device(
+                np.asarray(expand, np.int64), dev.device)]
+        return out
 
     if top_k is not None:
         staged, event = None, None

@@ -26,12 +26,6 @@ from searcharray_tpu_torch.ops.kernels import apply_similarity_device
 from searcharray_tpu_torch.search import dense
 from searcharray_tpu_torch.search.scoring import _window_blocks, host_idf
 
-# what a slop phrase outside the dense window kernel (K6) raises
-SLOP_TODO = ("slop phrases with a position window, a window n + slop - 1 "
-             "above 18, a term more than twice, or on a corpus or phrase "
-             "the plane pool cannot take need the sparse span kernel, "
-             "which is not ported yet (ROADMAP Queue 1 item 9)")
-
 TRIM_FACTOR = 20  # reference parity: middle_out.py:66
 
 

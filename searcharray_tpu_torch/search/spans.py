@@ -9,13 +9,15 @@ counts are at least the exact phrase counts and never fall as slop grows.
 The span width bound is applied soundly (Lucene SpanNear-like); the
 reference's automaton matches at any distance through a position leak.
 
-The port of ``searcharray_tpu/search/spans.py:span_freqs_dense`` for the
-queries its dense route takes: no position window, ``w <= 18``, no term
-more than twice, on a dense-eligible corpus whose plane pool holds the
-terms.  Those run K6 (``ops/cuda/score.py:span_window``) on the term
-planes.  Every other slop query needs the sparse neighbourhood kernel,
-which is not ported yet: it raises ``NotImplementedError`` and touches
-neither pool.
+The port of ``searcharray_tpu/search/spans.py:span_freqs_dense``, with its
+two routes.  A query with no position window, ``w <= 18`` and no term more
+than twice, on a dense-eligible corpus whose plane pool holds the terms,
+runs K6 (``ops/cuda/score.py:span_window``) on the term planes.  Every
+other slop query runs K9 (``span_sparse``) on the doc-sorted posting
+slices: per anchor word the neighbouring words of every term, the windows
+counted in registers, then K2 sums the words' counts per doc.  The JAX
+package's per-shape jit cache and posting buckets have no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import numpy as np
 import torch
 
 from searcharray_tpu_torch.index.device import DeviceIndex
+from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.encoding import LSB_BITS
+from searcharray_tpu_torch.ops.kernels import apply_similarity_device
 from searcharray_tpu_torch.search import dense
-from searcharray_tpu_torch.search.phrase import SLOP_TODO
 from searcharray_tpu_torch.search.scoring import _window_blocks, host_idf
 
 
@@ -51,16 +54,34 @@ def dense_window_ok(n_terms: int, slop: int, mults: Sequence[int]) -> bool:
     return n_terms + slop - 1 <= LSB_BITS and max(mults) <= 2
 
 
-def check_dense_span(index: DeviceIndex, term_ids: Sequence[int], slop: int,
-                     windowed: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a slop phrase (two or more
-    resolved terms, every posting non-empty) that the dense window kernel
-    cannot take; such queries wait for the sparse span kernel."""
+def takes_dense_span(index: DeviceIndex, term_ids: Sequence[int], slop: int,
+                     windowed: bool = False) -> bool:
+    """The router of a slop phrase (two or more resolved terms, every
+    posting non-empty): True where the dense window kernel K6 takes it,
+    False where it runs K9 on the posting slices (a position window, a
+    window above 18 positions, a term more than twice, a corpus that is
+    not dense-eligible, more distinct terms than the plane pool holds)."""
     uniq, mults = unique_terms(term_ids)
-    if (windowed or not dense_window_ok(len(term_ids), slop, mults)
-            or not dense.dense_eligible(index)
-            or not dense.phrase_fits_pool(index, uniq)):
-        raise NotImplementedError(SLOP_TODO)
+    return (not windowed and dense_window_ok(len(term_ids), slop, mults)
+            and dense.dense_eligible(index)
+            and dense.phrase_fits_pool(index, uniq))
+
+
+def sparse_span_freqs(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns,
+                      w: int, mults, *, anchor: int = 0, blk_bits: int,
+                      key_stride: int, min_blk=None,
+                      max_blk=None) -> torch.Tensor:
+    """Slop freqs of a chunk of queries sharing one window, anchor column
+    and multiplicities, on their posting slices: f32 [Q, key_stride].
+    ``offs``/``ns`` are host int [Q, T] arrays of each query's distinct
+    terms' slices.  One K9 launch for all queries, then one K2 launch over
+    its flat ``q * key_stride + doc`` keys."""
+    Q = len(offs)
+    keys, counts = kernels_cuda.span_sparse(
+        hdrs, pays, offs, ns, w, mults, anchor=anchor, blk_bits=blk_bits,
+        key_stride=key_stride, min_blk=min_blk, max_blk=max_blk)
+    return kernels_cuda.segment_sum(
+        keys, counts, num_docs=Q * key_stride).reshape(Q, key_stride)
 
 
 def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
@@ -72,18 +93,27 @@ def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
     f32[N] on the index's device."""
     if len(term_ids) < 2:
         raise ValueError("Must have at least two terms")
-    _window_blocks(min_posn, max_posn)  # a malformed window raises first
+    min_blk, max_blk = _window_blocks(min_posn, max_posn)
     windowed = min_posn is not None or max_posn is not None
     uniq, mults = unique_terms(term_ids)
     spans = [index.term_span(t) for t in uniq]
     if min(s[1] for s in spans) == 0:
         return torch.zeros(index.corpus_size, dtype=torch.float32,
                            device=index.device)
-    check_dense_span(index, term_ids, slop, windowed)
     anchor_i = int(np.argmin([s[1] for s in spans]))
+    w = len(term_ids) + slop - 1
     if idf is None:
         idf = host_idf(kind, [index.doc_freqs[t] for t in term_ids],
                        index.corpus_size, index.avg_doc_length)
-    return dense.score_span_dense(index, uniq, anchor_i,
-                                  len(term_ids) + slop - 1, kind, k1, b, idf,
-                                  mults=tuple(mults))
+    if takes_dense_span(index, term_ids, slop, windowed):
+        return dense.score_span_dense(index, uniq, anchor_i, w, kind, k1, b,
+                                      idf, mults=tuple(mults))
+    freqs = sparse_span_freqs(
+        index.hdrs, index.pays, [[s[0] for s in spans]],
+        [[s[1] for s in spans]], w, mults, anchor=anchor_i,
+        blk_bits=index.blk_bits, key_stride=index.corpus_size,
+        min_blk=min_blk if windowed else None,
+        max_blk=max_blk if windowed else None)[0]
+    avgdl = np.float32(max(index.avg_doc_length, 1e-38))
+    return apply_similarity_device(kind, freqs, index.doc_lens,
+                                   np.float32(idf), avgdl, k1, b)

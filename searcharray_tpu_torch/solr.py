@@ -1,0 +1,481 @@
+"""Solr edismax query composition over SearchArray dataframe columns.
+
+Behavioural parity with the reference (`searcharray/solr.py`) and with the
+JAX package (`searcharray_tpu/solr.py`): mm spec parsing (including
+conditional ``n<m`` clauses and percentages), ``field^boost`` lists,
+term-centric vs field-centric dispatch, tie breaking, and pf/pf2/pf3
+phrase boosts added only at rows the main query matched.  Per-field score
+stacks come from ``SearchArray.score_batch_device`` and stay on the
+device; the dismax / tie / mm composition and the phase folds are
+elementwise passes and reductions over them in plain torch (the JAX
+package computes them outside any hand-written kernel too); the ranking
+is K3 (``dense.pack_topk``).  The phrase phases always score the whole
+corpus and are masked by the main query's matches afterwards, which the
+JAX package pins as numerically identical to its candidate-row pruning.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import pandas as pd
+import torch
+
+from searcharray_tpu_torch.ops.cuda.score import host_to_device
+from searcharray_tpu_torch.pandas_ext.array import SearchArray
+from searcharray_tpu_torch.search.dense import pack_topk
+from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
+
+
+def _mm_int(value: str) -> int:
+    try:
+        return int(value)
+    except ValueError:
+        raise ValueError("Invalid 'mm' spec. Expecting an integer.")
+
+
+def parse_min_should_match(num_clauses: int, spec: str) -> int:
+    """Parse Solr's minimum-should-match spec into a clause count.
+
+    Supports plain integers ("3"), negatives ("-2" = all but two),
+    percentages ("75%", "-25%"), and conditional chains ("2<2 5<3 7<40%":
+    each "n<expr" applies when there are more than n clauses).
+    Semantics follow Solr's SolrPluginUtils.calculateMinShouldMatch.
+    """
+    spec = spec.strip()
+
+    # Conditional chain: evaluate left to right; the last clause whose
+    # bound is exceeded wins. <= bound means "use everything so far".
+    if "<" in spec:
+        selected = num_clauses
+        for cond in re.sub(r"\s*<\s*", "<", spec).split():
+            bound_s, _, expr = cond.partition("<")
+            if not expr:
+                raise ValueError(
+                    f"Invalid 'mm' spec: '{cond}'. "
+                    "Expecting values before and after '<'"
+                )
+            if num_clauses <= _mm_int(bound_s):
+                return selected
+            selected = parse_min_should_match(num_clauses, expr)
+        return selected
+
+    if spec.endswith("%"):
+        pct = _mm_int(spec[:-1])
+        scaled = num_clauses * pct / 100
+        required = num_clauses + int(scaled) if scaled < 0 else int(scaled)
+    else:
+        fixed = _mm_int(spec)
+        required = num_clauses + fixed if fixed < 0 else fixed
+
+    return min(num_clauses, max(required, 0))
+
+
+def parse_field_boosts(field_lists: List[str]) -> dict:
+    """Parse ``field^2.0`` style boost lists for qf/pf/pf2/pf3."""
+    if not field_lists:
+        return {}
+    out = {}
+    for field in field_lists:
+        parts = re.split(r"\^", field)
+        out[parts[0]] = None if len(parts) == 1 else float(parts[1])
+    return out
+
+
+def get_field(frame, field) -> SearchArray:
+    if field not in frame.columns:
+        raise ValueError(f"Field {field} not in dataframe")
+    if not isinstance(frame[field].array, SearchArray):
+        raise ValueError(f"Field {field} is not a searcharray field")
+    return frame[field].array
+
+
+def parse_query_terms(frame: pd.DataFrame, query: str, query_fields: List[str]):
+    search_terms: Dict[str, List[str]] = {}
+    num_search_terms = 0
+    term_centric = True
+    for field in query_fields:
+        arr = get_field(frame, field)
+        terms = list(arr.tokenizer(query))
+        search_terms[field] = terms
+        if num_search_terms == 0:
+            num_search_terms = len(terms)
+        elif len(terms) != num_search_terms:
+            term_centric = False
+    return num_search_terms, search_terms, term_centric
+
+
+def _boost_val(boost) -> float:
+    return 1.0 if boost is None else boost
+
+
+def _boost_exp(boost) -> str:
+    return f"{boost}" if boost is not None else "1"
+
+
+def _compose_tc(stacks, boosts, tie: float, msm: int) -> torch.Tensor:
+    """Term-centric dismax: per-field [T, N] stacks and their boosts ->
+    [N].  Per term the best field plus ``tie`` times the others; a doc
+    matches when at least ``msm`` terms score."""
+    fs = torch.stack([s * float(np.float32(bv))
+                      for s, bv in zip(stacks, boosts)])
+    mx = fs.max(dim=0).values
+    ts = mx + (fs.sum(dim=0) - mx) * float(np.float32(tie))   # [T, N]
+    matches = (ts > 0).sum(dim=0) >= msm
+    return torch.where(matches, ts.sum(dim=0), 0.0)
+
+
+def _compose_fc(stacks, boosts, tie: float, msms) -> torch.Tensor:
+    """Field-centric dismax: per-field mm over its own term count
+    (``msms[i]``), then dismax and tie across the fields."""
+    sums = []
+    for ts, bv, msm in zip(stacks, boosts, msms):
+        matches = (ts > 0).sum(dim=0) >= msm
+        sums.append(torch.where(matches, ts.sum(dim=0), 0.0)
+                    * float(np.float32(bv)))
+    stack = torch.stack(sums)
+    mx = stack.max(dim=0).values
+    return mx + (stack.sum(dim=0) - mx) * float(np.float32(tie))
+
+
+def _tc_explain(query_fields, search_terms, num_search_terms, msm) -> str:
+    explain = []
+    for term_posn in range(num_search_terms):
+        term_explain = [
+            f"{field}:{search_terms[field][term_posn]}^{_boost_exp(boost)}"
+            for field, boost in query_fields.items()
+        ]
+        explain.append("(" + " | ".join(term_explain) + ")")
+    return "(" + " ".join(explain) + f")~{msm}"
+
+
+def _fc_explain(query_fields, search_terms, mm) -> Tuple[str, list]:
+    explain, msms = [], []
+    for field, boost in query_fields.items():
+        terms = search_terms[field]
+        msm = min(parse_min_should_match(len(terms), spec=mm), len(terms))
+        exp = " ".join([f"{field}:{term}" for term in terms])
+        explain.append("((" + exp + f")~{msm})^{_boost_exp(boost)}")
+        msms.append(msm)
+    return " | ".join(explain), msms
+
+
+def _edismax_term_centric(frame, query_fields, num_search_terms, search_terms,
+                          mm, tie, similarity) -> Tuple[torch.Tensor, str]:
+    """Term-centric composition on the device: one batched call per field
+    scores all query terms, then the dismax / tie / mm passes."""
+    stacks = [get_field(frame, field).score_batch_device(
+        search_terms[field], similarity=similarity[field])
+        for field in query_fields]
+    boosts = [_boost_val(boost) for boost in query_fields.values()]
+    min_should_match = parse_min_should_match(num_search_terms, spec=mm)
+    qf_scores = _compose_tc(stacks, boosts, float(tie), min_should_match)
+    return qf_scores, _tc_explain(query_fields, search_terms,
+                                  num_search_terms, min_should_match)
+
+
+def _edismax_field_centric(frame, query_fields, num_search_terms, search_terms,
+                           mm, tie, similarity) -> Tuple[torch.Tensor, str]:
+    """Field-centric composition on the device (see
+    _edismax_term_centric)."""
+    stacks = [get_field(frame, field).score_batch_device(
+        search_terms[field], similarity=similarity[field])
+        for field in query_fields]
+    boosts = [_boost_val(boost) for boost in query_fields.values()]
+    explain, msms = _fc_explain(query_fields, search_terms, mm)
+    return _compose_fc(stacks, boosts, float(tie), msms), explain
+
+
+def _grams_of(terms: List[str], ngram: int) -> List[List[str]]:
+    """The whole phrase (``ngram`` 0) or every run of ``ngram`` terms."""
+    if ngram == 0:
+        return [terms]
+    return [terms[i: i + ngram] for i in range(len(terms) - ngram + 1)]
+
+
+def _gram_explain(field, gram, slop, boost) -> str:
+    slop_exp = f"~{slop}" if slop else ""
+    return f" ({field}:\"{' '.join(gram)}\"{slop_exp})^{_boost_exp(boost)}"
+
+
+def _ngram_phases(frame, search_terms, phases, similarity):
+    """pf / pf2 / pf3 scoring, all phases batched per FIELD.
+
+    ``phases`` is a list of (fields, ngram, slop): ngram=0 means the
+    whole phrase, 2/3 the bigram/trigram phases; ``slop`` wires the Solr
+    ps/ps2/ps3 parameters.  A field appearing in several phases scores ALL
+    its grams in ONE device batch (per-query slop, search/batch.py): one
+    pool-fill wave per field.  The grams score the whole corpus; the
+    caller masks by the main query's matches.
+
+    Returns a list of (total [N] tensor or None, explain) per phase."""
+    n_ph = len(phases)
+    calls: dict = {}
+    for pi, (fields, ngram, slop) in enumerate(phases):
+        min_terms = ngram if ngram else 2
+        for field, boost in fields.items():
+            terms = search_terms[field]
+            if len(terms) < min_terms:
+                continue
+            grams = _grams_of(terms, ngram)
+            ent = calls.setdefault(field,
+                                   {"grams": [], "slops": [], "segs": []})
+            ent["segs"].append((pi, boost, ngram, slop, len(ent["grams"]),
+                                len(grams)))
+            ent["grams"] += grams
+            ent["slops"] += [slop] * len(grams)
+
+    totals: List[Optional[torch.Tensor]] = [None] * n_ph
+    explains: List[str] = [""] * n_ph
+    for field, ent in calls.items():
+        gram_scores = get_field(frame, field).score_batch_device(
+            ent["grams"], similarity=similarity[field], slop=ent["slops"])
+        for pi, boost, ngram, slop, g0, gn in ent["segs"]:
+            seg = gram_scores[g0: g0 + gn]
+            contrib = seg.sum(dim=0)
+            if ngram == 2 and gn:
+                # parity quirk: the reference double-appends the final
+                # bigram (solr.py:221)
+                contrib = contrib + seg[-1]
+            contrib = contrib * float(np.float32(_boost_val(boost)))
+            totals[pi] = (contrib if totals[pi] is None
+                          else totals[pi] + contrib)
+            for gram in ent["grams"][g0: g0 + gn]:
+                explains[pi] += _gram_explain(field, gram, slop, boost)
+    return [(totals[pi], explains[pi]) for pi in range(n_ph)]
+
+
+def _unpack_topk(wire: np.ndarray, k: int):
+    """int32 [..., 2k] (f32 score bits ‖ doc indices) on the host ->
+    (scores f32[..., k], indices int64[..., k])."""
+    return (np.ascontiguousarray(wire[..., :k]).view(np.float32),
+            wire[..., k:].astype(np.int64))
+
+
+def _settings(qf, mm, pf, pf2, pf3, q_op, similarity):
+    """The parsed field lists, the mm spec and the per-field similarity
+    of one edismax configuration."""
+    def listify(x):
+        return x if isinstance(x, list) else [x]
+
+    query_fields = parse_field_boosts(listify(qf))
+    phrase_fields = parse_field_boosts(listify(pf)) if pf else {}
+    if mm is None:
+        mm = "1"
+    if isinstance(mm, int):
+        mm = f"{mm}"
+    if q_op == "AND":
+        mm = "100%"
+    if not isinstance(similarity, dict):
+        similarity = {field: similarity for field in query_fields}
+    for field in query_fields:
+        if field not in similarity:
+            similarity[field] = default_bm25
+    bigram_fields = parse_field_boosts(pf2) if pf2 else {}
+    trigram_fields = parse_field_boosts(pf3) if pf3 else {}
+    return (query_fields, phrase_fields, bigram_fields, trigram_fields, mm,
+            similarity)
+
+
+def edismax(frame: pd.DataFrame, q: str, qf: List[str],
+            mm: Optional[Union[str, int]] = None,
+            pf: Optional[List[str]] = None,
+            pf2: Optional[List[str]] = None,
+            pf3: Optional[List[str]] = None,
+            ps2: int = 0, ps3: int = 0, ps: int = 0,
+            tie: float = 0.0, q_op: str = "OR",
+            similarity: Union[Similarity, Dict[str, Similarity]] = default_bm25,
+            top_k: Optional[int] = None,
+            ) -> Tuple[np.ndarray, str]:
+    """Run an edismax query over a dataframe with SearchArray columns.
+
+    Returns (scores, explain string).  With ``top_k`` set, returns
+    ``((scores float32[k], row indices int64[k]), explain)`` instead: the
+    k-selection runs on the device, so only 2k values cross back to the
+    host (an extension over the reference's API, which always returns the
+    dense vector).  Either way one copy to the host ends the query."""
+    (query_fields, phrase_fields, bigram_fields, trigram_fields, mm,
+     similarity) = _settings(qf, mm, pf, pf2, pf3, q_op, similarity)
+
+    num_search_terms, search_terms, term_centric = parse_query_terms(
+        frame, q, list(query_fields.keys())
+    )
+    compose = (_edismax_term_centric if term_centric
+               else _edismax_field_centric)
+    qf_scores, explain = compose(frame, query_fields, num_search_terms,
+                                 search_terms, mm, tie=tie,
+                                 similarity=similarity)
+
+    # Phrase phases contribute only at rows matched by the main query: a
+    # mask after full-corpus scoring.  The mask is taken once from the
+    # main scores: phase boosts are non-negative and only ever add at
+    # already-positive rows.
+    phase_results = _ngram_phases(
+        frame, search_terms,
+        [(phrase_fields, 0, ps), (bigram_fields, 2, ps2),
+         (trigram_fields, 3, ps3)], similarity)
+    pos = qf_scores > 0
+    for extra, phase_explain in phase_results:
+        explain += phase_explain
+        if extra is not None:
+            qf_scores = qf_scores + torch.where(pos, extra, 0.0)
+
+    if top_k is None:
+        return qf_scores.cpu().numpy(), explain
+    k = min(top_k, int(qf_scores.shape[0]))
+    return _unpack_topk(pack_topk(qf_scores, k).cpu().numpy(), k), explain
+
+
+def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
+                  mm: Optional[Union[str, int]] = None,
+                  pf: Optional[List[str]] = None,
+                  pf2: Optional[List[str]] = None,
+                  pf3: Optional[List[str]] = None,
+                  ps2: int = 0, ps3: int = 0, ps: int = 0,
+                  tie: float = 0.0, q_op: str = "OR",
+                  similarity: Union[Similarity,
+                                    Dict[str, Similarity]] = default_bm25,
+                  top_k: Optional[int] = None,
+                  ) -> Tuple[object, List[str]]:
+    """Run one edismax configuration over a BATCH of query strings.
+
+    Numerically identical to calling :func:`edismax` per query (to float32
+    rounding: the batch folds the phase grams in one matrix product), but
+    the whole batch runs as a handful of device calls with ONE copy to the
+    host:
+
+    - main query: per field, every query's terms score in one
+      ``score_batch_device`` call (search/batch.py's groups);
+    - dismax/tie/mm composition: per query, on rows of the shared stacks;
+    - pf/pf2/pf3 grams: per field, all queries' grams in one batched
+      call, masked by each query's own matches;
+    - finish: every gram is folded into its query by one float32 matrix
+      product W[Q, G] @ grams[G, N] (per-gram boosts and the doubled final
+      bigram folded into W), then the mask, then K3 ranks every row.
+
+    Falls back to the scalar loop for custom (non-fused) similarities and
+    sliced fields.
+
+    Returns ``((scores f32[Q, k], indices i64[Q, k]), explains)`` with
+    ``top_k``, else ``(scores f32[Q, N], explains)``.  Queries that
+    tokenize to no terms score 0 everywhere.
+    """
+    call = dict(qf=qf, mm=mm, pf=pf, pf2=pf2, pf3=pf3, ps2=ps2, ps3=ps3,
+                ps=ps, tie=tie, q_op=q_op, similarity=similarity,
+                top_k=top_k)
+    (query_fields, phrase_fields, bigram_fields, trigram_fields, mm,
+     similarity) = _settings(qf, mm, pf, pf2, pf3, q_op, similarity)
+    phases = [(phrase_fields, 0, ps), (bigram_fields, 2, ps2),
+              (trigram_fields, 3, ps3)]
+
+    all_fields = set(query_fields)
+    for fields, _, _ in phases:
+        all_fields |= set(fields)
+
+    def _fallback():
+        outs = [edismax(frame, q, **call) for q in queries]
+        explains = [e for _, e in outs]
+        if top_k is None:
+            return np.stack([s for s, _ in outs]), explains
+        return ((np.stack([s for (s, _i), _ in outs]),
+                 np.stack([i for (_s, i), _ in outs])), explains)
+
+    for field in all_fields:
+        arr = get_field(frame, field)
+        sim = similarity.get(field, default_bm25)
+        if getattr(sim, "_fused", None) is None or not arr._full_view:
+            return _fallback()
+    if not queries:
+        if top_k is None:
+            return np.zeros((0, len(frame)), np.float32), []
+        return ((np.zeros((0, top_k), np.float32),
+                 np.zeros((0, top_k), np.int64)), [])
+
+    Q = len(queries)
+    n = len(frame)
+    field_order = list(query_fields)
+    parsed = [parse_query_terms(frame, q, field_order) for q in queries]
+    device = get_field(frame, field_order[0]).dev.device
+
+    # ---- stage 1: every query's single terms, one batched device call
+    # per field; a query's terms are contiguous rows of its field's stack
+    terms_by_field: Dict[str, list] = {f: [] for f in field_order}
+    starts = np.zeros((Q, len(field_order)), np.int64)
+    for qi, (_n, st, _tc) in enumerate(parsed):
+        for fi, field in enumerate(field_order):
+            starts[qi, fi] = len(terms_by_field[field])
+            terms_by_field[field] += [[t] for t in st[field]]
+    stacks = [get_field(frame, field).score_batch_device(
+        terms_by_field[field], similarity=similarity[field])
+        for field in field_order]
+
+    # ---- stage 2: compose each query's main score from its rows --------
+    boosts = [_boost_val(query_fields[f]) for f in field_order]
+    qf_rows, explains = [], []
+    for qi, (num_terms, st, tc) in enumerate(parsed):
+        own = [stacks[fi][starts[qi, fi]: starts[qi, fi] + len(st[f])]
+               for fi, f in enumerate(field_order)]
+        if tc:
+            msm = parse_min_should_match(num_terms, spec=mm)
+            explains.append(_tc_explain(query_fields, st, num_terms, msm))
+            if num_terms == 0:
+                qf_rows.append(torch.zeros(n, dtype=torch.float32,
+                                           device=device))
+            else:
+                qf_rows.append(_compose_tc(own, boosts, float(tie), msm))
+        else:
+            explain, msms = _fc_explain(query_fields, st, mm)
+            explains.append(explain)
+            qf_rows.append(_compose_fc(own, boosts, float(tie), msms))
+    qf_scores = torch.stack(qf_rows)                     # [Q, N]
+    del qf_rows
+
+    # ---- stage 3: every query's phase grams, one batched device call
+    # per field (per-row phrase scores are independent of the row set, so
+    # masking by the query's own matches equals candidate-row pruning) ---
+    gram_calls: Dict[str, dict] = {}
+    for qi, (_num, st, _tc) in enumerate(parsed):
+        for fields, ngram, slop in phases:
+            min_terms = ngram if ngram else 2
+            for field, boost in fields.items():
+                terms = st[field]
+                if len(terms) < min_terms:
+                    continue
+                grams = _grams_of(terms, ngram)
+                ent = gram_calls.setdefault(
+                    field, {"grams": [], "slops": [], "w": [], "qmap": []})
+                for gi, gram in enumerate(grams):
+                    w = _boost_val(boost)
+                    if ngram == 2 and gi == len(grams) - 1:
+                        w *= 2.0  # the reference double-appends the final
+                        # bigram (solr.py:221)
+                    ent["grams"].append(gram)
+                    ent["slops"].append(slop)
+                    ent["w"].append(w)
+                    ent["qmap"].append(qi)
+                    explains[qi] += _gram_explain(field, gram, slop, boost)
+
+    gram_stacks, W_cols = [], []
+    for field, ent in gram_calls.items():
+        gram_stacks.append(get_field(frame, field).score_batch_device(
+            ent["grams"], similarity=similarity.get(field, default_bm25),
+            slop=ent["slops"]))
+        W_cols.append((ent["qmap"], ent["w"]))
+
+    # ---- stage 4: fold the grams, mask, rank; one copy to the host -----
+    if gram_stacks:
+        W = np.zeros((Q, sum(gs.shape[0] for gs in gram_stacks)), np.float32)
+        g0 = 0
+        for (qmap, ws), gs in zip(W_cols, gram_stacks):
+            W[qmap, g0 + np.arange(len(qmap))] = ws
+            g0 += int(gs.shape[0])
+        # a float32 product: torch.backends.cuda.matmul.allow_tf32 is left
+        # at its default, False (TF32 would keep three decimal digits)
+        extras = host_to_device(W, device) @ torch.cat(gram_stacks)
+        del gram_stacks
+        qf_scores = qf_scores + torch.where(qf_scores > 0, extras, 0.0)
+    if top_k is None:
+        return qf_scores.cpu().numpy(), explains
+    k = min(top_k, n)
+    return _unpack_topk(pack_topk(qf_scores, k).cpu().numpy(), k), explains

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 to K7 against their plain PyTorch
+"""The CUDA kernels K1 to K7 and K9 against their plain PyTorch
 versions, and the port's main path on a card against the same path on
 the CPU.
 
@@ -1019,3 +1019,233 @@ def test_slop_path_on_card_matches_cpu(card):
             np.testing.assert_allclose(got[0], want[0], rtol=1e-6,
                                        atol=1e-7)
     assert kc.span_window.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K9: slop window coverage on the posting slices
+# ---------------------------------------------------------------------------
+def k9_lists(seed, sizes, num_docs, blk_bits, sparse_bits=False):
+    """Doc-sorted lists of unique int32 headers over ``num_docs`` docs of
+    ``1 << blk_bits`` blocks, 18-bit payloads with bits 17 and 0 often
+    set, laid end to end with a PAD tail as a DeviceIndex has it."""
+    rng = np.random.default_rng(seed)
+    NS = num_docs << blk_bits
+    hs, ps = [], []
+    for n in sizes:
+        h = np.unique(rng.integers(0, NS, n)).astype(np.int32)
+        p = rng.integers(0, 1 << 18, len(h)) & rng.integers(0, 1 << 18,
+                                                             len(h))
+        if sparse_bits:
+            p &= rng.integers(0, 1 << 18, len(h))
+        p[rng.random(len(h)) < 0.2] |= (1 << 17) | 1
+        hs.append(h)
+        ps.append(p.astype(np.int32))
+    ns = np.asarray([len(h) for h in hs], np.int64)
+    return (torch.from_numpy(np.concatenate(hs + [np.full(16, PAD_HDR32,
+                                                          np.int32)])),
+            torch.from_numpy(np.concatenate(ps + [np.zeros(16, np.int32)])),
+            kc.prefix_offsets(ns), ns)
+
+
+def k9_both(card, hdrs, pays, offs, ns, w, mults, **kw):
+    """K9 and its plain version on the same card tensors: bit-equal."""
+    before = kc.span_sparse.launches
+    got = kc.span_sparse(hdrs, pays, offs, ns, w, mults, **kw)
+    want = kc.span_sparse_plain(hdrs, pays, offs, ns, w, mults, **kw)
+    torch.cuda.synchronize()
+    M = int(np.asarray(ns)[:, kw.get("anchor", 0)].sum())
+    assert kc.span_sparse.launches == before + (1 if M else 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if w <= kc.SPAN_MAX_WINDOW and max(mults) <= 2:
+        # that was the 64-bit word path: the walked path gives the same
+        walked = kc.span_sparse(hdrs, pays, offs, ns, w, mults, walk=True,
+                                **kw)
+        assert torch.equal(walked[0], want[0])
+        assert torch.equal(walked[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("w", list(range(1, 19)))
+@pytest.mark.parametrize("mults,anchor", [((1, 1), 0), ((2,), 0),
+                                          ((2, 1), 1), ((1, 2, 2), 2)])
+def test_k9_word_path_every_window(card, mults, anchor, w):
+    """Dense lists (most headers have both neighbours) at every window the
+    word path takes, with and without a block window."""
+    sizes = (300_000, 250_000, 120_000)[:len(mults)]
+    hdrs, pays, offs, ns = k9_lists(w * 5 + len(mults), sizes, 20_000, 4,
+                                    sparse_bits=w > 6)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    for mb in ({}, dict(min_blk=1, max_blk=3)):
+        _, counts = k9_both(card, hdrs, pays, [offs], [ns], w, mults,
+                            anchor=anchor, blk_bits=4, **mb)
+        assert counts.sum() > 0
+
+
+@pytest.mark.parametrize("window", [None, (0, 0), (1, 5)])
+@pytest.mark.parametrize("w", [1, 3, 18, 19, 40, 200])
+@pytest.mark.parametrize("sizes,mults,anchor", [
+    ((0, 1000), (1, 1), 0), ((1000, 0), (1, 1), 0), ((1, 1), (1, 1), 1),
+    ((255, 257), (1, 1), 0), ((4000, 5000), (1, 2), 0),
+    ((300, 200_000), (1, 1), 0), ((200_000, 300), (2, 1), 1),
+    ((150_000,), (2,), 0), ((60_000,), (3,), 0),
+    ((30_000, 250_000, 90_000), (1, 1, 2), 0),
+    ((500_000, 400_000), (1, 1), 1)])
+def test_k9_kernel_matches_plain(card, sizes, mults, anchor, w, window):
+    num_docs = max(50, max(sizes) // 3)
+    hdrs, pays, offs, ns = k9_lists(sum(sizes) + w, sizes, num_docs, 3,
+                                    sparse_bits=w > 30)
+    mb = dict(min_blk=window[0], max_blk=window[1]) if window else {}
+    _, counts = k9_both(card, hdrs.to(card), pays.to(card), [offs], [ns], w,
+                        mults, anchor=anchor, blk_bits=3, **mb)
+    if min(sizes) >= 4000 and w >= 3 and window != (0, 0):
+        assert counts.sum() > 0
+
+
+@pytest.mark.parametrize("blk_bits", [0, 1, 2, 8, 14])
+@pytest.mark.parametrize("w", [2, 18, 19, 37])
+def test_k9_neighbourhoods_stay_inside_their_document(card, blk_bits, w):
+    """Dense lists, so nearly every header has both neighbours: a word of
+    a document's first or last block must not read the next document's."""
+    num_docs = max(3, 40_000 >> blk_bits)
+    total = num_docs << blk_bits
+    hdrs, pays, offs, ns = k9_lists(blk_bits * 100 + w,
+                                    (total * 2, total * 2, total // 3),
+                                    num_docs, blk_bits)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    for anchor in (0, 2):
+        _, counts = k9_both(card, hdrs, pays, [offs], [ns], w, (1, 1, 1),
+                            anchor=anchor, blk_bits=blk_bits)
+        assert counts.sum() > 0
+
+
+@pytest.mark.parametrize("T", [1, 2, 5, 8, 9, 12, 40])
+def test_k9_term_counts_on_both_sides_of_the_local_state(card, T):
+    """Up to sa_span_sparse_local_terms() distinct terms a thread's state
+    is in local memory, above it in the wrapper's scratch buffer."""
+    assert kc._get_lib().sa_span_sparse_local_terms() == 8
+    rng = np.random.default_rng(T)
+    sizes = tuple(int(x) for x in rng.integers(20_000, 60_000, T))
+    hdrs, pays, offs, ns = k9_lists(T, sizes, 2000, 3)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    mults = tuple(int(x) for x in rng.integers(1, 3, T))
+    for w in (T + 2, 3 * T + 20):
+        _, counts = k9_both(card, hdrs, pays, [offs], [ns], w, mults,
+                            anchor=T // 2, blk_bits=3)
+    assert counts.sum() > 0
+
+
+def test_k9_batched_form_with_empty_slices_and_unaligned_views(card):
+    sizes = (3000, 200_000, 0, 70_000, 256, 5, 2048, 1)
+    hdrs, pays, offs, ns = k9_lists(9, sizes, 60_000, 3)
+    pad = torch.zeros(3, dtype=torch.int32)
+    hdrs = torch.cat([pad, hdrs]).to(card)[3:]
+    pays = torch.cat([pad, pays]).to(card)[3:]
+    cols = np.asarray([[1, 0], [2, 3], [3, 2], [4, 6], [5, 7], [7, 1],
+                       [6, 6]])   # query 1 has no anchor words, query 2
+    stride = 60_416               # no words of its other term
+    for window in (None, (2, 6)):
+        mb = (dict(min_blk=window[0], max_blk=window[1]) if window else {})
+        keys, counts = k9_both(card, hdrs, pays, offs[cols], ns[cols], 5,
+                               (1, 1), blk_bits=3, key_stride=stride, **mb)
+        assert bool((keys[1:] >= keys[:-1]).all())
+        got = kc.segment_sum(keys, counts, num_docs=len(cols) * stride)
+        want = kc.segment_sum_plain(keys, counts,
+                                    num_docs=len(cols) * stride)
+        assert torch.equal(got, want)
+        rows = got.reshape(len(cols), stride)
+        assert not rows[1].any() and not rows[2].any() and rows[0].any()
+
+
+def test_k9_reads_nothing_past_the_last_list(card):
+    """The last list of the planes ends at the PAD tail: a search for a
+    header above its last one must stop at the list's length."""
+    hdrs = torch.tensor([0, 1, 2, 5, 6, 7] + [PAD_HDR32] * 8,
+                        dtype=torch.int32, device=card)
+    pays = torch.tensor([1 << 17, 1, 1 << 17, 7, 1, 1 << 9] + [0] * 8,
+                        dtype=torch.int32, device=card)
+    for blk_bits in (0, 1, 3):
+        for w in (1, 2, 18, 30):
+            k9_both(card, hdrs, pays, [[0, 3]], [[3, 3]], w, (1, 1),
+                    anchor=1, blk_bits=blk_bits)
+            k9_both(card, hdrs, pays, [[0, 3]], [[3, 3]], w, (1, 1),
+                    anchor=0, blk_bits=blk_bits)
+
+
+def test_k9_enqueues_without_a_host_sync(card):
+    hdrs, pays, offs, ns = k9_lists(5, (40_000, 50_000), 9000, 3)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    kc.span_sparse(hdrs, pays, [offs], [ns], 4, (1, 1), blk_bits=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keys, counts = kc.span_sparse(hdrs, pays, [offs], [ns], 4, (1, 1),
+                                      blk_bits=3, key_stride=9216)
+        kc.segment_sum(keys, counts, num_docs=9216)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_k9_rejects_bad_requests(card):
+    hdrs, pays, offs, ns = k9_lists(2, (100, 100), 50, 3)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    with pytest.raises(ValueError, match="window"):
+        kc.span_sparse(hdrs, pays, [offs], [ns], 0, (1, 1), blk_bits=3)
+    with pytest.raises(ValueError, match="past"):
+        kc.span_sparse(hdrs, pays, [offs], [ns + 200], 3, (1, 1), blk_bits=3)
+    with pytest.raises(ValueError):
+        kc.span_sparse(hdrs, pays.cpu(), [offs], [ns], 3, (1, 1), blk_bits=3)
+
+
+def test_sparse_slop_path_on_card_matches_cpu(card, monkeypatch):
+    """Slop phrases the dense window cannot take (a position window, a
+    wide window, a term three times) and a corpus that is not
+    dense-eligible, through the facade and edismax on the card and on the
+    CPU."""
+    import pandas as pd
+
+    from searcharray_tpu_torch import edismax, edismax_batch
+    from searcharray_tpu_torch.search import dense
+
+    rng = np.random.default_rng(33)
+    vocab = ["red", "fox", "the", "dog"] + [f"w{i}" for i in range(12)]
+    docs = [" ".join(rng.choice(vocab, size=rng.integers(1, 70)))
+            for _ in range(5000)]
+    cpu = SearchArray.index(docs, device="cpu")
+    gpu = SearchArray.index(docs, device="cuda")
+    before = kc.span_sparse.launches
+    for q, slop, win in ((["red", "fox"], 2, dict(min_posn=18, max_posn=53)),
+                         (["red", "fox", "dog"], 20, {}),
+                         (["the", "the", "the"], 4, {}),
+                         (["the", "w1", "the", "the"], 30, {})):
+        np.testing.assert_array_equal(gpu.termfreqs(q, slop=slop, **win),
+                                      cpu.termfreqs(q, slop=slop, **win))
+        np.testing.assert_allclose(gpu.score(q, slop=slop, **win),
+                                   cpu.score(q, slop=slop, **win),
+                                   rtol=1e-6, atol=1e-7)
+    qs = [["red", "fox"], ["the", "the"], "dog", ["the", "red", "fox", "w3"],
+          ["fox", "red", "fox", "fox"], ["w1", "the"], ["w1", "the"]]
+    sl = [2, 1, 0, 20, 3, 18, 0]
+    frames = [pd.DataFrame({"title": SearchArray.index(
+        [" ".join(d.split()[:8]) for d in docs], device=d_), "body": a})
+        for d_, a in (("cpu", cpu), ("cuda", gpu))]
+    kw = dict(qf=["title^2", "body"], mm="2<75%", tie=0.1,
+              pf=["title", "body"], pf2=["body"], ps=20, ps2=1)
+    eq = ["the red fox", "dog w3", "w1 the w2 fox"]
+    for dense_ok in (True, False):
+        if not dense_ok:
+            monkeypatch.setattr(dense, "DENSE_TERM_BYTES_LIMIT", 0)
+        for block in (True, False):
+            ws, wi = cpu.score_batch(qs, top_k=10, slop=sl)
+            out = gpu.score_batch(qs, top_k=10, slop=sl, block=block)
+            gs, gi = out if block else out()
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+        want, wexp = edismax_batch(frames[0], eq, **kw)
+        got, gexp = edismax_batch(frames[1], eq, **kw)
+        assert gexp == wexp
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        for q in eq:
+            (ws, wi), _ = edismax(frames[0], q, top_k=5, **kw)
+            (gs, gi), _ = edismax(frames[1], q, top_k=5, **kw)
+            np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-6)
+    assert kc.span_sparse.launches > before

@@ -395,9 +395,11 @@ def test_unported_phrase_paths_raise(pair, call, monkeypatch):
         np.testing.assert_allclose(got, jarr.score(["red", "fox"], slop=1),
                                    rtol=1e-6, atol=1e-7)
         assert (got > 0).sum() > (tarr.score(["red", "fox"]) > 0).sum()
-        # what is left of it: the shapes the sparse span kernel takes
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tarr.score(["red", "fox"], slop=18)
+        # ported too: the shapes the sparse span kernel takes
+        wide = tarr.score(["red", "fox"], slop=18)
+        np.testing.assert_allclose(wide, jarr.score(["red", "fox"], slop=18),
+                                   rtol=1e-6, atol=1e-7)
+        assert (wide > 0).sum() > (got > 0).sum()
     elif call == "slop_batch":
         # ported: a batch mixing slop 0 and 2
         jarr, _ = pair
@@ -406,8 +408,12 @@ def test_unported_phrase_paths_raise(pair, call, monkeypatch):
         gs, gi = tarr.score_batch(qs, slop=[0, 2, 2], top_k=3)
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tarr.score_batch(["red", ["red", "fox"]], slop=[0, 30], top_k=3)
+        ws, wi = jarr.score_batch(["red", ["red", "fox"]], slop=[0, 30],
+                                  top_k=3)
+        gs, gi = tarr.score_batch(["red", ["red", "fox"]], slop=[0, 30],
+                                  top_k=3)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
     else:
         # ported: phrases on a corpus that is not dense-eligible
         jarr, arr = make_pair(make_docs(n=50))

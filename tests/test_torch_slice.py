@@ -278,10 +278,16 @@ def test_unported_parts_raise(pair, call):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
         assert gs[0, 0] > 0
+        # ported too: a window wider than a slot takes the sparse kernel
+        ws, wi = jarr.score_batch([["alpha", "beta"]], top_k=3, slop=20)
+        gs, gi = tarr.score_batch([["alpha", "beta"]], top_k=3, slop=20)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+        assert gs[0, 0] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "phrase_batch":
-            # what still raises: a window wider than a slot
-            tarr.score_batch([["alpha", "beta"]], top_k=3, slop=20)
+            # what still raises: scores over a candidate subset of rows
+            tarr.score_batch_device([["alpha", "beta"]], rows=np.arange(2))
         elif call == "setitem":
             tarr[0] = {"a": 1}
         elif call == "positions":

@@ -3,7 +3,9 @@ version against the JAX package's window program on random planes, and
 the facade (``termfreqs``, ``score``, ``score_batch``, ``topk`` with
 ``slop``) against the JAX facade on one numpy-seeded index, which
 ``from_numpy_state`` carries from the JAX build into the port.  The slop
-queries the dense window kernel cannot take are pinned as raising."""
+queries the dense window kernel cannot take run the sparse neighbourhood
+kernel's plain version (K9) and are held to the JAX facade too, with both
+pools left as they were."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,16 +140,15 @@ def test_slop_scenarios(name):
     jarr, tarr = carried_pair([doc, " empty ", doc + " " + doc, " empty"] * 25,
                               tokenizer=simple_tokenizer)
     toks = simple_tokenizer(phrase)
-    raising = name == "same_term_far_apart_no_match"  # a term three times
+    sparse = name == "same_term_far_apart_no_match"  # a term three times
     for s in range(slop, max(slop, 10)):
         if s == 0:
             continue  # slop 0 is the exact phrase (test_torch_phrase.py)
-        if raising or len(toks) + s - 1 > 18:
+        if sparse or len(toks) + s - 1 > 18:
+            # the sparse kernel's query: no pool is touched
             before = pool_state(tarr.dev)
-            with pytest.raises(NotImplementedError, match="item 9"):
-                tarr.score(toks, slop=s)
+            tarr.score(toks, slop=s)
             assert pool_state(tarr.dev) == before
-            continue
         want = jarr.score(toks, slop=s)
         got = tarr.score(toks, slop=s)
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
@@ -178,13 +179,20 @@ def test_slop_zero_equals_exact():
 
 
 def test_same_term_within_window():
-    """"the the the" has a term three times: the JAX package runs it on
-    its sparse kernel, which the port does not have yet, so it raises; the
-    pair "the the" takes the dense window in both."""
+    """"the the the" has a term three times: both packages run it on
+    their sparse kernels (width <= 4 holds positions 1, 3, 5 at slop 2,
+    width <= 3 does not at slop 1); the pair "the the" takes the dense
+    window in both."""
     jarr, tarr = carried_pair(
         ["dig the well the whole the way down", "no such words"] * 10)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tarr.termfreqs(["the", "the", "the"], slop=2)
+    got3 = tarr.termfreqs(["the", "the", "the"], slop=2)
+    np.testing.assert_array_equal(
+        got3, jarr.termfreqs(["the", "the", "the"], slop=2))
+    assert np.all(got3[::2] > 0) and np.all(got3[1::2] == 0)
+    got1 = tarr.termfreqs(["the", "the", "the"], slop=1)
+    np.testing.assert_array_equal(
+        got1, jarr.termfreqs(["the", "the", "the"], slop=1))
+    assert np.all(got1 == 0)
     for slop in (1, 2, 3):
         got = tarr.termfreqs(["the", "the"], slop=slop)
         np.testing.assert_array_equal(
@@ -197,9 +205,12 @@ def test_width_bound_is_sound():
     for slop in (1, 9, 17):
         got = tarr.termfreqs(["foo", "bar"], slop=slop)
         assert got[0] == 0 == jarr.termfreqs(["foo", "bar"], slop=slop)[0]
-    # slop 49 needs a window of 50 positions: the sparse kernel's
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tarr.termfreqs(["foo", "bar"], slop=49)
+    # slop 49 needs a window of 50 positions: the sparse kernel's; one
+    # position less and the pair is out of reach
+    for slop, want in ((48, 0), (49, 1), (60, 1), (400, 1)):
+        got = tarr.termfreqs(["foo", "bar"], slop=slop)
+        assert got[0] == want == jarr.termfreqs(["foo", "bar"],
+                                                slop=slop)[0]
 
 
 def test_unordered_within_window():
@@ -264,15 +275,24 @@ def test_dense_slop_repeated_terms_matches_sparse(repeated_pair, q, slop):
 
 
 def test_a_term_three_times_raises(repeated_pair):
-    _, tarr = repeated_pair
+    """Nothing raises any more: a term three times runs the sparse kernel
+    in both packages, and the port's pools keep only what the batch's
+    one-term query put there."""
+    jarr, tarr = repeated_pair
     before = pool_state(tarr.dev)
-    for call in (lambda: tarr.termfreqs(["c", "c", "c"], slop=5),
-                 lambda: tarr.score(["c", "c", "c"], slop=5),
-                 lambda: tarr.score_batch(["a", ["c", "c", "c"]], slop=5,
-                                          top_k=3)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    got = tarr.termfreqs(["c", "c", "c"], slop=5)
+    np.testing.assert_array_equal(got,
+                                  jarr.termfreqs(["c", "c", "c"], slop=5))
+    assert got.sum() > 0
+    np.testing.assert_allclose(tarr.score(["c", "c", "c"], slop=5),
+                               jarr.score(["c", "c", "c"], slop=5),
+                               rtol=1e-6, atol=0)
     assert pool_state(tarr.dev) == before
+    gs, gi = tarr.score_batch(["a", ["c", "c", "c"]], slop=5, top_k=3)
+    ws, wi = jarr.score_batch(["a", ["c", "c", "c"]], slop=5, top_k=3)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=0)
+    assert pool_state(tarr.dev)[0] == before[0]   # no plane was filled
 
 
 def test_custom_similarity_with_slop_matches_jax(dense_pair):
@@ -475,7 +495,8 @@ def test_canonical_order_puts_the_anchor_first(cache_pair):
 
 
 # ---------------------------------------------------------------------------
-# what still raises, with both pools left as they were
+# what the dense window kernel cannot take: the sparse kernel's queries,
+# held to the JAX facade, with both pools left as they were
 # ---------------------------------------------------------------------------
 # score_batch and topk take no position window
 RAISING = [(call, case)
@@ -488,8 +509,9 @@ RAISING = [(call, case)
 @pytest.mark.parametrize("call,case", RAISING)
 def test_slop_outside_the_dense_window_raises(call, case, monkeypatch):
     vocab = ["a", "b", "c", "d", "e"] + [f"x{i}" for i in range(10)]
-    _, tarr = carried_pair(random_docs(5, 120, vocab))
-    tarr.score_batch(["a", ["a", "b"]], slop=[0, 2])  # pools in use
+    jarr, tarr = carried_pair(random_docs(5, 120, vocab))
+    tarr.score_batch(["a", ["a", "b"], "c", ["c", "d"]],
+                     slop=[0, 2, 0, 1])  # pools in use
     q, slop, extra = ["a", "b"], 2, {}
     if case == "window":
         extra = dict(min_posn=0, max_posn=17)
@@ -499,20 +521,42 @@ def test_slop_outside_the_dense_window_raises(call, case, monkeypatch):
         q = ["a", "b", "a", "a"]
     elif case == "not_dense":
         monkeypatch.setattr(dense, "DENSE_TERM_BYTES_LIMIT", 0)
+        monkeypatch.setattr(jdense, "DENSE_TERM_BYTES_LIMIT", 0)
     else:
         monkeypatch.setattr(dense, "plane_capacity", lambda dev: 2)
+        monkeypatch.setattr(jdense, "plane_capacity", lambda dev: 2)
     before = pool_state(tarr.dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        if call == "termfreqs":
-            tarr.termfreqs(q, slop=slop, **extra)
-        elif call == "score":
-            tarr.score(q, slop=slop, **extra)
-        elif call == "score_batch":
-            tarr.score_batch(["c", ["c", "d"], q], slop=[0, 1, slop],
-                             top_k=3)
-        else:
-            tarr.topk(q, k=3, slop=slop)
-    assert pool_state(tarr.dev) == before
+    if call == "termfreqs":
+        got = tarr.termfreqs(q, slop=slop, **extra)
+        np.testing.assert_array_equal(
+            got, jarr.termfreqs(q, slop=slop, **extra))
+        assert got.sum() > 0
+    elif call == "score":
+        np.testing.assert_allclose(tarr.score(q, slop=slop, **extra),
+                                   jarr.score(q, slop=slop, **extra),
+                                   rtol=1e-6, atol=0)
+    elif call == "score_batch":
+        qs, sl = ["c", ["c", "d"], q], [0, 1, slop]
+        if case in ("not_dense", "pool_too_small"):
+            # the exact phrase takes the sparse chain there
+            qs, sl = ["c", q, ["d", "e", "d"]], [0, slop, 3]
+        gs, gi = tarr.score_batch(qs, slop=sl, top_k=3)
+        ws, wi = jarr.score_batch(qs, slop=sl, top_k=3)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=0)
+    else:
+        gs, gi = tarr.topk(q, k=3, slop=slop)
+        ws, wi = jarr.topk(q, k=3, slop=slop)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=0)
+    if case in ("not_dense", "pool_too_small") or call in ("termfreqs",
+                                                           "score", "topk"):
+        assert pool_state(tarr.dev) == before
+    else:
+        # the sparse kernel's query is never counted or promoted
+        sig = (tuple(tarr.term_dict.get_term_id(t) for t in q), slop)
+        assert sig not in tarr.dev.phrase_hits
+        assert sig not in tarr.dev.tf_slot
 
 
 def test_a_slop_phrase_with_an_empty_posting_scores_zero():
