@@ -134,7 +134,8 @@ ED_QUERIES = ["what is the purpose", "star trek", "purpose of star",
 ED_KW = dict(qf=["title^2", "body"], mm="2<75%", tie=0.1,
              pf=["title", "body"], pf2=["body"])
 ED_SLOP = dict(ps=2, ps2=1)
-ED_CALLS = 3      # passes over ED_QUERIES per latency sample set
+ED_CALLS = 10     # passes over ED_QUERIES per latency sample set, and calls
+                  # per edismax_batch qps window
 K3_TILE = 16384                # elements of a row per block (csrc/topk.cu)
 LSB18 = np.uint32((1 << 18) - 1)
 
@@ -327,6 +328,7 @@ def oracle_chain_sparse(lists, tags, direction, n_docs, blk_bits):
 _PLANES: dict = {}
 _FREQS: dict = {}
 _ORACLE: dict = {}
+ORACLE_THREADS = 6              # threads of oracle_warm
 DENSE_ORACLE_SLOTS = 1 << 24   # larger planes take the sparse oracle
 RARE_ORACLE_WORDS = 1 << 14    # and so do phrases with a rarer term
 
@@ -529,6 +531,33 @@ def oracle_span_freqs(dev, terms, slop, window=None, sparse=None):
     return freqs
 
 
+def oracle_warm(dev, queries, slops=None, window=None, sparse=None):
+    """Compute ``oracle_scores`` of every distinct query on a few threads
+    (the oracles are numpy passes over whole arrays, which release the
+    interpreter lock) and leave the results memoized for the checks that
+    follow; ``slops`` is one slop for all or one per query."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    slops = ([slops or 0] * len(queries) if slops is None
+             or np.isscalar(slops) else list(slops))
+    jobs = list(dict.fromkeys(
+        (q if isinstance(q, str) else tuple(q), sl)
+        for q, sl in zip(queries, slops)))
+    with ThreadPoolExecutor(ORACLE_THREADS) as pool:
+        list(pool.map(lambda j: oracle_scores(
+            dev, j[0], window=window, sparse=sparse, slop=j[1]), jobs))
+
+
+def oracle_edismax_warm(devs, queries, ps=0, ps2=0):
+    """``oracle_warm`` for the scores ``oracle_edismax`` composes."""
+    terms = [q.split() for q in queries]
+    for f in ("title", "body"):
+        oracle_warm(devs[f], [t for ts in terms for t in ts])
+        oracle_warm(devs[f], [ts for ts in terms if len(ts) >= 2], ps)
+    oracle_warm(devs["body"], [ts[i: i + 2] for ts in terms
+                               for i in range(len(ts) - 1)], ps2)
+
+
 def oracle_edismax(devs, q, ps=0, ps2=0):
     """bench.py's edismax configuration (ED_KW) for one query, composed in
     numpy float32 from the oracle's scores: per term the better of the
@@ -566,6 +595,7 @@ def check_edismax(devs, queries, ranked, what, k, **slops):
     1e-6) of the oracle's k best, and every returned doc's oracle score
     within the same of its returned score (so docs that tie may come in
     either order)."""
+    oracle_edismax_warm(devs, queries, **slops)
     for q, (scores, idx) in zip(queries, ranked):
         want = oracle_edismax(devs, q, **slops)
         best = want[oracle_topk(want, k)]
@@ -599,6 +629,7 @@ def check_ranking(dev, terms, scores, idx, what, sparse=None, slops=None):
     ``terms`` are the queries: terms or phrases, with ``slops`` one slop
     each."""
     slops = [0] * len(terms) if slops is None else slops
+    oracle_warm(dev, terms, slops, sparse=sparse)
     for term, slop, got_s, got_i in zip(terms, slops, scores, idx):
         want = oracle_scores(dev, term, sparse=sparse, slop=slop)
         want_i = oracle_topk(want, len(got_i))
@@ -972,6 +1003,9 @@ def main() -> int:
           f"filling tf-pool rows, {len(slop_sigs)} slop phrases cached) and "
           "then read their rows with no K6 launch")
     slop_err, slop_matches = 0.0, 0
+    oracle_warm(dev, slop_shapes + [wide_q],
+                [SLOP] * len(slop_shapes) + [wide_slop])
+    oracle_warm(dev, slop_shapes[:3] + [wide_q])
     for q, slop, got_s, got_f in [
             *zip(slop_shapes, [SLOP] * len(slop_shapes), slop_scores,
                  slop_freqs), (wide_q, wide_slop, s_wide, f_wide)]:
@@ -1136,6 +1170,9 @@ def main() -> int:
     win_s = (WIN_SCORE["min_posn"], WIN_SCORE["max_posn"])
     win_f = (WIN_FREQS["min_posn"], WIN_FREQS["max_posn"])
     win_err, win_matches = 0.0, [0, 0]
+    oracle_warm(dev, phrases, window=win_s)
+    if win_f != win_s:
+        oracle_warm(dev, phrases, window=win_f)
     for q, got_s, got_f in zip(phrases, win_scores, win_freqs):
         want_s = oracle_scores(dev, q, window=win_s)
         want_f = oracle_phrase_freqs(dev, q, win_f)
@@ -1203,6 +1240,9 @@ def main() -> int:
           "they were")
     win_b = (WIN_SCORE["min_posn"], WIN_SCORE["max_posn"])
     ws_err, ws_matches = 0.0, 0
+    oracle_warm(dev, slop_shapes, SLOP, window=win_b)
+    oracle_warm(dev, [q for q, _, _, _ in k9_singles],
+                [sl for _, sl, _, _ in k9_singles])
     for q, sl, got_s, got_f, window in [
             *((q, SLOP, s_, f_, win_b) for q, s_, f_ in zip(
                 slop_shapes, wins_scores, wins_freqs)),
@@ -1607,8 +1647,11 @@ def main() -> int:
     big_k2 = k7_k2[next(i for i, c in enumerate(k7_calls) if c is k7_big)]
 
     # K9 on every launch of the windowed slop shapes, the wide and the
-    # repeated-term phrase and one long-document request, recorded from the
-    # wrapper's own calls, and K2 on each launch's keys
+    # repeated-term phrase, one long-document request, the request that
+    # mixes K6 and K9 queries, and edismax (per query and as a batch) on
+    # the long-document frame, whose ps phase sends whole-query phrases of
+    # two to four terms: recorded from the wrapper's own calls, and K2 on
+    # each launch's keys
     k9_calls = []
 
     class RecordingSpans:
@@ -1631,6 +1674,13 @@ def main() -> int:
             arr.termfreqs(q, slop=sl)
         n_single9 = len(k9_calls)
         larr.score_batch(lsq, top_k=TOP_K, slop=lss)
+        n_long9 = len(k9_calls)
+        arr.score_batch(k9q, top_k=TOP_K, slop=k9s)
+        n_mixed9 = len(k9_calls)
+        for q in ED_QUERIES:
+            edismax(ldf, q=q, top_k=TOP_K, ps=SLOP, **ED_KW)
+        n_ed9 = len(k9_calls)
+        edismax_batch(ldf, ED_QUERIES, top_k=TOP_K, ps=SLOP, **ED_KW)
     finally:
         spans_mod.kernels_cuda = kc
     k9_err, k9_k2 = 0.0, []
@@ -1651,30 +1701,41 @@ def main() -> int:
     k9_seen = {(len(a[5]), a[4], tuple(int(m) for m in a[5]))
                for a, _ in k9_calls}
     check(n_win9 == len(slop_shapes) and n_single9 - n_win9 == 2
-          and len(k9_calls) - n_single9 == k9_long // 2
+          and n_long9 - n_single9 == k9_long // 2
+          and n_mixed9 - n_long9 == k69_mixed[1]
+          and len(k9_calls) - n_mixed9 == k9_ed
           and any(w > 18 for _, w, _ in k9_seen)
           and any(max(m) > 2 for _, _, m in k9_seen)
-          and any(len(a[2]) > 1 for a, _ in k9_calls[n_single9:]),
+          and any(T >= 4 for T, _, _ in k9_seen)
+          and any(len(a[2]) > 1 for a, _ in k9_calls[n_single9:n_long9])
+          and any(len(a[2]) > 1 for a, _ in k9_calls[n_ed9:]),
           f"K9 equals its plain version bit for bit (keys and counts) on "
           f"the {len(k9_calls)} launches of the windowed slop shapes "
           f"({n_win9}), the wide and the repeated-term phrase "
-          f"({n_single9 - n_win9}) and a long-document request "
-          f"({len(k9_calls) - n_single9} batched launches): (terms, w, "
-          f"multiplicities) {sorted(k9_seen)}; K2 equals its plain version "
-          "exactly on every launch's keys")
+          f"({n_single9 - n_win9}), a long-document request "
+          f"({n_long9 - n_single9} batched launches), the request mixing K6 "
+          f"and K9 queries ({n_mixed9 - n_long9}) and edismax on the "
+          f"long-document frame ({n_ed9 - n_mixed9} per query, "
+          f"{len(k9_calls) - n_ed9} batched): every launch the main path "
+          f"made; (terms, w, multiplicities) {sorted(k9_seen)}; K2 equals "
+          "its plain version exactly on every launch's keys")
     # timing units: the windowed launch with the most anchor words, and one
     # long-document request's launches
+    def anchor_first_cols(a, kw):
+        """The columns of a recorded K9 call, the anchor's first."""
+        T = np.asarray(a[2]).shape[1]
+        return [kw.get("anchor", 0)] + [c for c in range(T)
+                                        if c != kw.get("anchor", 0)]
+
     def anchor_first(a, kw):
         """(offs, ns) of a recorded K9 call with the anchor's column
         first."""
-        T = np.asarray(a[2]).shape[1]
-        cols = [kw.get("anchor", 0)] + [c for c in range(T)
-                                         if c != kw.get("anchor", 0)]
+        cols = anchor_first_cols(a, kw)
         return np.asarray(a[2])[:, cols], np.asarray(a[3])[:, cols]
 
     k9_big = max(k9_calls[:n_win9],
                  key=lambda c: int(anchor_first(*c)[1][:, 0].sum()))
-    k9_batch = k9_calls[n_single9:]
+    k9_batch = k9_calls[n_single9:n_long9]
 
     # K3 and K6 at the shapes one mixed request gives them, recorded from
     # the wrappers' own calls: the request twice (new rare queries, so
@@ -2307,7 +2368,9 @@ def main() -> int:
                                    - np.searchsorted(th, ah[0] - C))
                                if len(ah) else 0)
                 term_ns.append(row)
-            works.append(rl.k9_work(term_ns, 0, w, live=live))
+            works.append(rl.k9_work(
+                term_ns, 0, w, live=live,
+                mults=np.asarray(a[5])[anchor_first_cols(a, kw)]))
         return rl.total(works), live
 
     def k9_words(calls):
@@ -2341,12 +2404,12 @@ def main() -> int:
           "the timed K9 launches take the kernel's 64-bit word path")
     t_k9w = measure(
         "largest windowed slop launch on the walked path, one K9 launch",
-        "K9", k9_run(kc.span_sparse, [k9_big], walk=True),
+        "K9", k9_run(kc._span_sparse, [k9_big], walked=True),
         k9_run(kc.span_sparse_plain, [k9_big]), big_work, old=False)
     t_k9bw = measure(
         "one long-document request on the walked path, %d batched K9 "
         "launches" % len(k9_batch), "K9",
-        k9_run(kc.span_sparse, k9_batch, walk=True),
+        k9_run(kc._span_sparse, k9_batch, walked=True),
         k9_run(kc.span_sparse_plain, k9_batch), k9_work(k9_batch)[0],
         old=False)
     big9_k2 = k9_k2[next(i for i, c in enumerate(k9_calls) if c is k9_big)]

@@ -47,9 +47,11 @@
 // header >> blk_bits) and the count as f32; K2 sums them per doc.
 //
 // Bound on the card: 8 bytes read per anchor word and per word of the
-// other terms in the anchor's header range, 8 written per anchor word;
-// T * (w + 18) window steps per anchor word with a set position, which is
-// what bounds it at any w: operations.  On the walked path the per-term
+// other terms in the anchor's header range, 8 written per anchor word.
+// Per anchor word with a set position the walked shapes need T * (w + 18)
+// window steps, which bounds them by operations; the word-path shapes need
+// a few dozen dilation steps a term, fewer than their bytes cost, so bytes
+// bound those (ops/cuda/roofline.py:k9_work).  On the walked path the per-term
 // state lives in local memory up to SS_LOCAL_TERMS distinct terms and in a
 // scratch buffer the wrapper allocates above that, so no query is refused
 // for its shape.

@@ -48,6 +48,8 @@ K9_OPS_PER_STEP = 7      # a term's window step: two bit reads (shift, and
                          # each), add, subtract, compare with the multiplicity
 K9_OPS_PER_START = 5     # per start: the anchor bit (shift, and), the last
                          # passing start (compare, select), add
+K9_OPS_PER_JOIN = 4      # a term's three words as one string: two shifts,
+                         # two ors
 K9_OPS_PER_WORD = 6      # window test, block, key shift and add, convert
 K9_WINDOW = 18           # positions a posting word holds
 
@@ -213,34 +215,53 @@ def k7_work(base_ns: Iterable[int], other_ns: Iterable[int],
                  K7_OPS_PER_WORD * B + K7_OPS_PER_PROBE * probes)
 
 
-def k9_work(term_ns, anchor: int, w: int, live=None) -> dict:
+def k9_ops_per_live_word(w: int, mults: Sequence[int]) -> int:
+    """Integer operations of the windows of one K9 anchor word that has a
+    position set, the searches apart.  Where the window fits one block
+    either side (w <= 18) and no term is named more than twice, a term's
+    neighbourhood is three words, one string of 54 bits: joining them is
+    two shifts and two ors a term, and the windows are the dilations
+    ``k6_ops_per_slot`` counts, each on a string two registers long.  Any
+    other shape has no such form: every one of the w + 18 starts is a step
+    of each term's running count."""
+    if w <= K9_WINDOW and max(mults) <= 2:
+        return 2 * k6_ops_per_slot(w, mults) + K9_OPS_PER_JOIN * len(mults)
+    return (w + K9_WINDOW) * (K9_OPS_PER_STEP * len(mults)
+                              + K9_OPS_PER_START)
+
+
+def k9_work(term_ns, anchor: int, w: int, live=None, mults=None) -> dict:
     """One K9 launch over a chunk of queries.  ``term_ns`` is [queries,
     distinct terms]: the words of each term's list inside the anchor's
-    header range (the anchor's own column, ``anchor``, holds its words).
+    header range (the anchor's own column, ``anchor``, holds its words);
+    ``mults`` each column's multiplicity in the query (all 1 by default).
     Bytes: hdr32 + pay32 of each anchor word read once, the key and the
     count written; of every other term the words of the anchor words'
     neighbourhoods (2C + 1 headers each, C = ceil(w / 18)), never more
     than its list; the anchor's own list serves as its term list too.
-    Operations: per anchor word and term one search of log2 probes and
-    w + 18 window steps, and per anchor word the w + 18 starts.  ``live``
-    is the number of anchor words with a position set once the block
-    window has been applied (all of them by default): a word without one
-    covers nothing and needs neither the searches nor the steps."""
+    Operations: per anchor word and term one search of log2 probes, and
+    per anchor word the windows as ``k9_ops_per_live_word`` counts them.
+    ``live`` is the number of anchor words with a position set once the
+    block window has been applied (all of them by default): a word without
+    one covers nothing and needs neither the searches nor the windows."""
     term_ns = np.asarray(term_ns, dtype=np.int64).reshape(
         -1, np.shape(term_ns)[-1])
+    T = term_ns.shape[1]
+    mults = [1] * T if mults is None else [int(m) for m in mults]
+    if len(mults) != T:
+        raise ValueError("one multiplicity for each distinct term")
     C = -(-int(w) // K9_WINDOW)
     A = term_ns[:, anchor]
+    words = int(A.sum())
     others = np.delete(term_ns, anchor, axis=1)
     touched = np.minimum(others, (A * (2 * C + 1))[:, None]).sum()
-    T = term_ns.shape[1]
     probes = (A[:, None] * np.ceil(np.log2(np.maximum(term_ns, 1) + 1))).sum()
-    steps = int(A.sum()) * (w + K9_WINDOW)
-    if live is not None and A.sum():
-        share = int(live) / int(A.sum())
-        probes, steps = probes * share, int(steps * share)
-    return bound(16 * int(A.sum()) + 8 * int(touched),
-                 K9_OPS_PER_WORD * int(A.sum()) + K7_OPS_PER_PROBE * int(probes)
-                 + steps * (K9_OPS_PER_STEP * T + K9_OPS_PER_START))
+    n_live = words if live is None else int(live)
+    if words:
+        probes = probes * n_live / words
+    return bound(16 * words + 8 * int(touched),
+                 K9_OPS_PER_WORD * words + K7_OPS_PER_PROBE * int(probes)
+                 + n_live * k9_ops_per_live_word(int(w), mults))
 
 
 def total(works: Iterable[dict]) -> dict:

@@ -827,8 +827,7 @@ def span_sparse_plain(hdrs, pays, offs, ns, w: int, mults, *, anchor: int = 0,
 
 def span_sparse(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, w: int,
                 mults, *, anchor: int = 0, blk_bits: int,
-                key_stride: int = 0, min_blk=None, max_blk=None,
-                walk: bool = False):
+                key_stride: int = 0, min_blk=None, max_blk=None):
     """Slop window coverage of a chunk of queries sharing one window ``w``
     (query length + slop - 1), anchor column and multiplicities, on their
     doc-sorted posting slices.
@@ -843,14 +842,24 @@ def span_sparse(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, w: int,
     stay.  Every ``w >= 1`` and any number of terms is taken.  The kernel
     has two paths with one result: where ``w <= 18`` and no multiplicity
     exceeds 2 a term's neighbourhood is one 64-bit word and the windows
-    are dilations of it; otherwise (or with ``walk``, for tests) the
-    windows are walked one start at a time.
+    are dilations of it; otherwise the windows are walked one start at a
+    time.
 
     Returns (keys int32[M], counts f32[M]) over all anchor words, M =
     sum(ns[:, anchor]), query q's at ``prefix_offsets(ns[:, anchor])[q]``
     in its own order: the flat doc key ``q * key_stride + (hdr >>
     blk_bits)`` and the number of the word's positions that some passing
     window covers.  Keys are non-decreasing, as K2 takes them."""
+    return _span_sparse(hdrs, pays, offs, ns, w, mults, anchor=anchor,
+                        blk_bits=blk_bits, key_stride=key_stride,
+                        min_blk=min_blk, max_blk=max_blk)
+
+
+def _span_sparse(hdrs, pays, offs, ns, w, mults, *, anchor=0, blk_bits,
+                 key_stride=0, min_blk=None, max_blk=None, walked=False):
+    """``span_sparse``; ``walked`` keeps a launch that the 64-bit word path
+    would take on the walked path, so that the two can be held to each
+    other and timed on one input."""
     dev = hdrs.device
     _check(hdrs, "hdrs", torch.int32, dev)
     _check(pays, "pays", torch.int32, dev)
@@ -891,7 +900,7 @@ def span_sparse(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, w: int,
         return keys, counts
     lib = _get_lib()
     n_tiles = -(-ns[:, anchor] // lib.sa_span_sparse_tile())
-    words = w <= SPAN_MAX_WINDOW and mults.max() <= 2 and not walk
+    words = w <= SPAN_MAX_WINDOW and mults.max() <= 2 and not walked
     scratch = (torch.empty(SPAN_STATE_INTS * T * M, dtype=torch.int32,
                            device=dev)
                if T > lib.sa_span_sparse_local_terms() and not words

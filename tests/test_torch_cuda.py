@@ -1058,8 +1058,8 @@ def k9_both(card, hdrs, pays, offs, ns, w, mults, **kw):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if w <= kc.SPAN_MAX_WINDOW and max(mults) <= 2:
         # that was the 64-bit word path: the walked path gives the same
-        walked = kc.span_sparse(hdrs, pays, offs, ns, w, mults, walk=True,
-                                **kw)
+        walked = kc._span_sparse(hdrs, pays, offs, ns, w, mults,
+                                 walked=True, **kw)
         assert torch.equal(walked[0], want[0])
         assert torch.equal(walked[1], want[1])
     return got

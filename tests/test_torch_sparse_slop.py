@@ -579,7 +579,7 @@ def test_topk_with_a_wide_slop_matches_jax(dense_pair):
 def test_k9_work_counts_the_neighbourhoods_and_the_window_steps():
     # 100 anchor words against a list of 1000, w = 3 (C = 1): of the other
     # list at most 3 words per anchor word are touched
-    w = rl.k9_work([[100, 1000]], 0, 3)
+    w = rl.k9_work([[100, 1000]], 0, 3, mults=(3, 1))
     assert w["bytes"] == 16 * 100 + 8 * 300
     steps = 100 * (3 + 18)
     probes = 100 * 7 + 100 * 10   # ceil(log2(n + 1)) per term
@@ -594,7 +594,7 @@ def test_k9_work_counts_the_neighbourhoods_and_the_window_steps():
     # headers a word
     assert rl.k9_work([[5000, 10]], 1, 30)["bytes"] == 16 * 10 + 8 * 50
     # half the anchor words have no position inside the block window
-    half = rl.k9_work([[100, 1000]], 0, 3, live=50)
+    half = rl.k9_work([[100, 1000]], 0, 3, live=50, mults=(3, 1))
     assert half["bytes"] == w["bytes"]
     assert half["ops"] == (rl.K9_OPS_PER_WORD * 100
                            + rl.K7_OPS_PER_PROBE * probes // 2
@@ -606,12 +606,51 @@ def test_k9_work_counts_the_neighbourhoods_and_the_window_steps():
     assert both["bytes"] == sum(p["bytes"] for p in parts)
     assert both["ops"] == sum(p["ops"] for p in parts)
     assert rl.total(parts)["bound_ms"] == pytest.approx(both["bound_ms"])
+    with pytest.raises(ValueError):
+        rl.k9_work([[100, 1000]], 0, 3, mults=(1,))
+
+
+def test_k9_work_counts_dilations_where_the_window_fits_one_word():
+    # w <= 18 and no term more than twice: per live anchor word the three
+    # words of each term joined to one 54-bit string, and K6's dilation
+    # count on two registers; the same bytes as any other shape
+    walked = rl.k9_work([[100, 1000]], 0, 3, mults=(3, 1))
+    probes = 100 * 7 + 100 * 10
+    for mults in ((1, 1), (2, 1), (1, 2)):
+        got = rl.k9_work([[100, 1000]], 0, 3, mults=mults)
+        per_word = 2 * rl.k6_ops_per_slot(3, mults) + 2 * rl.K9_OPS_PER_JOIN
+        assert rl.k9_ops_per_live_word(3, mults) == per_word
+        assert got["bytes"] == walked["bytes"]
+        assert got["ops"] == (rl.K9_OPS_PER_WORD * 100
+                              + rl.K7_OPS_PER_PROBE * probes + 100 * per_word)
+    # all multiplicities 1 is the default, and far below the walk's count
+    one = rl.k9_work([[100, 1000]], 0, 3)
+    assert one == rl.k9_work([[100, 1000]], 0, 3, mults=(1, 1))
+    assert one["ops"] < walked["ops"] // 3
+    # only the live words pay for their windows
+    live = rl.k9_work([[100, 1000]], 0, 3, live=50)
+    assert live["ops"] == (rl.K9_OPS_PER_WORD * 100
+                           + rl.K7_OPS_PER_PROBE * probes // 2
+                           + 50 * rl.k9_ops_per_live_word(3, (1, 1)))
+    # one position past the word, or a third occurrence: the walk's steps
+    assert rl.k9_ops_per_live_word(19, (1, 1)) == 37 * (
+        2 * rl.K9_OPS_PER_STEP + rl.K9_OPS_PER_START)
+    assert rl.k9_ops_per_live_word(18, (1, 3)) == 36 * (
+        2 * rl.K9_OPS_PER_STEP + rl.K9_OPS_PER_START)
 
 
 @pytest.mark.parametrize("w,steps", [(1, 19), (18, 36), (19, 37), (200, 218)])
 def test_k9_work_grows_with_the_window(w, steps):
-    got = rl.k9_work([[10, 10, 10]], 2, w)
-    assert got["ops"] == (rl.K9_OPS_PER_WORD * 10
-                          + rl.K7_OPS_PER_PROBE * 3 * 10 * 4
-                          + 10 * steps * (3 * rl.K9_OPS_PER_STEP
-                                          + rl.K9_OPS_PER_START))
+    # a term named three times has no word form at any w: w + 18 steps
+    got = rl.k9_work([[10, 10, 10]], 2, w, mults=(1, 1, 3))
+    fixed = rl.K9_OPS_PER_WORD * 10 + rl.K7_OPS_PER_PROBE * 3 * 10 * 4
+    assert got["ops"] == fixed + 10 * steps * (3 * rl.K9_OPS_PER_STEP
+                                               + rl.K9_OPS_PER_START)
+    # with every term once the walk is needed only past 18 positions
+    once = rl.k9_work([[10, 10, 10]], 2, w)
+    if w <= 18:
+        assert once["ops"] == fixed + 10 * (
+            2 * rl.k6_ops_per_slot(w, (1, 1, 1)) + 3 * rl.K9_OPS_PER_JOIN)
+        assert once["ops"] < got["ops"]
+    else:
+        assert once["ops"] == got["ops"]
