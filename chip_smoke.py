@@ -11,7 +11,8 @@ entry points a user calls, and checks it:
 2. build: the hand-written kernels K1 (csrc/score_term.cu), K2
    (csrc/segment_sum.cu), K3 (csrc/topk.cu), K4 (csrc/plane_fill.cu), K5
    (csrc/phrase_chain.cu), K6 (csrc/span_window.cu), K7
-   (csrc/merge_step.cu) and K9 (csrc/span_sparse.cu) compile with nvcc
+   (csrc/merge_step.cu), K8a (csrc/cand_rows.cu), K8b
+   (csrc/cand_minis.cu) and K9 (csrc/span_sparse.cu) compile with nvcc
    for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
@@ -50,8 +51,24 @@ entry points a user calls, and checks it:
    pf=["title", "body"], pf2=["body"], top_k=10``) and the same with
    ``ps=2, ps2=1``, per query and as one ``edismax_batch``, held to a
    numpy composition of the oracle's scores; and the same frame on the
-   long-document corpus with ``ps=2``, whose phases run K7 and K9.  The
-   launch counts are read right after and every kernel must have run;
+   long-document corpus with ``ps=2``, whose phases run K7 and K9.
+   The candidate-subset engine (rare terms ``cterm``: K8a; rare phrases
+   ``cphrase``/``cspan``: K8a, K8b, then K5 or K6 on the minis) and
+   edismax's pruning (its exact phases scored only at the main query's
+   matches where those are few: K8b's minis of the pooled planes there)
+   are off at 1M docs by the port's thresholds and on by the JAX
+   package's: the serving mix, ``topk`` of a rare term and the mixed
+   request with slop record which group kinds ran on the default routing,
+   the first two also at the JAX thresholds, as does edismax's first pass
+   (cold grams); a forced phase (the engine's thresholds set to 0) sends
+   rare terms, a phrase with a stopword co-term, a same-term phrase and
+   slop phrases through ``score_batch`` ranked and dense and
+   ``score_batch_device``, held to the oracle.  Every K8a and K8b launch
+   of the main path, K5 and K6 on
+   minis and K3 over a candidate axis are held to their plain versions
+   bit for bit as they run (a stand-in for the modules' kernel module).
+   The launch counts are read right after and every kernel must have
+   run;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -75,13 +92,18 @@ entry points a user calls, and checks it:
    wrapper's time from CUDA events, the bytes its work needs and the
    bound they give (``ops/cuda/roofline.py``), the plain version's times
    and, for K2, one ``index_add_`` call's, for K3 the plain
-   composition's;
+   composition's, for K8a one ``torch.unique_consecutive`` call's, for
+   K8b one advanced-index gather's of its pooled minis;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
    a serving mix of terms and phrases, with and without the 24 slop
    phrases; the long-document index, terms and the mix), a profile of
    one ``block=False`` serving call (its kernels by device time, and
    that nothing synchronises before ``collect()``, with a K9 query in the
-   request too) and of one edismax call, edismax latency and
+   request too, and ``cterm`` queries in the serving mix) and of one
+   edismax call, the serving mix, the mixed request with slop and
+   edismax with the candidate engine and the phase pruning on (the JAX
+   package's thresholds) and off (the port's) in turns (on, off, off, on,
+   twice), edismax latency and
    ``edismax_batch`` qps, a windowed phrase's latency and memory, each
    beside the card's name and power limit; the kernels line; the result
    line.
@@ -97,6 +119,7 @@ Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -137,6 +160,18 @@ ED_SLOP = dict(ps=2, ps2=1)
 ED_CALLS = 10     # passes over ED_QUERIES per latency sample set, and calls
                   # per edismax_batch qps window
 K3_TILE = 16384                # elements of a row per block (csrc/topk.cu)
+# the forced candidate phase (the engine's thresholds set to 0): rare and
+# mid-frequency terms, a phrase with a stopword co-term (a pool source), a
+# same-term phrase, and slop-2 phrases with a stopword and a repeated term
+FORCED_Q = ["w17", "w4095", ["the", "w1000"], ["w17", "w17"],
+            ["w1000", "the"], ["w333", "of", "w333"]]
+FORCED_SLOP = [0, 0, 0, 0, SLOP, SLOP]
+CAND_CONSTS = ("CAND_MIN_DOCS", "CAND_TERM_MIN_DOCS", "CAND_MAX_FRAC")
+# the JAX package's thresholds of the candidate engine and of edismax's
+# phase pruning: both on at 1M docs, where the port's keep them off
+# (search/candidates.py, solr.py)
+JAX_CAND = {"CAND_MIN_DOCS": 1 << 19, "CAND_TERM_MIN_DOCS": 1 << 16}
+JAX_PHASE_SUBSET_MIN_DOCS = 1 << 17
 LSB18 = np.uint32((1 << 18) - 1)
 
 
@@ -773,6 +808,113 @@ class DeviceTimer:
                              f"{names or 'the call'}")
 
 
+@contextlib.contextmanager
+def thresholds(cand, solr, cand_values, phase_min=None):
+    """The candidate engine's thresholds (``cand_values``) and edismax's
+    pruning threshold (``phase_min``, unless None) set for a block; the
+    port's restored after."""
+    saved = {c: getattr(cand, c) for c in cand_values}
+    saved_phase = solr.PHASE_SUBSET_MIN_DOCS
+    try:
+        for c, v in cand_values.items():
+            setattr(cand, c, v)
+        if phase_min is not None:
+            solr.PHASE_SUBSET_MIN_DOCS = phase_min
+        yield
+    finally:
+        for c, v in saved.items():
+            setattr(cand, c, v)
+        solr.PHASE_SUBSET_MIN_DOCS = saved_phase
+
+
+def forget_phrase_rows(dev):
+    """Empty the phrase-tf cache of an index: its cached phrase rows, their
+    fill recipes and their hit counts (the term rows stay)."""
+    for key in [k for k in dev.tf_slot if isinstance(k, tuple)]:
+        dev.tf_free.append(dev.tf_slot.pop(key))
+    dev.phrase_hits.clear()
+    dev.phrase_recipes.clear()
+
+
+class K8Recorder:
+    """The kernel module as search/batch.py, search/candidates.py and
+    search/dense.py see it during the main path.  Every K8a and K8b launch
+    is held to its plain version on the same inputs as it runs, bit for
+    bit, and noted; so are K5 and K6 on mini-planes (the pool they read is
+    a K8b output) and K3 over a candidate axis (rows narrower than the
+    corpus).  Nothing else changes."""
+
+    def __init__(self, kc, num_docs, blk_bits):
+        self.kc, self.n, self.bb = kc, num_docs, blk_bits
+        self.k8a, self.k8b = [], []
+        # the largest absolute difference from the plain version seen
+        self.err = {"K8a": 0.0, "K8b": 0.0}
+        self.minis = {}   # K8b outputs not yet read by K5 or K6, by id
+        self.checked = {"K5 on minis": 0, "K6 on minis": 0,
+                        "K3 over Kc": 0}
+
+    def __getattr__(self, name):
+        return getattr(self.kc, name)
+
+    def _same(self, got, want, what):
+        import torch
+
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                raise AssertionError(f"{what} differs from its plain version")
+            if g is None:
+                continue
+            if g.numel():
+                err = float((g.double() - w.double()).abs().max())
+                if what in self.err:
+                    self.err[what] = max(self.err[what], err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what} differs from its plain version")
+
+    def cand_rows(self, *a, **kw):
+        got = self.kc.cand_rows(*a, **kw)
+        self._same(got, self.kc.cand_rows_plain(
+            a[0], a[1], np.asarray(a[2]), np.asarray(a[3]), a[4], **kw), "K8a")
+        self.k8a.append((a, kw))
+        return got
+
+    def cand_minis(self, rows, slots, offs, ns, **kw):
+        got = self.kc.cand_minis(rows, slots, offs, ns, **kw)
+        self._same([got], [self.kc.minis_for_rows_plain(
+            rows, np.asarray(slots), offs, ns, **kw)], "K8b")
+        self.k8b.append(((rows, slots, offs, ns), kw))
+        self.minis[id(got)] = got
+        return got
+
+    def _minis(self, pool):
+        return self.minis.pop(id(pool), None) is pool
+
+    def phrase_chain(self, pool, *a, **kw):
+        got = self.kc.phrase_chain(pool, *a, **kw)
+        if self._minis(pool):
+            self._same([got], [self.kc.phrase_chain_plain(pool, *a, **kw)],
+                       "K5 on minis")
+            self.checked["K5 on minis"] += 1
+        return got
+
+    def span_window(self, pool, *a, **kw):
+        got = self.kc.span_window(pool, *a, **kw)
+        if self._minis(pool):
+            self._same([got], [self.kc.span_window_plain(pool, *a, **kw)],
+                       "K6 on minis")
+            self.checked["K6 on minis"] += 1
+        return got
+
+    def topk(self, x, k):
+        vals, idx = self.kc.topk(x, k)
+        if x.shape[-1] != self.n:
+            want_v, want_i = self.kc.topk_plain(x, k)
+            self._same([idx.long(), vals.view(want_v.dtype)],
+                       [want_i, want_v], "K3 over Kc")
+            self.checked["K3 over Kc"] += 1
+        return vals, idx
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", metavar="DIR",
@@ -789,9 +931,11 @@ def main() -> int:
     import pandas as pd
 
     from searcharray_tpu_torch import SearchArray, edismax, edismax_batch
+    from searcharray_tpu_torch import solr
     from searcharray_tpu_torch.ops.cuda import roofline as rl
     from searcharray_tpu_torch.ops.cuda import score as kc
     from searcharray_tpu_torch.search import batch, dense, phrase, scoring
+    from searcharray_tpu_torch.search import candidates as cand
     from searcharray_tpu_torch.search import spans as spans_mod
 
     phases = []  # (phase, wall seconds), in the order they ran
@@ -847,6 +991,8 @@ def main() -> int:
     kc.topk.launches = 0
     kc.span_window.launches = 0
     kc.span_sparse.launches = 0
+    kc.cand_rows.launches = 0
+    kc.cand_minis.launches = 0
     # a phrase above K5's cap that matches at least one doc: the first 40
     # tokens of the first doc that has as many
     long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
@@ -871,6 +1017,24 @@ def main() -> int:
     check(n == N_DOCS and dev.blk_bits == 3,
           f"index of {n} docs on {dev.device}, blk_bits {dev.blk_bits}")
     phase_done("corpus, host build, upload, warm")
+
+    # the main path's K8 launches, and K5/K6 on minis and K3 over a
+    # candidate axis, each held to its plain version as it runs; and the
+    # group kinds of every batch
+    rec = K8Recorder(kc, n, dev.blk_bits)
+    batch.kernels_cuda = cand.kernels_cuda = dense.kernels_cuda = rec
+    classify_log = []
+    classify = batch._classify
+
+    def classify_spy(*a, **kw):
+        groups = classify(*a, **kw)
+        classify_log.append(sorted({g[0] for g in groups}))
+        return groups
+
+    batch._classify = classify_spy
+
+    def kinds_since(mark):
+        return sorted({k for ks in classify_log[mark:] for k in ks})
 
     avgdl = dev.avg_doc_length
     s_what = arr.score("what")
@@ -971,7 +1135,9 @@ def main() -> int:
     slop_shapes = [list(q) for q in dict.fromkeys(map(tuple,
                                                       slop_queries(0)))]
     k6_before = kc.span_window.launches
+    mark = len(classify_log)
     slop_runs = [arr.score_batch(sq, top_k=TOP_K, slop=ss)]
+    kinds_mixs = kinds_since(mark)
     k6_group = kc.span_window.launches - k6_before
     slop_runs.append(arr.score_batch(sq, top_k=TOP_K, slop=ss,
                                      block=False)())
@@ -1033,6 +1199,85 @@ def main() -> int:
           "positions; the repeating shapes never below their exact "
           "phrase's freqs)")
     phase_done("slop: oracle checks")
+
+    # the candidate-subset engine at 1M docs: the serving mix (the first
+    # part of the mixed request above, whose oracle scores are at hand) and
+    # topk of a rare term on the port's default routing (the engine off at
+    # 1M: search/candidates.py) and at the JAX package's thresholds (on);
+    # then forced on (its thresholds set to 0, as the tests set them) for
+    # rare and mid-frequency terms, a phrase with a stopword co-term, a
+    # same-term phrase and slop phrases, ranked, dense and on the device
+    k8_before = (kc.cand_rows.launches, kc.cand_minis.launches)
+
+    def k8_since(before):
+        return (kc.cand_rows.launches - before[0],
+                kc.cand_minis.launches - before[1])
+
+    mark = len(classify_log)
+    d_scores, d_idx = arr.score_batch(serving_queries(0), top_k=TOP_K)
+    dt_scores, dt_idx = arr.topk("w7001", k=TOP_K)
+    kinds_default = kinds_since(mark)
+    k8_default = k8_since(k8_before)
+    k8_before = (kc.cand_rows.launches, kc.cand_minis.launches)
+    with thresholds(cand, solr, JAX_CAND):
+        mark = len(classify_log)
+        sm_n8 = len(rec.k8a)
+        sm_scores, sm_idx = arr.score_batch(serving_queries(0), top_k=TOP_K)
+        sm_k8a = rec.k8a[sm_n8:]
+        kinds_mix = kinds_since(mark)
+        mark = len(classify_log)
+        rt_scores, rt_idx = arr.topk("w7001", k=TOP_K)
+        kinds_topk = kinds_since(mark)
+    k8_jax = k8_since(k8_before)
+    k8_before = (kc.cand_rows.launches, kc.cand_minis.launches)
+    with thresholds(cand, solr, dict.fromkeys(CAND_CONSTS, 0)):
+        mark = len(classify_log)
+        f_n8b = len(rec.k8b)
+        f_ranked = arr.score_batch(FORCED_Q, top_k=TOP_K, slop=FORCED_SLOP)
+        kinds_forced = kinds_since(mark)
+        f_k8b = rec.k8b[f_n8b:]
+        f_dense = arr.score_batch(FORCED_Q, slop=FORCED_SLOP)
+        f_device = arr.score_batch_device(FORCED_Q,
+                                          slop=FORCED_SLOP).cpu().numpy()
+    k8_forced = k8_since(k8_before)
+    for what, (sc, ix), (tsc, tix) in (
+            ("the port's default routing", (d_scores, d_idx),
+             (dt_scores, dt_idx)),
+            ("the JAX package's thresholds", (sm_scores, sm_idx),
+             (rt_scores, rt_idx))):
+        check_ranking(dev, serving_queries(0), sc, ix,
+                      f"serving mix score_batch(top_k={TOP_K}) on {what}")
+        check_ranking(dev, ["w7001"], [tsc], [tix],
+                      f"topk('w7001', k={TOP_K}) on {what}")
+    check("cterm" in kinds_mix and "cterm" in kinds_topk
+          and {"cterm", "cphrase", "cspan"} <= set(kinds_forced)
+          and min(k8_jax) > 0 and min(k8_forced) > 0,
+          f"the candidate engine at {n} docs: the port's default routing "
+          f"ran groups {kinds_default} for the serving mix and topk of a "
+          f"rare term ({kinds_mixs} for the mixed request with slop), the "
+          f"JAX package's thresholds {kinds_mix} and {kinds_topk}, the "
+          f"forced phase {kinds_forced}; K8a and K8b launched {k8_default} "
+          f"times on the default routing, {k8_jax} at the JAX thresholds, "
+          f"{k8_forced} forced")
+    check_ranking(dev, FORCED_Q, *f_ranked,
+                  f"forced candidates, score_batch(top_k={TOP_K})",
+                  slops=FORCED_SLOP)
+    f_err = 0.0
+    for i, (q, sl) in enumerate(zip(FORCED_Q, FORCED_SLOP)):
+        want = oracle_scores(dev, q, slop=sl)
+        f_err = max(f_err, float(np.abs(f_dense[i] - want).max()))
+        if not (np.allclose(f_dense[i], want, rtol=1e-6, atol=0)
+                and float(want.max()) > 0):
+            raise AssertionError(f"forced candidates: dense {q} at slop "
+                                 f"{sl} differs from the oracle")
+    pooled = [c for c in f_k8b if (np.asarray(c[0][1]) >= 0).any()
+              and (np.asarray(c[0][1]) < 0).any()]
+    check(np.array_equal(f_device, f_dense) and pooled,
+          f"forced candidates: score_batch dense within rtol 1e-6 of the "
+          f"oracle on {len(FORCED_Q)} queries (max abs err {f_err:.3g}), "
+          "score_batch_device equal to it, and K8b built minis of a pooled "
+          "stopword plane and of own slices in one launch")
+    phase_done("candidate engine: drive and oracle checks")
 
     # long documents: one ~220k-token doc needs 14 block bits, so dense
     # planes would pass the per-plane limit and score_batch takes the
@@ -1129,8 +1374,26 @@ def main() -> int:
           f"each, blk_bits {tarr.dev.blk_bits}) beside the body indexes, "
           f"built and attached in {title_s:.1f} s")
     ed_before = {k: getattr(kc, k).launches for k in (
-        "span_sparse", "span_window", "merge_step", "phrase_chain", "topk")}
-    ed_one = [edismax(df, q=q, top_k=TOP_K, **ED_KW) for q in ED_QUERIES]
+        "span_sparse", "span_window", "merge_step", "phrase_chain", "topk",
+        "cand_minis")}
+    # which calls scored their exact phases at the main query's matches
+    pruned = []
+    phase_rows = solr._phase_candidate_rows
+
+    def phase_rows_spy(qf_scores):
+        got = phase_rows(qf_scores)
+        pruned.append(None if got is None else len(got))
+        return got
+
+    solr._phase_candidate_rows = phase_rows_spy
+    # the first pass, on cold grams, prunes at the JAX package's threshold
+    # (the port's keeps the mask path at 1M: solr.py)
+    ed_n8b = len(rec.k8b)
+    with thresholds(cand, solr, {}, JAX_PHASE_SUBSET_MIN_DOCS):
+        ed_one = [edismax(df, q=q, top_k=TOP_K, **ED_KW)
+                  for q in ED_QUERIES]
+    ed_k8b = len(rec.k8b) - ed_n8b
+    ed_pruned = list(pruned)
     ed_batch = edismax_batch(df, ED_QUERIES, top_k=TOP_K, **ED_KW)
     ed_dense = [edismax(df, q=q, **ED_KW) for q in ED_QUERIES[:3]]
     eds_one = [edismax(df, q=q, top_k=TOP_K, **ED_KW, **ED_SLOP)
@@ -1142,6 +1405,7 @@ def main() -> int:
                for q in ED_QUERIES]
     led_batch = edismax_batch(ldf, ED_QUERIES, top_k=TOP_K, ps=SLOP, **ED_KW)
     k9_ed = kc.span_sparse.launches - k9_ed_before
+    solr._phase_candidate_rows = phase_rows
     ed_launches = {k: getattr(kc, k).launches - v
                    for k, v in ed_before.items()}
 
@@ -1155,7 +1419,11 @@ def main() -> int:
                 "merge_step": kc.merge_step.launches,
                 "topk": kc.topk.launches,
                 "span_window": kc.span_window.launches,
+                "cand_rows": kc.cand_rows.launches,
+                "cand_minis": kc.cand_minis.launches,
                 "span_sparse": kc.span_sparse.launches}
+    batch.kernels_cuda = cand.kernels_cuda = dense.kernels_cuda = kc
+    batch._classify = classify
     peak_bytes = torch.cuda.max_memory_allocated()
     print(f"main path launches: {launches}", flush=True)
     phase_done("edismax: drive")
@@ -1325,6 +1593,16 @@ def main() -> int:
           f"strings and (on the other {len(ED_QUERIES) - 6} slop-phase "
           f"queries) scores; the edismax phase launched {ed_launches}, K9 "
           f"{k9_ed} times on the long-document frame")
+    check(any(c is not None for c in ed_pruned) and ed_k8b > 0
+          and len(rec.k8a) == launches["cand_rows"]
+          and len(rec.k8b) == launches["cand_minis"]
+          and min(rec.checked.values()) > 0,
+          f"edismax at {n} docs scored its exact phases at the main query's "
+          f"matches on {sum(c is not None for c in ed_pruned)} of "
+          f"{len(ED_QUERIES)} queries (matched docs {ed_pruned}), with "
+          f"{ed_k8b} K8b launches in the first pass; all {len(rec.k8a)} K8a "
+          f"and {len(rec.k8b)} K8b launches of the main path equal their "
+          f"plain versions bit for bit, as do {rec.checked}")
     phase_done("edismax: oracle checks")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
@@ -1552,8 +1830,9 @@ def main() -> int:
         if not (torch.equal(got, want) and torch.equal(rows5[2:], want)
                 and bool((rows5[:2] == -1).all())):
             raise AssertionError(f"K5 differs on {plan_key} {pattern}")
-    # and on the serving mix's chain launch: the rare two-term phrases of
-    # one bench.serving_queries call (new every call, so never cached)
+    # and on the serving mix's rare two-term phrases of one
+    # bench.serving_queries call as one chain launch on their full planes
+    # (the route they take with the candidate engine off)
     serve_tids = [[arr.term_dict.get_term_id(t) for t in q]
                   for q in serving_queries(3)
                   if not isinstance(q, str)
@@ -1561,7 +1840,7 @@ def main() -> int:
     serve_keys = {phrase.chain_key(dev, ts) for ts in serve_tids}
     check(len(serve_keys) == 1 and len(serve_tids) == 10,
           f"the serving mix's rare phrases form one K5 group of "
-          f"{len(serve_tids)} two-term queries")
+          f"{len(serve_tids)} two-term queries on full planes")
     serve_plan, serve_pattern = serve_keys.pop()
 
     def serve_slots():
@@ -1573,10 +1852,11 @@ def main() -> int:
     serve_want = kc.phrase_chain_plain(dev.plane_pool, serve_slots(),
                                        serve_plan, serve_pattern, **kw5)
     if not torch.equal(got, serve_want):
-        raise AssertionError("K5 differs on the serving mix's launch")
+        raise AssertionError("K5 differs on the serving mix's phrases")
     check(True, f"K5 equals its plain version bit for bit on the "
           f"{len(k5_specs)} phrase groups of the mixed batch, on the "
-          "serving mix's launch, and in the tf-row form")
+          "serving mix's rare phrases on full planes, and in the tf-row "
+          "form")
 
     # K7 on every step the windowed phrases and the long-document mix
     # launch, recorded from the wrapper's own calls (single-query steps
@@ -1758,7 +2038,11 @@ def main() -> int:
             k36_calls.append(("span_window", a, kw))
             return kc.span_window(*a, **kw)
 
+    # The phrase-tf cache is emptied first, so that the slop phrases'
+    # rows cached on the main path do not decide whether the request's
+    # window groups run
     rq, rs = mixed_request(7)
+    forget_phrase_rows(dev)
     dense.kernels_cuda = RecordingDense()
     try:
         arr.score_batch(rq, top_k=TOP_K, slop=rs)
@@ -1774,8 +2058,10 @@ def main() -> int:
     k6_second = [(a, kw) for name, a, kw in k36_calls[n_first:]
                  if name == "span_window"]
     k6_fills = [(a, kw) for a, kw in k6_second if "out" in kw]
+    # (the candidate groups' K3 launches over their Kc axis were held to
+    # the plain version on the main path)
     k3_calls = [(a[0], a[1]) for name, a, _ in k36_calls[:n_first]
-                if name == "topk"]
+                if name == "topk" and a[0].shape[-1] == n]
     check(k6_groups and k6_fills
           and all("out" not in kw for _, kw in k6_groups)
           and all(kw.get("out") is dev.tf_pool for _, kw in k6_fills),
@@ -2059,6 +2345,60 @@ def main() -> int:
             calls = turn(t)
             e2e.setdefault(name, []).append(
                 (label, calls * n_q / (time.perf_counter() - t0)))
+
+    # the candidate engine and edismax's phase pruning on (the JAX
+    # package's thresholds) and off (the port's, at 1M docs) in turns (on,
+    # off, off, on, twice), by the port's module constants: the
+    # serving mix, the mixed request with slop (both new rare queries every
+    # call) and edismax over bench.py's queries, at 1M docs.  Each turn
+    # starts from an empty phrase-tf cache, so that one mode's promotions
+    # do not decide what the next finds cached, and is warmed on other
+    # queries first
+    turn_kernels = ("cand_rows", "cand_minis", "plane_fill", "phrase_chain",
+                    "span_window", "topk")
+
+    def engine(on):
+        """The JAX package's thresholds (the engine and the pruning on at
+        1M docs), or the port's."""
+        return (thresholds(cand, solr, JAX_CAND, JAX_PHASE_SUBSET_MIN_DOCS)
+                if on else contextlib.nullcontext())
+
+    def onoff_turn(t):
+        out = {}
+        before = {k: getattr(kc, k).launches for k in turn_kernels}
+        t0 = time.perf_counter()
+        for c in range(MIX_CALLS):
+            arr.score_batch(serving_queries(11000 + 100 * t + c), top_k=TOP_K)
+        out["serving mix qps"] = MIX_CALLS * mix_n / (time.perf_counter()
+                                                      - t0)
+        t0 = time.perf_counter()
+        for c in range(MIX_CALLS):
+            arr.score_batch(mixed_request(12000 + 100 * t + c)[0],
+                            top_k=TOP_K, slop=ss)
+        out["mixed request with slop qps"] = MIX_CALLS * mixs_n / (
+            time.perf_counter() - t0)
+        out["launches per serving and mixed call"] = {
+            k: (getattr(kc, k).launches - v) / (2 * MIX_CALLS)
+            for k, v in before.items()}
+        times = []
+        for q in ED_QUERIES:
+            t0 = time.perf_counter()
+            edismax(df, q=q, top_k=TOP_K, **ED_KW)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["edismax p50 ms"] = float(np.median(times))
+        return out
+
+    onoff = []
+    for t, on in enumerate((True, False, False, True) * 2):
+        with engine(on):
+            forget_phrase_rows(dev)
+            onoff_turn(50 + t)   # warm, on other queries
+            onoff.append(("on" if on else "off", onoff_turn(t)))
+    onoff_medians = {
+        mode: {m: float(np.median([r[m] for md, r in onoff if md == mode]))
+               for m in ("serving mix qps", "mixed request with slop qps",
+                         "edismax p50 ms")}
+        for mode in ("on", "off")}
     phase_done("qps windows and latencies")
 
     # ---- 5, continued: kernel timing ---------------------------------------
@@ -2079,6 +2419,8 @@ def main() -> int:
                     "topk_tiescan_kernel", "topk_filter_kernel",
                     "topk_sort_kernel", "topk_unpack_kernel"),
              "K6": ("span_window_kernel",),
+             "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
+             "K8b": ("cand_minis_kernel",),
              "K9": ("span_sparse_kernel",)}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
@@ -2090,6 +2432,9 @@ def main() -> int:
                 "K3": lambda: (kc.topk.launches
                                * kc.TOPK_KERNELS_PER_LAUNCH),
                 "K6": lambda: kc.span_window.launches,
+                "K8a": lambda: (kc.cand_rows.launches
+                                * kc.CAND_ROWS_KERNELS_PER_LAUNCH),
+                "K8b": lambda: kc.cand_minis.launches,
                 "K9": lambda: kc.span_sparse.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
@@ -2246,8 +2591,8 @@ def main() -> int:
                for s, pk, pt in k5_specs]
     slots_serve = serve_slots()
     t_serve = measure(
-        f"serving mix's chain launch, {len(serve_tids)} rare two-term "
-        "phrases", "K5",
+        f"serving mix's rare phrases as one chain launch on full planes, "
+        f"{len(serve_tids)} two-term phrases", "K5",
         lambda: kc.phrase_chain(dev.plane_pool, slots_serve, serve_plan,
                                 serve_pattern, **kw5),
         lambda: kc.phrase_chain_plain(dev.plane_pool, slots_serve,
@@ -2417,6 +2762,57 @@ def main() -> int:
                      f"({big9_k2[0].numel()} keys, {big9_k2[2]} slots)",
                      [big9_k2])
 
+    # K8a: the serving mix's largest cterm launch (its rare terms' slices,
+    # compacted, tf summed).  The library call: one
+    # torch.unique_consecutive of the launch's keys, each query's in a
+    # range of its own (built here, untimed)
+    k8a_a, k8a_kw = max((c for c in sm_k8a if c[1].get("with_tf", True)),
+                        key=lambda c: int(np.sum(c[0][3])))
+    k8a_keys = torch.cat([
+        (k8a_a[0][o: o + m] >> bb).long() + q * n
+        for q, (o, m) in enumerate(zip(np.asarray(k8a_a[2]).tolist(),
+                                       np.asarray(k8a_a[3]).tolist()))])
+    t_k8a = measure(
+        "the serving mix's largest cterm launch, one K8a launch: %d rare "
+        "terms, %d posting words, Kc = %d" % (
+            len(k8a_a[2]), int(np.sum(k8a_a[3])), k8a_a[4]), "K8a",
+        lambda: kc.cand_rows(*k8a_a, **k8a_kw),
+        lambda: kc.cand_rows_plain(k8a_a[0], k8a_a[1], np.asarray(k8a_a[2]),
+                                   np.asarray(k8a_a[3]), k8a_a[4], **k8a_kw),
+        rl.k8a_work(k8a_a[3], k8a_a[4], k8a_kw.get("with_tf", True)),
+        iters=20, old=hasattr(parent, "sa_cand_rows"),
+        library=lambda: torch.unique_consecutive(k8a_keys,
+                                                 return_inverse=True))
+    # K8b: the forced cphrase launch with a stopword co-term ("the" pooled,
+    # "w1000" of its own slice).  The library call: one advanced-index
+    # gather pool[slot, flat] of its pooled minis' slots
+    (k8b_rows, k8b_slots, k8b_offs, k8b_ns), k8b_kw = next(
+        c for c in pooled if (np.asarray(c[0][1])[:, 0] >= 0).all())
+    k8b_slots = np.asarray(k8b_slots)
+    k8b_kc = k8b_rows.shape[-1]
+    pool_q, pool_t = np.nonzero(k8b_slots >= 0)
+    spread = torch.arange(1 << bb, device=dev.device)
+    k8b_flat = torch.cat([
+        (k8b_rows.reshape(-1, k8b_kc)[q].clamp(0, n - 1).long()[:, None]
+         * (1 << bb) + spread).reshape(-1) for q in pool_q.tolist()])
+    k8b_sl = torch.cat([torch.full((k8b_kc << bb,), int(k8b_slots[q, t]),
+                                   device=dev.device)
+                        for q, t in zip(pool_q.tolist(), pool_t.tolist())])
+    mini_ns = [int(np.asarray(k8b_ns)[q][t])
+               for q, t in zip(*np.nonzero(k8b_slots < 0))]
+    t_k8b = measure(
+        "the forced cphrase [\"the\", \"w1000\"], one K8b launch: %d "
+        "pooled mini and %d of its own slice (%d words), Kc = %d, %d slots "
+        "each" % (len(pool_q), len(mini_ns), sum(mini_ns), k8b_kc,
+                  k8b_kc << bb), "K8b",
+        lambda: kc.cand_minis(k8b_rows, k8b_slots, k8b_offs, k8b_ns,
+                              **k8b_kw),
+        lambda: kc.minis_for_rows_plain(k8b_rows, k8b_slots, k8b_offs,
+                                        k8b_ns, **k8b_kw),
+        rl.k8b_work(k8b_kc, bb, len(pool_q), mini_ns, k8b_slots.shape[0]),
+        iters=20, old=hasattr(parent, "sa_cand_minis"),
+        library=lambda: k8b_kw["pool"][k8b_sl, k8b_flat])
+
     phase_done("kernels: timing")
 
     # one block=False serving call under the profiler: nothing may make the
@@ -2499,9 +2895,21 @@ def main() -> int:
                 "device_ms": sum(e[1] for e in dev_us) / 1e3,
                 "top": [(k[:60], us / 1e3, c) for k, us, c in dev_us[:12]]}
 
-    prof_mix = profile_call(lambda i: serving_queries(7000 + i),
-                            [0] * mix_n)
-    prof_mixs = profile_call(lambda i: mixed_request(8000 + i)[0], ss)
+    k8a_before = kc.cand_rows.launches
+    with engine(True):
+        prof_mix = profile_call(lambda i: serving_queries(7000 + i),
+                                [0] * mix_n)
+    k8a_profiled = kc.cand_rows.launches - k8a_before
+    check(k8a_profiled >= 2,
+          f"the profiled serving mix calls ran their rare terms as cterm "
+          f"groups ({k8a_profiled} K8a launches over the warm and the "
+          "profiled calls)")
+    with engine(True):
+        prof_mixs = profile_call(lambda i: mixed_request(8000 + i)[0], ss)
+    # the same requests on the port's default routing
+    prof_mix_off = profile_call(lambda i: serving_queries(7500 + i),
+                                [0] * mix_n)
+    prof_mixs_off = profile_call(lambda i: mixed_request(8500 + i)[0], ss)
     k9_before = kc.span_sparse.launches
     prof_k9 = profile_call(
         lambda i: mixed_request(9000 + i)[0] + [q for q, _ in k9_extra], k9s)
@@ -2569,8 +2977,14 @@ def main() -> int:
            f"{p['enqueue_ms']}; {p['call_ms']}; {p['device_ms']}; "
            f"{p['kernel_launches']}; {p['waits_before_collect']}; "
            f"{p['d2h_copies']}")
-          for name, p in (("serving mix", prof_mix),
-                          ("mixed request with slop", prof_mixs),
+          for name, p in (("serving mix, the JAX package's thresholds "
+                           "(candidate engine on)", prof_mix),
+                          ("mixed request with slop, the JAX package's "
+                           "thresholds", prof_mixs),
+                          ("serving mix, the port's default routing "
+                           "(candidate engine off at 1M)", prof_mix_off),
+                          ("mixed request with slop, the port's default "
+                           "routing", prof_mixs_off),
                           ("mixed request with K6 and K9 slop phrases",
                            prof_k9))),
         *((f"one {name} call, device ms by kernel (name, ms, launches), "
@@ -2591,6 +3005,23 @@ def main() -> int:
            f"{p['call_ms']}; {p['device_ms']}; {p['kernel_launches']}; "
            f"{p['top']}") for name, p in prof_ed),
         ("edismax phase kernel launches on the main path", ed_launches),
+        ("candidate engine on the main path: group kinds of the serving "
+         "mix and topk of a rare term on the port's default routing; the "
+         "mixed request with slop there; the serving mix and topk at the "
+         "JAX package's thresholds; the forced phase",
+         [kinds_default, kinds_mixs, kinds_mix, kinds_topk, kinds_forced]),
+        ("K8a and K8b launches on the main path (default routing; JAX "
+         "thresholds; forced; all) and K8b launches of edismax's first pass "
+         "at 1M (pruned at the JAX threshold)",
+         [k8_default, k8_jax, k8_forced,
+          (launches["cand_rows"], launches["cand_minis"]), ed_k8b]),
+        ("edismax at 1M, first pass: docs matched where the phases were "
+         "pruned to them (None: the mask path)", ed_pruned),
+        ("candidate engine and phase pruning on/off in turns, each from an "
+         "empty phrase-tf cache (serving mix qps, mixed request with slop "
+         "qps, kernel launches per call, edismax p50 ms)", onoff),
+        ("candidate engine and phase pruning on/off: medians of the turns",
+         onoff_medians),
         (f"long-document request with slop score_batch qps ({len(lsq)} "
          f"queries, {len(slop_queries(0))} of them slop-{SLOP} phrases, "
          f"top_k=10), {WINDOWS} windows of {LMIX_CALLS} calls (median; "
@@ -2627,7 +3058,8 @@ def main() -> int:
            f"{rec.get('old_share')}")
           for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
                       t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3t, t_k6,
-                      t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9)),
+                      t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9, t_k8a,
+                      t_k8b)),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -2702,6 +3134,13 @@ def main() -> int:
                  "searcharray_tpu/search/spans.py:54",
                  launches["span_sparse"], k9_err, t_k9),
          "more_units": [unit_of(t_k9b), unit_of(t_k9w), unit_of(t_k9bw)]},
+        # the largest difference over every main-path launch (K8Recorder)
+        entry("cand_rows (K8a)", csrc + "cand_rows.cu",
+              "searcharray_tpu/search/candidates.py:201",
+              launches["cand_rows"], rec.err["K8a"], t_k8a),
+        entry("cand_minis (K8b)", csrc + "cand_minis.cu",
+              "searcharray_tpu/search/candidates.py:258",
+              launches["cand_minis"], rec.err["K8b"], t_k8b),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,127 @@
+// K8b: mini-planes -- each query term's payload slots at the query's
+// candidate rows only, as one pool of int32 [queries * terms, Kc << blk_bits]
+// rows that the phrase chain (K5) and the slop window (K6) take as they
+// take the plane pool, with num_docs = Kc.
+//
+// Replaces the JAX package's searcharray_tpu/search/candidates.py
+// minis_for_rows (:258) and the rows= plane gathers of its dense group
+// bodies (searcharray_tpu/search/dense.py:735-739, 784-788).  There a term
+// with a pooled plane is a gather pool[slot, rows * S + s]; any other term
+// is a searchsorted (or a doc -> candidate map) of its posting slice's doc
+// keys into the row table, then a scatter of the payloads into a zeroed
+// mini.  Here one launch builds every mini of a chunk; block b owns one
+// tile of one (query, term) row: TILE slots, TILE / S candidates:
+//
+//   * a pool term copies its tile: slot e reads pool[slot][row(e / S) * S +
+//     e % S], the row clipped to [0, N) (a sentinel row N reads the last
+//     doc's slots).  At S = 8 a candidate is one 32-byte sector;
+//   * a term of its own slice zeroes its tile, finds with the warp search
+//     of segmented.cuh the words whose doc key lies between the tile's
+//     first and last rows, and for each of them a lower bound of its key
+//     among the tile's rows; on a hit it stores the payload at candidate
+//     << blk_bits | block.  Headers are unique within a term, so no two
+//     words store to one slot, and the block's own barrier orders its
+//     zeroes before its stores.  The rows of such a query ascend, so a
+//     key equal to some row lies in exactly one tile's range.
+//
+// Bound on the card: each mini slot written once (4 bytes), the pooled
+// slots read once, each posting word in the rows' range read once (8
+// bytes), the row table read.  A miss costs its search and no store.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "segmented.cuh"
+
+namespace {
+
+constexpr int MINI_THREADS = 256;
+constexpr int64_t MINI_TILE = 1024;  // slots per block (at least one doc's)
+
+__global__ void __launch_bounds__(MINI_THREADS)
+cand_minis_kernel(const int32_t* __restrict__ rows, int64_t rows_stride,
+                  int64_t kc, const int64_t* __restrict__ meta,
+                  int64_t n_minis, int terms, const int32_t* __restrict__ pool,
+                  int64_t plane_size, const int32_t* __restrict__ hdrs,
+                  const int32_t* __restrict__ pays, int32_t num_docs,
+                  int blk_bits, int64_t tile, int64_t tiles,
+                  int32_t* __restrict__ out) {
+  __shared__ int64_t range[2];
+
+  const int64_t mi = static_cast<int64_t>(blockIdx.x) / tiles;
+  const int64_t width = kc << blk_bits;
+  const int64_t e0 = (static_cast<int64_t>(blockIdx.x) % tiles) * tile;
+  const int64_t e1 = e0 + tile < width ? e0 + tile : width;
+  const int32_t* rq = rows + (mi / terms) * rows_stride;
+  int32_t* o = out + mi * width;
+  const int64_t slot = meta[mi];
+  const int64_t s_mask = (int64_t{1} << blk_bits) - 1;
+
+  if (slot >= 0) {
+    const int32_t* src = pool + slot * plane_size;
+    for (int64_t e = e0 + threadIdx.x; e < e1; e += MINI_THREADS) {
+      int32_t r = rq[e >> blk_bits];
+      r = r < 0 ? 0 : (r >= num_docs ? num_docs - 1 : r);
+      o[e] = src[(static_cast<int64_t>(r) << blk_bits) | (e & s_mask)];
+    }
+    return;
+  }
+
+  for (int64_t e = e0 + threadIdx.x; e < e1; e += MINI_THREADS) o[e] = 0;
+  const int64_t c0 = e0 >> blk_bits;
+  const int64_t c1 = e1 >> blk_bits;  // candidates [c0, c1)
+  const int64_t off = meta[n_minis + mi];
+  const int64_t n = meta[2 * n_minis + mi];
+  const int32_t* h = hdrs + off;
+  sa::block_range(h, n, blk_bits, rq[c0],
+                  static_cast<int64_t>(rq[c1 - 1]) + 1, range);
+  __syncthreads();  // the range is read, and the zeroes precede the stores
+
+  const int64_t w_hi = range[1];
+  for (int64_t w = range[0] + threadIdx.x; w < w_hi; w += MINI_THREADS) {
+    const int32_t hw = h[w];
+    const int32_t key = hw >> blk_bits;
+    int64_t lo = c0, hi = c1;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (rq[mid] < key) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lo < c1 && rq[lo] == key) {
+      o[(lo << blk_bits) | (hw & s_mask)] = pays[off + w];
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C entry for ctypes.  ``rows`` holds the row tables, query q's at
+// ``q * rows_stride`` (0: one table for all); ``meta`` is a device int64
+// array: the pool slot of each of the ``n_minis`` (query, term) minis (-1
+// for a term of its own slice), their slice offsets, then their lengths.
+// ``out`` is int32 [n_minis, kc << blk_bits].  The kernel runs on
+// ``stream`` and nothing here synchronises.  Returns cudaGetLastError().
+extern "C" int sa_cand_minis(const void* rows, int64_t rows_stride,
+                             int64_t kc, const void* meta, int64_t n_minis,
+                             int terms, const void* pool, int64_t plane_size,
+                             const void* hdrs, const void* pays,
+                             int num_docs, int blk_bits, void* out,
+                             int device, void* stream) {
+  cudaSetDevice(device);
+  const int64_t width = kc << blk_bits;
+  const int64_t slots = int64_t{1} << blk_bits;
+  const int64_t tile = slots > MINI_TILE ? slots : MINI_TILE;
+  const int64_t tiles = (width + tile - 1) / tile;
+  cand_minis_kernel<<<static_cast<unsigned>(n_minis * tiles), MINI_THREADS,
+                      0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), rows_stride, kc,
+      static_cast<const int64_t*>(meta), n_minis, terms,
+      static_cast<const int32_t*>(pool), plane_size,
+      static_cast<const int32_t*>(hdrs), static_cast<const int32_t*>(pays),
+      num_docs, blk_bits, tile, tiles, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

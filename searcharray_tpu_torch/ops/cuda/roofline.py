@@ -52,6 +52,12 @@ K9_OPS_PER_JOIN = 4      # a term's three words as one string: two shifts,
                          # two ors
 K9_OPS_PER_WORD = 6      # window test, block, key shift and add, convert
 K9_WINDOW = 18           # positions a posting word holds
+K8A_OPS_PER_WORD = 3     # key shift, compare with the previous key, the
+                         # scan's add
+K8A_OPS_PER_TF_WORD = POPC + 1   # popcount, add into the run's sum
+K8B_OPS_PER_SLOT = 3     # pooled: row clip, address shift-or, copy; own
+                         # slice: the zero store
+K8B_OPS_PER_WORD = 4     # key shift, hit compare, address shift-or, store
 
 
 def bound(nbytes: int, ops: int) -> dict:
@@ -262,6 +268,36 @@ def k9_work(term_ns, anchor: int, w: int, live=None, mults=None) -> dict:
     return bound(16 * words + 8 * int(touched),
                  K9_OPS_PER_WORD * words + K7_OPS_PER_PROBE * int(probes)
                  + n_live * k9_ops_per_live_word(int(w), mults))
+
+
+def k8a_work(ns: Iterable[int], kc: int, with_tf: bool = True) -> dict:
+    """One K8a launch over a chunk of queries, one posting slice each
+    (``ns`` words): the 4-byte header of each word read (and its payload
+    with ``with_tf``), and each query's int32 row table of ``kc`` (and f32
+    tf row) written.  A word's candidate index stays in registers."""
+    ns = [int(n) for n in ns]
+    words, rows = sum(ns), len(ns) * int(kc)
+    per_word = 4 + (4 if with_tf else 0)
+    ops = (K8A_OPS_PER_WORD + (K8A_OPS_PER_TF_WORD if with_tf else 0)) * words
+    return bound(per_word * words + (8 if with_tf else 4) * rows, ops + rows)
+
+
+def k8b_work(kc: int, blk_bits: int, n_pooled: int, mini_ns: Iterable[int],
+             n_tables: int) -> dict:
+    """One K8b launch: ``n_pooled`` minis copied from plane-pool rows (each
+    of their ``kc << blk_bits`` slots read once and written once), one
+    mini per entry of ``mini_ns`` built from that many posting words (8
+    bytes each read once, a search of log2(kc) probes each, every slot of
+    the mini written), and ``n_tables`` int32 row tables of ``kc`` read."""
+    mini_ns = [int(n) for n in mini_ns]
+    width = int(kc) << int(blk_bits)
+    words = sum(mini_ns)
+    probes = words * max(1, int(kc).bit_length())
+    nbytes = (8 * width * n_pooled + 8 * words + 4 * width * len(mini_ns)
+              + 4 * int(kc) * n_tables)
+    ops = (K8B_OPS_PER_SLOT * width * (n_pooled + len(mini_ns))
+           + K8B_OPS_PER_WORD * words + K7_OPS_PER_PROBE * probes)
+    return bound(nbytes, ops)
 
 
 def total(works: Iterable[dict]) -> dict:

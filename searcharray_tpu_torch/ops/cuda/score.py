@@ -1,9 +1,10 @@
 """K1 (fused term scoring), K2 (sorted segment-sum), K3 (exact top-k), K4
 (plane fill), K5 (the exact-phrase bigram chain on dense planes), K6 (the
 slop window coverage on dense planes), K7 (a bigram step of the sparse
-phrase chain) and K9 (the slop window coverage on posting slices): Hopper
-kernels, their plain PyTorch versions, and the build of the one kernel
-library.
+phrase chain), K8a (candidate rows from a posting slice), K8b (mini-planes
+over candidate rows) and K9 (the slop window coverage on posting slices):
+Hopper kernels, their plain PyTorch versions, and the build of the one
+kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -16,8 +17,10 @@ wrapper counts its kernel launches in a plain int attribute
 (``score_term.launches``, ``score_term_rows.launches``,
 ``segment_sum.launches``, ``topk.launches``, ``plane_fill.launches``,
 ``phrase_chain.launches``, ``span_window.launches``,
-``merge_step.launches``, ``span_sparse.launches``).  A K3 launch is one
-call of its C entry, which enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels.
+``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
+``span_sparse.launches``).  A K3 launch is one
+call of its C entry, which enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels; a
+K8a launch enqueues ``CAND_ROWS_KERNELS_PER_LAUNCH``.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ import torch
 
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     apply_similarity_device,
+    compact_rows_plain,
     merge_step_plain,
+    minis_for_rows_plain,
     phrase_counts_dense_planes,
     popcount_i32,
     span_counts_dense_planes_plain,
@@ -58,6 +63,7 @@ SPAN_MAX_TERMS = 32          # K6 takes at most this many distinct terms
 SPAN_MAX_WINDOW = 18         # K6's window: one slot's positions
 TOPK_KERNELS_PER_LAUNCH = 9  # three histogram and select passes, the tie
                              # scan, the filter, and the sort or the unpack
+CAND_ROWS_KERNELS_PER_LAUNCH = 2   # K8a: count each tile's runs, then write
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -147,6 +153,11 @@ _ENTRIES = {
                        _int, _int, _int, _vp, _i64, _vp, _vp, _int, _vp],
     "sa_span_sparse_tile": [],
     "sa_span_sparse_local_terms": [],
+    "sa_cand_rows": [_vp, _vp, _vp, _i64, _i64, _i64, _int, _int, _vp, _vp,
+                     _int, _vp],
+    "sa_cand_rows_tile": [],
+    "sa_cand_minis": [_vp, _i64, _i64, _vp, _i64, _int, _vp, _i64, _vp, _vp,
+                      _int, _int, _vp, _int, _vp],
 }
 
 
@@ -799,6 +810,166 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
 
 
 merge_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8a: candidate rows of the candidate-subset engine
+# ---------------------------------------------------------------------------
+def cand_rows_plain(hdrs, pays, offs, ns, Kc: int, *, num_docs: int,
+                    blk_bits: int, with_tf: bool = True):
+    """Plain PyTorch K8a: ``compact_rows_plain`` per query on its exact
+    slice (every word valid), the popcounts of its payloads summed per
+    run with ``with_tf``."""
+    rows, tfs = [], []
+    for o, n in zip(np.asarray(offs).tolist(), np.asarray(ns).tolist()):
+        h = hdrs[o: o + n]
+        r, _cidx, tf = compact_rows_plain(
+            h >> blk_bits, torch.ones_like(h, dtype=torch.bool), Kc,
+            num_docs, popcount_i32(pays[o: o + n]) if with_tf else None)
+        rows.append(r)
+        tfs.append(tf)
+    empty = torch.empty((0, Kc), device=hdrs.device)
+    rows = (torch.stack(rows) if rows else empty.to(torch.int32))
+    if not with_tf:
+        return rows, None
+    return rows, (torch.stack(tfs) if tfs else empty)
+
+
+def cand_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, Kc: int, *,
+              num_docs: int, blk_bits: int, with_tf: bool = True):
+    """The candidate rows of a chunk of queries, one posting slice each.
+
+    Query q's words are ``[offs[q], offs[q] + ns[q])`` of the doc-sorted
+    ``hdrs``/``pays`` planes (host integer sequences, one entry per query).
+    Returns (rows int32 [Q, Kc]: each query's distinct doc keys ascending,
+    then ``num_docs``; tf f32 [Q, Kc]: the popcount of each candidate's
+    payloads, or None without ``with_tf``).  Runs past
+    ``Kc`` are dropped.  One launch (csrc/cand_rows.cu: a counting kernel
+    and a writing kernel over the slices' tiles)."""
+    dev = hdrs.device
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(pays, "pays", torch.int32, dev)
+    if pays.shape != hdrs.shape:
+        raise ValueError("hdrs/pays lengths differ")
+    offs = _host_index(offs, "offs", hdrs.shape[0] + 1)
+    ns = np.asarray(ns, dtype=np.int64)
+    if offs.ndim != 1 or ns.shape != offs.shape:
+        raise ValueError("offs and ns must be 1-D of one length")
+    if ns.size and (ns.min() < 0 or (offs + ns).max() > hdrs.shape[0]):
+        raise ValueError("a posting slice runs past the planes")
+    if Kc < 0 or not 0 <= num_docs < 2**31 or int(ns.sum()) >= 2**31:
+        raise ValueError("K8a takes Kc >= 0 and fewer than 2^31 docs and "
+                         "words")
+    if dev.type == "cpu":
+        return cand_rows_plain(hdrs, pays, offs, ns, Kc, num_docs=num_docs,
+                               blk_bits=blk_bits, with_tf=with_tf)
+    if dev.type != "cuda":
+        raise ValueError(f"no K8a kernel for device {dev}")
+    Q = len(offs)
+    rows = torch.empty((Q, Kc), dtype=torch.int32, device=dev)
+    tf = (torch.empty((Q, Kc), dtype=torch.float32, device=dev) if with_tf
+          else None)
+    if Q == 0:
+        return rows, tf
+    lib = _get_lib()
+    tiles = -(-ns // lib.sa_cand_rows_tile())
+    n_tiles = int(tiles.sum())
+    # the last n_tiles entries are the kernels' scratch (each tile's runs)
+    meta = host_to_device(np.concatenate(
+        [offs, ns, [0], np.cumsum(tiles),
+         np.zeros(n_tiles, np.int64)]), dev)
+    err = lib.sa_cand_rows(
+        hdrs.data_ptr(), pays.data_ptr(), meta.data_ptr(), Q, n_tiles, Kc,
+        num_docs, blk_bits, rows.data_ptr(),
+        None if tf is None else tf.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "cand_rows")
+    cand_rows.launches += 1
+    return rows, tf
+
+
+cand_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8b: mini-planes over candidate rows
+# ---------------------------------------------------------------------------
+def cand_minis(rows: torch.Tensor, slots, offs, ns, *, pool,
+               hdrs: torch.Tensor, pays: torch.Tensor, num_docs: int,
+               blk_bits: int) -> torch.Tensor:
+    """The mini-planes of a chunk of queries over their candidate rows.
+
+    ``rows`` is an int32 [Q, Kc] tensor of row tables (or one [Kc] table
+    for every query); ``slots``, ``offs`` and ``ns`` are host int [Q, T]
+    arrays, one column per term.  Term t of query q with ``slots[q, t] >=
+    0`` copies its plane-pool row's ``2^blk_bits`` slots at each row
+    (``pool`` is the int32 [C, num_docs << blk_bits] plane pool; rows are
+    clipped to [0, num_docs), so a sentinel row reads the last doc's); a
+    term with slot -1 is zero but for the payloads of its posting slice
+    ``[offs[q, t], offs[q, t] + ns[q, t])`` whose doc key is one of the
+    query's rows, which must then be ascending.  Returns int32 [Q * T, Kc
+    << blk_bits]: a pool whose row ``q * T + t`` is that term's mini-plane,
+    as K5 and K6 take it with ``num_docs = Kc``.  One launch
+    (csrc/cand_minis.cu)."""
+    dev = rows.device
+    if rows.dtype != torch.int32 or rows.dim() not in (1, 2) or not (
+            rows.is_contiguous()):
+        raise ValueError("rows must be a contiguous int32 [Q, Kc] or [Kc] "
+                         "tensor")
+    _check(hdrs, "hdrs", torch.int32, dev)
+    _check(pays, "pays", torch.int32, dev)
+    if pays.shape != hdrs.shape:
+        raise ValueError("hdrs/pays lengths differ")
+    slots = np.asarray(slots, dtype=np.int64)
+    if slots.ndim != 2:
+        raise ValueError("slots must be [queries, terms]")
+    Q, T = slots.shape
+    Kc = rows.shape[-1]
+    if rows.dim() == 2 and rows.shape[0] != Q:
+        raise ValueError("one row table per query, or one for all")
+    plane_size = num_docs << blk_bits
+    if (slots >= 0).any():
+        if pool is None:
+            raise ValueError("a term with a slot needs the pool")
+        _check(pool, "pool", torch.int32, dev, ndim=2)
+        if pool.shape[1] != plane_size:
+            raise ValueError("pool rows are not num_docs << blk_bits wide")
+        _host_index(slots[slots >= 0], "slots", pool.shape[0])
+    if slots.size and slots.min() < -1:
+        raise ValueError("a slot is a pool row or -1")
+    mini = slots < 0
+    offs = np.where(mini, np.asarray(offs, dtype=np.int64), 0)
+    ns = np.where(mini, np.asarray(ns, dtype=np.int64), 0)
+    if offs.shape != slots.shape:
+        raise ValueError("slots, offs and ns must have one shape")
+    _host_index(offs, "offs", hdrs.shape[0] + 1)
+    if ns.size and (ns.min() < 0 or (offs + ns).max() > hdrs.shape[0]):
+        raise ValueError("a posting slice runs past the planes")
+    if num_docs < 1 or Kc * (1 << blk_bits) >= 2**31:
+        raise ValueError("K8b takes num_docs >= 1 and minis of fewer than "
+                         "2^31 slots")
+    if dev.type == "cpu":
+        return minis_for_rows_plain(rows, slots, offs, ns, pool=pool,
+                                    hdrs=hdrs, pays=pays, num_docs=num_docs,
+                                    blk_bits=blk_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"no K8b kernel for device {dev}")
+    out = torch.empty((Q * T, Kc << blk_bits), dtype=torch.int32, device=dev)
+    if Q * T == 0 or Kc == 0:
+        return out
+    meta = host_to_device(np.concatenate(
+        [slots.ravel(), offs.ravel(), ns.ravel()]), dev)
+    err = _get_lib().sa_cand_minis(
+        rows.data_ptr(), Kc if rows.dim() == 2 else 0, Kc, meta.data_ptr(),
+        Q * T, T, None if pool is None else pool.data_ptr(), plane_size,
+        hdrs.data_ptr(), pays.data_ptr(), num_docs, blk_bits, out.data_ptr(),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "cand_minis")
+    cand_minis.launches += 1
+    return out
+
+
+cand_minis.launches = 0
 
 
 # ---------------------------------------------------------------------------

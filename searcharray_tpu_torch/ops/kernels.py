@@ -458,6 +458,72 @@ def merge_step_plain(hdrs, base_pays, other_pays, base_off, base_n,
 
 
 # ---------------------------------------------------------------------------
+# candidate rows and mini-planes: the plain versions of K8a and K8b
+# ---------------------------------------------------------------------------
+def compact_rows_plain(keys, valid, Kc: int, num_docs: int, pops=None):
+    """Run-compaction of one query's sorted doc keys (int32[n], ``valid``
+    bool[n]): the plain version of K8a.  Returns (rows int32[Kc], the
+    distinct valid keys in order and ``num_docs`` after them; cidx
+    int32[n], each word's candidate index, the runs begun up to it less
+    one; tf f32[Kc], the sum of ``pops`` over each run, or None without
+    ``pops``).  Runs past ``Kc`` are dropped."""
+    first = valid.clone()
+    if keys.shape[0] > 1:
+        first[1:] &= keys[1:] != keys[:-1]
+    cidx = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    rows = torch.full((Kc + 1,), num_docs, dtype=torch.int32,
+                      device=keys.device)
+    rows.scatter_(0, torch.where(first & (cidx < Kc), cidx, Kc).long(),
+                  keys.to(torch.int32))
+    tf = None
+    if pops is not None:
+        dest = torch.where(valid & (cidx < Kc), cidx, Kc).long()
+        tf = torch.zeros(Kc + 1, dtype=torch.float32, device=keys.device)
+        tf = tf.index_add_(0, dest, pops.to(torch.float32))[:Kc]
+    return rows[:Kc], cidx, tf
+
+
+def minis_for_rows_plain(rows, slots, offs, ns, *, pool, hdrs, pays,
+                         num_docs: int, blk_bits: int):
+    """Per-term mini-planes over candidate row tables: the plain version of
+    K8b.  ``rows`` is int32 [Q, Kc] (or [Kc], one table for every query);
+    ``slots``/``offs``/``ns`` are host int [Q, T].  A term with a slot >= 0
+    copies the ``2^blk_bits`` slots of each row from its plane-pool row
+    (rows clipped to [0, num_docs)); any other term is zero but for the
+    payloads of its posting slice ``[off, off + n)`` whose doc key is a
+    row, stored at ``candidate << blk_bits | block`` (the rows of such a
+    query ascending).  Returns int32 [Q * T, Kc << blk_bits]."""
+    slots = np.asarray(slots, np.int64)
+    Q, T = slots.shape
+    S = 1 << blk_bits
+    Kc = rows.shape[-1]
+    table = rows.reshape(-1, Kc)
+    out = torch.zeros((Q * T, Kc * S), dtype=torch.int32,
+                      device=rows.device)
+    spread = torch.arange(S, dtype=torch.int64, device=rows.device)
+    for q in range(Q):
+        rq = table[q if table.shape[0] > 1 else 0]
+        for t in range(T):
+            if Kc == 0:
+                continue
+            if slots[q, t] >= 0:
+                flat = (rq.clamp(0, num_docs - 1).long()[:, None] * S
+                        + spread[None, :]).reshape(-1)
+                out[q * T + t] = pool[int(slots[q, t])][flat]
+                continue
+            o, n = int(offs[q][t]), int(ns[q][t])
+            h = hdrs[o: o + n]
+            keys = (h >> blk_bits).contiguous()
+            ci = torch.searchsorted(rq.contiguous(), keys).clamp(max=Kc - 1)
+            hit = rq[ci] == keys
+            sidx = torch.where(hit, ci.long() * S + (h & (S - 1)), Kc * S)
+            row = torch.zeros(Kc * S + 1, dtype=torch.int32,
+                              device=rows.device)
+            out[q * T + t] = row.scatter_(0, sidx, pays[o: o + n])[:Kc * S]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # slop coverage on doc-sorted posting slices: the plain version of K9.  Per
 # anchor word, every distinct term's payloads at the headers h - C .. h + C
 # are laid out as one bit raster of (2C + 1) * 18 positions; prefix sums

@@ -9,9 +9,10 @@ arrays.  Terms, exact phrases (dense planes, or the sparse chain for
 position windows and corpora the planes cannot hold) and slop phrases
 (the dense window kernel, or the sparse neighbourhood kernel for a
 position window, ``n + slop - 1 > 18``, a term more than twice and
-corpora the planes cannot hold) are ported, and ``score_batch_device``
-for callers that compose on the device (``solr.edismax``); candidate
-``rows=``, persistence, mutation and sharding raise
+corpora the planes cannot hold) are ported, the candidate-subset engine
+for selective queries on large corpora, and ``score_batch_device`` (with
+``rows=``, a doc-id subset) for callers that compose on the device
+(``solr.edismax``); persistence, mutation and sharding raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -545,17 +546,32 @@ class SearchArray(ExtensionArray):
         ``slop`` is an int or one per query.  A fused similarity on a full
         view is one ``score_batch_fused(as_device=True)`` call; a custom
         similarity is scored per query on the host and its stack staged on
-        the device; a sliced view gathers its rows on the device.  ``rows``
-        (scores over a candidate doc-id subset) needs the candidate-subset
-        engine."""
-        if rows is not None:
-            raise _todo("score_batch_device(rows=) (candidate rows)",
-                        "Queue 1 item 10")
-        slops = ([int(slop)] * len(queries) if np.isscalar(slop)
-                 else [int(s) for s in slop])
-        if len(slops) != len(queries):
-            raise ValueError("per-query slop length must match queries")
+        the device; a sliced view gathers its rows on the device.
+
+        With ``rows`` (a doc-id subset; requires a fused similarity,
+        slop=0 and a full un-sliced view) the scores are f32[Q,
+        len(rows)] and the work is proportional to the subset: the phrase
+        phases' cost contract of the reference (solr.py:328-338)."""
+        if not np.isscalar(slop):
+            slop = [int(s) for s in slop]
+            if len(slop) != len(queries):
+                raise ValueError("per-query slop length must match queries")
+            if not any(slop):
+                slop = 0
         fused = getattr(similarity, "_fused", None)
+        if rows is not None:
+            if (fused is None or not np.isscalar(slop) or slop != 0
+                    or not self._full_view):
+                raise ValueError(
+                    "rows= requires a fused similarity, slop=0, and a "
+                    "full un-sliced view")
+            kind, k1, b = fused
+            qtids = [self._resolve_tids(self._check_token_arg(q))
+                     for q in queries]
+            return batch_mod.score_batch_fused(
+                self.dev, qtids, kind, k1, b, as_device=True,
+                rows=np.asarray(rows, dtype=np.int64))
+        slops = [slop] * len(queries) if np.isscalar(slop) else slop
         if fused is None:
             # custom similarity: the reference protocol per query (the
             # view's rows already), the stack staged for composition

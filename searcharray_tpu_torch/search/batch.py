@@ -25,14 +25,20 @@ Queries are deduplicated, classified and grouped:
 * ``span`` (every other slop phrase, the JAX package's per-query
   fallbacks): ONE K9 launch per (distinct terms, window, multiplicities)
   on the posting slices, reduced by ONE K2 launch; the rows of all
-  ``span`` groups are ranked together by one K3 call.
+  ``span`` groups are ranked together by one K3 call;
+* ``cterm`` / ``cphrase`` / ``cspan`` (selective queries on a large
+  corpus: the candidate-subset engine, search/candidates.py): per chunk
+  ONE K8a launch compacts each query's rarest posting slice into its
+  candidate rows (a term's tf with them), for a phrase ONE K8b launch
+  builds every term's mini-plane at those rows and ONE K5 or K6 launch
+  runs on the minis; the finish ranks over the candidate axis (K3).
 
 With ``top_k`` every group's result is ranked by K3 and packed into int32
 [Qg, 2k] (f32 score bits ‖ doc indices), so one device-to-host copy
 returns a batch and nothing before it waits for the device.  With
 ``as_device`` the f32[Q, N] scores stay on the device for a caller that
-composes further (solr.py).  The candidate-subset engine is not ported
-yet.
+composes further (solr.py); with ``rows`` only a subset of the docs is
+scored (edismax's phrase phases).
 """
 from __future__ import annotations
 
@@ -44,8 +50,11 @@ import torch
 from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS
+from searcharray_tpu_torch.search import candidates as C
 from searcharray_tpu_torch.search import dense
 from searcharray_tpu_torch.search.phrase import (
+    _plan,
     chain_key,
     sparse_chain_freqs,
     trim_spans,
@@ -55,6 +64,7 @@ from searcharray_tpu_torch.search.scoring import (
     host_idf,
 )
 from searcharray_tpu_torch.search.spans import (
+    dense_window_ok,
     sparse_span_freqs,
     takes_dense_span,
     unique_terms,
@@ -286,7 +296,8 @@ def _is_slop_phrase(tids, slop: int) -> bool:
 
 
 def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
-              kind: str, slop=0):
+              kind: str, slop=0, top_k: Optional[int] = None,
+              allow_candidates: bool = False):
     """Split queries into structure groups.
 
     Returns a dict mapping a structural key to a list of (query_index,
@@ -304,15 +315,23 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     more than twice, a corpus or phrase the plane pool cannot hold) is a
     ``span`` group with the same key fields and rows, scored by K9 on the
     exact posting slices; it never takes a pool slot and is never
-    promoted.  The candidate-subset engine is not ported yet (ROADMAP
-    Queue 1 item 10):
-    rare terms and phrases take the dense groups too.  Term queries on
-    corpora too large for dense planes are ``term``, keyed by posting
-    bucket; phrases there, and phrases of more than CHAIN_MAX_TERMS terms
-    (K5's cap) or more unique terms than the plane pool takes, are
-    ``phrase`` (the sparse chain, keyed by term count, plan and pattern;
-    their rows hold the slices trimmed to the rarest term's doc range) and
-    never take a tf-pool slot."""
+    promoted.  Term queries on corpora too large for dense planes are
+    ``term``, keyed by posting bucket; phrases there, and phrases of more
+    than CHAIN_MAX_TERMS terms (K5's cap) or more unique terms than the
+    plane pool takes, are ``phrase`` (the sparse chain, keyed by term
+    count, plan and pattern; their rows hold the slices trimmed to the
+    rarest term's doc range) and never take a tf-pool slot.
+
+    With ``allow_candidates`` selective queries take the candidate-subset
+    engine (search/candidates.py) first, in the JAX package's order: a
+    rare term is ``cterm`` (keyed by its bucket, which is its Kc), a rare
+    exact phrase ``cphrase`` and a rare slop phrase of the dense window's
+    shape ``cspan``, both keyed by their dense key's fields, the term
+    sources, Kc and the rows-source column; a phrase that is a candidate
+    is never promoted into the phrase-tf cache.  ``top_k`` larger than a
+    query's Kc keeps it off the engine, and so (unlike the JAX package,
+    whose chain takes any length) does a phrase of more than
+    CHAIN_MAX_TERMS terms, which K5 does not take."""
     dense_ok = dense.dense_eligible(dev)
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
@@ -331,45 +350,80 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
             sig = (tuple(tids), slops[qi])
             row_tids, spans, fkey = _slop_structure(dev, tids, slops[qi])
             lengths = [s[1] for s in spans]
-            if not takes_dense_span(dev, tids, slops[qi]):
+            if (allow_candidates
+                    and dense_window_ok(len(tids), slops[qi], fkey[4])
+                    and C.eligible_phrase(dev, row_tids, top_k)):
+                # the anchor (fewest words, so the smallest bucket) is the
+                # rows source: column 0
+                rb = K.expand_bucket_of(lengths[0])
+                gkey = (("cspan",) + fkey[1:]
+                        + (C.query_sources(dev, lengths), rb, rb, 0))
+            elif not takes_dense_span(dev, tids, slops[qi]):
                 gkey = ("span",) + fkey[1:]
             elif _phrase_tf_route(dev, sig, row_tids, fkey, ptf_budget):
                 gkey, row_tids = ("dterm",), [sig]
             else:
                 gkey = ("dspan",) + fkey[1:]
         elif len(tids) == 1:
-            gkey = (("dterm",) if dense_ok
-                    else ("term", K.bucket_of(max(1, lengths[0]))))
+            if (allow_candidates and lengths[0] > 0
+                    and C.eligible_term(dev, tids[0], top_k)):
+                bkt = K.expand_bucket_of(lengths[0])
+                gkey = ("cterm", bkt, bkt)
+            elif dense_ok:
+                gkey = ("dterm",)
+            else:
+                gkey = ("term", K.bucket_of(max(1, lengths[0])))
             row_tids = tids
         else:
             if min(lengths) == 0:
                 continue
-            # the plan splits at the rarest term by the untrimmed lengths
-            plan_key, pattern = chain_key(dev, tids)
             sig = (tuple(tids), 0)
-            if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
-                spans = trim_spans(dev, spans)  # rarest-term pre-slice
-                lengths = [s[1] for s in spans]
-                gkey, row_tids = ("phrase", len(tids), plan_key,
-                                  pattern), tids
-            elif _phrase_tf_route(dev, sig, tids,
-                                  ("ph", len(tids), plan_key, pattern),
-                                  ptf_budget):
-                gkey, row_tids = ("dterm",), [sig]
+            if (allow_candidates and len(tids) <= CHAIN_MAX_TERMS
+                    and C.eligible_phrase(dev, tids, top_k)):
+                # the chain splits at the rows source
+                rows_i = tids.index(C.rows_source(dev, tids))
+                plan_key = tuple((d, tuple(ix))
+                                 for d, ix in _plan(len(tids), rows_i))
+                pattern = tuple(tids.index(t) for t in tids)
+                rb = K.expand_bucket_of(lengths[rows_i])
+                gkey, row_tids = ("cphrase", len(tids), plan_key, pattern,
+                                  C.query_sources(dev, lengths), rb, rb,
+                                  rows_i), tids
             else:
-                gkey, row_tids = ("dphrase", len(tids), plan_key,
-                                  pattern), tids
+                # the plan splits at the rarest term by the untrimmed
+                # lengths
+                plan_key, pattern = chain_key(dev, tids)
+                if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
+                    spans = trim_spans(dev, spans)  # rarest-term pre-slice
+                    lengths = [s[1] for s in spans]
+                    gkey, row_tids = ("phrase", len(tids), plan_key,
+                                      pattern), tids
+                elif _phrase_tf_route(dev, sig, tids,
+                                      ("ph", len(tids), plan_key, pattern),
+                                      ptf_budget):
+                    gkey, row_tids = ("dterm",), [sig]
+                else:
+                    gkey, row_tids = ("dphrase", len(tids), plan_key,
+                                      pattern), tids
         groups.setdefault(gkey, []).append(
             (qi, np.asarray([s[0] for s in spans], np.int64),
              np.asarray(lengths, np.int64), idf, row_tids))
     return groups
 
 
+def _cand_fields(gkey):
+    """(terms, sources, Kc) of a ``cphrase`` or ``cspan`` group key."""
+    if gkey[0] == "cphrase":
+        return gkey[1], gkey[4], gkey[5]
+    return gkey[1], gkey[5], gkey[6]
+
+
 def score_batch_fused(dev: DeviceIndex,
                       queries_tids: Sequence[Optional[List[int]]],
                       kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
                       top_k: Optional[int] = None, defer: bool = False,
-                      slop=0, as_device: bool = False):
+                      slop=0, as_device: bool = False,
+                      rows: Optional[np.ndarray] = None):
     """Score a batch of resolved term-id queries, one launch per group.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
@@ -377,6 +431,9 @@ def score_batch_fused(dev: DeviceIndex,
     of two or more ids is a phrase.  ``slop`` is an int for the whole
     batch or one per query: 0 is an exact phrase, more a slop phrase
     (mixed batches share one wave: one pool fill, then the groups).
+    Selective queries on a large corpus take the candidate-subset engine
+    (``cterm``, ``cphrase``, ``cspan``: K8a, K8b, then K5 or K6 on the
+    minis and the finish over the candidate axis).
 
     Returns float32[Q, num_docs] (numpy), or with ``top_k``: (scores
     float32[Q, k], indices int64[Q, k]).  With ``defer`` (requires
@@ -384,12 +441,19 @@ def score_batch_fused(dev: DeviceIndex,
     is enqueued and the packed result is being copied into pinned host
     memory; collect() waits for that copy's event and unpacks.  With
     ``as_device`` (exclusive with ``top_k``) the f32[Q, num_docs] scores
-    stay a tensor on the index's device and nothing is copied.
+    stay a tensor on the index's device and nothing is copied.  With
+    ``rows`` (doc ids; exclusive with ``top_k``) the scores are those
+    docs' only, [Q, len(rows)], and the candidate engine is off, as in the
+    JAX package: term groups gather their tf rows at the rows, phrase and
+    slop groups run K5 or K6 on their planes' minis there (K8b), the
+    sparse groups gather their columns.
     """
     if defer and top_k is None:
         raise ValueError("defer requires top_k")
     if as_device and top_k is not None:
         raise ValueError("as_device and top_k are exclusive")
+    if rows is not None and top_k is not None:
+        raise ValueError("rows and top_k are exclusive")
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
     if len(slops) != len(queries_tids):
@@ -413,13 +477,23 @@ def score_batch_fused(dev: DeviceIndex,
     dedup = len(uniq) != n_total
 
     Q = len(uniq)
-    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
-    # queries in no group (and every query of a corpus without tokens)
-    # keep the all-zero rows
-    groups = (_classify(dev, uniq, kind, slop=uniq_slops)
-              if dev.avg_doc_length else {})
-
     N = dev.corpus_size
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    rows_t = None
+    if rows is not None:
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.ndim != 1 or (rows.size and (rows.min() < 0
+                                             or rows.max() >= N)):
+            raise ValueError(f"rows must be doc ids in [0, {N})")
+        rows_t = kernels_cuda.host_to_device(rows.astype(np.int32),
+                                             dev.device)
+    n_out = N if rows is None else len(rows)
+    # queries in no group (and every query of a corpus without tokens, or
+    # of an empty row set) keep the all-zero rows
+    groups = (_classify(dev, uniq, kind, slop=uniq_slops, top_k=top_k,
+                        allow_candidates=rows is None)
+              if dev.avg_doc_length and n_out else {})
+
     Npad = _npad(N)
     NS = dense.plane_size(dev)
     cap_p = dense.plane_capacity(dev)
@@ -439,6 +513,16 @@ def score_batch_fused(dev: DeviceIndex,
             # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
             # rows must fit the pool beside one free slot
             max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
+        elif gkey[0] == "cterm":
+            max_chunk = C.chunk_rows(dev, gkey[2])
+        elif gkey[0] in ("cphrase", "cspan"):
+            # the chunk's minis, and its pool-source terms beside one free
+            # plane slot
+            T, srcs, Kc = _cand_fields(gkey)
+            n_pool = sum(1 for x in srcs if x == "pool")
+            max_chunk = max(1, min(C.chunk_rows(dev, Kc, T),
+                                   (cap_p - 1) // n_pool if n_pool
+                                   else 1 << 30))
         elif gkey[0] == "term":
             # bound by the flat segment-sum key space AND by sliced
             # posting-bucket words
@@ -480,17 +564,22 @@ def score_batch_fused(dev: DeviceIndex,
                 spec["tf_tids"] = [r[4][0] for r in chunk]
             elif gkey[0] in ("dphrase", "dspan"):
                 spec["plane_tids"] = [t for r in chunk for t in r[4]]
+            elif gkey[0] in ("cphrase", "cspan"):
+                # the pool-source terms' planes, pinned through the wave
+                T, srcs, _ = _cand_fields(gkey)
+                spec["plane_tids"] = [r[4][i] for r in chunk
+                                      for i in range(T) if srcs[i] == "pool"]
             elif gkey[0] in ("phrase", "span"):
                 spec["offs"] = np.stack([r[1] for r in chunk])
                 spec["ns"] = np.stack([r[2] for r in chunk])
-            else:
+            else:  # term, cterm
                 spec["offs"] = np.asarray([r[1][0] for r in chunk], np.int64)
                 spec["ns"] = np.asarray([r[2][0] for r in chunk], np.int64)
             specs.append(spec)
 
-    # partition the dense specs into waves whose unique terms fit the
-    # pools: a wave's plane and tf rows are pinned through its fill and its
-    # group launches
+    # partition the pool-reading specs into waves whose unique terms fit
+    # the pools: a wave's plane and tf rows are pinned through its fill and
+    # its group launches
     waves: List[List[dict]] = []
     cur: List[dict] = []
     cur_p: set = set()
@@ -515,7 +604,7 @@ def score_batch_fused(dev: DeviceIndex,
     if cur:
         waves.append(cur)
 
-    rows: List[int] = []          # query index of each output row
+    out_qis: List[int] = []       # query index of each output row
     outs: List[torch.Tensor] = []
     for wave in waves:
         plane_tids = [t for s in wave for t in s.get("plane_tids", ())]
@@ -524,28 +613,47 @@ def score_batch_fused(dev: DeviceIndex,
         for s in wave:
             idfs = kernels_cuda.host_to_device(s["idfs"], dev.device)
             DISPATCHES[0] += 1
-            if s["gkey"][0] == "dterm":
+            gkey = s["gkey"]
+            if gkey[0] == "dterm":
                 slots = kernels_cuda.host_to_device(
                     dense.tf_slots_of(dev, s["tf_tids"]), dev.device)
                 outs.append(dense.term_group_body(kind, k1, b, top_k,
                                                   dev.tf_pool, slots,
-                                                  dev.doc_lens, idfs, avgdl))
+                                                  dev.doc_lens, idfs, avgdl,
+                                                  rows=rows_t))
+            elif gkey[0] == "cterm":
+                crows, tf = kernels_cuda.cand_rows(
+                    dev.hdrs, dev.pays, s["offs"], s["ns"], gkey[2],
+                    num_docs=N, blk_bits=dev.blk_bits)
+                outs.append(C.finish_candidates(tf, crows, dev.doc_lens,
+                                                idfs, avgdl, kind, k1, b,
+                                                top_k, N))
+            elif gkey[0] in ("cphrase", "cspan"):
+                freqs, crows = C.candidate_freqs(dev, gkey, s["chunk"])
+                outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
+                                                idfs, avgdl, kind, k1, b,
+                                                top_k, N))
             else:
                 slots = dense.plane_slots_of(dev, s["plane_tids"]).reshape(
-                    len(s["chunk"]), s["gkey"][1])
-                if s["gkey"][0] == "dspan":
-                    _, _, anchor_i, w, mults = s["gkey"]
+                    len(s["chunk"]), gkey[1])
+                if gkey[0] == "dspan":
+                    _, _, anchor_i, w, mults = gkey
                     outs.append(dense.span_group_body(
                         dev, anchor_i, w, mults, kind, k1, b, top_k, slots,
-                        idfs, avgdl))
+                        idfs, avgdl, rows=rows_t))
                 else:
-                    _, _, plan_key, pattern = s["gkey"]
+                    _, _, plan_key, pattern = gkey
                     outs.append(dense.phrase_group_body(
                         dev, plan_key, pattern, kind, k1, b, top_k, slots,
-                        idfs, avgdl))
-            rows += [r[0] for r in s["chunk"]]
+                        idfs, avgdl, rows=rows_t))
+            out_qis += [r[0] for r in s["chunk"]]
+
+    def at_rows(out):
+        """A sparse group's full-corpus scores at the requested rows."""
+        return out if rows_t is None else out.index_select(1, rows_t)
+
     span_outs: List[torch.Tensor] = []   # ranked together, after the rest
-    span_rows: List[int] = []
+    span_qis: List[int] = []
     for s in specs:
         gkey = s["gkey"]
         if gkey[0] not in ("term", "phrase", "span"):
@@ -553,18 +661,19 @@ def score_batch_fused(dev: DeviceIndex,
         DISPATCHES[0] += 1
         if gkey[0] == "span":
             fn = _span_group_fn(dev, gkey[3], gkey[4], kind, k1, b)
-            span_outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
-                                s["offs"], s["ns"], s["idfs"]))
-            span_rows += [r[0] for r in s["chunk"]]
+            span_outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens,
+                                        avgdl, s["offs"], s["ns"],
+                                        s["idfs"])))
+            span_qis += [r[0] for r in s["chunk"]]
             continue
         if gkey[0] == "term":
             fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
                                 top_k)
         else:
             fn = _phrase_group_fn(dev, gkey[2], gkey[3], kind, k1, b, top_k)
-        outs.append(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl, s["offs"],
-                       s["ns"], s["idfs"]))
-        rows += [r[0] for r in s["chunk"]]
+        outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
+                               s["offs"], s["ns"], s["idfs"])))
+        out_qis += [r[0] for r in s["chunk"]]
     if span_outs:
         # one K3 call ranks the rows of every span group (cut only where
         # the stack would pass ~1 GB)
@@ -577,17 +686,18 @@ def score_batch_fused(dev: DeviceIndex,
             outs += [dense.pack_topk(stack[r0: r0 + step], top_k)
                      for r0 in range(0, stack.shape[0], step)]
         del stack
-        rows += span_rows
+        out_qis += span_qis
 
     if as_device:
-        if len(outs) == 1 and rows == list(range(Q)):
+        if len(outs) == 1 and out_qis == list(range(Q)):
             out = outs[0]   # one group, in query order: nothing to place
         else:
-            out = torch.zeros((Q, N), dtype=torch.float32,
+            out = torch.zeros((Q, n_out), dtype=torch.float32,
                               device=dev.device)
             if outs:
                 out[kernels_cuda.host_to_device(
-                    np.asarray(rows, np.int64), dev.device)] = torch.cat(outs)
+                    np.asarray(out_qis, np.int64), dev.device)] = torch.cat(
+                        outs)
         if dedup:  # fan duplicate queries back out
             out = out[kernels_cuda.host_to_device(
                 np.asarray(expand, np.int64), dev.device)]
@@ -614,17 +724,17 @@ def score_batch_fused(dev: DeviceIndex,
                 if event is not None:
                     event.synchronize()
                 packed = staged.numpy()
-                scores[rows] = packed[:, :top_k].view(np.float32)
-                idx[rows] = packed[:, top_k:]
+                scores[out_qis] = packed[:, :top_k].view(np.float32)
+                idx[out_qis] = packed[:, top_k:]
             if dedup:  # fan duplicate queries back out
                 return scores[expand], idx[expand]
             return scores, idx
 
         return collect if defer else collect()
 
-    out_np = np.zeros((Q, N), np.float32)
+    out_np = np.zeros((Q, n_out), np.float32)
     if outs:
-        out_np[rows] = torch.cat(outs).cpu().numpy()
+        out_np[out_qis] = torch.cat(outs).cpu().numpy()
     if dedup:  # fan duplicate queries back out
         out_np = out_np[expand]
     return out_np

@@ -31,10 +31,11 @@ before any later read of it and read before any later launch refills its
 slot.
 
 The port of the JAX package's dense engine (``searcharray_tpu/search/
-dense.py``) for exact and slop phrases on full planes; candidate rows
-come with a later slice.  Its compile-bounding fill programs
-(``_FILL_CHUNK``, the canonical fill key) and the TPU-only MXU slot sum
-have no counterpart here: PyTorch runs eagerly.
+dense.py``) for exact and slop phrases on full planes, and over a doc-id
+subset (``rows``): the planes' minis at those docs, built by K8b.  Its
+compile-bounding fill programs (``_FILL_CHUNK``, the canonical fill key)
+and the TPU-only MXU slot sum have no counterpart here: PyTorch runs
+eagerly.
 """
 from __future__ import annotations
 
@@ -295,9 +296,14 @@ def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
 
 
 def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
-                    tfpool, slots, doc_lens, idfs, avgdl):
-    """One term group: gather tf rows + similarity (+ packed top-k)."""
+                    tfpool, slots, doc_lens, idfs, avgdl, rows=None):
+    """One term group: gather tf rows + similarity (+ packed top-k).  With
+    ``rows`` (a device index tensor of doc ids) the tf rows and the doc
+    lengths are gathered at those docs and the scores are [Qg, len(rows)]."""
     tfstack = tfpool.index_select(0, slots)
+    if rows is not None:
+        tfstack = tfstack.index_select(1, rows)
+        doc_lens = doc_lens.index_select(0, rows)
     out = K.apply_similarity_device(kind, tfstack, doc_lens[None, :],
                                     idfs[:, None], avgdl, k1, b)
     if top_k is None:
@@ -305,16 +311,35 @@ def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
     return pack_topk(out, top_k)
 
 
+def _rows_minis(dev: DeviceIndex, slots, rows):
+    """(pool, slots, num_docs, doc lengths) that K5 or K6 reads: the plane
+    pool, or with ``rows`` (an int32 device tensor of doc ids) the minis
+    of every query's pooled planes at those docs (one K8b launch) and the
+    doc lengths there."""
+    if rows is None:
+        return dev.plane_pool, slots, dev.corpus_size, dev.doc_lens
+    slots = np.asarray(slots)
+    Qg, T = slots.shape
+    minis = kernels_cuda.cand_minis(
+        rows, slots, np.zeros_like(slots), np.zeros_like(slots),
+        pool=dev.plane_pool, hdrs=dev.hdrs, pays=dev.pays,
+        num_docs=dev.corpus_size, blk_bits=dev.blk_bits)
+    return (minis, np.arange(Qg * T).reshape(Qg, T), rows.shape[0],
+            dev.doc_lens.index_select(0, rows))
+
+
 def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
                       kind: str, k1: float, b: float, top_k: Optional[int],
-                      slots, idfs, avgdl):
+                      slots, idfs, avgdl, rows=None):
     """One exact-phrase group on full planes: one K5 launch reads every
     query's planes from the pool, then similarity (+ packed top-k).
-    ``slots`` is the host int [Qg, T] array of plane rows."""
-    freqs = kernels_cuda.phrase_chain(dev.plane_pool, slots, plan_key,
-                                      pattern, num_docs=dev.corpus_size,
-                                      blk_bits=dev.blk_bits)
-    out = K.apply_similarity_device(kind, freqs, dev.doc_lens[None, :],
+    ``slots`` is the host int [Qg, T] array of plane rows.  With ``rows``
+    (an int32 device tensor of doc ids) K5 runs on the planes' minis at
+    those docs (K8b) and the scores are [Qg, len(rows)]."""
+    pool, slots, n_docs, doc_lens = _rows_minis(dev, slots, rows)
+    freqs = kernels_cuda.phrase_chain(pool, slots, plan_key, pattern,
+                                      num_docs=n_docs, blk_bits=dev.blk_bits)
+    out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
                                     idfs[:, None], avgdl, k1, b)
     if top_k is None:
         return out
@@ -336,16 +361,16 @@ def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
 
 def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
                     kind: str, k1: float, b: float, top_k: Optional[int],
-                    slots, idfs, avgdl):
+                    slots, idfs, avgdl, rows=None):
     """One slop group on full planes: one K6 launch reads every query's
     planes from the pool, then similarity (+ packed top-k).  ``slots`` is
     the host int [Qg, T] array of the plane rows of each query's distinct
-    terms."""
-    freqs = kernels_cuda.span_window(dev.plane_pool, slots, w, mults,
-                                     anchor=anchor_i,
-                                     num_docs=dev.corpus_size,
-                                     blk_bits=dev.blk_bits)
-    out = K.apply_similarity_device(kind, freqs, dev.doc_lens[None, :],
+    terms.  With ``rows`` K6 runs on the minis at those docs, as in
+    ``phrase_group_body``."""
+    pool, slots, n_docs, doc_lens = _rows_minis(dev, slots, rows)
+    freqs = kernels_cuda.span_window(pool, slots, w, mults, anchor=anchor_i,
+                                     num_docs=n_docs, blk_bits=dev.blk_bits)
+    out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
                                     idfs[:, None], avgdl, k1, b)
     if top_k is None:
         return out

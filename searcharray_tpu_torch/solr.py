@@ -9,9 +9,14 @@ stacks come from ``SearchArray.score_batch_device`` and stay on the
 device; the dismax / tie / mm composition and the phase folds are
 elementwise passes and reductions over them in plain torch (the JAX
 package computes them outside any hand-written kernel too); the ranking
-is K3 (``dense.pack_topk``).  The phrase phases always score the whole
-corpus and are masked by the main query's matches afterwards, which the
-JAX package pins as numerically identical to its candidate-row pruning.
+is K3 (``dense.pack_topk``).  The phrase phases add only at docs the
+main query matched.  ``edismax`` on a large corpus whose main query
+matched few docs scores its exact phases at those docs only (the
+candidate-row pruning of the JAX package, ``score_batch_device(rows=)``,
+K8b's minis under K5) and adds them there; elsewhere, and in
+``edismax_batch``, the phases score the whole corpus and are masked by
+the main query's matches, which the JAX package pins as numerically
+identical.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda.score import host_to_device
 from searcharray_tpu_torch.pandas_ext.array import SearchArray
 from searcharray_tpu_torch.search.dense import pack_topk
@@ -199,19 +205,84 @@ def _gram_explain(field, gram, slop, boost) -> str:
     return f" ({field}:\"{' '.join(gram)}\"{slop_exp})^{_boost_exp(boost)}"
 
 
-def _ngram_phases(frame, search_terms, phases, similarity):
+# Candidate-row phrase phases engage above this corpus size when the main
+# query matched at most 1/PHASE_SUBSET_MAX_FRAC of the docs: the
+# reference's cost contract (phrase phases proportional to matches,
+# solr.py:328-338).  The match set comes back as ONE copy of (count, the
+# first PHASE_ROWS_CAP matched ids); a count in (cap, N/8] pays one more
+# copy sized to it.  The JAX package prunes from 2^17 docs.  On an H100
+# reading the match set makes the host wait for the main query's kernels,
+# which cost more than the whole-corpus phase passes it saves: timed in
+# turns (scripts/cand_crossover.py, PERF.md section 6), edismax's p50 was
+# higher with the pruning on at every size from 1M to the README's largest
+# tier, 8,841,823 docs (5.25 -> 7.23 ms there).  So it starts past that
+# tier; whether it pays above is not measured.
+PHASE_SUBSET_MIN_DOCS = 1 << 24
+PHASE_SUBSET_MAX_FRAC = 8
+PHASE_ROWS_CAP = 1 << 16
+
+
+def _matched_ids(qf_scores: torch.Tensor, cap: int) -> np.ndarray:
+    """int32 [1 + cap] on the host: the number of docs with a positive
+    score, then the first ``cap`` of them in doc order (``n`` past the
+    matches).  One device-to-host copy."""
+    n = qf_scores.shape[0]
+    pos = qf_scores > 0
+    rank = torch.cumsum(pos, 0)
+    dest = torch.where(pos & (rank <= cap), rank - 1, cap)
+    ids = torch.full((cap + 1,), n, dtype=torch.int64,
+                     device=qf_scores.device)
+    ids.scatter_(0, dest, torch.arange(n, device=qf_scores.device))
+    ids[cap] = rank[-1]
+    return ids.roll(1).to(torch.int32).cpu().numpy()
+
+
+def _phase_candidate_rows(qf_scores: torch.Tensor) -> Optional[np.ndarray]:
+    """Doc ids matched by the main query, or None where scoring the
+    phases at them would not pay (a small corpus, a broad match, no
+    match)."""
+    n = int(qf_scores.shape[0])
+    if n == 0 or n < PHASE_SUBSET_MIN_DOCS:
+        return None
+    cap = min(PHASE_ROWS_CAP, n)
+    wire = _matched_ids(qf_scores, cap)
+    count = int(wire[0])
+    if count == 0 or count * PHASE_SUBSET_MAX_FRAC > n:
+        return None
+    if count <= cap:
+        return wire[1: 1 + count].astype(np.int64)
+    # the middle zone: one more copy, sized to the count
+    wire = _matched_ids(qf_scores, min(K.bucket_of(count), n))
+    return wire[1: 1 + count].astype(np.int64)
+
+
+def _ngram_phases(frame, search_terms, phases, similarity,
+                  rows: Optional[np.ndarray] = None):
     """pf / pf2 / pf3 scoring, all phases batched per FIELD.
 
     ``phases`` is a list of (fields, ngram, slop): ngram=0 means the
     whole phrase, 2/3 the bigram/trigram phases; ``slop`` wires the Solr
     ps/ps2/ps3 parameters.  A field appearing in several phases scores ALL
     its grams in ONE device batch (per-query slop, search/batch.py): one
-    pool-fill wave per field.  The grams score the whole corpus; the
-    caller masks by the main query's matches.
+    pool-fill wave per field.  With ``rows`` (the main query's matched
+    docs) an exact phase whose fields all have a fused similarity scores
+    its grams at those docs only; slop phases and custom similarities
+    score the whole corpus, and the caller masks by the main query's
+    matches.
 
-    Returns a list of (total [N] tensor or None, explain) per phase."""
+    Returns a list of (total tensor or None, explain, rows it is over or
+    None) per phase."""
     n_ph = len(phases)
-    calls: dict = {}
+    rows_p: List[Optional[np.ndarray]] = []
+    for fields, _ngram, slop in phases:
+        use = rows
+        if use is not None and (slop != 0 or any(
+                getattr(similarity.get(f, default_bm25), "_fused",
+                        None) is None for f in fields)):
+            use = None
+        rows_p.append(use)
+
+    calls: dict = {}   # per (field, rows mode)
     for pi, (fields, ngram, slop) in enumerate(phases):
         min_terms = ngram if ngram else 2
         for field, boost in fields.items():
@@ -219,7 +290,7 @@ def _ngram_phases(frame, search_terms, phases, similarity):
             if len(terms) < min_terms:
                 continue
             grams = _grams_of(terms, ngram)
-            ent = calls.setdefault(field,
+            ent = calls.setdefault((field, rows_p[pi] is not None),
                                    {"grams": [], "slops": [], "segs": []})
             ent["segs"].append((pi, boost, ngram, slop, len(ent["grams"]),
                                 len(grams)))
@@ -228,9 +299,10 @@ def _ngram_phases(frame, search_terms, phases, similarity):
 
     totals: List[Optional[torch.Tensor]] = [None] * n_ph
     explains: List[str] = [""] * n_ph
-    for field, ent in calls.items():
+    for (field, mode), ent in calls.items():
         gram_scores = get_field(frame, field).score_batch_device(
-            ent["grams"], similarity=similarity[field], slop=ent["slops"])
+            ent["grams"], similarity=similarity[field], slop=ent["slops"],
+            rows=rows if mode else None)
         for pi, boost, ngram, slop, g0, gn in ent["segs"]:
             seg = gram_scores[g0: g0 + gn]
             contrib = seg.sum(dim=0)
@@ -243,7 +315,9 @@ def _ngram_phases(frame, search_terms, phases, similarity):
                           else totals[pi] + contrib)
             for gram in ent["grams"][g0: g0 + gn]:
                 explains[pi] += _gram_explain(field, gram, slop, boost)
-    return [(totals[pi], explains[pi]) for pi in range(n_ph)]
+    return [(totals[pi], explains[pi],
+             rows_p[pi] if totals[pi] is not None else None)
+            for pi in range(n_ph)]
 
 
 def _unpack_topk(wire: np.ndarray, k: int):
@@ -307,19 +381,35 @@ def edismax(frame: pd.DataFrame, q: str, qf: List[str],
                                  search_terms, mm, tie=tie,
                                  similarity=similarity)
 
-    # Phrase phases contribute only at rows matched by the main query: a
-    # mask after full-corpus scoring.  The mask is taken once from the
-    # main scores: phase boosts are non-negative and only ever add at
-    # already-positive rows.
+    # Phrase phases contribute only at rows matched by the main query.  At
+    # scale the matched rows are read once and the exact phases score only
+    # those docs (the reference's candidate pruning, solr.py:328-338);
+    # otherwise a mask after full-corpus scoring.  The mask is taken once
+    # from the main scores: phase boosts are non-negative and only ever add
+    # at already-positive rows.
+    rows = None
+    if phrase_fields or bigram_fields or trigram_fields:
+        rows = _phase_candidate_rows(qf_scores)
     phase_results = _ngram_phases(
         frame, search_terms,
         [(phrase_fields, 0, ps), (bigram_fields, 2, ps2),
-         (trigram_fields, 3, ps3)], similarity)
+         (trigram_fields, 3, ps3)], similarity, rows)
     pos = qf_scores > 0
-    for extra, phase_explain in phase_results:
+    rows_extras = []
+    for extra, phase_explain, extra_rows in phase_results:
         explain += phase_explain
-        if extra is not None:
+        if extra is None:
+            continue
+        if extra_rows is None:
             qf_scores = qf_scores + torch.where(pos, extra, 0.0)
+        else:
+            rows_extras.append(extra)
+    if rows_extras:
+        # the main scores are positive exactly at these rows, so adding
+        # there is the masked add
+        rows_t = host_to_device(rows, qf_scores.device)
+        for extra in rows_extras:
+            qf_scores = qf_scores.index_add(0, rows_t, extra)
 
     if top_k is None:
         return qf_scores.cpu().numpy(), explain

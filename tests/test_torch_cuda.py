@@ -1,6 +1,5 @@
-"""The CUDA kernels K1 to K7 and K9 against their plain PyTorch
-versions, and the port's main path on a card against the same path on
-the CPU.
+"""The CUDA kernels K1 to K9 against their plain PyTorch versions, and
+the port's main path on a card against the same path on the CPU.
 
 CUDA kernels have no CPU mode: every test here needs a CUDA device and
 skips without one.  The file imports no jax, so it also runs where only
@@ -1249,3 +1248,205 @@ def test_sparse_slop_path_on_card_matches_cpu(card, monkeypatch):
             (gs, gi), _ = edismax(frames[1], q, top_k=5, **kw)
             np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-6)
     assert kc.span_sparse.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K8a and K8b: candidate rows and mini-planes
+# ---------------------------------------------------------------------------
+K8A_TILE = 2048   # words of a K8a tile (csrc/cand_rows.cu)
+
+
+def cand_slices(seed, sizes, num_docs, blk_bits, near=0.5):
+    """Doc-sorted slices of unique headers laid end to end (a PAD tail
+    behind them): a fraction ``near`` of the words of every slice after
+    the first lie in the first slice's docs.  (hdrs, pays, offs)."""
+    rng = np.random.default_rng(seed)
+    S = 1 << blk_bits
+    hdrs, pays, offs, at = [], [], [], 0
+    for n in sizes:
+        pick = np.asarray([], np.int64)
+        if hdrs and len(hdrs[0]):
+            m = int(n * near)
+            pick = np.unique(rng.choice(np.unique(hdrs[0] >> blk_bits), m)
+                             * S + rng.integers(0, S, m))
+        rest = rng.choice(num_docs * S, size=min(num_docs * S, 2 * n + 8),
+                          replace=False)
+        rest = np.setdiff1d(rest, pick)[: n - len(pick)]
+        flat = np.sort(np.concatenate([pick, rest]))
+        hdrs.append(flat.astype(np.int32))
+        pays.append(rng.integers(1, 1 << 18, len(flat)).astype(np.int32))
+        offs.append(at)
+        at += len(flat)
+    hdrs.append(np.full(64, PAD_HDR32, np.int32))
+    pays.append(np.zeros(64, np.int32))
+    return (torch.from_numpy(np.concatenate(hdrs)),
+            torch.from_numpy(np.concatenate(pays)), offs,
+            [len(h) for h in hdrs[:-1]])
+
+
+def k8a_both(card, hdrs, pays, offs, ns, kc_, num_docs, blk_bits, with_tf):
+    kw = dict(num_docs=num_docs, blk_bits=blk_bits, with_tf=with_tf)
+    before = kc.cand_rows.launches
+    got = kc.cand_rows(hdrs.to(card), pays.to(card), offs, ns, kc_, **kw)
+    want = kc.cand_rows_plain(hdrs, pays, np.asarray(offs), np.asarray(ns),
+                              kc_, **kw)
+    torch.cuda.synchronize()
+    assert kc.cand_rows.launches == before + 1
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:   # integers, and tf sums of small integers
+            assert torch.equal(g.cpu(), w)
+    return want
+
+
+@pytest.mark.parametrize("with_tf", [True, False])
+@pytest.mark.parametrize("sizes,num_docs,kc_", [
+    ([0], 100, 4096), ([1], 100, 4096), ([1, 0, 1], 5, 8),
+    ([K8A_TILE - 1, K8A_TILE, K8A_TILE + 1], 700, 4096),
+    ([5 * K8A_TILE + 3], 2_000, 16_384), ([65_000], 40_000, 65_536),
+    ([3000, 20, 3000, 1], 900, 1024), ([400], 1000, 16)])
+def test_k8a_kernel_matches_plain(card, sizes, num_docs, kc_, with_tf):
+    """Runs of one doc across tile edges (few docs, many blocks each), a
+    row table exactly full, one too small (runs dropped), empty slices."""
+    hdrs, pays, offs, ns = cand_slices(sum(sizes) + num_docs, sizes,
+                                       num_docs, 3, near=0.0)
+    rows, _ = k8a_both(card, hdrs, pays, offs, ns, kc_, num_docs, 3, with_tf)
+    distinct = [len(np.unique(hdrs[o: o + n].numpy() >> 3))
+                for o, n in zip(offs, ns)]
+    for r, d in zip(rows, distinct):
+        assert int((r < num_docs).sum()) == min(d, kc_)
+
+
+@pytest.mark.parametrize("with_tf", [True, False])
+def test_k8a_runs_across_many_tiles_and_many_queries(card, with_tf):
+    """Docs of thousands of words (blk_bits 14), so one run spans several
+    tiles, and a chunk of 70 queries, empty ones between them, whose tiles
+    share one launch."""
+    hdrs, pays, offs, ns = cand_slices(5, [3 * K8A_TILE + 5, 40, 0], 3, 14,
+                                       near=0.0)
+    rows, _ = k8a_both(card, hdrs, pays, offs, ns, 8, 3, 14, with_tf)
+    docs, words = np.unique(hdrs[: ns[0]].numpy() >> 14, return_counts=True)
+    assert int((rows[0] < 3).sum()) == len(docs) and words.max() > K8A_TILE
+    sizes = [(i * 977) % 5000 if i % 4 else 0 for i in range(70)]
+    hdrs, pays, offs, ns = cand_slices(6, sizes, 3000, 3, near=0.0)
+    k8a_both(card, hdrs, pays, offs, ns, 4096, 3000, 3, with_tf)
+
+
+def test_k8a_full_table_and_pad_only_table(card):
+    # every doc once per block: a table of exactly the distinct docs
+    n_docs, bb = 3000, 3
+    h = (np.repeat(np.arange(n_docs), 3) << bb | np.tile([0, 2, 5], n_docs))
+    hdrs = torch.from_numpy(np.concatenate(
+        [h, [PAD_HDR32] * 8]).astype(np.int32))
+    pays = torch.ones_like(hdrs)
+    rows, tf = k8a_both(card, hdrs, pays, [0, 0], [len(h), 0], n_docs,
+                        n_docs, bb, True)
+    assert torch.equal(rows[0], torch.arange(n_docs, dtype=torch.int32))
+    assert bool((rows[1] == n_docs).all()) and bool((tf[1] == 0).all())
+    assert bool((tf[0] == 3).all())
+
+
+@pytest.mark.parametrize("blk_bits,num_docs", [(3, 20_000), (0, 50_000),
+                                               (12, 300), (14, 80)])
+def test_k8b_kernel_matches_plain(card, blk_bits, num_docs):
+    """Pool and own-slice terms in one launch, mini misses (half of each
+    term's words lie outside the rows), sentinel rows past the
+    candidates, S = 8 and docs wider than a tile."""
+    S = 1 << blk_bits
+    sizes = [min(900, num_docs * S // 4), min(4000, num_docs * S // 3),
+             min(2500, num_docs * S // 3), 1]
+    hdrs, pays, offs, ns = cand_slices(blk_bits, sizes, num_docs, blk_bits)
+    kc_ = 1 << max(3, ns[0].bit_length())
+    rows, _ = kc.cand_rows(hdrs, pays, [offs[0]] * 2, [ns[0], ns[0] // 2],
+                           kc_, num_docs=num_docs, blk_bits=blk_bits,
+                           with_tf=False)
+    pool = torch.zeros((3, num_docs * S), dtype=torch.int32)
+    kc.plane_fill(hdrs, pays, offs[1:3], ns[1:3], [1, 2], pool)
+    slots = [[-1, 1, -1, -1], [2, -1, 1, -1]]
+    qoffs, qns = [offs, offs], [ns, ns]
+    want = kc.cand_minis(rows, slots, qoffs, qns, pool=pool, hdrs=hdrs,
+                         pays=pays, num_docs=num_docs, blk_bits=blk_bits)
+    before = kc.cand_minis.launches
+    got = kc.cand_minis(rows.to(card), slots, qoffs, qns, pool=pool.to(card),
+                        hdrs=hdrs.to(card), pays=pays.to(card),
+                        num_docs=num_docs, blk_bits=blk_bits)
+    torch.cuda.synchronize()
+    assert kc.cand_minis.launches == before + 1
+    assert got.shape == (8, kc_ * S)
+    assert torch.equal(got.cpu(), want)   # everywhere, sentinel rows too
+    assert bool((rows[1] == num_docs).any())   # the sentinel rows
+    assert bool(want[2].any()) and bool(want[0].any())
+
+
+def test_k8b_shared_table_and_pad_only_rows(card):
+    num_docs, bb = 5000, 3
+    hdrs, pays, offs, ns = cand_slices(8, [700, 2000], num_docs, bb)
+    pool = torch.zeros((2, num_docs << bb), dtype=torch.int32)
+    kc.plane_fill(hdrs, pays, [offs[1]], [ns[1]], [1], pool)
+    for rows in (torch.full((4096,), num_docs, dtype=torch.int32),
+                 kc.cand_rows(hdrs, pays, [offs[0]], [ns[0]], 4096,
+                              num_docs=num_docs, blk_bits=bb)[0][0]):
+        args = ([[1, -1], [-1, 1], [-1, -1]], [offs] * 3, [ns] * 3)
+        kw = dict(num_docs=num_docs, blk_bits=bb)
+        want = kc.cand_minis(rows, *args, pool=pool, hdrs=hdrs, pays=pays,
+                             **kw)
+        got = kc.cand_minis(rows.to(card), *args, pool=pool.to(card),
+                            hdrs=hdrs.to(card), pays=pays.to(card), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_k8_enqueue_without_a_host_sync(card):
+    num_docs, bb = 20_000, 3
+    hdrs, pays, offs, ns = cand_slices(9, [3000, 9000], num_docs, bb)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    pool = torch.zeros((2, num_docs << bb), dtype=torch.int32, device=card)
+    kc.plane_fill(hdrs, pays, [offs[1]], [ns[1]], [1], pool)
+    kw = dict(num_docs=num_docs, blk_bits=bb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows, tf = kc.cand_rows(hdrs, pays, [offs[0]], [ns[0]], 4096, **kw)
+        minis = kc.cand_minis(rows, [[-1, 1]], [offs], [ns], pool=pool,
+                              hdrs=hdrs, pays=pays, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = kc.cand_minis(rows.cpu(), [[-1, 1]], [offs], [ns], pool=pool.cpu(),
+                         hdrs=hdrs.cpu(), pays=pays.cpu(), **kw)
+    assert torch.equal(minis.cpu(), want)
+
+
+def test_candidate_path_on_card_matches_cpu(card, monkeypatch):
+    """The forced candidate engine through the facade, and rows=, on the
+    card and on the CPU: ranked indices equal, K8a and K8b launched."""
+    from searcharray_tpu_torch.search import candidates as cand
+
+    for name, value in (("CAND_MIN_DOCS", 0), ("CAND_TERM_MIN_DOCS", 0),
+                        ("CAND_MAX_FRAC", 0), ("MINI_MAX_WORDS", 4096)):
+        monkeypatch.setattr(cand, name, value)
+    rng = np.random.default_rng(44)
+    vocab = ["hot1", "hot2"] + [f"r{i}" for i in range(200)]
+    probs = np.concatenate([[0.3, 0.2], np.full(200, 0.5 / 200)])
+    docs = [" ".join(rng.choice(vocab, size=rng.integers(4, 60), p=probs))
+            for _ in range(20_000)]
+    cpu = SearchArray.index(docs, device="cpu")
+    gpu = SearchArray.index(docs, device="cuda")
+    qs = ["r3", ["r3", "hot1"], ["hot2", "r7", "hot1"], ["r1", "r1"], "r9",
+          ["r5", "r6"], "r3"]
+    before = (kc.cand_rows.launches, kc.cand_minis.launches)
+    for slop in (0, 2):
+        for block in (True, False):
+            ws, wi = cpu.score_batch(qs, top_k=10, slop=slop)
+            out = gpu.score_batch(qs, top_k=10, slop=slop, block=block)
+            gs, gi = out if block else out()
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(gpu.score_batch(qs, slop=slop),
+                                   cpu.score_batch(qs, slop=slop),
+                                   rtol=1e-6, atol=1e-7)
+    rows = np.arange(1, 20_000, 5)
+    np.testing.assert_allclose(
+        gpu.score_batch_device(qs, rows=rows).cpu().numpy(),
+        cpu.score_batch_device(qs, rows=rows).numpy(), rtol=1e-6, atol=1e-7)
+    assert kc.cand_rows.launches > before[0]
+    assert kc.cand_minis.launches > before[1]

@@ -348,3 +348,48 @@ def test_rows_reject_bad_requests():
         kc.score_term_rows(hdrs, pays, [0], [1], out, [2], **kw)
     kc.score_term_rows(hdrs, pays, [0, 1], [1, 2], out, [1, 0], **kw)
     assert out.tolist() == [[0, 2, 3, 0], [1, 0, 0, 0]]
+
+
+@pytest.mark.parametrize("ns,kc,with_tf", [([949], 4096, True),
+                                            ([0, 65_000, 3], 65_536, True),
+                                            ([2_048] * 5, 4096, False)])
+def test_k8a_work_is_the_headers_the_indices_and_the_tables(ns, kc, with_tf):
+    w = rl.k8a_work(ns, kc, with_tf)
+    words = sum(ns)
+    per_word = 8 if with_tf else 4
+    assert w["bytes"] == per_word * words + (8 if with_tf else 4) * kc * len(
+        ns)
+    assert w["ops"] == ((rl.K8A_OPS_PER_WORD + (rl.K8A_OPS_PER_TF_WORD
+                                                if with_tf else 0)) * words
+                        + kc * len(ns))
+    # a serving chunk is bound by its bytes: a few operations a word
+    assert w["bound_by"] == "bytes"
+
+
+def test_k8a_work_of_a_chunk_adds_up_its_queries():
+    chunk = rl.k8a_work([10, 2000, 0], 4096)
+    singles = [rl.k8a_work([n], 4096) for n in (10, 2000, 0)]
+    assert chunk["bytes"] == sum(w["bytes"] for w in singles)
+    assert chunk["ops"] == sum(w["ops"] for w in singles)
+
+
+@pytest.mark.parametrize("blk_bits", [0, 3, 14])
+def test_k8b_work_pooled_minis_are_a_read_and_a_write(blk_bits):
+    kc = 4096
+    w = rl.k8b_work(kc, blk_bits, 3, [], 2)
+    width = kc << blk_bits
+    assert w["bytes"] == 3 * 8 * width + 2 * 4 * kc
+    assert w["ops"] == rl.K8B_OPS_PER_SLOT * 3 * width
+
+
+def test_k8b_work_own_slices_are_the_words_and_the_zeroed_minis():
+    kc, bb = 16_384, 3
+    w = rl.k8b_work(kc, bb, 0, [100, 70_000], 1)
+    width = kc << bb
+    assert w["bytes"] == 8 * 70_100 + 2 * 4 * width + 4 * kc
+    probes = 70_100 * kc.bit_length()
+    assert w["ops"] == (rl.K8B_OPS_PER_SLOT * 2 * width
+                        + rl.K8B_OPS_PER_WORD * 70_100
+                        + rl.K7_OPS_PER_PROBE * probes)
+    both = rl.k8b_work(kc, bb, 2, [100, 70_000], 1)
+    assert both["bytes"] == w["bytes"] + 2 * 8 * width

@@ -284,11 +284,17 @@ def test_unported_parts_raise(pair, call):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
         assert gs[0, 0] > 0
+        # ported too: scores over a subset of rows
+        rows = np.arange(0, len(tarr), 3)
+        got = tarr.score_batch_device([["alpha", "beta"], "alpha"],
+                                      rows=rows)
+        want = np.asarray(jarr.score_batch_device(
+            [["alpha", "beta"], "alpha"], rows=rows))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+        assert got.shape == (2, len(rows)) and got.max() > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "phrase_batch":
-            # what still raises: scores over a candidate subset of rows
-            tarr.score_batch_device([["alpha", "beta"]], rows=np.arange(2))
-        elif call == "setitem":
+        if call == "setitem":
             tarr[0] = {"a": 1}
         elif call == "positions":
             tarr.positions("alpha")

@@ -462,9 +462,9 @@ def test_dedup_is_by_query_and_slop(cache_pair, monkeypatch):
     seen = []
     classify = batch._classify
 
-    def spy(dev, queries, kind, slop=0):
+    def spy(dev, queries, kind, slop=0, **kw):
         seen.append((list(queries), list(slop)))
-        return classify(dev, queries, kind, slop=slop)
+        return classify(dev, queries, kind, slop=slop, **kw)
 
     monkeypatch.setattr(batch, "_classify", spy)
     qs = [["red", "fox"]] * 4 + ["dog", "dog"]

@@ -261,21 +261,45 @@ ZIPF_KW = dict(q="foo bar baz", qf=["title", "body^2"], pf=["title"],
 @pytest.mark.parametrize("extra", [{}, {"ps2": 1}, {"ps": 2, "ps3": 20},
                                    {"ps": 30, "ps2": 18}])
 def test_phase_candidate_rows_parity(zipf_pair, extra, monkeypatch):
-    """The JAX package forced onto its candidate-row phrase phases (cost
-    proportional to matches) against the port's full-corpus mask: the
-    same scores and explain strings."""
+    """Both packages forced onto their candidate-row phrase phases (cost
+    proportional to matches), in the count-and-ids zone and in the middle
+    zone, against each other and against the full-corpus mask: the same
+    scores and explain strings."""
     jf, tf = zipf_pair
     got, gexp = tpkg.edismax(tf, **ZIPF_KW, **extra)
     full, fexp = jpkg.edismax(jf, **ZIPF_KW, **extra)
-    monkeypatch.setattr(jsolr, "PHASE_SUBSET_MIN_DOCS", 0)
-    monkeypatch.setattr(jsolr, "PHASE_SUBSET_MAX_FRAC", 1)
+    for pkg in (jsolr, tsolr):
+        monkeypatch.setattr(pkg, "PHASE_SUBSET_MIN_DOCS", 0)
+        monkeypatch.setattr(pkg, "PHASE_SUBSET_MAX_FRAC", 1)
+    rows = tsolr._phase_candidate_rows(
+        torch.from_numpy(np.where(got > 0, got, 0.0)))
+    assert rows is not None and np.array_equal(rows, np.flatnonzero(got))
     sub, sexp = jpkg.edismax(jf, **ZIPF_KW, **extra)
-    assert gexp == sexp == fexp
+    seen = []
+    sbd = tpkg.SearchArray.score_batch_device
+
+    def spy(self, queries, *a, rows=None, **kw):
+        seen.append(rows is not None)
+        return sbd(self, queries, *a, rows=rows, **kw)
+
+    monkeypatch.setattr(tpkg.SearchArray, "score_batch_device", spy)
+    tsub, tsexp = tpkg.edismax(tf, **ZIPF_KW, **extra)
+    # every case has an exact phase, which takes the rows
+    assert any(seen)
+    assert gexp == sexp == fexp == tsexp
     np.testing.assert_allclose(got, sub, **TOL)
     np.testing.assert_allclose(got, full, **TOL)
-    monkeypatch.setattr(jsolr, "PHASE_ROWS_CAP", 4)   # the middle zone
+    np.testing.assert_allclose(tsub, sub, **TOL)
+    for pkg in (jsolr, tsolr):
+        monkeypatch.setattr(pkg, "PHASE_ROWS_CAP", 4)   # the middle zone
     mid, _ = jpkg.edismax(jf, **ZIPF_KW, **extra)
+    tmid, tmexp = tpkg.edismax(tf, **ZIPF_KW, **extra)
     np.testing.assert_allclose(got, mid, **TOL)
+    np.testing.assert_allclose(tmid, mid, **TOL)
+    assert tmexp == fexp
+    (ts, ti), _ = tpkg.edismax(tf, **ZIPF_KW, **extra, top_k=5)
+    (js, ji), _ = jpkg.edismax(jf, **ZIPF_KW, **extra, top_k=5)
+    np.testing.assert_allclose(ts, js, **TOL)
     assert got[len(tf) - 8] > 0 or got[7] > 0
 
 
@@ -438,5 +462,18 @@ def test_score_batch_device_custom_similarity_and_errors(zipf_pair):
     assert tarr.score_batch_device([]).shape == (0, len(tarr))
     with pytest.raises(ValueError, match="slop length"):
         tarr.score_batch_device(SBD_QUERIES, slop=[1, 2])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tf["body"].array.score_batch_device(["foo"], rows=np.arange(5))
+    # scores over a subset of rows: the JAX package's, and its refusals
+    rows = np.arange(3, len(tf), 11)
+    got = tf["body"].array.score_batch_device(SBD_QUERIES, rows=rows,
+                                              slop=[0] * len(SBD_QUERIES))
+    want = np.asarray(jf["body"].array.score_batch_device(SBD_QUERIES,
+                                                          rows=rows))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    for bad in (dict(slop=1), dict(slop=[0, 1] * 4),
+                dict(similarity=binary_similarity)):
+        for arr in (tf["body"].array, jf["body"].array):
+            with pytest.raises(ValueError, match="rows= requires"):
+                arr.score_batch_device(SBD_QUERIES, rows=rows, **bad)
+    for arr in (tarr, jarr):
+        with pytest.raises(ValueError, match="rows= requires"):
+            arr.score_batch_device(["foo"], rows=np.arange(5))
