@@ -82,8 +82,8 @@ entry points a user calls, and checks it:
    control, K4 on the batch's plane rows, K5 on each phrase
    group of the batch, on the serving mix's rare phrases and on tf-pool
    rows, K3 on the score blocks of a mixed request for k on both sides of
-   its sort cap, on a one-value row and on a [150, 1M] block with ties
-   planted at tile edges, K6 on every window launch and tf-row fill of a
+   its one-pass cap and of its sort cap, on a one-value row and on a
+   [150, 1M] block with ties planted at both paths' tile edges, K6 on every window launch and tf-row fill of a
    mixed request, K7 on every step the windowed phrases and the
    long-document mix launched, K2 on those steps' keys, K9 on every
    launch of the windowed, wide and repeated-term slop phrases and of the
@@ -91,9 +91,12 @@ entry points a user calls, and checks it:
    times: each kernel's own device time from ``torch.profiler``, the
    wrapper's time from CUDA events, the bytes its work needs and the
    bound they give (``ops/cuda/roofline.py``), the plain version's times
-   and, for K2, one ``index_add_`` call's, for K3 the plain
-   composition's, for K8a one ``torch.unique_consecutive`` call's, for
-   K8b one advanced-index gather's of its pooled minis;
+   and, for K2, one ``index_add_`` call's, for K3 one ``torch.topk``
+   call's (the same values, not the tie order), for K8a one
+   ``torch.unique_consecutive`` call's, for K8b the torch composition
+   that builds both of its minis and, for its pooled half launched
+   alone, the one gather of that half with its index arithmetic; K3's
+   device operations per call by the profiler's event count;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
    a serving mix of terms and phrases, with and without the 24 slop
    phrases; the long-document index, terms and the mix), a profile of
@@ -159,7 +162,8 @@ ED_KW = dict(qf=["title^2", "body"], mm="2<75%", tie=0.1,
 ED_SLOP = dict(ps=2, ps2=1)
 ED_CALLS = 10     # passes over ED_QUERIES per latency sample set, and calls
                   # per edismax_batch qps window
-K3_TILE = 16384                # elements of a row per block (csrc/topk.cu)
+K3_RADIX_TILE = 16384          # elements of a row per block of K3's radix
+                               # select (k above its one-pass cap)
 # the forced candidate phase (the engine's thresholds set to 0): rare and
 # mid-frequency terms, a phrase with a stopword co-term (a pool source), a
 # same-term phrase, and slop-2 phrases with a stopword and a repeated term
@@ -2062,14 +2066,19 @@ def main() -> int:
     # the plain version on the main path)
     k3_calls = [(a[0], a[1]) for name, a, _ in k36_calls[:n_first]
                 if name == "topk" and a[0].shape[-1] == n]
-    check(k6_groups and k6_fills
+    # the second call's (its slop phrases' rows cached by the first)
+    k3_calls2 = [(a[0], a[1]) for name, a, _ in k36_calls[n_first:]
+                 if name == "topk" and a[0].shape[-1] == n]
+    check(k6_groups and k6_fills and k3_calls and k3_calls2
           and all("out" not in kw for _, kw in k6_groups)
           and all(kw.get("out") is dev.tf_pool for _, kw in k6_fills),
           f"one mixed request launched K6 {len(k6_groups)} times on its "
           f"window groups ({sum(len(a[1]) for a, _ in k6_groups)} queries) "
           f"and K3 {len(k3_calls)} times "
           f"({sum(x.shape[0] for x, _ in k3_calls)} rows of {n}); its second "
-          f"call filled tf-pool rows with {len(k6_fills)} K6 launches (and "
+          f"call launched K3 {len(k3_calls2)} times "
+          f"({sum(x.shape[0] for x, _ in k3_calls2)} rows) and "
+          f"filled tf-pool rows with {len(k6_fills)} K6 launches (and "
           f"ran {len(k6_second) - len(k6_fills)} window launches for "
           "phrases the cache had no room for)")
     k6_err = 0.0
@@ -2114,26 +2123,31 @@ def main() -> int:
         return (vals - want_v).abs().nan_to_num(0.0).max().item()
 
     sort_cap = kc._get_lib().sa_topk_sort_cap()
-    k3_ks = (1, 10, 100, 1000, sort_cap, sort_cap + 952)
+    k3_tile = kc._get_lib().sa_topk_tile()
+    one_cap = kc._get_lib().sa_topk_one_pass_cap()
+    k3_ks = (1, 10, one_cap, one_cap + 1, 100, 1000, sort_cap,
+             sort_cap + 952)
     k3_big = max(k3_calls, key=lambda c: c[0].shape[0])[0]
-    k3_err = max([k3_same(x, k) for x, k in k3_calls]
+    k3_err = max([k3_same(x, k) for x, k in k3_calls + k3_calls2]
                  + [k3_same(k3_big, k) for k in k3_ks]
                  + [k3_same(torch.full((1, n), 2.5, device=dev.device), k)
                     for k in (1, TOP_K, sort_cap + 952)])
     # a [150, 1M] block of scores like BM25's (mostly 0, many equal) with
-    # runs of one value planted across the edges of the kernel's tiles:
-    # k places among k + 3 ties that start before, at and after an edge
+    # runs of one value planted across the edges of the kernel's tiles
+    # (the two-launch path's, read from the library, in odd rows; the
+    # radix select's in even ones): k places among k + 3 ties that start
+    # before, at and after an edge
     g = torch.Generator(device=dev.device)
     g.manual_seed(3)
     ties = torch.randint(0, 40, (150, n), generator=g,
                          device=dev.device).to(torch.float32) / 3
     ties[torch.rand((150, n), generator=g, device=dev.device) < 0.9] = 0.0
     for r in range(150):
-        at = (1 + r % 50) * K3_TILE - (r % 7)
+        at = (1 + r % 50) * (k3_tile if r % 2 else K3_RADIX_TILE) - (r % 7)
         ties[r, at: at + TOP_K + 3] = 50.0 + r
     ties[100:, :] = torch.where(ties[100:, :] > 40, ties[100:, :], 0.0)
-    k3_err = max([k3_err] + [k3_same(ties, k) for k in (1, TOP_K, 100,
-                                                        sort_cap + 952)])
+    k3_err = max([k3_err] + [k3_same(ties, k) for k in (
+        1, TOP_K, one_cap, one_cap + 1, 100, sort_cap + 952)])
     check(True, f"K3 equals its plain version (indices, and values bit for "
           f"bit) on the {len(k3_calls)} score blocks of a mixed request at "
           f"k = {TOP_K}, on its largest ({k3_big.shape[0]} rows) at k = "
@@ -2329,13 +2343,21 @@ def main() -> int:
                             top_k=TOP_K)
         return MIX_CALLS
 
+    def mixs_turn(w):
+        for c in range(MIX_CALLS):
+            arr.score_batch(mixed_request(4000 + w * MIX_CALLS + c)[0],
+                            top_k=TOP_K, slop=ss)
+        return MIX_CALLS
+
     e2e_turns = ([("parent", parent), ("new", None), ("new", None),
-                  ("parent", parent)] if parent is not None
+                  ("parent", parent)] * 2 if parent is not None
                  else [("new", None)])
     e2e = {}
     for name, window, n_q in (("long-document", long_window,
                                len(TERM_QUERIES)),
-                              ("serving mix", mix_turn, mix_n)):
+                              ("serving mix", mix_turn, mix_n),
+                              ("mixed request with slop", mixs_turn,
+                               mixs_n)):
         for t, (label, lib) in enumerate(e2e_turns):
             def turn(w, window=window):
                 return window(w) if lib is None else with_lib(
@@ -2415,7 +2437,8 @@ def main() -> int:
              "K5": ("chain_warp_kernel", "chain_tile_kernel",
                     "phrase_chain_kernel"),
              "K7": ("merge_step_kernel",),
-             "K3": ("topk_hist_kernel", "topk_select_kernel",
+             "K3": ("topk_tile_kernel", "topk_merge_kernel",
+                    "topk_hist_kernel", "topk_select_kernel",
                     "topk_tiescan_kernel", "topk_filter_kernel",
                     "topk_sort_kernel", "topk_unpack_kernel"),
              "K6": ("span_window_kernel",),
@@ -2428,9 +2451,8 @@ def main() -> int:
                 "K4": lambda: kc.plane_fill.launches,
                 "K5": lambda: kc.phrase_chain.launches,
                 "K7": lambda: kc.merge_step.launches,
-                # one K3 launch enqueues a fixed number of kernels
-                "K3": lambda: (kc.topk.launches
-                               * kc.TOPK_KERNELS_PER_LAUNCH),
+                # a K3 launch enqueues one, two or nine kernels
+                "K3": lambda: kc.topk.kernels,
                 "K6": lambda: kc.span_window.launches,
                 "K8a": lambda: (kc.cand_rows.launches
                                 * kc.CAND_ROWS_KERNELS_PER_LAUNCH),
@@ -2604,26 +2626,59 @@ def main() -> int:
             **kw5))(), serve_want),
               "the parent's K5 returns the same freqs on the serving launch")
 
-    # K3: the top-k launches of one mixed request (every group's score
-    # block, k = 10) and the [150, 1M] block with planted ties.  K3 and K6
-    # have no parent kernel.  The library time is the one PyTorch route to
-    # the same function: the plain composition (torch.topk, cumsum,
-    # nonzero, gather, sort), which synchronises the host twice a call.
+    # K3: the top-k launches of the two calls of one mixed request (every
+    # group's score block, k = 10) and the [150, 1M] block with planted
+    # ties.  The library time is torch.topk(x, k, sorted=True): the
+    # nearest PyTorch call, the same values but not the smallest-index
+    # order of ties, so no equivalent (the plain composition around it,
+    # which synchronises the host twice a call, is the plain time)
     def k3_run(fn, calls):
         return lambda: [fn(x, k) for x, k in calls]
 
-    k3_rows = sum(x.shape[0] for x, _ in k3_calls)
-    t_k3 = measure(
-        f"the top-k launches of one mixed request: {len(k3_calls)} K3 "
-        f"launches, {k3_rows} rows of {n}, k = {TOP_K}", "K3",
-        k3_run(kc.topk, k3_calls), k3_run(kc.topk_plain, k3_calls),
-        rl.total(rl.k3_work(x.shape[0], n, k) for x, k in k3_calls),
-        iters=10, old=False, library=k3_run(kc.topk_plain, k3_calls))
-    t_k3t = measure(
-        f"a [150, {n}] block with ties planted across tile edges, one K3 "
-        f"launch, k = {TOP_K}", "K3", k3_run(kc.topk, [(ties, TOP_K)]),
-        k3_run(kc.topk_plain, [(ties, TOP_K)]), rl.k3_work(150, n, TOP_K),
-        iters=10, old=False, library=k3_run(kc.topk_plain, [(ties, TOP_K)]))
+    def k3_unit(unit, calls):
+        rows = sum(x.shape[0] for x, _ in calls)
+        return measure(
+            f"{unit}: {len(calls)} K3 launches, {rows} rows of {n}, k = "
+            f"{sorted({k for _, k in calls})}", "K3",
+            k3_run(kc.topk, calls), k3_run(kc.topk_plain, calls),
+            rl.total(rl.k3_work(x.shape[0], n, k) for x, k in calls),
+            iters=10, library=lambda: [torch.topk(x, k, sorted=True)
+                                       for x, k in calls])
+
+    t_k3 = k3_unit("the top-k launches of one mixed request, its "
+                   "phrase-tf cache emptied first", k3_calls)
+    t_k3s = k3_unit("the top-k launches of the same request's second call",
+                    k3_calls2)
+    t_k3t = k3_unit(f"a [150, {n}] block with ties planted across tile "
+                    "edges", [(ties, TOP_K)])
+
+    def device_ops(fn):
+        """Device operations (kernels, copies, memsets) one call enqueues,
+        by the profiler's event count; the most of three tries, since the
+        profiler has been seen to drop events."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        seen = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            seen.append(sum(1 for e in prof.events()
+                            if e.device_type == DeviceType.CUDA))
+        return max(seen)
+
+    k3_ops = {"new": [device_ops(lambda x=x, k=k: kc.topk(x, k))
+                      for x, k in k3_calls]}
+    if parent is not None:
+        k3_ops["parent"] = [device_ops(with_lib(
+            parent, lambda x=x, k=k: kc.topk(x, k))) for x, k in k3_calls]
+    check(max(k3_ops["new"]) <= 2,
+          f"a K3 call at k = {TOP_K} is at most two device operations "
+          f"(the mixed request's {len(k3_calls)} launches: "
+          f"{k3_ops['new']}; parent: {k3_ops.get('parent')})")
     k3_each = [(x.shape[0], rl.k3_work(x.shape[0], n, k)["bound_ms"],
                 timer(lambda x=x, k=k: kc.topk(x, k), 10, names["K3"],
                       counter=counters["K3"])[0]) for x, k in k3_calls]
@@ -2784,34 +2839,67 @@ def main() -> int:
         library=lambda: torch.unique_consecutive(k8a_keys,
                                                  return_inverse=True))
     # K8b: the forced cphrase launch with a stopword co-term ("the" pooled,
-    # "w1000" of its own slice).  The library call: one advanced-index
-    # gather pool[slot, flat] of its pooled minis' slots
+    # "w1000" of its own slice), whole and its pooled half alone.  The
+    # library times: the torch composition that builds both minis (the
+    # pooled one by a pool[slot, flat] gather, the other by zeros,
+    # searchsorted and an index_put_ whose misses land on a spare slot),
+    # and that gather alone for the pooled half, each with its index
+    # arithmetic (clip, shift, arange) inside the timed call
     (k8b_rows, k8b_slots, k8b_offs, k8b_ns), k8b_kw = next(
         c for c in pooled if (np.asarray(c[0][1])[:, 0] >= 0).all())
     k8b_slots = np.asarray(k8b_slots)
     k8b_kc = k8b_rows.shape[-1]
-    pool_q, pool_t = np.nonzero(k8b_slots >= 0)
-    spread = torch.arange(1 << bb, device=dev.device)
-    k8b_flat = torch.cat([
-        (k8b_rows.reshape(-1, k8b_kc)[q].clamp(0, n - 1).long()[:, None]
-         * (1 << bb) + spread).reshape(-1) for q in pool_q.tolist()])
-    k8b_sl = torch.cat([torch.full((k8b_kc << bb,), int(k8b_slots[q, t]),
-                                   device=dev.device)
-                        for q, t in zip(pool_q.tolist(), pool_t.tolist())])
-    mini_ns = [int(np.asarray(k8b_ns)[q][t])
-               for q, t in zip(*np.nonzero(k8b_slots < 0))]
+    k8b_pool = k8b_kw["pool"]
+    check(k8b_slots.shape == (1, 2) and k8b_slots[0, 0] >= 0
+          and k8b_slots[0, 1] < 0, "the K8b unit is one query, one pooled "
+          f"mini and one of its own slice (slots {k8b_slots.tolist()})")
+    k8b_rq = k8b_rows.reshape(-1, k8b_kc)[0].contiguous()
+    k8b_slot = int(k8b_slots[0, 0])
+    mini_off, mini_n = (int(np.asarray(k8b_offs)[0][1]),
+                        int(np.asarray(k8b_ns)[0][1]))
+    S = 1 << bb
+
+    def k8b_gather():
+        spread = torch.arange(S, device=dev.device)
+        flat = (k8b_rq.clamp(0, n - 1).long()[:, None] * S
+                + spread).reshape(-1)
+        return k8b_pool[k8b_slot, flat]
+
+    def k8b_torch():
+        h = k8b_kw["hdrs"][mini_off: mini_off + mini_n]
+        keys = h >> bb
+        ci = torch.searchsorted(k8b_rq, keys).clamp(max=k8b_kc - 1)
+        at = torch.where(k8b_rq[ci] == keys, ci.long() * S + (h & (S - 1)),
+                         k8b_kc * S)
+        own = torch.zeros(k8b_kc * S + 1, dtype=torch.int32,
+                          device=dev.device).index_put_(
+            (at,), k8b_kw["pays"][mini_off: mini_off + mini_n])
+        return torch.stack([k8b_gather(), own[:k8b_kc * S]])
+
+    half = ([[k8b_slot]], [[0]], [[0]])
+    check(torch.equal(k8b_torch(), kc.cand_minis(
+        k8b_rows, k8b_slots, k8b_offs, k8b_ns, **k8b_kw)) and torch.equal(
+            k8b_gather()[None], kc.cand_minis(k8b_rq, *half, **k8b_kw)),
+          "the torch composition of the K8b unit, and the gather of its "
+          "pooled half, equal K8b")
     t_k8b = measure(
-        "the forced cphrase [\"the\", \"w1000\"], one K8b launch: %d "
-        "pooled mini and %d of its own slice (%d words), Kc = %d, %d slots "
-        "each" % (len(pool_q), len(mini_ns), sum(mini_ns), k8b_kc,
-                  k8b_kc << bb), "K8b",
+        "the forced cphrase [\"the\", \"w1000\"], one K8b launch: one "
+        "pooled mini and one of its own slice (%d words), Kc = %d, %d slots "
+        "each" % (mini_n, k8b_kc, k8b_kc << bb), "K8b",
         lambda: kc.cand_minis(k8b_rows, k8b_slots, k8b_offs, k8b_ns,
                               **k8b_kw),
         lambda: kc.minis_for_rows_plain(k8b_rows, k8b_slots, k8b_offs,
                                         k8b_ns, **k8b_kw),
-        rl.k8b_work(k8b_kc, bb, len(pool_q), mini_ns, k8b_slots.shape[0]),
-        iters=20, old=hasattr(parent, "sa_cand_minis"),
-        library=lambda: k8b_kw["pool"][k8b_sl, k8b_flat])
+        rl.k8b_work(k8b_kc, bb, 1, [mini_n], 1),
+        iters=20, old=hasattr(parent, "sa_cand_minis"), library=k8b_torch)
+    t_k8bp = measure(
+        "the same launch's pooled half alone, one K8b launch: one pooled "
+        "mini, Kc = %d, %d slots" % (k8b_kc, k8b_kc << bb), "K8b",
+        lambda: kc.cand_minis(k8b_rq, *half, **k8b_kw),
+        lambda: kc.minis_for_rows_plain(k8b_rq, np.asarray(half[0]),
+                                        *half[1:], **k8b_kw),
+        rl.k8b_work(k8b_kc, bb, 1, [], 1),
+        iters=20, old=hasattr(parent, "sa_cand_minis"), library=k8b_gather)
 
     phase_done("kernels: timing")
 
@@ -3032,6 +3120,8 @@ def main() -> int:
          [k9_windows, k9_1m - k9_windows, k9_long, k9_ed]),
         ("K3 per launch of one mixed request (rows; bound ms; device ms)",
          k3_each),
+        ("K3 device operations per call of one mixed request (profiler "
+         "events; new, parent)", k3_ops),
         ("K6 per window launch of one mixed request ((queries, w, "
          "multiplicities); bound ms, by; device ms)",
          [(shape, w["bound_ms"], w["bound_by"], ms)
@@ -3039,7 +3129,8 @@ def main() -> int:
         ("K6 distinct plane rows of one mixed request's window launches",
          f"{k6_planes} of {4 * n * (1 << bb)} bytes each"),
         *((f"{name} score_batch qps, one window a turn "
-           f"({'parent, new, new, parent' if parent else 'new'})", turns)
+           f"({'parent, new, new, parent, twice' if parent else 'new'})",
+           turns)
           for name, turns in e2e.items()),
         (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
         (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
@@ -3057,9 +3148,9 @@ def main() -> int:
            f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
            f"{rec.get('old_share')}")
           for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
-                      t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3t, t_k6,
+                      t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3s, t_k3t, t_k6,
                       t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9, t_k8a,
-                      t_k8b)),
+                      t_k8b, t_k8bp)),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -3115,7 +3206,7 @@ def main() -> int:
         {**entry("topk (K3)", csrc + "topk.cu",
                  "searcharray_tpu/ops/kernels.py:101", launches["topk"],
                  k3_err, t_k3),
-         "more_units": [unit_of(t_k3t)]},
+         "more_units": [unit_of(t_k3s), unit_of(t_k3t)]},
         entry("plane_fill (K4)", csrc + "plane_fill.cu",
               "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
               k4_err, t_k4),
@@ -3138,9 +3229,10 @@ def main() -> int:
         entry("cand_rows (K8a)", csrc + "cand_rows.cu",
               "searcharray_tpu/search/candidates.py:201",
               launches["cand_rows"], rec.err["K8a"], t_k8a),
-        entry("cand_minis (K8b)", csrc + "cand_minis.cu",
-              "searcharray_tpu/search/candidates.py:258",
-              launches["cand_minis"], rec.err["K8b"], t_k8b),
+        {**entry("cand_minis (K8b)", csrc + "cand_minis.cu",
+                 "searcharray_tpu/search/candidates.py:258",
+                 launches["cand_minis"], rec.err["K8b"], t_k8b),
+         "more_units": [unit_of(t_k8bp)]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 //
 // Replaces the JAX package's topk_exact (searcharray_tpu/ops/kernels.py:
 // 101-138), which XLA runs as a block-max selection sized for another
-// machine.  That shape is not carried over: this is a radix select.
+// machine.  That shape is not carried over: a selection per tile in shared
+// memory (k up to 64) or a radix select over the row (larger k).
 //
 // The tie rule becomes a total order when every element is one 64-bit
 // key: the float's bits mapped to an order-preserving u32 (the value key;
@@ -11,7 +12,51 @@
 // the high half and ~index in the low half.  The k largest keys of a row
 // are the answer, and no two keys are equal.  Rows hold no NaN.
 //
-// Steps, all on one stream, none of them read by the host:
+// Bound on the card: the rows read once (4 bytes an element) and 8 bytes
+// written per result; the selection does no arithmetic to speak of.
+//
+// k <= ONE_PASS_CAP (64; the main path's k is 10): two launches, no
+// memset, each element read from HBM once (sa_topk_select).
+//
+//   1. topk_tile_kernel, a block per SEL_TILE (16,384) elements of a row.
+//      The block reads its tile once, with 16-byte loads (SEL_LOAD in
+//      flight a thread), and stores the value keys in shared memory
+//      (64 KB); each thread keeps its largest key, the block its least.
+//      A first bound comes from those maxima: in each warp the need-th
+//      largest of its 32 threads' maxima (a shuffle sort) has need keys
+//      at or above it, so the largest of the warps' bounds the tile's
+//      need-th key from below.  One pass over the shared keys then
+//      gathers the keys at or above it (at most SHORT = 256 of them is
+//      the common case: a few dozen at k = 10 on BM25 scores).  Where
+//      more than SHORT lie there but fewer than need above the bound, or
+//      the bound is the tile's least value and fewer than need keys lie
+//      above that (a row of zeros, a rare term's scores), the bound is
+//      one value shared by many: the keys above it and its first ties
+//      by index (a warp scan over the tile in index order) are the
+//      tile's k.  Otherwise (k above 32, or keys crowded in few threads)
+//      a radix select over the shared tile (11 + 11 + 10 bits, as below)
+//      narrows the bound.  The candidates' 64-bit keys are ranked
+//      against each other in shared memory and the k largest written in
+//      order: to the row's values and indices when the row is one tile
+//      (the candidate axis, Kc <= SEL_TILE: one launch), else to a
+//      [Q, tiles, k] scratch, padded with 0 (below every key) where a
+//      tile holds fewer than k elements.  The union of the tiles' k
+//      largest keys holds the row's k largest, so ties need no pass of
+//      their own.  64 KB of keys and 8 KB of histogram or candidates a
+//      block: three blocks an SM, so one block's select overlaps
+//      another's loads.  (A 1-D bulk copy of the tile (TMA) in place of
+//      the register loads was no faster; a first design that built the
+//      first digit's histogram during the loads was slower: contended
+//      shared atomics, and more passes over the tile.)
+//   2. topk_merge_kernel, a block per row.  Each tile's k-th key bounds
+//      the row's k-th from below, so the keys at or above the largest of
+//      them (k at least) are ranked against each other; where more than
+//      MERGE_CAND are, the row's tiles * k keys are sorted in shared
+//      memory (bitonic, MERGE_KEYS at a time, the best k kept between
+//      rounds).  The first k are written as values and indices.
+//
+// Larger k (sa_topk), up to N: nine kernels, the row read two to four
+// times.
 //
 //   1. up to three histogram passes over the value key, 11 + 11 + 10 bits
 //      from the top (topk_hist_kernel, one block per 16384-element tile
@@ -20,13 +65,10 @@
 //      which finds the digit that holds the k-th key.  A row is done as
 //      soon as the keys at or above the digit's lower bound number at
 //      most `cap` (k itself above SORT_CAP, SORT_CAP below): later passes
-//      return at once for it, so a typical row of distinct scores is read
-//      by one or two histogram passes, not three.
+//      return at once for it.
 //   2. A row whose k-th VALUE is shared by more elements than may be kept
-//      (a row of zeros with fewer than k positive scores) is a tie row:
-//      topk_tiescan_kernel walks it from index 0 and stops at the index
-//      of the last tie to keep.  That is a few elements where ties are
-//      dense, which is where such rows come from.
+//      is a tie row: topk_tiescan_kernel walks it from index 0 and stops
+//      at the index of the last tie to keep.
 //   3. topk_filter_kernel reads the row once more and writes every key
 //      at or above the threshold (between k and cap of them) to the row's
 //      candidates, in no order.
@@ -35,11 +77,6 @@
 //      indices.  Above SORT_CAP the filter leaves exactly k keys a row;
 //      the caller orders those [Q, k] keys and topk_unpack_kernel turns
 //      them into values and indices.
-//
-// Bound on the card: the rows read once (4 bytes an element) and 8 bytes
-// written per result.  This design reads a row two to four times (one to
-// three histograms and the filter), so it can reach a half to a quarter
-// of that bound; the selection does no arithmetic to speak of.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +92,21 @@ constexpr int SORT_THREADS = 1024;
 constexpr int SCAN_THREADS = 1024;
 constexpr int LEVELS = 3;
 constexpr unsigned FULL = 0xffffffffu;
+
+// the two-launch path (k <= ONE_PASS_CAP)
+constexpr int SEL_THREADS = 256;
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+constexpr int SEL_TILE = 16384;      // elements of a row per block
+constexpr int SEL_LOAD = 4;          // loads in flight a thread
+constexpr int SHORT = SEL_THREADS;   // candidates ranked against each other
+constexpr int ONE_PASS_CAP = 64;     // k of this path
+constexpr int SEL_SMEM = (SEL_TILE + BINS) * 4;  // keys, then histogram
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_KEYS = 4096;     // keys a merge round sorts (32 KB)
+constexpr int MERGE_CAND = 512;      // keys pass 2 ranks against each other
+static_assert(SHORT * 8 <= BINS * 4, "the candidates reuse the histogram");
+static_assert(ONE_PASS_CAP <= SHORT && 2 * ONE_PASS_CAP <= MERGE_KEYS,
+              "k fits the candidates and a merge round");
 
 __device__ __constant__ int SHIFT[LEVELS] = {21, 10, 0};
 __device__ __constant__ int BITS[LEVELS] = {11, 11, 10};
@@ -74,6 +126,26 @@ struct RowState {
 __device__ __forceinline__ uint32_t value_key(uint32_t b) {
   if (b == 0x80000000u) b = 0;
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Sorts s[0, P) descending, P a power of two; every thread of a block of
+// NT threads calls it.
+template <int NT>
+__device__ __forceinline__ void bitonic_desc(uint64_t* s, int P) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < P / 2; t += NT) {
+        const int a = 2 * t - (t & (stride - 1)), b = a + stride;
+        const uint64_t u = s[a], v = s[b];
+        if ((u < v) == ((a & size) == 0)) {
+          s[a] = v;
+          s[b] = u;
+        }
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // f(index in the row, float bits) over the block's tile of its row.
@@ -266,20 +338,7 @@ topk_sort_kernel(const float* __restrict__ x, int64_t n,
   for (int i = threadIdx.x; i < P; i += SORT_THREADS) {
     s[i] = i < m ? cand[row * cap + i] : 0;  // 0 is below every key
   }
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int t = threadIdx.x; t < P / 2; t += SORT_THREADS) {
-        const int a = 2 * t - (t & (stride - 1)), b = a + stride;
-        const uint64_t u = s[a], v = s[b];
-        if ((u < v) == ((a & size) == 0)) {
-          s[a] = v;
-          s[b] = u;
-        }
-      }
-    }
-  }
-  __syncthreads();
+  bitonic_desc<SORT_THREADS>(s, P);
   for (int i = threadIdx.x; i < k; i += SORT_THREADS) {
     const uint32_t id = 0xffffffffu - static_cast<uint32_t>(s[i]);
     idx[row * k + i] = static_cast<int32_t>(id);
@@ -298,6 +357,433 @@ topk_unpack_kernel(const float* __restrict__ x, int64_t n,
     const uint32_t id = 0xffffffffu - static_cast<uint32_t>(keys[i]);
     idx[i] = static_cast<int32_t>(id);
     vals[i] = x[(i / k) * n + id];
+  }
+}
+
+// ---- the two-launch path ---------------------------------------------------
+
+// f(index in the tile, value key) over the block's keys in shared memory,
+// 16 bytes a read.
+template <typename F>
+__device__ __forceinline__ void for_keys(const uint32_t* keys, int len, F f) {
+  const uint4* k4 = reinterpret_cast<const uint4*>(keys);
+  for (int i = threadIdx.x; i < (len >> 2); i += SEL_THREADS) {
+    const uint4 q = k4[i];
+    f(4 * i, q.x);
+    f(4 * i + 1, q.y);
+    f(4 * i + 2, q.z);
+    f(4 * i + 3, q.w);
+  }
+  for (int i = (len & ~3) + threadIdx.x; i < len; i += SEL_THREADS) {
+    f(i, keys[i]);
+  }
+}
+
+// The sum of one value from every thread of the block; ``w`` holds
+// SEL_WARPS words that no thread reads again before the block's next
+// barrier.
+__device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* w) {
+  v = __reduce_add_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint32_t total = 0;
+#pragma unroll
+  for (int i = 0; i < SEL_WARPS; ++i) total += w[i];
+  return total;
+}
+
+// The 32 values of a warp's lanes sorted descending across the lanes
+// (bitonic, by shuffles): lane j gets the (j + 1)-th largest.
+__device__ __forceinline__ uint32_t warp_sort_desc(uint32_t v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const uint32_t o = __shfl_xor_sync(FULL, v, stride);
+      const bool keep_max = ((lane & size) == 0) == ((lane & stride) == 0);
+      v = keep_max ? max(v, o) : min(v, o);
+    }
+  }
+  return v;
+}
+
+// A slot in ``cand`` for each calling lane, one shared atomic per warp's
+// callers; ``taken`` counts every call, slots past ``cap`` are dropped.
+__device__ __forceinline__ void push_key(uint64_t* cand, uint32_t* taken,
+                                         uint32_t cap, uint64_t key) {
+  const unsigned m = __activemask();
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  uint32_t base = 0;
+  if (lane == leader) base = atomicAdd(taken, __popc(m));
+  base = __shfl_sync(m, base, leader);
+  const uint32_t at = base + __popc(m & ((1u << lane) - 1));
+  if (at < cap) cand[at] = key;
+}
+
+// Over a histogram of BINS digits: the digit that holds the need-th key
+// from the top (need between 1 and the histogram's total), the keys in
+// higher digits and the keys in it.  Every thread of the block calls it;
+// ``hist`` is not read after its first barrier.
+__device__ __forceinline__ void find_digit(const uint32_t* hist, uint32_t need,
+                                           uint32_t* wtot, uint32_t* ctl,
+                                           uint32_t& digit, uint32_t& higher,
+                                           uint32_t& in) {
+  constexpr int PER = BINS / SEL_THREADS;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t c[PER], sum = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    c[j] = hist[t * PER + j];
+    sum += c[j];
+  }
+  // inclusive suffix sums: the keys in this thread's digits and above
+  uint32_t incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t v = __shfl_down_sync(FULL, incl, off);
+    if (lane + off < 32) incl += v;
+  }
+  if (lane == 0) wtot[warp] = incl;
+  __syncthreads();
+  for (int w = warp + 1; w < SEL_WARPS; ++w) incl += wtot[w];
+  const uint32_t excl = incl - sum;
+  if (excl < need && need <= incl) {
+    uint32_t acc = excl;
+    bool found = false;
+#pragma unroll
+    for (int j = PER - 1; j >= 0; --j) {
+      if (!found) {
+        if (acc + c[j] >= need) {
+          found = true;
+          ctl[0] = t * PER + j;
+          ctl[1] = acc;
+          ctl[2] = c[j];
+        } else {
+          acc += c[j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  digit = ctl[0];
+  higher = ctl[1];
+  in = ctl[2];
+}
+
+// Pass 1: block b selects the k largest keys of tile b % tiles of row
+// b / tiles (fewer where the tile is shorter than k) and writes them in
+// order: to the row's values and indices when the row is one tile, else
+// to part[row][tile][0, k), padded with 0.
+__global__ void __launch_bounds__(SEL_THREADS, 3)
+topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
+                 bool vec, uint64_t* __restrict__ part,
+                 float* __restrict__ vals, int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* keys = smem;             // the tile's value keys
+  uint32_t* hist = smem + SEL_TILE;  // BINS digit counts, or
+  uint64_t* cand = reinterpret_cast<uint64_t*>(hist);  // the candidates
+  __shared__ uint32_t wtot[SEL_WARPS], wsum[SEL_WARPS], wcnt[SEL_WARPS];
+  __shared__ uint32_t ctl[3], taken;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t row = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int64_t lo = static_cast<int64_t>(tile) * SEL_TILE;
+  const int len = static_cast<int>(n - lo < SEL_TILE ? n - lo : SEL_TILE);
+  const uint32_t need = static_cast<uint32_t>(len < k ? len : k);
+  const float* src = x + row * n + lo;
+  const uint32_t id0 = 0xffffffffu - static_cast<uint32_t>(lo);
+  auto key64 = [&](int i, uint32_t key) {
+    return static_cast<uint64_t>(key) << 32 | (id0 - i);
+  };
+  if (t == 0) taken = 0;
+
+  // The tile into shared memory as value keys, SEL_LOAD loads in flight a
+  // thread; each thread's largest key and the tile's least on the way.
+  uint32_t most = 0, least = 0xffffffffu;
+  if (vec) {  // 16-byte aligned rows, n a multiple of 4
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* k4 = reinterpret_cast<uint4*>(keys);
+    const int n4 = len >> 2;
+    for (int base = 0; base < n4; base += SEL_LOAD * SEL_THREADS) {
+      uint4 v[SEL_LOAD];
+#pragma unroll
+      for (int u = 0; u < SEL_LOAD; ++u) {
+        const int i = base + u * SEL_THREADS + t;
+        if (i < n4) v[u] = __ldg(s4 + i);
+      }
+#pragma unroll
+      for (int u = 0; u < SEL_LOAD; ++u) {
+        const int i = base + u * SEL_THREADS + t;
+        if (i < n4) {
+          const uint4 q = make_uint4(value_key(v[u].x), value_key(v[u].y),
+                                     value_key(v[u].z), value_key(v[u].w));
+          k4[i] = q;
+          most = max(most, max(max(q.x, q.y), max(q.z, q.w)));
+          least = min(least, min(min(q.x, q.y), min(q.z, q.w)));
+        }
+      }
+    }
+  } else {
+    for (int base = 0; base < len; base += SEL_LOAD * SEL_THREADS) {
+      uint32_t v[SEL_LOAD];
+#pragma unroll
+      for (int u = 0; u < SEL_LOAD; ++u) {
+        const int i = base + u * SEL_THREADS + t;
+        if (i < len) v[u] = __float_as_uint(__ldg(src + i));
+      }
+#pragma unroll
+      for (int u = 0; u < SEL_LOAD; ++u) {
+        const int i = base + u * SEL_THREADS + t;
+        if (i < len) {
+          const uint32_t key = value_key(v[u]);
+          keys[i] = key;
+          most = max(most, key);
+          least = min(least, key);
+        }
+      }
+    }
+  }
+  // A first bound: in each warp, the need-th largest of its threads'
+  // largest keys (0, below every key, where fewer threads hold one) has
+  // need keys at or above it, so the largest of those bounds the tile's
+  // need-th key from below.
+  uint32_t low = 0;
+  if (need <= 32) low = __shfl_sync(FULL, warp_sort_desc(most), need - 1);
+  least = __reduce_min_sync(FULL, least);
+  if (lane == 0) {
+    wtot[warp] = low;
+    wsum[warp] = least;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < SEL_WARPS; ++w) {
+    low = max(low, wtot[w]);
+    least = min(least, wsum[w]);
+  }
+
+  // The candidates: every key >= bound (m of them, at most SHORT), or,
+  // with tie, the keys > bound (above of them) and the first need - above
+  // keys equal to it by index.
+  uint32_t above = 0, bound = 0, m = 0;
+  bool tie = false, gathered = false;
+  if (low != 0 && low != least) {
+    // the keys >= low, kept while they fit; those > low counted too
+    uint32_t ge = 0, gt = 0;
+    for_keys(keys, len, [&](int i, uint32_t key) {
+      if (key >= low) {
+        ++ge;
+        gt += key != low;
+        push_key(cand, &taken, SHORT, key64(i, key));
+      }
+    });
+    const uint32_t sums = block_sum(ge << 16 | gt, wcnt);  // each <= 2^14
+    ge = sums >> 16;
+    gt = sums & 0xffffu;
+    if (ge <= SHORT) {
+      bound = low;
+      m = ge;
+      gathered = true;
+    } else if (gt < need) {
+      bound = low;
+      above = gt;
+      tie = true;
+    }
+  } else if (low != 0) {  // the least value may hold the need-th place
+    const uint32_t over = block_sum(
+        [&] {
+          uint32_t c = 0;
+          for_keys(keys, len, [&](int, uint32_t key) { c += key != least; });
+          return c;
+        }(),
+        wcnt);
+    if (over < need) {
+      bound = least;
+      above = over;
+      tie = true;
+    }
+  }
+
+  if (!gathered && !tie) {
+    // The radix select over the shared tile, 11 + 11 + 10 bits, until at
+    // most SHORT keys lie at or above the digit's lower bound or one value
+    // holds more.  A thread adds a run of equal digits at once.
+    uint32_t prefix = 0;  // the value-key digits fixed so far
+    for (int level = 0;; ++level) {
+      const int shift = SHIFT[level], up = shift + BITS[level];
+      const uint32_t want = level ? prefix >> up : 0;
+      const uint32_t mask = (1u << BITS[level]) - 1;
+      for (int i = t; i < BINS; i += SEL_THREADS) hist[i] = 0;
+      __syncthreads();
+      uint32_t last = 0, run = 0;
+      for_keys(keys, len, [&](int, uint32_t key) {
+        if (level && (key >> up) != want) return;
+        const uint32_t d = (key >> shift) & mask;
+        if (d == last) {
+          ++run;
+        } else {
+          if (run) atomicAdd(&hist[last], run);
+          last = d;
+          run = 1;
+        }
+      });
+      if (run) atomicAdd(&hist[last], run);
+      __syncthreads();
+      uint32_t digit, higher, in;
+      find_digit(hist, need - above, wtot, ctl, digit, higher, in);
+      const uint32_t lower = prefix | (digit << shift);
+      if (above + higher + in <= SHORT) {
+        bound = lower;
+        m = above + higher + in;
+        break;
+      }
+      above += higher;
+      if (shift == 0) {  // one value holds more keys than may be taken
+        bound = lower;
+        tie = true;
+        break;
+      }
+      prefix = lower;
+    }
+  }
+
+  // The candidates as 64-bit keys, in no order, unless the first bound
+  // gathered them (the histogram is read no more: every thread is past
+  // find_digit's barriers, or block_sum's)
+  if (!gathered) {
+    if (t == 0) taken = 0;
+    __syncthreads();
+    if (!tie) {
+      for_keys(keys, len, [&](int i, uint32_t key) {
+        if (key >= bound) push_key(cand, &taken, SHORT, key64(i, key));
+      });
+    } else {
+      for_keys(keys, len, [&](int i, uint32_t key) {
+        if (key > bound) push_key(cand, &taken, SHORT, key64(i, key));
+      });
+      // the first need - above ties by index: each warp counts them in
+      // its run of the tile, then walks its run until the quota is met
+      constexpr int SEG = SEL_TILE / SEL_WARPS;
+      const uint32_t quota = need - above;
+      const int s0 = warp * SEG, s1 = s0 + SEG < len ? s0 + SEG : len;
+      uint32_t mine = 0;
+      for (int i = s0 + lane; i < s1; i += 32) mine += keys[i] == bound;
+      mine = __reduce_add_sync(FULL, mine);
+      if (lane == 0) wtot[warp] = mine;
+      __syncthreads();
+      uint32_t seen = 0;
+      for (int w = 0; w < warp; ++w) seen += wtot[w];
+      for (int b = s0; b < s1 && seen < quota; b += 32) {
+        const int i = b + lane;
+        const bool f = i < s1 && keys[i] == bound;
+        const unsigned bal = __ballot_sync(FULL, f);
+        if (f && seen + __popc(bal & ((1u << lane) - 1)) < quota) {
+          push_key(cand, &taken, SHORT, key64(i, bound));
+        }
+        seen += __popc(bal);
+      }
+      m = need;
+    }
+  }
+  __syncthreads();
+
+  // Each candidate's rank among them; the first need written in order
+  if (t < static_cast<int>(m)) {
+    const uint64_t c = cand[t];
+    uint32_t r = 0;
+#pragma unroll 8
+    for (uint32_t j = 0; j < m; ++j) r += cand[j] > c;
+    if (r < need) {
+      if (tiles == 1) {
+        const uint32_t id = 0xffffffffu - static_cast<uint32_t>(c);
+        idx[row * k + r] = static_cast<int32_t>(id);
+        vals[row * k + r] = x[row * n + id];
+      } else {
+        part[(row * tiles + tile) * k + r] = c;
+      }
+    }
+  }
+  if (tiles > 1) {
+    for (int r = static_cast<int>(need) + t; r < k; r += SEL_THREADS) {
+      part[(row * tiles + tile) * k + r] = 0;  // below every key
+    }
+  }
+}
+
+// Pass 2, one block per row: the k largest of the row's m = tiles * k
+// keys.  Each tile's k-th key bounds the row's k-th from below, so the
+// keys at or above the largest of them (k at least, a few more where
+// tiles are close) are ranked against each other; where more than
+// MERGE_CAND are, or the keys do not fit in shared memory, they are
+// sorted (bitonic, MERGE_KEYS at a time, the best k kept between rounds).
+__global__ void __launch_bounds__(MERGE_THREADS)
+topk_merge_kernel(const float* __restrict__ x, int64_t n,
+                  const uint64_t* __restrict__ part, int64_t m, int k,
+                  float* __restrict__ vals, int32_t* __restrict__ idx) {
+  __shared__ uint64_t s[MERGE_KEYS];
+  __shared__ uint64_t cand[MERGE_CAND];
+  __shared__ uint64_t wmax[MERGE_THREADS / 32];
+  __shared__ uint32_t taken;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t row = blockIdx.x;
+  const uint64_t* src = part + row * m;
+  if (m <= MERGE_KEYS) {
+    if (t == 0) taken = 0;
+    uint64_t low = 0;
+    for (int i = t; i < m; i += MERGE_THREADS) {
+      const uint64_t key = src[i];
+      s[i] = key;
+      if (i % k == k - 1 && key > low) low = key;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const uint64_t o = __shfl_xor_sync(FULL, low, off);
+      low = o > low ? o : low;
+    }
+    if (lane == 0) wmax[warp] = low;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < MERGE_THREADS / 32; ++w) {
+      low = wmax[w] > low ? wmax[w] : low;
+    }
+    for (int i = t; i < m; i += MERGE_THREADS) {
+      if (s[i] >= low) push_key(cand, &taken, MERGE_CAND, s[i]);
+    }
+    __syncthreads();
+    const uint32_t c = taken;
+    if (c <= MERGE_CAND) {
+      for (uint32_t i = t; i < c; i += MERGE_THREADS) {
+        const uint64_t key = cand[i];
+        uint32_t r = 0;
+#pragma unroll 8
+        for (uint32_t j = 0; j < c; ++j) r += cand[j] > key;
+        if (r < static_cast<uint32_t>(k)) {
+          const uint32_t id = 0xffffffffu - static_cast<uint32_t>(key);
+          idx[row * k + r] = static_cast<int32_t>(id);
+          vals[row * k + r] = x[row * n + id];
+        }
+      }
+      return;
+    }
+  }
+  int kept = 0;
+  for (int64_t base = 0; base < m;) {
+    const int take = static_cast<int>(
+        m - base < MERGE_KEYS - kept ? m - base : MERGE_KEYS - kept);
+    int P = 2;
+    while (P < kept + take) P <<= 1;
+    __syncthreads();
+    for (int i = kept + t; i < P; i += MERGE_THREADS) {
+      s[i] = i - kept < take ? src[base + i - kept] : 0;
+    }
+    bitonic_desc<MERGE_THREADS>(s, P);
+    kept = k;
+    base += take;
+  }
+  for (int i = t; i < k; i += MERGE_THREADS) {
+    const uint32_t id = 0xffffffffu - static_cast<uint32_t>(s[i]);
+    idx[row * k + i] = static_cast<int32_t>(id);
+    vals[row * k + i] = x[row * n + id];
   }
 }
 
@@ -368,5 +854,53 @@ extern "C" int sa_topk_unpack(const void* x, int64_t n_rows, int64_t n,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), n, static_cast<const uint64_t*>(keys), k,
       total, static_cast<float*>(vals), static_cast<int32_t*>(idx));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Elements of a row per pass-1 block of the two-launch path: tiles start
+// at multiples of it.
+extern "C" int sa_topk_tile() { return SEL_TILE; }
+
+// The largest k the two-launch path takes (sa_topk_select).
+extern "C" int sa_topk_one_pass_cap() { return ONE_PASS_CAP; }
+
+// Plain C entry for ctypes, k <= sa_topk_one_pass_cap().  ``x`` is f32
+// [n_rows, n], rows contiguous; ``part`` is u64 [n_rows, tiles, k] with
+// tiles = ceil(n / sa_topk_tile()) (unused, and may be null, when tiles is
+// 1); values f32 [n_rows, k] and indices i32 [n_rows, k] are written.  One
+// kernel when a row is one tile, else two; both on ``stream``, nothing
+// here synchronises.  Returns the first CUDA error.
+extern "C" int sa_topk_select(const void* x, int64_t n_rows, int64_t n,
+                              int64_t k, void* part, void* vals, void* idx,
+                              int device, void* stream) {
+  const int64_t tiles = (n + SEL_TILE - 1) / SEL_TILE;
+  if (k < 1 || k > n || k > ONE_PASS_CAP || (tiles > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaSetDevice(device);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SEL_SMEM);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(topk_tile_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  topk_tile_kernel<<<static_cast<unsigned>(n_rows * tiles), SEL_THREADS,
+                     SEL_SMEM, st>>>(
+      xf, n, static_cast<int>(tiles), static_cast<int>(k), vec,
+      static_cast<uint64_t*>(part), static_cast<float*>(vals),
+      static_cast<int32_t*>(idx));
+  if (tiles > 1) {
+    topk_merge_kernel<<<static_cast<unsigned>(n_rows), MERGE_THREADS, 0,
+                        st>>>(xf, n, static_cast<const uint64_t*>(part),
+                              tiles * k, static_cast<int>(k),
+                              static_cast<float*>(vals),
+                              static_cast<int32_t*>(idx));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,11 @@ A kernel's work is counted from its inputs, as ``chip_smoke.py`` prints
 it: each input byte it needs read once, each output byte written once
 (a plane row that several queries of one K5 or K6 launch read counts
 once; the halo K5 reads twice and the words a block's search probes do not
-count; K3's rows count once, though a radix select reads them again; of
-a K7 step's other list the words a search would probe where those are
-fewer than the list; of a K9 term's list the words of the neighbourhoods
-where those are fewer than the list), and the 32-bit integer operations
+count; K3's rows count once, though its radix select reads them again
+and its tile path passes over a shared-memory copy; of a K7 step's other
+list the words a search would probe where those are fewer than the list;
+of a K9 term's list the words of the neighbourhoods where those are fewer
+than the list), and the 32-bit integer operations
 its formulas need.  The bound is the larger of bytes over the card's memory rate and
 operations over its 32-bit integer rate.  Nothing here launches or times anything.
 

@@ -19,8 +19,10 @@ wrapper counts its kernel launches in a plain int attribute
 ``phrase_chain.launches``, ``span_window.launches``,
 ``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
 ``span_sparse.launches``).  A K3 launch is one
-call of its C entry, which enqueues ``TOPK_KERNELS_PER_LAUNCH`` kernels; a
-K8a launch enqueues ``CAND_ROWS_KERNELS_PER_LAUNCH``.
+call of a C entry, which enqueues one or two kernels (k up to
+``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger k);
+``topk.kernels`` counts them.  A K8a launch enqueues
+``CAND_ROWS_KERNELS_PER_LAUNCH``.
 """
 from __future__ import annotations
 
@@ -61,8 +63,9 @@ KINDS = {"none": 0, "bm25": 1, "bm25_impact": 2, "bm25_legacy": 3}
 CHAIN_MAX_TERMS = 32         # K5 takes phrases of at most this many terms
 SPAN_MAX_TERMS = 32          # K6 takes at most this many distinct terms
 SPAN_MAX_WINDOW = 18         # K6's window: one slot's positions
-TOPK_KERNELS_PER_LAUNCH = 9  # three histogram and select passes, the tie
-                             # scan, the filter, and the sort or the unpack
+TOPK_KERNELS_PER_LAUNCH = 9  # above the one-pass cap: three histogram and
+                             # select passes, the tie scan, the filter, and
+                             # the sort or the unpack
 CAND_ROWS_KERNELS_PER_LAUNCH = 2   # K8a: count each tile's runs, then write
 
 _lib = None
@@ -147,6 +150,9 @@ _ENTRIES = {
     "sa_topk_unpack": [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _int, _vp],
     "sa_topk_sort_cap": [],
     "sa_topk_row_scratch_bytes": [],
+    "sa_topk_select": [_vp, _i64, _i64, _i64, _vp, _vp, _vp, _int, _vp],
+    "sa_topk_tile": [],
+    "sa_topk_one_pass_cap": [],
     "sa_span_window": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp, _i64,
                        _int, _vp, _i64, _vp, _int, _vp],
     "sa_span_sparse": [_vp, _vp, _vp, _i64, _i64, _int, _int, _int, _int,
@@ -407,13 +413,16 @@ def topk(x: torch.Tensor, k: int):
     one): (values f32[..., k] descending, indices int32[..., k]), ties to
     the smallest index; -0.0 and +0.0 tie.  Rows must hold no NaN.
 
-    On a CUDA tensor this is K3 (csrc/topk.cu): a radix select on the
-    64-bit keys of ``ops/kernels.py:topk_keys``, for every k, with nothing
-    read by the host.  The k survivors are ordered in the kernel up to
-    ``sa_topk_sort_cap()`` of them (2048); above that their [Q, k] 64-bit
-    keys are ordered by one ``torch.sort`` on the device, which is a sort
-    of the survivors, not the selection.  Raises for k outside [1, N],
-    rows that are not contiguous, and 2^31 elements or more."""
+    On a CUDA tensor this is K3 (csrc/topk.cu): a selection on the 64-bit
+    keys of ``ops/kernels.py:topk_keys`` with nothing read by the host.  Up to ``sa_topk_one_pass_cap()`` (64) that is each tile of
+    ``sa_topk_tile()`` elements selecting its k in shared memory, then a
+    merge of the tiles' keys: two kernels, one where a row is one tile.
+    Above it, the radix select over the whole row orders its survivors in
+    the kernel up to ``sa_topk_sort_cap()`` of them (2048); above that
+    their [Q, k] 64-bit keys are ordered by one ``torch.sort`` on the
+    device, which is a sort of the survivors, not the selection.  Raises
+    for k outside [1, N], rows that are not contiguous, and 2^31 elements
+    or more."""
     dev = x.device
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
@@ -438,12 +447,26 @@ def topk(x: torch.Tensor, k: int):
     if rows == 0:
         return vals, idx
     lib = _get_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # a library without the two-launch path (an earlier build, timed in
+    # turns with this one) takes every k by the radix select
+    if hasattr(lib, "sa_topk_select") and k <= lib.sa_topk_one_pass_cap():
+        tiles = -(-n // lib.sa_topk_tile())
+        part = (torch.empty((rows, tiles, k), dtype=torch.int64,
+                            device=dev) if tiles > 1 else None)
+        err = lib.sa_topk_select(x.data_ptr(), rows, n, k,
+                                 None if part is None else part.data_ptr(),
+                                 vals.data_ptr(), idx.data_ptr(), dev.index,
+                                 stream)
+        _raise_on(err, "topk")
+        topk.launches += 1
+        topk.kernels += 1 if tiles == 1 else 2
+        return vals, idx
     sort_cap = lib.sa_topk_sort_cap()
     cap = max(k, sort_cap)
     scratch = torch.empty(rows * lib.sa_topk_row_scratch_bytes(),
                           dtype=torch.uint8, device=dev)
     cand = torch.empty((rows, cap), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sa_topk(x.data_ptr(), rows, n, k, scratch.data_ptr(),
                       cand.data_ptr(), cap, vals.data_ptr(), idx.data_ptr(),
                       dev.index, stream)
@@ -457,10 +480,12 @@ def topk(x: torch.Tensor, k: int):
                                  stream)
         _raise_on(err, "topk unpack")
     topk.launches += 1
+    topk.kernels += TOPK_KERNELS_PER_LAUNCH
     return vals, idx
 
 
 topk.launches = 0
+topk.kernels = 0   # device kernels the launches enqueued
 
 
 # ---------------------------------------------------------------------------

@@ -732,8 +732,15 @@ def test_sparse_phrase_path_on_card_matches_cpu(card, monkeypatch):
 # ---------------------------------------------------------------------------
 # K3: exact top-k
 # ---------------------------------------------------------------------------
-K3_TILE = 16384   # elements of a row per block, csrc/topk.cu
+K3_TILE = 16384   # elements of a row per block of the radix select
 K3_SORT_CAP = 2048
+
+
+@pytest.fixture
+def k3_lib(card):
+    """The two-launch path's tile and k cap, as the library reports them."""
+    lib = kc._get_lib()
+    return lib.sa_topk_tile(), lib.sa_topk_one_pass_cap()
 
 
 def k3_both(card, x, k):
@@ -815,19 +822,107 @@ def test_k3_k_up_to_n(card, n, k):
 
 
 @pytest.mark.parametrize("k", [1, 10, 3000])
-def test_k3_ties_across_tile_edges(card, k):
+def test_k3_ties_across_tile_edges(card, k3_lib, k):
     """Runs of the k-th value that start, end and straddle tile edges: the
-    earliest indices win."""
-    n = 4 * K3_TILE
-    x = np.zeros((4, n), np.float32)
-    for r, at in enumerate((K3_TILE - 2, K3_TILE - 1, K3_TILE,
-                            2 * K3_TILE - k // 2)):
-        x[r, at: at + k + 3] = 7.0       # k + 3 ties for k places
-        x[r, 3 * K3_TILE + 5] = 9.0      # and one score above them
-    vals, idx = k3_both(card, x, k)
-    assert idx[0, 0].item() == 3 * K3_TILE + 5
-    if k > 1:
-        assert idx[1, 1].item() == K3_TILE - 1
+    earliest indices win.  At the two-launch path's tile (read from the
+    library) and at the radix select's 16,384."""
+    for tile in sorted({k3_lib[0], K3_TILE}):
+        n = 4 * tile
+        x = np.zeros((4, n), np.float32)
+        for r, at in enumerate((tile - 2, tile - 1, tile,
+                                2 * tile - k // 2)):
+            x[r, at: at + k + 3] = 7.0       # k + 3 ties for k places
+            x[r, 3 * tile + 5] = 9.0         # and one score above them
+        vals, idx = k3_both(card, x, k)
+        assert idx[0, 0].item() == 3 * tile + 5
+        if k > 1:
+            assert idx[1, 1].item() == tile - 1
+
+
+@pytest.mark.parametrize("data", K3_DATA)
+@pytest.mark.parametrize("above", [0, 1])
+def test_k3_k_at_the_one_pass_cap(card, k3_lib, data, above):
+    """k at the two-launch path's cap and one above it (the radix select),
+    rows of one, two and several tiles."""
+    tile, cap = k3_lib
+    rng = np.random.default_rng(above + len(data))
+    for q, n in ((5, tile), (3, 2 * tile - 3), (2, 5 * tile + 12)):
+        k3_both(card, k3_rows(data, rng, q, n), cap + above)
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 4095, "tile-1", "tile",
+                               "tile+1"])
+@pytest.mark.parametrize("data", ["distinct", "few levels", "zeros",
+                                  "signed zeros and -inf"])
+def test_k3_rows_shorter_than_a_tile(card, k3_lib, n, data):
+    """Rows of one tile, written by one kernel, k from 1 to the row or the
+    cap; and the tile plus one, two kernels."""
+    tile, cap = k3_lib
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(n, n)
+    rng = np.random.default_rng(n)
+    x = k3_rows(data, rng, 3, n)
+    for k in sorted({1, min(n, 10), min(n, cap)}):
+        before = kc.topk.kernels
+        k3_both(card, x, k)
+        assert kc.topk.kernels - before == (1 if n <= tile else 2)
+
+
+@pytest.mark.parametrize("n", [16_384, 65_536])
+@pytest.mark.parametrize("q", [1, 2, 7, 64, 200])
+def test_k3_candidate_axis(card, n, q):
+    """The candidate axis as finish_candidates ranks it: Kc of 16,384 or
+    65,536, BM25-like scores (mostly 0, ties) at the candidates and -1 at
+    the pad slots behind them (every slot of some rows, none of others)."""
+    rng = np.random.default_rng(n + q)
+    x = k3_rows("bm25-like", rng, q, n)
+    for r in range(q):
+        x[r, int(rng.integers(0, n + 1)):] = -1.0
+    x[0, :] = -1.0
+    if q > 1:
+        x[1, n // 2:] = -1.0
+    for k in (1, 10, 64):
+        k3_both(card, x, k)
+
+
+def test_k3_signed_zeros_tie(card):
+    """-0.0 and +0.0 tie, the smaller index first, and keep their bits."""
+    n = 70_001
+    x = np.zeros((3, n), np.float32)
+    x[0, ::2] = -0.0
+    x[1, 40_000:] = -0.0
+    x[1, 5] = 1.0
+    x[2, :] = -0.0
+    x[2, 50_000] = 0.0
+    for k in (1, 10, 64):
+        vals, idx = k3_both(card, x, k)
+        assert idx[0].tolist() == list(range(k))
+        assert torch.signbit(vals[0]).tolist() == [i % 2 == 0
+                                                   for i in range(k)]
+
+
+@pytest.mark.parametrize("n", [16_384, 1_000_000])
+def test_k3_one_pass_is_at_most_two_device_operations(card, k3_lib, n):
+    """A call at k = 10 enqueues its tile kernel and, above one tile, its
+    merge: no memset, no tie scan, nothing else on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(k3_rows("bm25-like", np.random.default_rng(1), 8,
+                                 n)).to(card)
+    kc.topk(x, 10)
+    torch.cuda.synchronize()
+    want = 1 if n <= k3_lib[0] else 2
+    for _ in range(3):   # the profiler has been seen to drop events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kc.topk(x, 10)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == want, ops
+    assert all("topk_tile_kernel" in o or "topk_merge_kernel" in o
+               for o in ops), ops
 
 
 def test_k3_one_dimensional_row_and_leading_axes(card):
@@ -1376,6 +1471,50 @@ def test_k8b_kernel_matches_plain(card, blk_bits, num_docs):
     assert torch.equal(got.cpu(), want)   # everywhere, sentinel rows too
     assert bool((rows[1] == num_docs).any())   # the sentinel rows
     assert bool(want[2].any()) and bool(want[0].any())
+
+
+@pytest.mark.parametrize("blk_bits", [0, 1, 2, 3, 4, 5])
+def test_k8b_slot_widths_and_tile_edges(card, blk_bits):
+    """S = 1 to 32 (scalar copies below 4 slots, 16-byte ones from 4), Kc
+    not a multiple of the tile, sentinel rows, and an own slice with no
+    word in most tiles' rows (its docs all below 1,000, the rows mostly
+    above), one with words but no hit, and an empty one."""
+    num_docs, S = 4000, 1 << blk_bits
+    rng = np.random.default_rng(blk_bits)
+    low = np.sort(rng.choice(1000, 300, replace=False))
+    words = np.unique(low[rng.integers(0, 300, 900)] * S
+                      + rng.integers(0, S, 900))
+    miss = np.unique(rng.choice(np.arange(1000, 1200), 50) * S)
+    fill = np.unique(rng.integers(0, num_docs * S, 6000))
+    parts = [words, miss, fill]
+    hdrs = np.concatenate(parts + [np.full(64, PAD_HDR32)]).astype(np.int32)
+    pays = rng.integers(1, 1 << 18, len(hdrs)).astype(np.int32)
+    offs = np.cumsum([0] + [len(p) for p in parts])[:3].tolist()
+    ns = [len(p) for p in parts]
+    hdrs, pays = torch.from_numpy(hdrs), torch.from_numpy(pays)
+    pool = torch.zeros((2, num_docs * S), dtype=torch.int32)
+    kc.plane_fill(hdrs, pays, [offs[2]], [ns[2]], [1], pool)
+    kc_ = 3001
+    rows = np.full((2, kc_), num_docs, np.int64)   # sentinel tails
+    rows[0, :2000] = np.sort(np.concatenate([
+        low[:40], rng.choice(np.arange(1200, num_docs), 1960,
+                             replace=False)]))
+    rows[1, :2900] = np.sort(rng.choice(num_docs, 2900, replace=False))
+    rows = torch.from_numpy(rows.astype(np.int32))
+    slots = [[-1, -1, 1, -1], [1, -1, -1, -1]]
+    qoffs = [[offs[0], offs[1], 0, 0], [0, offs[1], offs[0], offs[2]]]
+    qns = [[ns[0], ns[1], 0, 0], [0, ns[1], ns[0], ns[2]]]
+    kw = dict(num_docs=num_docs, blk_bits=blk_bits)
+    want = kc.cand_minis(rows, slots, qoffs, qns, pool=pool, hdrs=hdrs,
+                         pays=pays, **kw)
+    before = kc.cand_minis.launches
+    got = kc.cand_minis(rows.to(card), slots, qoffs, qns, pool=pool.to(card),
+                        hdrs=hdrs.to(card), pays=pays.to(card), **kw)
+    torch.cuda.synchronize()
+    assert kc.cand_minis.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert bool(want[0].any()) and not bool(want[1].any())
+    assert not bool(want[3].any()) and bool(want[7].any())
 
 
 def test_k8b_shared_table_and_pad_only_rows(card):

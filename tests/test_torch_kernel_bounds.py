@@ -204,6 +204,19 @@ def test_k3_work_reads_each_row_once():
     assert rl.k3_work(2, 1000, 1000)["bytes"] == 3 * 4 * 2 * 1000
 
 
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 2048, 2049])
+def test_k3_work_is_the_same_on_either_path(k):
+    """K3's two-launch path (k up to 64) reads a row into shared memory
+    once and passes over it there; the radix select (larger k) reads it
+    two to four times.  Neither re-read is work: each element is read once
+    and its key computed once, whatever the path, and only the k results
+    a row grow with k."""
+    w = rl.k3_work(63, 1_000_000, k)
+    assert w["bytes"] == 4 * 63 * 1_000_000 + 8 * 63 * k
+    assert w["ops"] == rl.K3_OPS_PER_ELEMENT * 63 * 1_000_000
+    assert w["bound_by"] == "bytes"
+
+
 @pytest.mark.parametrize("length,steps", [
     (1, 0), (2, 1), (3, 2), (4, 2), (5, 3), (8, 3), (16, 4), (18, 5),
     (19, 5)])
@@ -393,3 +406,18 @@ def test_k8b_work_own_slices_are_the_words_and_the_zeroed_minis():
                         + rl.K7_OPS_PER_PROBE * probes)
     both = rl.k8b_work(kc, bb, 2, [100, 70_000], 1)
     assert both["bytes"] == w["bytes"] + 2 * 8 * width
+
+
+def test_k8b_work_of_a_launch_is_its_halves():
+    """The forced cphrase unit (one pooled mini, one own slice of 4,233
+    words, Kc = 16,384, S = 8) and its pooled half launched alone: the
+    whole is the half plus the own slice's words, zeroed mini and
+    search; the row table counts once a launch."""
+    kc, bb = 16_384, 3
+    whole = rl.k8b_work(kc, bb, 1, [4233], 1)
+    half = rl.k8b_work(kc, bb, 1, [], 1)
+    own = rl.k8b_work(kc, bb, 0, [4233], 0)
+    assert whole["bytes"] == half["bytes"] + own["bytes"]
+    assert whole["ops"] == half["ops"] + own["ops"]
+    assert half["bytes"] == 8 * (kc << bb) + 4 * kc
+    assert half["bound_by"] == whole["bound_by"] == "bytes"
