@@ -919,6 +919,77 @@ class K8Recorder:
         return vals, idx
 
 
+def parent_merge_step(lib, counted):
+    """K7's wrapper for a library of the one-block-a-tile design (C entry
+    ``sa_merge_step``, before the sorted join: one direction and one
+    same-term flag a launch).  A call's queries go in one launch per
+    (direction, same-term) pair that has any, each launch writing its
+    queries' words where the call's outputs hold them; ``counted`` (the
+    current wrapper) counts the launches."""
+    import ctypes
+
+    import torch
+
+    from searcharray_tpu_torch.ops.cuda import score as kc
+
+    entry = lib.sa_merge_step
+    entry.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int, ctypes.c_void_p])
+    entry.restype = ctypes.c_int
+
+    def merge_step(hdrs, base_pays, other_pays, base_off, base_n, other_off,
+                   other_n, other_pay_off, *, cont_side, same_term=False,
+                   blk_bits, key_stride=0, min_blk=None, max_blk=None,
+                   need_cont=True):
+        dev = hdrs.device
+        base_off = np.asarray(base_off, np.int64)
+        base_n = np.asarray(base_n, np.int64)
+        Q = len(base_n)
+        sides = kc.per_query(cont_side, Q, "cont_side")
+        same = kc.per_query(same_term, Q, "same_term")
+        conts = kc.per_query(need_cont, Q, "need_cont")
+        M = int(base_n.sum())
+        keys = torch.empty(M, dtype=torch.int32, device=dev)
+        counts = torch.empty(M, dtype=torch.float32, device=dev)
+        cont = (torch.empty(M, dtype=torch.int32, device=dev) if any(conts)
+                else None)
+        out_off = kc.prefix_offsets(base_n)
+        tile = lib.sa_merge_step_tile()
+        window = ((0, (1 << 18) - 1) if min_blk is None
+                  else (int(min_blk), int(max_blk)))
+        for side in ("rhs", "lhs"):
+            for st in (False, True):
+                qs = np.asarray([q for q in range(Q) if sides[q] == side
+                                 and bool(same[q]) == st and base_n[q] > 0],
+                                np.int64)
+                if not len(qs):
+                    continue
+                n_tiles = -(-base_n[qs] // tile)
+                oo = base_off[qs] if st else np.asarray(other_off)[qs]
+                on = base_n[qs] if st else np.asarray(other_n)[qs]
+                po = base_off[qs] if st else np.asarray(other_pay_off)[qs]
+                meta = kc.host_to_device(np.concatenate([
+                    base_off[qs], base_n[qs], oo, on, po, out_off[qs],
+                    qs * key_stride, kc.prefix_offsets(n_tiles),
+                    np.repeat(np.arange(len(qs)), n_tiles)]).astype(
+                        np.int64), dev)
+                err = entry(hdrs.data_ptr(), base_pays.data_ptr(),
+                            (base_pays if st else other_pays).data_ptr(),
+                            meta.data_ptr(), len(qs), int(n_tiles.sum()),
+                            blk_bits, *window, int(side == "rhs"), int(st),
+                            keys.data_ptr(), counts.data_ptr(),
+                            None if cont is None else cont.data_ptr(),
+                            dev.index,
+                            torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"parent K7: CUDA error {err}")
+                counted.launches += 1
+        return keys, counts, cont
+
+    return merge_step
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", metavar="DIR",
@@ -970,16 +1041,26 @@ def main() -> int:
               f"{time.perf_counter() - t0:.3f} s", flush=True)
     phase_done("environment and kernel build")
 
+    k7_wrapper = kc.merge_step   # every K7 launch adds to its counter
+
     def with_lib(lib, fn):
         """``fn`` with the kernels of ``lib`` in place of the current
-        ones."""
+        ones.  A library of the one-block-a-tile K7 (no sa_merge_join)
+        takes K7 through ``parent_merge_step``, and a call's sparse phrase
+        groups one group at a time, as that design ran them."""
         def run():
-            saved = kc._lib
+            saved = kc._lib, kc.merge_step, batch.sparse_chains_freqs
             kc._lib = lib
+            if not hasattr(lib, "sa_merge_join"):
+                kc.merge_step = parent_merge_step(lib, k7_wrapper)
+                batch.sparse_chains_freqs = (
+                    lambda hd, pa, chains, **kw: [
+                        f for c in chains for f in saved[2](hd, pa, [c],
+                                                            **kw)])
             try:
                 return fn()
             finally:
-                kc._lib = saved
+                kc._lib, kc.merge_step, batch.sparse_chains_freqs = saved
         return run
 
     # ---- 3. main path (counted) -----------------------------------------
@@ -1671,11 +1752,12 @@ def main() -> int:
         if not torch.equal(got, dphrase_want[[r[0] for r in rows]]):
             raise AssertionError(f"the sparse phrase group {plan_key} "
                                  "differs from the dense engine")
-    steps = sum(sum(len(ix) - 1 for _, ix in pk) for pk, _ in sparse_groups)
+    steps = sum(max(len(ix) - 1 for _, ix in pk) for pk, _ in sparse_groups)
     check(kc.merge_step.launches - k7_before == steps,
           f"sparse phrase group (K7, K2) equals the dense engine's rows "
           f"exactly on {len(phrases)} phrases in {len(sparse_groups)} "
-          f"groups, {steps} K7 launches (one per chain step of a group)")
+          f"groups, {steps} K7 launches (one per step index of a group's "
+          "longer half)")
     del dphrase_want
 
     phase_done("sparse term and phrase groups vs the dense engine")
@@ -1888,16 +1970,39 @@ def main() -> int:
         arr.termfreqs(long_ph)
         n_single = len(k7_calls)
         larr.score_batch(lmix, top_k=TOP_K)
+        n_mix = len(k7_calls)
+        # the same call with its sparse phrase groups one at a time (the
+        # launch pattern of the one-block-a-tile design, before the chains
+        # of a call were stepped together): timed, not counted
+        chains_fn = batch.sparse_chains_freqs
+        batch.sparse_chains_freqs = lambda hd, pa, chains, **kw: [
+            f for c in chains for f in chains_fn(hd, pa, [c], **kw)]
+        try:
+            larr.score_batch(lmix, top_k=TOP_K)
+        finally:
+            batch.sparse_chains_freqs = chains_fn
     finally:
         phrase.kernels_cuda = kc
+    k7_groups = k7_calls[n_mix:]
+    del k7_calls[n_mix:]
+    lmix_tids = [larr._resolve_tids(q) for q in lmix
+                 if not isinstance(q, str) and len(q) > 1]
+    lmix_steps = max(
+        len(ix) - 1 for tids in lmix_tids
+        if min(tids) >= 0 and min(ldev.term_span(t)[1] for t in tids) > 0
+        for _, ix in phrase.chain_key(ldev, tids)[0])
     k7_err, k7_k2 = 0.0, []
     for a, kw in k7_calls:
         got = kc.merge_step(*a, **kw)
         want = kc.merge_step_plain(*a, **{k: v for k, v in kw.items()
                                           if k != "need_cont"})
         k7_err = max(k7_err, (got[1] - want[1]).abs().max().item())
+        need = torch.as_tensor(np.repeat(
+            kc.per_query(kw.get("need_cont", True), len(a[4]), "need_cont"),
+            np.asarray(a[4], np.int64)), device=got[1].device)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                and (got[2] is None or torch.equal(got[2], want[2]))):
+                and (got[2] is None
+                     or torch.equal(got[2][need], want[2][need]))):
             raise AssertionError(f"K7 differs from its plain version: "
                                  f"{kw}, {int(np.sum(a[4]))} base words")
         n_out = len(a[4]) * kw["key_stride"]
@@ -1909,25 +2014,32 @@ def main() -> int:
                                  f"{got[0].numel()} keys, {n_out} slots")
     seen = set()
     for a, kw in k7_calls:
-        seen |= {kw["cont_side"], "same-term" if kw["same_term"] else "merge",
-                 "window" if kw["min_blk"] is not None else "no window",
+        Q = len(a[4])
+        sides = set(kc.per_query(kw["cont_side"], Q, "cont_side"))
+        sames = set(map(bool, kc.per_query(kw["same_term"], Q, "same")))
+        seen |= sides | {"same-term" if x else "merge" for x in sames}
+        seen |= {"window" if kw["min_blk"] is not None else "no window",
                  "carry" if a[2] is not a[1] else "raw",
-                 "batched" if len(a[4]) > 1 else "single"}
+                 "batched" if Q > 1 else "single"}
+        if len(sides) > 1 or len(sames) > 1:
+            seen.add("mixed launch")
     check(seen == {"rhs", "lhs", "same-term", "merge", "window", "no window",
-                   "carry", "raw", "batched", "single"}
-          and len(k7_calls) - n_single == k7_lmix // 2,
+                   "carry", "raw", "batched", "single", "mixed launch"}
+          and len(k7_calls) - n_single == k7_lmix // 2 == lmix_steps,
           f"K7 equals its plain version bit for bit (counts, keys and "
           f"continuations) on the {len(k7_calls)} steps of the windowed "
           f"phrases ({n_windowed}), the {len(long_ph)}-term phrase "
           f"({n_single - n_windowed}) and the long-document mix "
-          f"({len(k7_calls) - n_single} batched launches): both sides, "
-          "same-term, carry and windowed steps; K2 equals its plain "
-          "version exactly on every step's keys")
+          f"({len(k7_calls) - n_single} launches, each over the call's "
+          f"phrase groups; its longest chain half has {lmix_steps} steps): "
+          "both sides, same-term, carry, windowed and mixed launches; K2 "
+          "equals its plain version exactly on every step's keys")
     # timing units: the largest single step of the windowed phrases, and
     # one long-document mix call's launches
     k7_big = max(k7_calls[:n_windowed],
                  key=lambda c: int(np.sum(c[0][4]) + np.sum(c[0][6])))
-    k7_batch = k7_calls[n_single:]
+    k7_batch = k7_calls[n_single:]   # one mix call, its groups' chains
+                                     # stepped together
     big_k2 = k7_k2[next(i for i, c in enumerate(k7_calls) if c is k7_big)]
 
     # K9 on every launch of the windowed slop shapes, the wide and the
@@ -2349,6 +2461,23 @@ def main() -> int:
                             top_k=TOP_K, slop=ss)
         return MIX_CALLS
 
+    def lmix_turn(w):
+        for c in range(LMIX_CALLS):
+            larr.score_batch(serving_queries(7000 + w * LMIX_CALLS + c)
+                             + lmix[120:], top_k=TOP_K)
+        return LMIX_CALLS
+
+    def ed_long_turn(w):
+        """p50 ms of edismax(ps=2) over bench.py's queries on the
+        long-document frame (its phrase phases run K7 and K9)."""
+        times = []
+        for _ in range(2):
+            for q in ED_QUERIES:
+                t0 = time.perf_counter()
+                edismax(ldf, q=q, top_k=TOP_K, ps=SLOP, **ED_KW)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
     e2e_turns = ([("parent", parent), ("new", None), ("new", None),
                   ("parent", parent)] * 2 if parent is not None
                  else [("new", None)])
@@ -2357,16 +2486,20 @@ def main() -> int:
                                len(TERM_QUERIES)),
                               ("serving mix", mix_turn, mix_n),
                               ("mixed request with slop", mixs_turn,
-                               mixs_n)):
+                               mixs_n),
+                              ("long-document mix", lmix_turn, len(lmix)),
+                              ("long-document edismax(ps=2) p50 ms",
+                               ed_long_turn, None)):
         for t, (label, lib) in enumerate(e2e_turns):
             def turn(w, window=window):
                 return window(w) if lib is None else with_lib(
                     lib, lambda: window(w))()
             turn(100 + t)  # warm, on other queries
             t0 = time.perf_counter()
-            calls = turn(t)
+            got = turn(t)
             e2e.setdefault(name, []).append(
-                (label, calls * n_q / (time.perf_counter() - t0)))
+                (label, got if n_q is None
+                 else got * n_q / (time.perf_counter() - t0)))
 
     # the candidate engine and edismax's phase pruning on (the JAX
     # package's thresholds) and off (the port's, at 1M docs) in turns (on,
@@ -2436,7 +2569,7 @@ def main() -> int:
              "K4": ("plane_fill_kernel",),
              "K5": ("chain_warp_kernel", "chain_tile_kernel",
                     "phrase_chain_kernel"),
-             "K7": ("merge_step_kernel",),
+             "K7": ("merge_step_kernel", "merge_join_kernel"),
              "K3": ("topk_tile_kernel", "topk_merge_kernel",
                     "topk_hist_kernel", "topk_select_kernel",
                     "topk_tiescan_kernel", "topk_filter_kernel",
@@ -2444,13 +2577,13 @@ def main() -> int:
              "K6": ("span_window_kernel",),
              "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
              "K8b": ("cand_minis_kernel",),
-             "K9": ("span_sparse_kernel",)}
+             "K9": ("span_sparse_kernel", "span_join_kernel")}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
                 "K4": lambda: kc.plane_fill.launches,
                 "K5": lambda: kc.phrase_chain.launches,
-                "K7": lambda: kc.merge_step.launches,
+                "K7": lambda: k7_wrapper.launches,
                 # a K3 launch enqueues one, two or nine kernels
                 "K3": lambda: kc.topk.kernels,
                 "K6": lambda: kc.span_window.launches,
@@ -2460,11 +2593,13 @@ def main() -> int:
                 "K9": lambda: kc.span_sparse.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
-                flush=False, old=True, library=None, per=1):
+                flush=False, old=True, library=None, per=1, old_fn=None):
         """Time one unit of work; ``per`` divides every time into the
-        time per launch or row the unit is made of."""
-        turns = ([with_lib(parent, fn), fn, fn, with_lib(parent, fn)]
-                 if parent is not None and old else [fn, fn])
+        time per launch or row the unit is made of.  ``old_fn`` (``fn`` by
+        default) is what the parent's kernels run in their turns."""
+        old_run = with_lib(parent, old_fn or fn)
+        turns = ([old_run, fn, fn, old_run] if parent is not None and old
+                 else [fn, fn])
         dev_ms = [timer(f, iters, names[kernel], flush, counters[kernel])
                   for f in turns]
         rec = {"unit": unit, "per": per,
@@ -2548,39 +2683,59 @@ def main() -> int:
     # K7: the largest single step of the windowed phrases, and the
     # launches of one long-document mix call.  No one PyTorch call
     # computes a step, so there is no library time
-    def k7_run(fn, calls):
-        plain = fn is kc.merge_step_plain
-        return lambda: [fn(*a, **{k: v for k, v in kw.items()
-                                  if not (plain and k == "need_cont")})
-                        for a, kw in calls]
+    def k7_run(calls, plain=False):
+        """The recorded calls through K7's wrapper as it stands when the
+        function runs (the parent's turns swap it), or its plain
+        version."""
+        if plain:
+            return lambda: [kc.merge_step_plain(*a, **{
+                k: v for k, v in kw.items() if k != "need_cont"})
+                for a, kw in calls]
+        return lambda: [kc.merge_step(*a, **kw) for a, kw in calls]
+
+    def k7_queries(a, kw):
+        """(base words, other words, need_cont, same_term) per query."""
+        Q = len(a[4])
+        return zip(np.asarray(a[4]).tolist(), np.asarray(a[6]).tolist(),
+                   kc.per_query(kw.get("need_cont", True), Q, "need_cont"),
+                   kc.per_query(kw["same_term"], Q, "same_term"))
 
     def k7_work(calls):
-        return rl.total(rl.k7_work(a[4], a[6], kw["need_cont"],
-                                   kw["same_term"]) for a, kw in calls)
+        """The bound of the calls: the total of their queries' k7_work
+        (a merged launch's is its groups' total)."""
+        return rl.total(rl.k7_work([b], [o], bool(nc), bool(st))
+                        for a, kw in calls
+                        for b, o, nc, st in k7_queries(a, kw))
 
     def k7_words(calls):
-        return (int(sum(np.sum(a[4]) for a, _ in calls)),
-                int(sum(np.sum(a[6]) for a, kw in calls
-                        if not kw["same_term"])))
+        return (int(sum(b for a, kw in calls for b, _, _, _ in
+                        k7_queries(a, kw))),
+                int(sum(o for a, kw in calls for _, o, _, st in
+                        k7_queries(a, kw) if not st)))
 
-    has_k7 = hasattr(parent, "sa_merge_step")
+    has_k7 = (hasattr(parent, "sa_merge_step")
+              or hasattr(parent, "sa_merge_join"))
     t_k7 = measure(
         "largest step of the windowed phrases, one K7 launch: %d base "
-        "words against %d (side %s, window blocks %s-%s)" % (
-            *k7_words([k7_big]), k7_big[1]["cont_side"],
+        "words against %d (sides %s, window blocks %s-%s)" % (
+            *k7_words([k7_big]),
+            kc.per_query(k7_big[1]["cont_side"], len(k7_big[0][4]), "side"),
             k7_big[1]["min_blk"], k7_big[1]["max_blk"]), "K7",
-        k7_run(kc.merge_step, [k7_big]),
-        k7_run(kc.merge_step_plain, [k7_big]), k7_work([k7_big]),
+        k7_run([k7_big]), k7_run([k7_big], plain=True), k7_work([k7_big]),
         old=has_k7)
     t_k7b = measure(
-        "one long-document mix call, %d batched K7 launches over %d "
-        "phrase queries: %d base words against %d" % (
+        "one long-document mix call, %d K7 launches over %d phrase "
+        "queries, each over the call's phrase groups (the parent's turns: "
+        "%d launches, group by group): %d base words against %d" % (
             len(k7_batch), sum(1 for q in set(map(tuple, (
                 q for q in lmix if not isinstance(q, str))))),
-            *k7_words(k7_batch)), "K7",
-        k7_run(kc.merge_step, k7_batch),
-        k7_run(kc.merge_step_plain, k7_batch), k7_work(k7_batch),
-        old=has_k7)
+            len(k7_groups), *k7_words(k7_batch)), "K7",
+        k7_run(k7_batch), k7_run(k7_batch, plain=True), k7_work(k7_batch),
+        old=has_k7, old_fn=k7_run(k7_groups))
+    t_k7g = measure(
+        "the same call group by group, %d K7 launches" % len(k7_groups),
+        "K7", k7_run(k7_groups), k7_run(k7_groups, plain=True),
+        k7_work(k7_groups), old=has_k7)
 
     def k4_fill(fn):
         return lambda: fn(dev.hdrs, dev.pays, *k4_rows, k4_pools[0])
@@ -3128,7 +3283,8 @@ def main() -> int:
           for shape, w, ms in k6_each]),
         ("K6 distinct plane rows of one mixed request's window launches",
          f"{k6_planes} of {4 * n * (1 << bb)} bytes each"),
-        *((f"{name} score_batch qps, one window a turn "
+        *((f"{name}{'' if name.endswith('ms') else ' score_batch qps'}, "
+           f"one window a turn "
            f"({'parent, new, new, parent, twice' if parent else 'new'})",
            turns)
           for name, turns in e2e.items()),
@@ -3141,14 +3297,16 @@ def main() -> int:
          "(median; windows)",
          f"{float(np.median(qps_lmix))}; {qps_lmix}"),
         ("K7 launches on the main path (windowed phrases; 40-term phrase; "
-         "long-document mix, two calls)", [k7_windows, k7_long, k7_lmix]),
+         "long-document mix, two calls) and the steps of the mix's longest "
+         "chain half", [k7_windows, k7_long, k7_lmix, lmix_steps]),
         *((f"{rec['unit']}: device ms "
            f"({'old, new, new, old' if rec['old'] else 'new, new'}); bound "
            "ms; share of the bound (new, old)",
            f"{rec['device_ms']}; {rec['bound_ms']}; {rec['share']}, "
            f"{rec.get('old_share')}")
           for rec in (t_what, t_rare, t_rows, t_k2, t_k2s, t_k2c, t_k2w, t_k4,
-                      t_k5, t_serve, t_k7, t_k7b, t_k3, t_k3s, t_k3t, t_k6,
+                      t_k5, t_serve, t_k7, t_k7b, t_k7g, t_k3, t_k3s, t_k3t,
+                      t_k6,
                       t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9, t_k8a,
                       t_k8b, t_k8bp)),
         ("K2 1M sparse term group over its uniform control, device ms "
@@ -3220,7 +3378,7 @@ def main() -> int:
         {**entry("merge_step (K7)", csrc + "merge_step.cu",
                  "searcharray_tpu/search/phrase.py:123",
                  launches["merge_step"], k7_err, t_k7),
-         "more_units": [unit_of(t_k7b)]},
+         "more_units": [unit_of(t_k7b), unit_of(t_k7g)]},
         {**entry("span_sparse (K9)", csrc + "span_sparse.cu",
                  "searcharray_tpu/search/spans.py:54",
                  launches["span_sparse"], k9_err, t_k9),

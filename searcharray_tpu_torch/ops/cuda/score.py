@@ -43,6 +43,7 @@ from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     compact_rows_plain,
     merge_step_plain,
     minis_for_rows_plain,
+    per_query,
     phrase_counts_dense_planes,
     popcount_i32,
     span_counts_dense_planes_plain,
@@ -143,9 +144,9 @@ _ENTRIES = {
     "sa_plane_fill": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _int, _vp],
     "sa_phrase_chain": [_vp, _i64, _vp, _i64, _int, _vp, _i64, _int, _vp,
                         _i64, _vp, _int, _vp],
-    "sa_merge_step": [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int, _int,
-                      _int, _int, _vp, _vp, _vp, _int, _vp],
-    "sa_merge_step_tile": [],
+    "sa_merge_join": [_vp, _vp, _vp, _vp, _i64, _i64, _int, _int, _int,
+                      _vp, _vp, _vp, _int, _vp],
+    "sa_merge_join_tile": [],
     "sa_topk": [_vp, _i64, _i64, _i64, _vp, _vp, _i64, _vp, _vp, _int, _vp],
     "sa_topk_unpack": [_vp, _i64, _i64, _vp, _i64, _vp, _vp, _int, _vp],
     "sa_topk_sort_cap": [],
@@ -733,6 +734,10 @@ span_window.launches = 0
 # ---------------------------------------------------------------------------
 # K7: one bigram step of the sparse exact-phrase chain
 # ---------------------------------------------------------------------------
+# bits of K7's flags row (csrc/merge_step.cu)
+MERGE_RHS, MERGE_SAME_TERM, MERGE_WRITE_CONT = 1, 2, 4
+
+
 def prefix_offsets(ns) -> np.ndarray:
     """Where each query's words start in a step's outputs: the exclusive
     prefix sum of the base lengths, int64."""
@@ -742,9 +747,9 @@ def prefix_offsets(ns) -> np.ndarray:
 
 def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
                other_pays: torch.Tensor, base_off, base_n, other_off,
-               other_n, other_pay_off, *, cont_side: str,
-               same_term: bool = False, blk_bits: int, key_stride: int = 0,
-               min_blk=None, max_blk=None, need_cont: bool = True):
+               other_n, other_pay_off, *, cont_side,
+               same_term=False, blk_bits: int, key_stride: int = 0,
+               min_blk=None, max_blk=None, need_cont=True):
     """One bigram step of the sparse phrase chain for a chunk of queries.
 
     Query q matches its *base* words ``hdrs/base_pays[base_off[q] :
@@ -755,18 +760,20 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
     ``other_pays[other_pay_off[q] : + other_n[q]]`` (the posting payloads
     for a raw term, the previous step's continuation for a carry).  Both
     lists are sorted by unique header.  With ``same_term`` (both sides the
-    same list, the first step of a chain) the other arguments are not
-    read.  ``min_blk``/``max_blk`` (both or neither) zero the payloads of
-    words whose block is outside the window; the words stay.
+    same list, the first step of a chain) the query's other arguments are
+    not read.  ``cont_side``, ``same_term`` and ``need_cont`` are one value
+    for the launch or one per query, so one launch takes a step of chains
+    of either direction.  ``min_blk``/``max_blk`` (both or neither) zero
+    the payloads of words whose block is outside the window; the words
+    stay.
 
     Returns (keys int32[M], counts f32[M], cont int32[M] or None) over all
     base words, M = sum(base_n), query q's at ``prefix_offsets(base_n)[q]``
     in its own order: the flat doc key ``q * key_stride + (hdr >>
-    blk_bits)``, the match count, and the continuation payload (None
-    without ``need_cont``).  Keys are non-decreasing, as K2 takes them.
+    blk_bits)``, the match count, and the continuation payload (None where
+    no query needs it; a query without ``need_cont`` leaves its words of
+    it unwritten on the card).  Keys are non-decreasing, as K2 takes them.
     The offsets are host integer sequences, one entry per query."""
-    if cont_side not in ("rhs", "lhs"):
-        raise ValueError(f"cont_side must be rhs or lhs, got {cont_side!r}")
     dev = hdrs.device
     _check(hdrs, "hdrs", torch.int32, dev)
     _check(base_pays, "base_pays", torch.int32, dev)
@@ -776,21 +783,30 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
     W = hdrs.shape[0]
     base_off = _host_index(base_off, "base_off", W + 1)
     base_n = np.asarray(base_n, dtype=np.int64)
-    if same_term:
-        other_off, other_n, other_pay_off = base_off, base_n, base_off
-        other_pays = base_pays
+    Q = len(base_off)
+    sides = per_query(cont_side, Q, "cont_side")
+    if any(c not in ("rhs", "lhs") for c in (
+            [cont_side] if isinstance(cont_side, str) else sides)):
+        raise ValueError(f"cont_side must be rhs or lhs, got {cont_side!r}")
+    same = np.asarray(per_query(same_term, Q, "same_term"), dtype=bool)
+    conts = np.asarray(per_query(need_cont, Q, "need_cont"), dtype=bool)
+    # a same-term query reads no other list: its other columns are its base
+    other_off = np.where(same, base_off,
+                         np.asarray(other_off, dtype=np.int64))
+    other_n = np.where(same, base_n, np.asarray(other_n, dtype=np.int64))
+    other_pay_off = np.where(same, 0,
+                             np.asarray(other_pay_off, dtype=np.int64))
     other_off = _host_index(other_off, "other_off", W + 1)
-    other_n = np.asarray(other_n, dtype=np.int64)
     other_pay_off = _host_index(other_pay_off, "other_pay_off",
                                 other_pays.shape[0] + 1)
-    Q = len(base_off)
     if any(a.shape != (Q,) for a in (base_n, other_off, other_n,
                                      other_pay_off)):
         raise ValueError("the per-query offsets must be 1-D of one length")
     if Q and (base_n.min() < 0 or other_n.min() < 0
               or (base_off + base_n).max() > W
               or (other_off + other_n).max() > W
-              or (other_pay_off + other_n).max() > other_pays.shape[0]):
+              or (other_pay_off + np.where(same, 0, other_n)).max()
+              > other_pays.shape[0]):
         raise ValueError("a posting slice runs past its tensor")
     M = int(base_n.sum())
     if M >= 2**31 or not 0 <= Q * key_stride < 2**31:
@@ -800,35 +816,38 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
     if dev.type == "cpu":
         keys, counts, cont = merge_step_plain(
             hdrs, base_pays, other_pays, base_off, base_n, other_off,
-            other_n, other_pay_off, cont_side=cont_side, same_term=same_term,
-            blk_bits=blk_bits, key_stride=key_stride, min_blk=min_blk,
-            max_blk=max_blk)
-        return keys, counts, (cont if need_cont else None)
+            other_n, other_pay_off, cont_side=sides,
+            same_term=same.tolist(), blk_bits=blk_bits,
+            key_stride=key_stride, min_blk=min_blk, max_blk=max_blk)
+        return keys, counts, (cont if conts.any() else None)
     if dev.type != "cuda":
         raise ValueError(f"no K7 kernel for device {dev}")
     keys = torch.empty(M, dtype=torch.int32, device=dev)
     counts = torch.empty(M, dtype=torch.float32, device=dev)
-    cont = (torch.empty(M, dtype=torch.int32, device=dev) if need_cont
+    cont = (torch.empty(M, dtype=torch.int32, device=dev) if conts.any()
             else None)
     if M == 0:
         return keys, counts, cont
     lib = _get_lib()
-    tile = lib.sa_merge_step_tile()
+    tile = lib.sa_merge_join_tile()
     n_tiles = -(-base_n // tile)
     # the query table, one column per query, then each tile's query
     queries = np.arange(Q, dtype=np.int64)
+    flags = ((np.asarray(sides) == "rhs") * MERGE_RHS
+             + same * MERGE_SAME_TERM + conts * MERGE_WRITE_CONT)
     meta = host_to_device(np.concatenate([
         base_off, base_n, other_off, other_n, other_pay_off,
         prefix_offsets(base_n), queries * key_stride,
-        prefix_offsets(n_tiles), np.repeat(queries, n_tiles)]), dev)
+        prefix_offsets(n_tiles), flags.astype(np.int64),
+        np.repeat(queries, n_tiles)]), dev)
     window = ((0, (1 << 18) - 1) if min_blk is None
               else (int(min_blk), int(max_blk)))
-    err = lib.sa_merge_step(
+    err = lib.sa_merge_join(
         hdrs.data_ptr(), base_pays.data_ptr(), other_pays.data_ptr(),
         meta.data_ptr(), Q, int(n_tiles.sum()), blk_bits, *window,
-        int(cont_side == "rhs"), int(same_term), keys.data_ptr(),
-        counts.data_ptr(), None if cont is None else cont.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        keys.data_ptr(), counts.data_ptr(),
+        None if cont is None else cont.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "merge_step")
     merge_step.launches += 1
     return keys, counts, cont

@@ -422,14 +422,28 @@ def _merge_words(bh, bp, oh, op, cont_side: str):
     return _popcount_f32(overlap) + adj.to(torch.float32), cont
 
 
+def per_query(value, Q: int, name: str) -> list:
+    """A K7 argument that is one value for the launch or one per query, as
+    a list of Q values."""
+    if isinstance(value, (str, bool, np.bool_)):
+        return [value] * Q
+    out = list(value)
+    if len(out) != Q:
+        raise ValueError(f"{name} needs one entry per query")
+    return out
+
+
 def merge_step_plain(hdrs, base_pays, other_pays, base_off, base_n,
-                     other_off, other_n, other_pay_off, *, cont_side: str,
-                     same_term: bool = False, blk_bits: int,
+                     other_off, other_n, other_pay_off, *, cont_side,
+                     same_term=False, blk_bits: int,
                      key_stride: int = 0, min_blk=None, max_blk=None):
     """Plain PyTorch K7: one bigram step of the sparse phrase chain for a
-    chunk of queries (the arguments of ``ops/cuda/score.py:merge_step``).
-    Returns (keys int32[M], counts f32[M], cont int32[M]) over the base
-    words of all queries, query q's at the prefix offset of ``base_n``."""
+    chunk of queries (the arguments of ``ops/cuda/score.py:merge_step``;
+    ``cont_side`` and ``same_term`` one value or one per query).  Returns
+    (keys int32[M], counts f32[M], cont int32[M]) over the base words of
+    all queries, query q's at the prefix offset of ``base_n``."""
+    sides = per_query(cont_side, len(base_n), "cont_side")
+    sames = per_query(same_term, len(base_n), "same_term")
     keys, counts, conts = [], [], []
     for q in range(len(base_n)):
         bo, bn = int(base_off[q]), int(base_n[q])
@@ -438,15 +452,15 @@ def merge_step_plain(hdrs, base_pays, other_pays, base_off, base_n,
         bh = hdrs[bo: bo + bn]
         bp = window_payloads(bh, base_pays[bo: bo + bn], min_blk, max_blk,
                              blk_bits)
-        if same_term:
-            c, cont = _same_term_words(bh, bp, cont_side)
+        if sames[q]:
+            c, cont = _same_term_words(bh, bp, sides[q])
         else:
             oo, on, po = int(other_off[q]), int(other_n[q]), int(
                 other_pay_off[q])
             oh = hdrs[oo: oo + on]
             op = window_payloads(oh, other_pays[po: po + on], min_blk,
                                  max_blk, blk_bits)
-            c, cont = _merge_words(bh, bp, oh, op, cont_side)
+            c, cont = _merge_words(bh, bp, oh, op, sides[q])
         keys.append((bh >> blk_bits) + q * key_stride)
         counts.append(c)
         conts.append(cont)

@@ -16,9 +16,11 @@ Queries are deduplicated, classified and grouped:
   and reduced by ONE sorted segment-sum, K2, for the whole group;
 * ``phrase`` (exact phrases the dense engine does not take: the corpus
   is too large for dense planes, or the phrase has more terms than K5 or
-  the plane pool takes): the sparse chain on the posting slices, each
-  chain step ONE K7 launch for all queries of the chunk, reduced by ONE
-  K2 launch over the same flat key space; then the min over steps;
+  the plane pool takes): the sparse chain on the posting slices, the
+  chains of every ``phrase`` group of the call stepped together: each
+  step index ONE K7 launch for all of them (both halves of a split
+  chain), reduced by ONE K2 launch over a flat key space of one row per
+  (query, half); then the min over steps and halves;
 * ``dspan`` (slop phrases the dense window takes: ``n + slop - 1 <= 18``,
   no term more than twice, planes that fit the pool): ONE K6 launch per
   (distinct terms, window, multiplicities) on the pooled planes;
@@ -57,6 +59,7 @@ from searcharray_tpu_torch.search.phrase import (
     _plan,
     chain_key,
     sparse_chain_freqs,
+    sparse_chains_freqs,
     trim_spans,
 )
 from searcharray_tpu_torch.search.scoring import (
@@ -144,12 +147,26 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
     return f
 
 
+def _phrase_scores(freqs: torch.Tensor, kind: str, k1: float, b: float,
+                   top_k: Optional[int], doc_lens, avgdl, idfs):
+    """A sparse phrase group's scores from its f32[Qg, N] freqs, or the
+    packed top-k with ``top_k``."""
+    idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
+                                        freqs.device)
+    out = apply_similarity_device(kind, freqs, doc_lens[None, :],
+                                  idf_t[:, None], avgdl, k1, b)
+    if top_k is None:
+        return out
+    return dense.pack_topk(out, top_k)
+
+
 def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
                      kind: str, k1: float, b: float, top_k: Optional[int]):
-    """The sparse phrase group: fn(hdrs, pays, doc_lens, avgdl, offs, ns,
-    idfs) -> f32[Qg, N] scores, or the packed top-k with ``top_k``.
-    ``offs``/``ns`` are host int [Qg, T] arrays of exact posting slices
-    (no bucket padding: K7 takes each query's own lengths)."""
+    """The sparse phrase group alone: fn(hdrs, pays, doc_lens, avgdl,
+    offs, ns, idfs) -> f32[Qg, N] scores, or the packed top-k with
+    ``top_k``.  ``offs``/``ns`` are host int [Qg, T] arrays of exact
+    posting slices (no bucket padding: K7 takes each query's own
+    lengths)."""
     N = dev.corpus_size
     Npad = _npad(N)
     blk_bits = dev.blk_bits
@@ -157,15 +174,39 @@ def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
     def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
         freqs = sparse_chain_freqs(hdrs, pays, offs, ns, plan_key, pattern,
                                    blk_bits=blk_bits, key_stride=Npad)[:, :N]
-        idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
-                                            hdrs.device)
-        out = apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                      idf_t[:, None], avgdl, k1, b)
-        if top_k is None:
-            return out
-        return dense.pack_topk(out, top_k)
+        return _phrase_scores(freqs, kind, k1, b, top_k, doc_lens, avgdl,
+                              idfs)
 
     return f
+
+
+def _phrase_specs_freqs(dev: DeviceIndex, specs) -> List[torch.Tensor]:
+    """The f32[Qg, N] freqs of every sparse phrase spec of a call, their
+    chains stepped together (``sparse_chains_freqs``: one K7 and one K2
+    launch per step index), in runs of specs whose rows (query x chain
+    half) fit one K2 key space and whose words _SPARSE_CHUNK_WORDS."""
+    N = dev.corpus_size
+    Npad = _npad(N)
+    runs, cur, rows, words = [], [], 0, 0
+    for s in specs:
+        r = len(s["chunk"]) * len(s["gkey"][2])
+        wd = int(s["ns"].sum())
+        if cur and ((rows + r) * Npad > _MAX_FLAT
+                    or words + wd > _SPARSE_CHUNK_WORDS):
+            runs.append(cur)
+            cur, rows, words = [], 0, 0
+        cur.append(s)
+        rows += r
+        words += wd
+    if cur:
+        runs.append(cur)
+    out = []
+    for run in runs:
+        out += [f[:, :N] for f in sparse_chains_freqs(
+            dev.hdrs, dev.pays,
+            [(s["gkey"][2], s["gkey"][3], s["offs"], s["ns"]) for s in run],
+            blk_bits=dev.blk_bits, key_stride=Npad)]
+    return out
 
 
 def _span_group_fn(dev: DeviceIndex, w: int, mults: tuple, kind: str,
@@ -532,7 +573,9 @@ def score_batch_fused(dev: DeviceIndex,
             # the flat key space, and the f32[Qg, Npad] sums at ~1 GB
             max_chunk = max(1, min(_MAX_FLAT, 1 << 28) // Npad)
         else:
-            max_chunk = max(1, _MAX_FLAT // Npad)  # words: _phrase_chunks
+            # a split chain's halves take a row each of the key space;
+            # words: _phrase_chunks
+            max_chunk = max(1, _MAX_FLAT // Npad // 2)
         if gkey[0] == "dterm":
             # a row keyed by a phrase signature whose tf row is not yet
             # filled pulls its terms' planes into the wave's fill: cut
@@ -652,6 +695,10 @@ def score_batch_fused(dev: DeviceIndex,
         """A sparse group's full-corpus scores at the requested rows."""
         return out if rows_t is None else out.index_select(1, rows_t)
 
+    # every sparse phrase group's chain first, stepped together
+    phrase_specs = [s for s in specs if s["gkey"][0] == "phrase"]
+    phrase_freqs = dict(zip(map(id, phrase_specs),
+                            _phrase_specs_freqs(dev, phrase_specs)))
     span_outs: List[torch.Tensor] = []   # ranked together, after the rest
     span_qis: List[int] = []
     for s in specs:
@@ -659,6 +706,12 @@ def score_batch_fused(dev: DeviceIndex,
         if gkey[0] not in ("term", "phrase", "span"):
             continue
         DISPATCHES[0] += 1
+        if gkey[0] == "phrase":
+            outs.append(at_rows(_phrase_scores(
+                phrase_freqs.pop(id(s)), kind, k1, b, top_k, dev.doc_lens,
+                avgdl, s["idfs"])))
+            out_qis += [r[0] for r in s["chunk"]]
+            continue
         if gkey[0] == "span":
             fn = _span_group_fn(dev, gkey[3], gkey[4], kind, k1, b)
             span_outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens,
@@ -666,11 +719,8 @@ def score_batch_fused(dev: DeviceIndex,
                                         s["idfs"])))
             span_qis += [r[0] for r in s["chunk"]]
             continue
-        if gkey[0] == "term":
-            fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
-                                top_k)
-        else:
-            fn = _phrase_group_fn(dev, gkey[2], gkey[3], kind, k1, b, top_k)
+        fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
+                            top_k)
         outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
                                s["offs"], s["ns"], s["idfs"])))
         out_qis += [r[0] for r in s["chunk"]]

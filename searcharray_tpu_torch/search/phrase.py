@@ -7,9 +7,10 @@ On a dense-eligible corpus every step runs on the term planes of the
 plane pool (search/dense.py, kernel K5).  Windowed phrases, corpora or
 phrases the plane pool cannot take, and phrases of more than
 ``CHAIN_MAX_TERMS`` terms take the sparse chain on the doc-sorted posting
-slices: each step is one K7 launch (``ops/cuda/score.py:merge_step``)
-whose (doc key, count) pairs K2 sums per doc.  The JAX package runs that
-step as a sort of both lists; its compile-reuse machinery (per-step and
+slices: each step index is one K7 launch
+(``ops/cuda/score.py:merge_step``) over every chain of a call, whose (doc
+key, count) pairs K2 sums per doc.  The JAX package runs that step as a
+sort of both lists; its compile-reuse machinery (per-step and
 composite jits, the merged one-sort chain, the Pallas tile bound) has no
 counterpart here.
 """
@@ -81,47 +82,107 @@ def trim_spans(index: DeviceIndex, spans):
     return out
 
 
+def _chain_steps(direction: str, idxs):
+    """The (base, other) term columns of a chain half's steps, in order:
+    the base is the step's raw term, the other its neighbour towards the
+    chain's start (the carry from the second step on)."""
+    if direction == "l2r":
+        return [(idxs[i], idxs[i - 1]) for i in range(1, len(idxs))]
+    return [(idxs[i], idxs[i + 1]) for i in range(len(idxs) - 2, -1, -1)]
+
+
+def sparse_chains_freqs(hdrs: torch.Tensor, pays: torch.Tensor, chains, *,
+                        blk_bits: int, key_stride: int, min_blk=None,
+                        max_blk=None) -> List[torch.Tensor]:
+    """Exact phrase freqs of several chunks of queries, each chunk sharing
+    one chain structure, on their doc-sorted posting slices: one f32
+    [Q_c, key_stride] per chunk.
+
+    ``chains`` holds (plan, pattern, offs, ns) per chunk: ``offs``/``ns``
+    host int [Q_c, T_c] arrays of each query's term slices in
+    ``hdrs``/``pays``, ``plan`` the chain halves and ``pattern`` the
+    same-term tags.  Every (chunk, query, half) is a row.  Step j of every
+    row that has one is ONE K7 launch (the base is the step's raw term,
+    the other the neighbouring raw term or the carry: the previous base's
+    headers with the continuation that step wrote; direction and same-term
+    per row) and ONE K2 launch over its flat ``row * key_stride + doc``
+    keys, so a call launches each kernel as often as its longest half has
+    steps.  Rows are taken longest first, so the rows of step j are a
+    prefix; a row's freqs are the min over its steps, a query's the min
+    over its halves."""
+    rows = []   # (steps, chunk, query); in chunk, query, half order
+    for c, (plan, pattern, offs, ns) in enumerate(chains):
+        offs = np.asarray(offs, dtype=np.int64)
+        ns = np.asarray(ns, dtype=np.int64)
+        for q in range(offs.shape[0]):
+            for direction, idxs in plan:
+                rows.append((_chain_steps(direction, idxs), c, q,
+                             direction, offs[q], ns[q], pattern))
+    order = sorted(range(len(rows)), key=lambda r: -len(rows[r][0]))
+    rows = [rows[r] for r in order]
+    freqs = None
+    carry = None   # (continuation payloads, the previous step's base slices)
+    for j in range(len(rows[0][0]) if rows else 0):
+        live = [r for r in rows if len(r[0]) > j]
+        R = len(live)
+        base = [(r[4][r[0][j][0]], r[5][r[0][j][0]]) for r in live]
+        base_off = np.asarray([b[0] for b in base], np.int64)
+        base_n = np.asarray([b[1] for b in base], np.int64)
+        if carry is None:
+            other_pays = pays
+            other_off = np.asarray([r[4][r[0][0][1]] for r in live])
+            other_n = np.asarray([r[5][r[0][0][1]] for r in live])
+            other_pay_off = other_off
+        else:
+            other_pays = carry[0]
+            other_off, other_n = carry[1][:R], carry[2][:R]
+            other_pay_off = kernels_cuda.prefix_offsets(carry[2])[:R]
+        keys, counts, cont = kernels_cuda.merge_step(
+            hdrs, pays, other_pays, base_off, base_n, other_off, other_n,
+            other_pay_off,
+            cont_side=["rhs" if r[3] == "l2r" else "lhs" for r in live],
+            same_term=[j == 0 and r[6][r[0][0][0]] == r[6][r[0][0][1]]
+                       for r in live],
+            blk_bits=blk_bits, key_stride=key_stride, min_blk=min_blk,
+            max_blk=max_blk, need_cont=[len(r[0]) > j + 1 for r in live])
+        per_doc = kernels_cuda.segment_sum(
+            keys, counts, num_docs=R * key_stride).reshape(R, key_stride)
+        if freqs is None:
+            freqs = per_doc
+        else:
+            freqs[:R] = torch.minimum(freqs[:R], per_doc)
+        carry = (cont, base_off, base_n)
+    # each query's rows, by where the sort put them: the min over halves
+    where: dict = {}
+    for i, r in enumerate(rows):
+        where.setdefault((r[1], r[2]), []).append(i)
+    out = []
+    for c, (_, _, offs, _) in enumerate(chains):
+        Q = np.shape(offs)[0]
+        first = [where[(c, q)][0] for q in range(Q)]
+        second = [where[(c, q)][-1] for q in range(Q)]
+        if Q == 0:
+            out.append(torch.zeros((0, key_stride), dtype=torch.float32,
+                                   device=hdrs.device))
+        elif first == second and first == list(range(first[0],
+                                                     first[0] + Q)):
+            out.append(freqs[first[0]: first[0] + Q])
+        else:
+            ix = kernels_cuda.host_to_device(
+                np.asarray([first, second], np.int64), hdrs.device)
+            out.append(torch.minimum(freqs[ix[0]], freqs[ix[1]]))
+    return out
+
+
 def sparse_chain_freqs(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns,
                        plan, pattern, *, blk_bits: int, key_stride: int,
                        min_blk=None, max_blk=None) -> torch.Tensor:
     """Exact phrase freqs of a chunk of queries sharing one chain
-    structure, on their doc-sorted posting slices: f32 [Q, key_stride].
-
-    ``offs``/``ns`` are host int [Q, T] arrays of each query's term slices
-    in ``hdrs``/``pays``, ``plan`` the chain halves and ``pattern`` the
-    same-term tags.  Every chain step is one K7 launch for all queries
-    (the base is the step's raw term, the other the neighbouring raw term
-    or the carry: the previous base's headers with the continuation that
-    step wrote) and one K2 launch over its flat ``q * key_stride + doc``
-    keys; the freqs are the min over the steps."""
-    offs = np.asarray(offs, dtype=np.int64)
-    ns = np.asarray(ns, dtype=np.int64)
-    Q = offs.shape[0]
-    freqs = None
-    for direction, idxs in plan:
-        l2r = direction == "l2r"
-        order = (range(1, len(idxs)) if l2r
-                 else range(len(idxs) - 2, -1, -1))
-        carry = None   # (continuation payloads, per-query offsets in them)
-        for i in order:
-            base = idxs[i]
-            other = idxs[i - 1] if l2r else idxs[i + 1]
-            last = i == (len(idxs) - 1 if l2r else 0)
-            other_pays, other_pay_off = (
-                (pays, offs[:, other]) if carry is None else carry)
-            keys, counts, cont = kernels_cuda.merge_step(
-                hdrs, pays, other_pays, offs[:, base], ns[:, base],
-                offs[:, other], ns[:, other], other_pay_off,
-                cont_side="rhs" if l2r else "lhs",
-                same_term=carry is None and pattern[base] == pattern[other],
-                blk_bits=blk_bits, key_stride=key_stride, min_blk=min_blk,
-                max_blk=max_blk, need_cont=not last)
-            per_doc = kernels_cuda.segment_sum(keys, counts,
-                                               num_docs=Q * key_stride)
-            freqs = (per_doc if freqs is None
-                     else torch.minimum(freqs, per_doc))
-            carry = (cont, kernels_cuda.prefix_offsets(ns[:, base]))
-    return freqs.reshape(Q, key_stride)
+    structure: f32 [Q, key_stride] (``sparse_chains_freqs`` of one chunk;
+    both halves of a split chain share each step's launches)."""
+    return sparse_chains_freqs(hdrs, pays, [(plan, pattern, offs, ns)],
+                               blk_bits=blk_bits, key_stride=key_stride,
+                               min_blk=min_blk, max_blk=max_blk)[0]
 
 
 def phrase_freqs_dense(index: DeviceIndex, term_ids: List[int],

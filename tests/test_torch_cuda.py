@@ -682,6 +682,44 @@ def test_k7_batched_form_with_empty_slices(card):
     assert not got.reshape(len(base), stride)[2].any()
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k7_one_launch_mixes_directions_and_same_term_steps(card, aligned):
+    """One launch of queries that step left to right and right to left,
+    same-term first steps among them, some writing the continuation: more
+    tiles than the grid holds (3M base words), a 300-word base list whose
+    2M other words overflow every staged window, empty slices; the planes
+    as views at an odd word offset (4-byte copies) or aligned."""
+    sizes = (3_000_000, 2_500_000, 300, 2_000_000, 1024, 0, 70_000, 5)
+    hdrs, pays, offs, ns = posting_lists(11, sizes, 1_000_000)
+    shift = 0 if aligned else 3
+    pad = torch.zeros(shift, dtype=torch.int32)
+    hdrs = torch.cat([pad, hdrs]).to(card)[shift:]
+    pays = torch.cat([pad, pays]).to(card)[shift:]
+    base = np.asarray([0, 2, 3, 4, 6, 5, 7, 1])
+    other = np.asarray([1, 3, 2, 4, 5, 6, 0, 1])
+    sides = ["rhs", "lhs", "rhs", "lhs", "rhs", "lhs", "lhs", "rhs"]
+    same = [False, False, False, True, False, False, False, True]
+    need = [True, False, True, True, False, True, True, False]
+    stride = 1 << 20
+    args = (hdrs, pays, pays, offs[base], ns[base], offs[other], ns[other],
+            offs[other])
+    for window in (None, (2, 6)):
+        mb = (dict(min_blk=window[0], max_blk=window[1]) if window else {})
+        before = kc.merge_step.launches
+        got = kc.merge_step(*args, cont_side=sides, same_term=same,
+                            need_cont=need, blk_bits=K7_BLK_BITS,
+                            key_stride=stride, **mb)
+        want = kc.merge_step_plain(*args, cont_side=sides, same_term=same,
+                                   blk_bits=K7_BLK_BITS, key_stride=stride,
+                                   **mb)
+        torch.cuda.synchronize()
+        assert kc.merge_step.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        rows = torch.from_numpy(np.repeat(need, ns[base])).to(card)
+        assert torch.equal(got[2][rows], want[2][rows])
+        assert got[1].sum() > 0
+
+
 def test_k7_rejects_bad_requests(card):
     hdrs, pays, offs, ns = posting_lists(2, (100, 100), 50)
     hdrs, pays = hdrs.to(card), pays.to(card)
@@ -1212,11 +1250,13 @@ def test_k9_neighbourhoods_stay_inside_their_document(card, blk_bits, w):
         assert counts.sum() > 0
 
 
-@pytest.mark.parametrize("T", [1, 2, 5, 8, 9, 12, 40])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 8, 9, 12, 40])
 def test_k9_term_counts_on_both_sides_of_the_local_state(card, T):
     """Up to sa_span_sparse_local_terms() distinct terms a thread's state
-    is in local memory, above it in the wrapper's scratch buffer."""
-    assert kc._get_lib().sa_span_sparse_local_terms() == 8
+    on the walked path is in registers (the kernel instantiated for T),
+    above it in the wrapper's scratch buffer; the first four terms are
+    staged in shared memory, the rest read in device memory."""
+    assert kc._get_lib().sa_span_sparse_local_terms() == 4
     rng = np.random.default_rng(T)
     sizes = tuple(int(x) for x in rng.integers(20_000, 60_000, T))
     hdrs, pays, offs, ns = k9_lists(T, sizes, 2000, 3)
@@ -1226,6 +1266,23 @@ def test_k9_term_counts_on_both_sides_of_the_local_state(card, T):
         _, counts = k9_both(card, hdrs, pays, [offs], [ns], w, mults,
                             anchor=T // 2, blk_bits=3)
     assert counts.sum() > 0
+
+
+@pytest.mark.parametrize("w,mults", [(4, (1, 1, 2)), (25, (1, 1, 2)),
+                                     (6, (1, 3, 1))])
+def test_k9_stage_overflow_and_more_tiles_than_the_grid(card, w, mults):
+    """A 3M-word anchor list (more tiles than the card holds blocks), a
+    300-word anchor whose terms' ranges overflow every staged window, and
+    a query whose terms have no word in its range, in one launch."""
+    sizes = (3_000_000, 2_000_000, 2_500_000, 300, 0)
+    hdrs, pays, offs, ns = k9_lists(w, sizes, 1_000_000, 3)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    cols = np.asarray([[0, 1, 2], [3, 1, 2], [4, 0, 1], [1, 4, 3]])
+    for window in (None, (1, 6)):
+        mb = (dict(min_blk=window[0], max_blk=window[1]) if window else {})
+        _, counts = k9_both(card, hdrs, pays, offs[cols], ns[cols], w, mults,
+                            blk_bits=3, key_stride=1 << 20, **mb)
+        assert counts.sum() > 0
 
 
 def test_k9_batched_form_with_empty_slices_and_unaligned_views(card):
