@@ -12,8 +12,8 @@ entry points a user calls, and checks it:
    (csrc/segment_sum.cu), K3 (csrc/topk.cu), K4 (csrc/plane_fill.cu), K5
    (csrc/phrase_chain.cu), K6 (csrc/span_window.cu), K7
    (csrc/merge_step.cu), K8a (csrc/cand_rows.cu), K8b
-   (csrc/cand_minis.cu) and K9 (csrc/span_sparse.cu) compile with nvcc
-   for sm_90a;
+   (csrc/cand_minis.cu), K9 (csrc/span_sparse.cu) and K10
+   (csrc/similarity.cu) compile with nvcc for sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
    ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
@@ -23,7 +23,10 @@ entry points a user calls, and checks it:
    by K4, then the phrase-tf cache's promotion, whose rows K5 fills, then
    the cached rows), with phrases that repeat a term and one whose chain
    splits in two halves.  Each result is held to a numpy oracle computed
-   from the host postings (phrase freqs exactly, scores to rtol 1e-6).
+   from the host postings (phrase freqs exactly, scores to rtol 1e-6;
+   BM25 in the JAX package's two-FMA form, ``oracle_bm25``).  Every
+   similarity of the path is K10's, each launch held to
+   ``similarity_plain`` bit for bit as it runs (``K10Recorder``).
    Every ranked result is K3's.  Then slop phrases on the dense planes
    (K6): three ``score_batch`` calls of bench.py's mixed request (120
    term and phrase queries and 24 slop-2 phrases, per-query ``slop``):
@@ -68,7 +71,7 @@ entry points a user calls, and checks it:
    minis and K3 over a candidate axis are held to their plain versions
    bit for bit as they run (a stand-in for the modules' kernel module).
    The launch counts are read right after and every kernel must have
-   run;
+   run, K10 once for every similarity;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -95,8 +98,11 @@ entry points a user calls, and checks it:
    call's (the same values, not the tie order), for K8a one
    ``torch.unique_consecutive`` call's, for K8b the torch composition
    that builds both of its minis and, for its pooled half launched
-   alone, the one gather of that half with its index arithmetic; K3's
-   device operations per call by the profiler's event count;
+   alone, the one gather of that half with its index arithmetic, for
+   K10 (the similarity launches of a serving-mix call) the torch
+   composition it replaced, no single call computing it; K3's
+   device operations per call by the profiler's event count, and K10's
+   launches in a profiled call against its counter;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
    a serving mix of terms and phrases, with and without the 24 slop
    phrases; the long-document index, terms and the mix), a profile of
@@ -203,14 +209,32 @@ def oracle_tf(post, tid, n_docs):
     return np.bincount(keys, weights=pops, minlength=n_docs).astype(np.float32)
 
 
+def fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, in numpy: the float64 sum (the
+    product of two float32 values is exact there) rounded to odd by its
+    TwoSum error, then to nearest float32, which is correctly rounded."""
+    a, b, c = (np.asarray(x, np.float32).astype(np.float64)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)
+    move = (e != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(move, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
 def oracle_bm25(tf, doc_lens, dfs, n_docs, avgdl, k1=1.2, b=0.75):
-    """float32 BM25 in the port's association (Lucene 9 form); the idf
-    sums over every query term, in float64."""
+    """float32 BM25 (Lucene 9 form) rounded as the JAX package's programs
+    round it: ``denom = fma(k1, fma(b, dl / avgdl, 1 - b), tf)``, every
+    other operation once; the idf sums over every query term, in
+    float64."""
     dfs = np.asarray(dfs, np.float64)
     idf = np.float32(np.sum(np.log1p((n_docs - dfs + 0.5) / (dfs + 0.5))))
     k1f, bf, avg = np.float32(k1), np.float32(b), np.float32(avgdl)
-    norm = k1f * ((np.float32(1.0) - bf) + bf * (doc_lens / avg))
-    return (tf / (tf + norm)) * idf
+    tf = np.asarray(tf, np.float32)
+    denom = fma32(k1f, fma32(bf, doc_lens / avg, np.float32(1.0) - bf), tf)
+    return (tf / denom) * idf
 
 
 # popcount of every 18-bit payload value, from the bits of its bytes
@@ -919,6 +943,105 @@ class K8Recorder:
         return vals, idx
 
 
+def torch_similarity(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
+    """The similarity as torch ops, each rounded once: what the port ran
+    before K10 (the parent's turns take it), and K10's yardstick."""
+    import torch
+
+    k1f, bf = np.float32(k1), np.float32(b)
+    if torch.is_tensor(idf) and tfs.dim() == 2:
+        idf = idf.reshape(-1, 1)
+    elif not torch.is_tensor(idf):
+        idf = float(np.float32(idf))
+    if kind == "classic":
+        got = idf * torch.sqrt(tfs) / torch.sqrt(doc_lens)
+    else:
+        avgdl_t = doc_lens.new_full((), float(np.float32(avgdl)))
+        norm = float(k1f) * (float(np.float32(1.0) - bf)
+                             + float(bf) * (doc_lens / avgdl_t))
+        if kind == "bm25":
+            got = (tfs / (tfs + norm)) * idf
+        elif kind == "bm25_legacy":
+            got = idf * ((tfs * float(k1f + np.float32(1.0)))
+                         / (tfs + norm))
+        else:
+            got = tfs / (tfs + norm)
+    return got if out is None else out.copy_(got)
+
+
+class K10Recorder:
+    """K10's wrapper as apply_similarity_device finds it during the main
+    path: every launch is held to ``similarity_plain`` on the same inputs
+    (computed first: the launch may overwrite its input) bit for bit, and
+    counted.  The wrapper's own counter names the module's ``similarity``,
+    which is this object while it stands in, so ``launches`` here counts
+    the kernel's launches."""
+
+    def __init__(self, kc):
+        self.kc, self.orig = kc, kc.similarity
+        self.launches, self.calls, self.err = 0, 0, 0.0
+        self.shapes = set()
+
+    def __call__(self, kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
+        import torch
+
+        t2 = tfs.reshape(1, -1) if tfs.dim() == 1 else tfs
+        i = idf.reshape(-1, 1) if torch.is_tensor(idf) else idf
+        want = self.kc.similarity_plain(kind, t2, doc_lens.reshape(
+            -1, t2.shape[1]), i, avgdl, k1, b).reshape(tfs.shape)
+        got = self.orig(kind, tfs, doc_lens, idf, avgdl, k1, b, out=out)
+        self.calls += 1
+        self.shapes.add((kind, tuple(tfs.shape), doc_lens.numel()
+                         == tfs.numel() and tfs.dim() == 2))
+        if got.numel():
+            self.err = max(self.err, float(
+                (got.double() - want.double()).abs().max()))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K10 {kind} on {tuple(tfs.shape)} differs "
+                                 "from similarity_plain")
+        return got
+
+
+def parent_cand_rows(lib, counted, extra):
+    """K8a's wrapper for a library of the two-kernel design (count each
+    tile's runs, then write; no ``sa_cand_rows_grid``): its ``meta`` ends
+    with one scratch entry per tile.  ``counted`` (the current wrapper)
+    counts the launches, ``extra`` (a list of one int) the second kernel
+    of each."""
+    import torch
+
+    from searcharray_tpu_torch.ops.cuda import score as kc
+
+    def cand_rows(hdrs, pays, offs, ns, Kc, *, num_docs, blk_bits,
+                  with_tf=True):
+        dev = hdrs.device
+        offs = np.asarray(offs, np.int64)
+        ns = np.asarray(ns, np.int64)
+        Q = len(offs)
+        rows = torch.empty((Q, Kc), dtype=torch.int32, device=dev)
+        tf = (torch.empty((Q, Kc), dtype=torch.float32, device=dev)
+              if with_tf else None)
+        if Q == 0:
+            return rows, tf
+        tiles = -(-ns // lib.sa_cand_rows_tile())
+        n_tiles = int(tiles.sum())
+        meta = kc.host_to_device(np.concatenate(
+            [offs, ns, [0], np.cumsum(tiles),
+             np.zeros(n_tiles, np.int64)]), dev)
+        err = lib.sa_cand_rows(
+            hdrs.data_ptr(), pays.data_ptr(), meta.data_ptr(), Q, n_tiles,
+            Kc, num_docs, blk_bits, rows.data_ptr(),
+            None if tf is None else tf.data_ptr(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"parent K8a: CUDA error {err}")
+        counted.launches += 1
+        extra[0] += 1
+        return rows, tf
+
+    return cand_rows
+
+
 def parent_merge_step(lib, counted):
     """K7's wrapper for a library of the one-block-a-tile design (C entry
     ``sa_merge_step``, before the sorted join: one direction and one
@@ -1042,14 +1165,20 @@ def main() -> int:
     phase_done("environment and kernel build")
 
     k7_wrapper = kc.merge_step   # every K7 launch adds to its counter
+    k8a_wrapper = kc.cand_rows   # and every K8a launch to its
+    k8a_extra = [0]   # the second kernel of each two-kernel K8a launch
 
     def with_lib(lib, fn):
         """``fn`` with the kernels of ``lib`` in place of the current
         ones.  A library of the one-block-a-tile K7 (no sa_merge_join)
         takes K7 through ``parent_merge_step``, and a call's sparse phrase
-        groups one group at a time, as that design ran them."""
+        groups one group at a time, as that design ran them; one without
+        K10 (no sa_similarity) takes the similarity as torch ops, as the
+        port did before K10; one of the two-kernel K8a (no
+        sa_cand_rows_grid) takes K8a through ``parent_cand_rows``."""
         def run():
-            saved = kc._lib, kc.merge_step, batch.sparse_chains_freqs
+            saved = (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
+                     kc.similarity, kc.cand_rows)
             kc._lib = lib
             if not hasattr(lib, "sa_merge_join"):
                 kc.merge_step = parent_merge_step(lib, k7_wrapper)
@@ -1057,10 +1186,15 @@ def main() -> int:
                     lambda hd, pa, chains, **kw: [
                         f for c in chains for f in saved[2](hd, pa, [c],
                                                             **kw)])
+            if not hasattr(lib, "sa_similarity"):
+                kc.similarity = torch_similarity
+            if not hasattr(lib, "sa_cand_rows_grid"):
+                kc.cand_rows = parent_cand_rows(lib, k8a_wrapper, k8a_extra)
             try:
                 return fn()
             finally:
-                kc._lib, kc.merge_step, batch.sparse_chains_freqs = saved
+                (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
+                 kc.similarity, kc.cand_rows) = saved
         return run
 
     # ---- 3. main path (counted) -----------------------------------------
@@ -1078,6 +1212,11 @@ def main() -> int:
     kc.span_sparse.launches = 0
     kc.cand_rows.launches = 0
     kc.cand_minis.launches = 0
+    kc.similarity.launches = 0
+    # every similarity of the main path is K10's, each launch held to
+    # similarity_plain as it runs
+    k10_rec = K10Recorder(kc)
+    kc.similarity = k10_rec
     # a phrase above K5's cap that matches at least one doc: the first 40
     # tokens of the first doc that has as many
     long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
@@ -1506,7 +1645,10 @@ def main() -> int:
                 "span_window": kc.span_window.launches,
                 "cand_rows": kc.cand_rows.launches,
                 "cand_minis": kc.cand_minis.launches,
-                "span_sparse": kc.span_sparse.launches}
+                "span_sparse": kc.span_sparse.launches,
+                "similarity": k10_rec.launches}
+    kc.similarity = k10_rec.orig
+    kc.similarity.launches += k10_rec.launches
     batch.kernels_cuda = cand.kernels_cuda = dense.kernels_cuda = kc
     batch._classify = classify
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1514,6 +1656,11 @@ def main() -> int:
     phase_done("edismax: drive")
     check(all(v > 0 for v in launches.values()),
           "every kernel of the path launched in the main-path run")
+    check(k10_rec.calls == k10_rec.launches > 0,
+          f"every similarity of the main path ran as K10 ({k10_rec.launches} "
+          f"launches over {len(k10_rec.shapes)} (kind, shape) pairs), each "
+          "equal to similarity_plain bit for bit (max abs err "
+          f"{k10_rec.err})")
     check(min(k7_windows, k7_long, k7_lmix) > 0
           and k2_chain >= k7_windows + k7_long + k7_lmix,
           f"the sparse chain launched K7 {k7_windows} times for the "
@@ -1773,16 +1920,13 @@ def main() -> int:
             kw = dict(num_docs=n, blk_bits=dev.blk_bits, kind=kind)
             got = kc.score_term(*args, **kw)
             want = kc.score_term_plain(*args, **kw)
-            if kind == "none":
-                ok = torch.equal(got, want)
-            else:
-                ok = torch.allclose(got, want, rtol=1e-6, atol=1e-7)
             err = (got - want).abs().max().item()
             k1_err = max(k1_err, err)
-            if not ok:
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"K1 {term}/{kind} differs: {err}")
-    check(True, f"K1 equals its plain version (tf exact, scores rtol 1e-6) "
-          f"on 3 terms x 4 kinds, max abs err {k1_err:.3g}")
+    check(True, f"K1 equals its plain version bit for bit (the two-FMA "
+          f"similarity in its epilogue) on 3 terms x 4 kinds, max abs err "
+          f"{k1_err:.3g}")
 
     # the multi-row K1 on two waves of tf rows, as ensure_batch fills them:
     # 30 rare query terms (4096-doc blocks) and the batches' dense terms
@@ -2577,7 +2721,8 @@ def main() -> int:
              "K6": ("span_window_kernel",),
              "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
              "K8b": ("cand_minis_kernel",),
-             "K9": ("span_sparse_kernel", "span_join_kernel")}
+             "K9": ("span_sparse_kernel", "span_join_kernel"),
+             "K10": ("similarity_kernel",)}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
@@ -2587,10 +2732,13 @@ def main() -> int:
                 # a K3 launch enqueues one, two or nine kernels
                 "K3": lambda: kc.topk.kernels,
                 "K6": lambda: kc.span_window.launches,
+                # the parent's K8a launches are two kernels each
                 "K8a": lambda: (kc.cand_rows.launches
-                                * kc.CAND_ROWS_KERNELS_PER_LAUNCH),
+                                * kc.CAND_ROWS_KERNELS_PER_LAUNCH
+                                + k8a_extra[0]),
                 "K8b": lambda: kc.cand_minis.launches,
-                "K9": lambda: kc.span_sparse.launches}
+                "K9": lambda: kc.span_sparse.launches,
+                "K10": lambda: kc.similarity.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1, old_fn=None):
@@ -2990,7 +3138,7 @@ def main() -> int:
         lambda: kc.cand_rows_plain(k8a_a[0], k8a_a[1], np.asarray(k8a_a[2]),
                                    np.asarray(k8a_a[3]), k8a_a[4], **k8a_kw),
         rl.k8a_work(k8a_a[3], k8a_a[4], k8a_kw.get("with_tf", True)),
-        iters=20, old=hasattr(parent, "sa_cand_rows"),
+        iters=20, old=parent is not None,
         library=lambda: torch.unique_consecutive(k8a_keys,
                                                  return_inverse=True))
     # K8b: the forced cphrase launch with a stopword co-term ("the" pooled,
@@ -3056,6 +3204,60 @@ def main() -> int:
         rl.k8b_work(k8b_kc, bb, 1, [], 1),
         iters=20, old=hasattr(parent, "sa_cand_minis"), library=k8b_gather)
 
+    # K10: the similarity launches of one serving-mix call on the port's
+    # routing, their inputs kept (a launch may overwrite its input) and
+    # run again into buffers of their own.  No single PyTorch call computes
+    # the similarity; the yardstick is the torch composition K10 replaced
+    # (torch_similarity), over the same launches
+    k10_calls, k10_orig = [], kc.similarity
+
+    def k10_capture(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
+        k10_calls.append((kind, tfs.clone(), doc_lens,
+                          idf.clone() if torch.is_tensor(idf) else idf,
+                          avgdl, k1, b))
+        return k10_orig(kind, tfs, doc_lens, idf, avgdl, k1, b, out=out)
+
+    k10_capture.launches = 0
+    kc.similarity = k10_capture
+    try:
+        arr.score_batch(serving_queries(12345), top_k=TOP_K)
+    finally:
+        kc.similarity = k10_orig
+        kc.similarity.launches += k10_capture.launches
+    k10_out = [torch.empty_like(c[1]) for c in k10_calls]
+
+    def k10_plain(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
+        t2 = tfs.reshape(1, -1) if tfs.dim() == 1 else tfs
+        i = idf.reshape(-1, 1) if torch.is_tensor(idf) else idf
+        got = kc.similarity_plain(kind, t2, doc_lens.reshape(
+            -1, t2.shape[1]), i, avgdl, k1, b).reshape(tfs.shape)
+        return got if out is None else out.copy_(got)
+
+    def k10_run(fn):
+        return lambda: [fn(*c, out=o) for c, o in zip(k10_calls, k10_out)]
+
+    def k10_rows(t):
+        return (t.shape[0] if t.dim() == 2 else 1), t.shape[-1]
+
+    k10_run(kc.similarity)()
+    k10_got = [o.clone() for o in k10_out]
+    k10_run(k10_plain)()
+    check(len(k10_calls) > 0
+          and all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                  for g, w in zip(k10_got, k10_out)),
+          f"K10 equals similarity_plain bit for bit on the {len(k10_calls)} "
+          "similarity launches of a serving-mix call")
+    k10_elems = sum(c[1].numel() for c in k10_calls)
+    t_k10 = measure(
+        "the similarity launches of one serving-mix call: %d K10 launches, "
+        "%d rows of %d docs" % (len(k10_calls), k10_elems // n, n), "K10",
+        k10_run(kc.similarity), k10_run(k10_plain),
+        rl.total(rl.k10_work(*k10_rows(c[1]), c[0],
+                             c[2].numel() == c[1].numel() > n)
+                 for c in k10_calls),
+        iters=20, old=False, library=k10_run(torch_similarity))
+    del k10_out, k10_got
+
     phase_done("kernels: timing")
 
     # one block=False serving call under the profiler: nothing may make the
@@ -3073,6 +3275,7 @@ def main() -> int:
         for attempt in range(4):
             arr.score_batch(request(attempt), top_k=TOP_K, slop=slops)
             torch.cuda.synchronize()
+            k10_at = kc.similarity.launches
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -3085,15 +3288,20 @@ def main() -> int:
                     collect()
                 call_ms = (time.perf_counter() - t0) * 1e3
                 torch.cuda.synchronize()
+            k10_launched = kc.similarity.launches - k10_at
             events = list(prof.events())
             enq = [e for e in events if e.name == "sa_enqueue"]
             launches = [e for e in events if e.name == "cudaLaunchKernel"]
-            if enq and launches:
+            k10_seen = sum(1 for e in events
+                           if e.device_type == DeviceType.CUDA
+                           and "similarity_kernel" in e.name)
+            if enq and launches and k10_seen == k10_launched:
                 break
             print("profiler: no launch events seen; profiling again",
                   flush=True)
         else:
-            raise AssertionError("the profiler saw no kernel launch")
+            raise AssertionError("the profiler saw no kernel launch, or "
+                                 "not every K10 launch")
         end = enq[0].time_range.end
         waits = [e.name for e in events if e.name in SYNCS[:3]
                  and e.time_range.start < end]
@@ -3108,6 +3316,7 @@ def main() -> int:
         return {"enqueue_ms": enqueue_ms, "call_ms": call_ms,
                 "waits_before_collect": waits, "d2h_copies": len(d2h),
                 "kernel_launches": len(launches),
+                "k10_launches": k10_launched, "k10_events": k10_seen,
                 "device_ms": sum(e[1] for e in dev_us) / 1e3,
                 "top": [(k[:60], us / 1e3, c) for k, us, c in dev_us[:12]]}
 
@@ -3153,6 +3362,11 @@ def main() -> int:
     prof_mix_off = profile_call(lambda i: serving_queries(7500 + i),
                                 [0] * mix_n)
     prof_mixs_off = profile_call(lambda i: mixed_request(8500 + i)[0], ss)
+    check(all(p["k10_launches"] == p["k10_events"] > 0
+              for p in (prof_mix, prof_mixs, prof_mix_off, prof_mixs_off)),
+          "every profiled serving and mixed call ran its similarity as K10 "
+          "launches, as many as the profiler's K10 events (on, off: "
+          f"{[(p['k10_launches'], p['k10_events']) for p in (prof_mix, prof_mixs, prof_mix_off, prof_mixs_off)]})")
     k9_before = kc.span_sparse.launches
     prof_k9 = profile_call(
         lambda i: mixed_request(9000 + i)[0] + [q for q, _ in k9_extra], k9s)
@@ -3308,7 +3522,14 @@ def main() -> int:
                       t_k5, t_serve, t_k7, t_k7b, t_k7g, t_k3, t_k3s, t_k3t,
                       t_k6,
                       t_k6w, t_k9, t_k9b, t_k9w, t_k9bw, t_k2s9, t_k8a,
-                      t_k8b, t_k8bp)),
+                      t_k8b, t_k8bp, t_k10)),
+        ("K10 on the main path: launches, similarity calls held to "
+         "similarity_plain bit for bit, (kind, shape, per-element lengths) "
+         "seen, max abs err",
+         f"{launches['similarity']}; {k10_rec.calls}; "
+         f"{len(k10_rec.shapes)}; {k10_rec.err}"),
+        ("K10 unit: device ms; the torch composition it replaced, device "
+         "ms", f"{t_k10['new_device_ms']}; {t_k10['library_device_ms']}"),
         ("K2 1M sparse term group over its uniform control, device ms "
          "(new; old)",
          f"{t_k2s['new_device_ms'] / t_k2c['new_device_ms']}; "
@@ -3391,6 +3612,15 @@ def main() -> int:
                  "searcharray_tpu/search/candidates.py:258",
                  launches["cand_minis"], rec.err["K8b"], t_k8b),
          "more_units": [unit_of(t_k8bp)]},
+        # the largest difference over every main-path launch
+        # (K10Recorder); no single PyTorch call computes the similarity:
+        # the torch composition K10 replaced is its yardstick
+        {**entry("similarity (K10)", csrc + "similarity.cu",
+                 "searcharray_tpu/search/scoring.py:29",
+                 launches["similarity"], k10_rec.err, t_k10),
+         "library_ms": None, "library_device_ms": None,
+         "torch_composition_ms": t_k10["library_ms"],
+         "torch_composition_device_ms": t_k10["library_device_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,10 @@
 //     Integer adds are exact, so the result does not depend on the order
 //     the atomics land in;
 //   * the epilogue converts each count to float, applies the similarity
-//     with the association of scoring.apply_similarity_device (explicit
-//     round-to-nearest intrinsics, so no fused multiply-add changes the
-//     float32 result) and writes each output doc exactly once, four docs
+//     as ops/kernels.py's similarity_plain and K10 (similarity.cu) round
+//     it (explicit round-to-nearest intrinsics; the length norm and its
+//     sum with tf are the two fused multiply-adds of the JAX package's
+//     programs) and writes each output doc exactly once, four docs
 //     per thread with 16-byte loads of the counts and doc lengths and a
 //     16-byte store where the row is 16-byte aligned.
 //
@@ -56,10 +57,10 @@ __device__ __forceinline__ float similarity(int kind, float tf, float dl,
                                             float idf, float avgdl, float k1,
                                             float b) {
   if (kind == KIND_NONE) return tf;
-  // norm = k1 * ((1 - b) + b * (dl / avgdl))
-  float norm = __fmul_rn(
-      k1, __fadd_rn(__fsub_rn(1.0f, b), __fmul_rn(b, __fdiv_rn(dl, avgdl))));
-  float denom = __fadd_rn(tf, norm);
+  // denom = tf + k1 * ((1 - b) + b * (dl / avgdl)), its two multiply-adds
+  // fused as the JAX package's compiled programs fuse them
+  const float denom = __fmaf_rn(
+      k1, __fmaf_rn(b, __fdiv_rn(dl, avgdl), __fsub_rn(1.0f, b)), tf);
   switch (kind) {
     case KIND_BM25:
       return __fmul_rn(__fdiv_rn(tf, denom), idf);

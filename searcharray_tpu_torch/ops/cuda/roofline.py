@@ -19,8 +19,10 @@ integer pipe issues 64 32-bit adds, shifts or logic operations per SM per
 clock and 16 popcounts (CUDA C++ Programming Guide, arithmetic instruction
 throughput, compute capability 9.0), over 132 SMs at the 1.98 GHz boost
 clock: 16.7 T/s.  Operations are counted in those issue slots, so a
-popcount counts 4.  The similarity's few float operations per doc are
-counted at the integer rate too; they never decide a bound.
+popcount counts 4.  The few float operations per doc of K1's fused
+similarity are counted at the integer rate too; they never decide a
+bound.  K10, the similarity alone, counts its float operations at the
+data sheet's float32 rate (67 TFLOP/s, a fused multiply-add two).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 SMS, BOOST_HZ = 132, 1.98e9
 INT32_OPS_PER_S = 64 * SMS * BOOST_HZ
 POPC = 4                 # issue slots of one popcount (16 per SM per clock)
@@ -59,13 +62,19 @@ K8A_OPS_PER_TF_WORD = POPC + 1   # popcount, add into the run's sum
 K8B_OPS_PER_SLOT = 3     # pooled: row clip, address shift-or, copy; own
                          # slice: the zero store
 K8B_OPS_PER_WORD = 4     # key shift, hit compare, address shift-or, store
+# K10's float32 operations per element (a fused multiply-add counts 2):
+# dl / avgdl, two fused multiply-adds, tf / denom, then the kind's own
+K10_FLOPS = {"bm25": 7, "bm25_legacy": 8, "bm25_impact": 6,
+             "classic": 4}   # classic: two roots, a product, a quotient
 
 
-def bound(nbytes: int, ops: int) -> dict:
-    """``{"bytes", "ops", "bound_ms", "bound_by"}`` of a piece of work."""
+def bound(nbytes: int, ops: int, flops: int = 0) -> dict:
+    """``{"bytes", "ops", "bound_ms", "bound_by"}`` of a piece of work:
+    ``ops`` integer issue slots and ``flops`` float32 operations take
+    their times one after the other."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return {"bytes": int(nbytes), "ops": int(ops),
+    t_ops = (ops / INT32_OPS_PER_S + flops / F32_FLOPS_PER_S) * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops), "flops": int(flops),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -301,9 +310,22 @@ def k8b_work(kc: int, blk_bits: int, n_pooled: int, mini_ns: Iterable[int],
     return bound(nbytes, ops)
 
 
+def k10_work(rows: int, n: int, kind: str = "bm25",
+             per_element_lens: bool = False) -> dict:
+    """One K10 launch over an f32 [rows, n] block: each tf read once and
+    each score written once (4 bytes each), the doc lengths read once a
+    launch ([n], broadcast over the rows) or once an element ([rows, n],
+    the candidate path's), and an idf a row."""
+    elems = int(rows) * int(n)
+    nbytes = 8 * elems + 4 * (elems if per_element_lens else int(n)) \
+        + 4 * int(rows)
+    return bound(nbytes, 0, K10_FLOPS[kind] * elems)
+
+
 def total(works: Iterable[dict]) -> dict:
     """The bound of several launches run one after another: their bytes
     and operations add up."""
     works = list(works)
     return bound(sum(w["bytes"] for w in works),
-                 sum(w["ops"] for w in works))
+                 sum(w["ops"] for w in works),
+                 sum(w.get("flops", 0) for w in works))

@@ -2,9 +2,9 @@
 (plane fill), K5 (the exact-phrase bigram chain on dense planes), K6 (the
 slop window coverage on dense planes), K7 (a bigram step of the sparse
 phrase chain), K8a (candidate rows from a posting slice), K8b (mini-planes
-over candidate rows) and K9 (the slop window coverage on posting slices):
-Hopper kernels, their plain PyTorch versions, and the build of the one
-kernel library.
+over candidate rows), K9 (the slop window coverage on posting slices) and
+K10 (the similarity of a block of term frequencies): Hopper kernels, their
+plain PyTorch versions, and the build of the one kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -18,7 +18,7 @@ wrapper counts its kernel launches in a plain int attribute
 ``segment_sum.launches``, ``topk.launches``, ``plane_fill.launches``,
 ``phrase_chain.launches``, ``span_window.launches``,
 ``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
-``span_sparse.launches``).  A K3 launch is one
+``span_sparse.launches``, ``similarity.launches``).  A K3 launch is one
 call of a C entry, which enqueues one or two kernels (k up to
 ``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger k);
 ``topk.kernels`` counts them.  A K8a launch enqueues
@@ -39,13 +39,13 @@ import numpy as np
 import torch
 
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
-    apply_similarity_device,
     compact_rows_plain,
     merge_step_plain,
     minis_for_rows_plain,
     per_query,
     phrase_counts_dense_planes,
     popcount_i32,
+    similarity_plain,
     span_counts_dense_planes_plain,
     span_neighbourhood_plain,
     topk_exact,
@@ -60,6 +60,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 KINDS = {"none": 0, "bm25": 1, "bm25_impact": 2, "bm25_legacy": 3}
+SIM_KINDS = {"bm25": 1, "bm25_impact": 2, "bm25_legacy": 3, "classic": 4}
 
 CHAIN_MAX_TERMS = 32         # K5 takes phrases of at most this many terms
 SPAN_MAX_TERMS = 32          # K6 takes at most this many distinct terms
@@ -67,7 +68,7 @@ SPAN_MAX_WINDOW = 18         # K6's window: one slot's positions
 TOPK_KERNELS_PER_LAUNCH = 9  # above the one-pass cap: three histogram and
                              # select passes, the tie scan, the filter, and
                              # the sort or the unpack
-CAND_ROWS_KERNELS_PER_LAUNCH = 2   # K8a: count each tile's runs, then write
+CAND_ROWS_KERNELS_PER_LAUNCH = 1   # K8a: one single-pass kernel
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -163,8 +164,11 @@ _ENTRIES = {
     "sa_cand_rows": [_vp, _vp, _vp, _i64, _i64, _i64, _int, _int, _vp, _vp,
                      _int, _vp],
     "sa_cand_rows_tile": [],
+    "sa_cand_rows_grid": [_i64, _i64, _i64, _int],
     "sa_cand_minis": [_vp, _i64, _i64, _vp, _i64, _int, _vp, _i64, _vp, _vp,
                       _int, _int, _vp, _int, _vp],
+    "sa_similarity": [_vp, _i64, _i64, _i64, _vp, _i64, _vp, _f, _vp, _i64,
+                      _int, _f, _f, _f, _int, _vp],
 }
 
 
@@ -244,8 +248,8 @@ def score_term_plain(hdrs, pays, doc_lens, idf, avgdl, *, num_docs: int,
     ok = keys < num_docs
     tf = torch.zeros(num_docs, dtype=torch.float32, device=hdrs.device)
     tf.index_add_(0, keys[ok], popcount_i32(pays[ok]).to(torch.float32))
-    return apply_similarity_device(kind, tf, doc_lens, _f32(idf),
-                                   _f32(avgdl), k1, b)
+    return similarity_plain(kind, tf, doc_lens, _f32(idf), _f32(avgdl), k1,
+                            b)
 
 
 def score_term(hdrs: torch.Tensor, pays: torch.Tensor,
@@ -888,8 +892,9 @@ def cand_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, Kc: int, *,
     Returns (rows int32 [Q, Kc]: each query's distinct doc keys ascending,
     then ``num_docs``; tf f32 [Q, Kc]: the popcount of each candidate's
     payloads, or None without ``with_tf``).  Runs past
-    ``Kc`` are dropped.  One launch (csrc/cand_rows.cu: a counting kernel
-    and a writing kernel over the slices' tiles)."""
+    ``Kc`` are dropped.  One launch of one kernel (csrc/cand_rows.cu:
+    persistent blocks over the slices' tiles, each tile's run prefix by a
+    decoupled look-back)."""
     dev = hdrs.device
     _check(hdrs, "hdrs", torch.int32, dev)
     _check(pays, "pays", torch.int32, dev)
@@ -916,12 +921,15 @@ def cand_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, Kc: int, *,
     if Q == 0:
         return rows, tf
     lib = _get_lib()
-    tiles = -(-ns // lib.sa_cand_rows_tile())
-    n_tiles = int(tiles.sum())
-    # the last n_tiles entries are the kernels' scratch (each tile's runs)
+    tile = lib.sa_cand_rows_tile()
+    tiles = -(-ns // tile)
+    starts = np.concatenate([[0], np.cumsum(tiles)]).astype(np.int64)
+    # each tile's record: its query, its first word, its slice's end
+    tq = np.repeat(np.arange(Q, dtype=np.int64), tiles)
+    tword = offs[tq] + (np.arange(len(tq)) - starts[tq]) * tile
     meta = host_to_device(np.concatenate(
-        [offs, ns, [0], np.cumsum(tiles),
-         np.zeros(n_tiles, np.int64)]), dev)
+        [offs, ns, starts, tq, tword, (offs + ns)[tq]]), dev)
+    n_tiles = len(tq)
     err = lib.sa_cand_rows(
         hdrs.data_ptr(), pays.data_ptr(), meta.data_ptr(), Q, n_tiles, Kc,
         num_docs, blk_bits, rows.data_ptr(),
@@ -1145,3 +1153,71 @@ def _span_sparse(hdrs, pays, offs, ns, w, mults, *, anchor=0, blk_bits,
 
 
 span_sparse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: the similarity of a block of term frequencies
+# ---------------------------------------------------------------------------
+def similarity(kind: str, tfs: torch.Tensor, doc_lens: torch.Tensor, idf,
+               avgdl: float, k1: float, b: float,
+               out: torch.Tensor = None) -> torch.Tensor:
+    """The similarity ``kind`` (bm25 / bm25_legacy / bm25_impact /
+    classic) of f32 ``tfs``, [N] or [Q, N] (rows may be strided, columns
+    contiguous), rounded as ``similarity_plain`` rounds it.  ``doc_lens``
+    is f32 [N] (or a [1, N] view), broadcast over the rows, or a
+    contiguous f32 [Q, N]; ``idf`` a number or f32 with one entry per row.
+    The result goes to ``out`` when given (a contiguous f32 tensor of
+    ``tfs``' shape; ``tfs`` itself where the caller owns it), else to a
+    new tensor.  One launch (csrc/similarity.cu)."""
+    if kind not in SIM_KINDS:
+        raise ValueError(f"K10 has no similarity kind {kind}")
+    dev = tfs.device
+    if tfs.dtype != torch.float32 or tfs.dim() not in (1, 2):
+        raise TypeError("tfs must be f32 [N] or [Q, N]")
+    t2 = tfs.reshape(1, -1) if tfs.dim() == 1 else tfs
+    Q, N = t2.shape
+    if N > 1 and t2.stride(1) != 1:
+        raise ValueError("tfs must have contiguous rows")
+    _check(doc_lens, "doc_lens", torch.float32, dev, ndim=doc_lens.dim())
+    if doc_lens.numel() == N and doc_lens.shape[-1] == N:
+        dl_stride = 0
+    elif doc_lens.shape == t2.shape:
+        dl_stride = N
+    else:
+        raise ValueError(f"doc_lens of shape {tuple(doc_lens.shape)} fit "
+                         f"neither [N] nor [Q, N] of tfs {tuple(tfs.shape)}")
+    idfs = None
+    if torch.is_tensor(idf):
+        _check(idf, "idf", torch.float32, dev, ndim=idf.dim())
+        if idf.numel() != Q:
+            raise ValueError("a tensor idf needs one entry per row")
+        idfs = idf.reshape(Q)
+        idf = 0.0
+    if out is None:
+        out = torch.empty(tfs.shape, dtype=torch.float32, device=dev)
+    else:
+        _check(out, "out", torch.float32, dev, ndim=tfs.dim())
+        if out.shape != tfs.shape:
+            raise ValueError("out must have tfs' shape")
+    if out.numel() == 0:
+        return out
+    if dev.type == "cpu":
+        # broadcast as the kernel does: one idf per row, lengths per column
+        got = similarity_plain(
+            kind, t2, doc_lens.reshape(-1, N),
+            idf if idfs is None else idfs[:, None], avgdl, k1, b)
+        return out.copy_(got.reshape(tfs.shape))
+    if dev.type != "cuda":
+        raise ValueError(f"no K10 kernel for device {dev}")
+    lib = _get_lib()
+    err = lib.sa_similarity(
+        t2.data_ptr(), Q, N, t2.stride(0), doc_lens.data_ptr(), dl_stride,
+        None if idfs is None else idfs.data_ptr(), _f32(idf),
+        out.data_ptr(), N, SIM_KINDS[kind], _f32(avgdl), _f32(k1), _f32(b),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "similarity")
+    similarity.launches += 1
+    return out
+
+
+similarity.launches = 0

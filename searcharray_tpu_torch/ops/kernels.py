@@ -95,32 +95,100 @@ def blk_bits_for(max_doc_len: int) -> int:
     return bits
 
 
-def apply_similarity_device(kind, tfs, doc_lens, idf, avgdl, k1, b):
-    """Similarity math on device tensors, in the association of the JAX
-    package's formulas (float32 results agree to the last bits).  ``idf``
-    is a scalar or a tensor that broadcasts against ``tfs``."""
-    k1f = np.float32(k1)
-    bf = np.float32(b)
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add does.
+
+    Each argument is a float32 tensor or a number that float32 holds
+    exactly.  The product of two float32 values is exact in float64, so
+    only the sum rounds: ``s`` is the float64 sum and ``e`` its error by
+    TwoSum.  Where ``e`` is not 0 and the last bit of ``s`` is even, ``s``
+    moves one ulp toward ``e`` (rounding to odd), and the cast to float32
+    then rounds to nearest.  Rounding to odd in a format of at least p + 2
+    bits, then to nearest in p bits, is correctly rounded (Boldo and
+    Melquiond, "Emulation of FMA and correctly rounded sums: proved
+    algorithms using rounding to odd", IEEE Trans. Computers, 2008)."""
+    def f64(x):
+        return x.to(torch.float64) if torch.is_tensor(x) else float(x)
+
+    p = f64(a) * f64(b)
+    c = f64(c)
+    s = p + c
+    if not torch.is_tensor(s):
+        s = torch.tensor(s, dtype=torch.float64)
+    bp = s - p
+    e = (p - (s - bp)) + (c - bp)
+    move = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.where(e > 0, torch.inf, -torch.inf).to(s)
+    return torch.where(move, torch.nextafter(s, away), s).to(torch.float32)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root of float32 ``x`` >= 0, correctly rounded.
+    torch's CPU sqrt is not on every input (its float32 root of 267 is one
+    step low), so the root is taken in float64, rounded to float32 and
+    moved one step where the square of a midpoint next to it, exact in
+    float64 (a 25-bit value squared), says it is on the wrong side."""
+    r = torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    x64 = x.to(torch.float64)
+    up = torch.nextafter(r, torch.full_like(r, torch.inf))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    hi = (r.to(torch.float64) + up.to(torch.float64)) / 2
+    lo = (r.to(torch.float64) + down.to(torch.float64)) / 2
+    r = torch.where(hi * hi < x64, up, r)
+    return torch.where((lo * lo > x64) & (r > 0), down, r)
+
+
+def similarity_plain(kind, tfs, doc_lens, idf, avgdl, k1, b):
+    """The similarity in plain PyTorch, rounded as the JAX package's
+    compiled programs round it where ``avgdl`` is traced: the BM25 family's
+    length norm and its sum with tf are two fused multiply-adds,
+    ``denom = fma(k1, fma(b, dl / avgdl, 1 - b), tf)`` (``fma_f32``), every
+    other operation rounds once, in the JAX formulas' association.
+    ``classic`` is ``idf * sqrt(tf) / sqrt(dl)``, the form of the JAX
+    package's multi-query ``score_batch``, each root correctly rounded
+    (``sqrt_f32``).  ``idf`` is a scalar or a tensor that broadcasts
+    against ``tfs``; so is ``doc_lens``."""
     if kind == "none":
         return tfs
     if isinstance(idf, np.generic):
         idf = float(idf)  # numpy scalars must not drive tensor arithmetic
+    if kind == "classic":
+        # idf passed in is the classic idf; the norm is not used
+        return idf * sqrt_f32(tfs) / sqrt_f32(doc_lens)
+    if kind not in ("bm25", "bm25_legacy", "bm25_impact"):
+        raise ValueError(f"unknown similarity kind {kind}")
+    k1f, bf = np.float32(k1), np.float32(b)
     # a tensor divisor: CUDA torch divides by a host scalar as a multiply
     # by its reciprocal, which is not the IEEE quotient the kernels and
     # numpy give
     avgdl_t = doc_lens.new_full((), float(np.float32(avgdl)))
-    norm = float(k1f) * (float(np.float32(1.0) - bf)
-                         + float(bf) * (doc_lens / avgdl_t))
+    inner = fma_f32(float(bf), doc_lens / avgdl_t,
+                    float(np.float32(1.0) - bf))
+    denom = fma_f32(float(k1f), inner, tfs)
     if kind == "bm25":
-        return (tfs / (tfs + norm)) * idf
+        return (tfs / denom) * idf
     if kind == "bm25_legacy":
-        return idf * ((tfs * float(k1f + np.float32(1.0))) / (tfs + norm))
-    if kind == "bm25_impact":
-        return tfs / (tfs + norm)
-    if kind == "classic":
-        # idf passed in is the classic idf; norm unused
-        return idf * torch.sqrt(tfs) / torch.sqrt(doc_lens)
-    raise ValueError(f"unknown similarity kind {kind}")
+        return idf * ((tfs * float(k1f + np.float32(1.0))) / denom)
+    return tfs / denom
+
+
+def apply_similarity_device(kind, tfs, doc_lens, idf, avgdl, k1, b,
+                            out=None):
+    """The similarity of f32 ``tfs`` ([N] or [Q, N]) on their device: K10
+    (``ops/cuda/score.py:similarity``) for CUDA tensors, its plain version
+    ``similarity_plain`` for CPU tensors; any other device raises.
+    ``doc_lens`` is f32 [N] (or a [1, N] view) or [Q, N]; ``idf`` a scalar
+    or one per row ([Q] or [Q, 1]).  ``out`` (a contiguous f32 tensor of
+    ``tfs``' shape, ``tfs`` itself where the caller owns it) takes the
+    result; kind ``"none"`` returns ``tfs``."""
+    if kind == "none":
+        return tfs
+    # ops/cuda/score.py imports this module, so its wrapper is looked up
+    # when the first similarity runs
+    from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+
+    return kernels_cuda.similarity(kind, tfs, doc_lens, idf, avgdl, k1, b,
+                                   out=out)
 
 
 def topk_exact(x: torch.Tensor, k: int):

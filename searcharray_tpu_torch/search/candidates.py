@@ -150,7 +150,7 @@ def finish_candidates(freqs: torch.Tensor, rows: torch.Tensor, doc_lens,
     rows_clip = rows.clamp(0, N - 1).long()
     dl = doc_lens.index_select(0, rows_clip.reshape(-1)).reshape(Qg, Kc)
     scores = K.apply_similarity_device(kind, freqs, dl, idfs[:, None],
-                                       avgdl, k1, b)
+                                       avgdl, k1, b, out=freqs)
     scores = torch.where(valid, scores, 0.0)
     if top_k is None:
         offs = torch.arange(Qg, device=rows.device)[:, None] * N

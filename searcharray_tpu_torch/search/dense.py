@@ -305,7 +305,8 @@ def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
         tfstack = tfstack.index_select(1, rows)
         doc_lens = doc_lens.index_select(0, rows)
     out = K.apply_similarity_device(kind, tfstack, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b)
+                                    idfs[:, None], avgdl, k1, b,
+                                    out=tfstack)
     if top_k is None:
         return out
     return pack_topk(out, top_k)
@@ -340,7 +341,7 @@ def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
     freqs = kernels_cuda.phrase_chain(pool, slots, plan_key, pattern,
                                       num_docs=n_docs, blk_bits=dev.blk_bits)
     out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b)
+                                    idfs[:, None], avgdl, k1, b, out=freqs)
     if top_k is None:
         return out
     return pack_topk(out, top_k)
@@ -356,7 +357,8 @@ def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
         num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
-                                     np.float32(idf), avgdl, k1, b)
+                                     np.float32(idf), avgdl, k1, b,
+                                     out=freqs)
 
 
 def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
@@ -371,7 +373,7 @@ def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
     freqs = kernels_cuda.span_window(pool, slots, w, mults, anchor=anchor_i,
                                      num_docs=n_docs, blk_bits=dev.blk_bits)
     out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b)
+                                    idfs[:, None], avgdl, k1, b, out=freqs)
     if top_k is None:
         return out
     return pack_topk(out, top_k)
@@ -390,4 +392,5 @@ def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,
         blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
-                                     np.float32(idf), avgdl, k1, b)
+                                     np.float32(idf), avgdl, k1, b,
+                                     out=freqs)

@@ -219,4 +219,4 @@ def phrase_freqs_dense(index: DeviceIndex, term_ids: List[int],
         max_blk=max_blk if windowed else None)[0]
     avgdl = np.float32(max(index.avg_doc_length, 1e-38))
     return apply_similarity_device(kind, freqs, index.doc_lens,
-                                   np.float32(idf), avgdl, k1, b)
+                                   np.float32(idf), avgdl, k1, b, out=freqs)

@@ -107,5 +107,5 @@ def score_term_dense(index: DeviceIndex, term_id: int, kind: str = "bm25",
         k1=k1, b=b)
     if fused != kind:
         out = apply_similarity_device(kind, out, index.doc_lens,
-                                      np.float32(idf), avgdl, k1, b)
+                                      np.float32(idf), avgdl, k1, b, out=out)
     return out

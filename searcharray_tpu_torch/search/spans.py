@@ -116,4 +116,4 @@ def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
         max_blk=max_blk if windowed else None)[0]
     avgdl = np.float32(max(index.avg_doc_length, 1e-38))
     return apply_similarity_device(kind, freqs, index.doc_lens,
-                                   np.float32(idf), avgdl, k1, b)
+                                   np.float32(idf), avgdl, k1, b, out=freqs)

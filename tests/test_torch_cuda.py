@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 to K9 against their plain PyTorch versions, and
+"""The CUDA kernels K1 to K10 against their plain PyTorch versions, and
 the port's main path on a card against the same path on the CPU.
 
 CUDA kernels have no CPU mode: every test here needs a CUDA device and
@@ -1646,3 +1646,142 @@ def test_candidate_path_on_card_matches_cpu(card, monkeypatch):
         cpu.score_batch_device(qs, rows=rows).numpy(), rtol=1e-6, atol=1e-7)
     assert kc.cand_rows.launches > before[0]
     assert kc.cand_minis.launches > before[1]
+
+
+def test_k8a_no_query_launches_nothing(card):
+    before = kc.cand_rows.launches
+    rows, tf = kc.cand_rows(torch.zeros(8, dtype=torch.int32, device=card),
+                            torch.zeros(8, dtype=torch.int32, device=card),
+                            [], [], 16, num_docs=50, blk_bits=3)
+    assert rows.shape == tf.shape == (0, 16)
+    assert kc.cand_rows.launches == before
+
+
+@pytest.mark.parametrize("with_tf", [True, False])
+@pytest.mark.parametrize("sizes,num_docs,blk_bits,kc_", [
+    ([3000, 40, 0], 900, 3, 0),                       # Kc = 0
+    ([K8A_TILE * 3 + 7, 5], 2, 14, 8),                # runs over tiles
+    ([K8A_TILE + 300, 0, 2 * K8A_TILE, 0, 9], 4, 12, 64),
+    ([50_000, 50_000], 30_000, 3, 16_384),            # runs dropped
+])
+def test_k8a_single_kernel_edges(card, sizes, num_docs, blk_bits, kc_,
+                                 with_tf):
+    """The shapes of tests/test_torch_cand_tiles.py at the kernel's own
+    tile: no table, runs that cross one tile and several (docs
+    of thousands of words), empty slices between, tables too small."""
+    hdrs, pays, offs, ns = cand_slices(len(sizes) + kc_, sizes, num_docs,
+                                       blk_bits, near=0.0)
+    k8a_both(card, hdrs, pays, offs, ns, kc_, num_docs, blk_bits, with_tf)
+
+
+def test_k8a_is_one_kernel_within_the_resident_grid(card):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    assert kc.CAND_ROWS_KERNELS_PER_LAUNCH == 1
+    hdrs, pays, offs, ns = cand_slices(12, [30_000, 9_000, 60_000], 50_000,
+                                       3, near=0.3)
+    hdrs, pays = hdrs.to(card), pays.to(card)
+    kw = dict(num_docs=50_000, blk_bits=3)
+    kc.cand_rows(hdrs, pays, offs, ns, 65_536, **kw)   # scratch grown
+    torch.cuda.synchronize()
+    for _ in range(4):   # the profiler has been seen to drop events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kc.cand_rows(hdrs, pays, offs, ns, 65_536, **kw)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "cand_rows" in e.name]
+        if len(kernels) == 3:
+            break
+    assert len(kernels) == 3
+    assert len({e.name for e in kernels}) == 1
+    lib = kc._get_lib()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    grid = lib.sa_cand_rows_grid(3, sum(-(-n // K8A_TILE) for n in ns),
+                                 65_536, card.index or 0)
+    assert 1 <= grid <= 16 * sms
+
+
+# ---------------------------------------------------------------------------
+# K10: the similarity
+# ---------------------------------------------------------------------------
+SIM_KINDS = ["bm25", "bm25_legacy", "bm25_impact", "classic"]
+
+
+def k10_both(card, kind, tf, dl, idf, avgdl=31.7, out_self=False):
+    before = kc.similarity.launches
+    t = tf.to(card)
+    i = idf.to(card) if torch.is_tensor(idf) else idf
+    got = kc.similarity(kind, t, dl.to(card), i, avgdl, 1.2, 0.75,
+                        out=t if out_self else None)
+    want = kc.similarity_plain(kind, tf.to(card), dl.to(card),
+                               i[:, None] if torch.is_tensor(i)
+                               and tf.dim() == 2 else i, avgdl, 1.2, 0.75)
+    torch.cuda.synchronize()
+    assert kc.similarity.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("kind", SIM_KINDS)
+@pytest.mark.parametrize("shape", [(1, 1000), (63, 100_003), (5, 4096),
+                                   (17, 33), (40, 1_000_000)])
+@pytest.mark.parametrize("lens", ["row", "view", "full"])
+@pytest.mark.parametrize("per_row_idf", [False, True])
+def test_k10_matches_plain(card, kind, shape, lens, per_row_idf):
+    rng = np.random.default_rng(sum(shape))
+    Q, N = shape
+    tf = torch.from_numpy(rng.integers(0, 20, shape).astype(np.float32))
+    dl = rng.integers(1, 400, N if lens != "full" else shape)
+    dl = torch.from_numpy(dl.astype(np.float32))
+    if lens == "view":
+        dl = dl[None, :]
+    idf = (torch.from_numpy(rng.uniform(0.5, 9, Q).astype(np.float32))
+           if per_row_idf else float(np.float32(rng.uniform(0.5, 9))))
+    k10_both(card, kind, tf, dl, idf)
+
+
+@pytest.mark.parametrize("kind", SIM_KINDS)
+def test_k10_one_row_strided_rows_and_in_place(card, kind):
+    rng = np.random.default_rng(3)
+    dl = torch.from_numpy(rng.integers(1, 90, 999).astype(np.float32))
+    one = torch.from_numpy(rng.integers(0, 9, 999).astype(np.float32))
+    k10_both(card, kind, one, dl, 2.5)                 # [N], 4-byte path
+    big = torch.from_numpy(rng.integers(0, 9, (6, 1024)).astype(np.float32))
+    k10_both(card, kind, big[:, :999], dl, 2.5)        # strided rows
+    got = k10_both(card, kind, big, dl.new_ones(1024), 1.5, out_self=True)
+    assert got.data_ptr() != 0
+
+
+@pytest.mark.parametrize("kind", ["bm25", "bm25_legacy", "bm25_impact"])
+def test_k10_and_k1_fuse_as_the_plain_form_on_near_ties(card, kind):
+    """Every (tf, dl) of a 100 x 600 grid, which holds near-ties whose
+    per-op and two-FMA scores order them differently: K10 and K1's
+    epilogue equal the plain (two-FMA) form bit for bit, and differ from
+    the per-op form."""
+    tf, dl = torch.meshgrid(torch.arange(1, 101, dtype=torch.float32),
+                            torch.arange(1, 601, dtype=torch.float32),
+                            indexing="ij")
+    got = k10_both(card, kind, tf.reshape(1, -1), dl.reshape(-1), 6.25,
+                   avgdl=21.29).cpu()[0]
+    x = dl.reshape(-1) / torch.tensor(21.29)
+    perop = tf.reshape(-1) + 1.2 * (0.25 + 0.75 * x)
+    assert not torch.equal(got, {"bm25": tf.reshape(-1) / perop * 6.25,
+                                 "bm25_legacy": 6.25 * (tf.reshape(-1) * 2.2
+                                                        / perop),
+                                 "bm25_impact": tf.reshape(-1) / perop}[kind])
+    # K1 on a slice whose doc d has min(tf(d), 18) set bits (one posting
+    # word a doc): the grid's pairs up to tf 18 through the fused epilogue
+    n = tf.numel()
+    tfs = tf.reshape(-1).clamp(max=18).to(torch.int64).numpy()
+    pays = torch.from_numpy(((1 << tfs) - 1).astype(np.int32))
+    hdrs = (torch.arange(n, dtype=torch.int32) << 3)
+    tf18 = kc.popcount_i32(pays).to(torch.float32)
+    want = kc.similarity_plain(kind, tf18, dl.reshape(-1), 6.25, 21.29, 1.2,
+                               0.75)
+    got1 = kc.score_term(hdrs.to(card), pays.to(card),
+                         dl.reshape(-1).to(card), 6.25, 21.29, num_docs=n,
+                         blk_bits=3, kind=kind)
+    assert torch.equal(got1.cpu(), want)

@@ -421,3 +421,24 @@ def test_k8b_work_of_a_launch_is_its_halves():
     assert whole["ops"] == half["ops"] + own["ops"]
     assert half["bytes"] == 8 * (kc << bb) + 4 * kc
     assert half["bound_by"] == whole["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("kind", sorted(rl.K10_FLOPS))
+@pytest.mark.parametrize("per_element", [False, True])
+def test_k10_work_is_a_read_and_a_write_per_element(kind, per_element):
+    w = rl.k10_work(63, 1_000_000, kind, per_element_lens=per_element)
+    lens = 4 * 63_000_000 if per_element else 4 * 1_000_000
+    assert w["bytes"] == 8 * 63_000_000 + lens + 4 * 63
+    assert w["flops"] == rl.K10_FLOPS[kind] * 63_000_000 and w["ops"] == 0
+    # far from the float rate: bound by the bytes
+    assert w["bound_by"] == "bytes"
+    assert w["bound_ms"] == pytest.approx(w["bytes"] / rl.HBM_BYTES_PER_S
+                                          * 1e3)
+
+
+def test_total_adds_the_float_operations():
+    a, b = rl.k10_work(2, 100), rl.k10_work(3, 50, "classic")
+    t = rl.total([a, b])
+    assert t["flops"] == a["flops"] + b["flops"]
+    assert t["bytes"] == a["bytes"] + b["bytes"]
+    assert rl.bound(0, 0, 67_000)["bound_ms"] == pytest.approx(1e-6)
