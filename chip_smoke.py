@@ -12,8 +12,9 @@ entry points a user calls, and checks it:
    (csrc/segment_sum.cu), K3 (csrc/topk.cu), K4 (csrc/plane_fill.cu), K5
    (csrc/phrase_chain.cu), K6 (csrc/span_window.cu), K7
    (csrc/merge_step.cu), K8a (csrc/cand_rows.cu), K8b
-   (csrc/cand_minis.cu), K9 (csrc/span_sparse.cu) and K10
-   (csrc/similarity.cu) compile with nvcc for sm_90a;
+   (csrc/cand_minis.cu), K9 (csrc/span_sparse.cu), K10
+   (csrc/similarity.cu) and K11 (csrc/compose.cu) compile with nvcc for
+   sm_90a;
 3. main path, with every kernel launch counter set to 0 first:
    ``SearchArray.index(corpus, device="cuda")`` -> ``score`` ->
    ``topk`` -> ``score_batch(top_k=10)`` blocking and pipelined on
@@ -53,8 +54,12 @@ entry points a user calls, and checks it:
    configuration (``qf=["title^2", "body"], mm="2<75%", tie=0.1,
    pf=["title", "body"], pf2=["body"], top_k=10``) and the same with
    ``ps=2, ps2=1``, per query and as one ``edismax_batch``, held to a
-   numpy composition of the oracle's scores; and the same frame on the
-   long-document corpus with ``ps=2``, whose phases run K7 and K9.
+   numpy composition of the oracle's scores (in the JAX package's
+   rounding: the tie fold a fused multiply-add); and the same frame on
+   the long-document corpus with ``ps=2``, whose phases run K7 and K9.
+   The title index's postings are memory-mapped (``data_dir=``, a
+   temporary directory).  Every edismax composition is K11's, each launch
+   held to ``compose_plain`` bit for bit as it runs (``K11Recorder``).
    The candidate-subset engine (rare terms ``cterm``: K8a; rare phrases
    ``cphrase``/``cspan``: K8a, K8b, then K5 or K6 on the minis) and
    edismax's pruning (its exact phases scored only at the main query's
@@ -71,7 +76,18 @@ entry points a user calls, and checks it:
    minis and K3 over a candidate axis are held to their plain versions
    bit for bit as they run (a stand-in for the modules' kernel module).
    The launch counts are read right after and every kernel must have
-   run, K10 once for every similarity;
+   run, K10 once for every similarity and K11 for every composition.
+   Then this slice's path, counted the same way: the body index saved
+   (``index/store.py``, format v3, into a temporary directory), loaded
+   with memory maps and attached from the store's planes (a derivation
+   raises), the serving mix and the term batch bit-equal to the
+   in-memory index's; the memory-mapped title index pickled (its path,
+   not its postings) and unpickled, edismax bit-equal to before; 1,000
+   rows of a copy of the body index assigned new documents (some with new
+   terms; by index, by a slice, and through a take view that repeats a
+   row), the serving mix on the mutated index held to the oracle of its
+   host postings, every mutated row's termfreqs exact, the original
+   index unchanged;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -99,8 +115,9 @@ entry points a user calls, and checks it:
    ``torch.unique_consecutive`` call's, for K8b the torch composition
    that builds both of its minis and, for its pooled half launched
    alone, the one gather of that half with its index arithmetic, for
-   K10 (the similarity launches of a serving-mix call) the torch
-   composition it replaced, no single call computing it; K3's
+   K10 (the similarity launches of a serving-mix call) and K11 (the
+   composition launches of one edismax call, and of one edismax_batch)
+   the torch composition each replaced, no single call computing it; K3's
    device operations per call by the profiler's event count, and K10's
    launches in a profiled call against its counter;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
@@ -112,7 +129,9 @@ entry points a user calls, and checks it:
    edismax call, the serving mix, the mixed request with slop and
    edismax with the candidate engine and the phase pruning on (the JAX
    package's thresholds) and off (the port's) in turns (on, off, off, on,
-   twice), edismax latency and
+   twice), ``hbm_report`` of the body index and a ``trace()`` of one
+   ``block=False`` serving call (its Chrome trace names the kernels the
+   profile showed), edismax latency and
    ``edismax_batch`` qps, a windowed phrase's latency and memory, each
    beside the card's name and power limit; the kernels line; the result
    line.
@@ -128,11 +147,15 @@ Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
 """
 import argparse
+import atexit
 import contextlib
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -621,27 +644,37 @@ def oracle_edismax_warm(devs, queries, ps=0, ps2=0):
                                for i in range(len(ts) - 1)], ps2)
 
 
-def oracle_edismax(devs, q, ps=0, ps2=0):
+def oracle_edismax(devs, q, ps=0, ps2=0, chain=True):
     """bench.py's edismax configuration (ED_KW) for one query, composed in
-    numpy float32 from the oracle's scores: per term the better of the
-    boosted title and body scores plus tie times the other; mm "2<75%"
-    (every term up to two, three quarters rounded down above); pf on both
-    fields (the whole query as a phrase, slop ``ps``) and pf2 on the body
-    (every bigram, the final one twice, slop ``ps2``), added where the
-    main query matched.  ``devs`` maps "title" and "body" to their
-    DeviceIndex."""
+    numpy float32 from the oracle's scores, rounded as the JAX package's
+    composers round it (``fma32`` for each fused multiply-add): per term
+    the boosted title and body scores, their max ``mx`` and their sum
+    ``sm`` (``fma(s_body, 1, fs_title)`` where ``chain``, as per-query
+    edismax rounds it; one rounding, as edismax_batch does, otherwise),
+    then ``fma(sm - mx, tie, mx)``; the terms summed in order where mm
+    "2<75%" holds (every term up to two, three quarters rounded down
+    above); pf on both fields (the whole query as a phrase, slop ``ps``)
+    and pf2 on the body (every bigram, the final one twice, slop
+    ``ps2``), added where the main query matched.  ``devs`` maps "title"
+    and "body" to their DeviceIndex."""
     f32 = np.float32
     terms = q.split()
     n = devs["body"].corpus_size
     if not terms:
         return np.zeros(n, f32)
-    fs = np.stack([np.stack([oracle_scores(devs[f], t) for t in terms])
-                   * f32(boost) for f, boost in (("title", 2.0),
-                                                 ("body", 1.0))])
-    mx = fs.max(axis=0)
-    ts = mx + (fs.sum(axis=0) - mx) * f32(ED_KW["tie"])
+    tie = f32(ED_KW["tie"])
+    total = np.zeros(n, f32)
+    hits = np.zeros(n, np.int32)
+    for t in terms:
+        st, sb = oracle_scores(devs["title"], t), oracle_scores(devs["body"], t)
+        ft, fb = st * f32(2.0), sb * f32(1.0)
+        mx = np.maximum(ft, fb)
+        sm = fma32(sb, f32(1.0), ft) if chain else ft + fb
+        ts = fma32(sm - mx, tie, mx)
+        hits += ts > 0
+        total = total + ts
     need = len(terms) if len(terms) <= 2 else len(terms) * 75 // 100
-    qf = np.where((ts > 0).sum(axis=0) >= need, ts.sum(axis=0), f32(0.0))
+    qf = np.where(hits >= need, total, f32(0.0))
     extra = np.zeros(n, f32)
     if len(terms) >= 2:
         for f in ("title", "body"):
@@ -652,19 +685,35 @@ def oracle_edismax(devs, q, ps=0, ps2=0):
     return qf + np.where(qf > 0, extra, f32(0.0))
 
 
-def check_edismax(devs, queries, ranked, what, k, **slops):
-    """Ranked edismax results against ``oracle_edismax``: the scores
-    within rtol 1e-5 (a sum of up to a dozen float32 scores, each within
-    1e-6) of the oracle's k best, and every returned doc's oracle score
-    within the same of its returned score (so docs that tie may come in
-    either order)."""
+ED_REL_ERR = [0.0]   # the largest relative error the edismax checks saw
+
+
+def rel_err(got, want):
+    """The largest relative difference of ``got`` from ``want`` (0 where
+    both are 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    err = float(np.max(np.where(got == want, 0.0, err), initial=0.0))
+    ED_REL_ERR[0] = max(ED_REL_ERR[0], err)
+    return err
+
+
+def check_edismax(devs, queries, ranked, what, k, chain=True, **slops):
+    """Ranked edismax results against ``oracle_edismax`` (``chain``: in
+    per-query edismax's form, else in edismax_batch's): the scores
+    within rtol 1e-6 of the oracle's k best (the port composes as the
+    oracle does; the phase sums add in another order), and every
+    returned doc's oracle score within the same of its returned score
+    (so docs that tie may come in either order)."""
     oracle_edismax_warm(devs, queries, **slops)
     for q, (scores, idx) in zip(queries, ranked):
-        want = oracle_edismax(devs, q, **slops)
+        want = oracle_edismax(devs, q, chain=chain, **slops)
         best = want[oracle_topk(want, k)]
+        rel_err(scores, best)
+        rel_err(scores, want[idx])
         if not (scores.shape == (k,) and np.all(np.isfinite(scores))
-                and np.allclose(scores, best, rtol=1e-5, atol=1e-6)
-                and np.allclose(want[idx], scores, rtol=1e-5, atol=1e-6)):
+                and np.allclose(scores, best, rtol=1e-6, atol=1e-6)
+                and np.allclose(want[idx], scores, rtol=1e-6, atol=1e-6)):
             raise AssertionError(f"{what}: edismax({q!r}) differs from the "
                                  "oracle")
     check(len(ranked) == len(queries),
@@ -1002,6 +1051,62 @@ class K10Recorder:
         return got
 
 
+def torch_compose(stacks, boosts, tie, msm, *, term_centric, chain=True,
+                  out=None):
+    """edismax's composition as torch ops, each rounded once: what the
+    port ran before K11 (the parent's turns take it), and K11's
+    yardstick."""
+    import torch
+
+    bs = [float(np.float32(b)) for b in boosts]
+    tie = float(np.float32(tie))
+    if term_centric:
+        fs = torch.stack([s * b for s, b in zip(stacks, bs)])
+        mx = fs.max(dim=0).values
+        ts = mx + (fs.sum(dim=0) - mx) * tie
+        got = torch.where((ts > 0).sum(dim=0) >= msm, ts.sum(dim=0), 0.0)
+    else:
+        sums = torch.stack([torch.where((ts > 0).sum(dim=0) >= m,
+                                        ts.sum(dim=0), 0.0) * b
+                            for ts, b, m in zip(stacks, bs, msm)])
+        mx = sums.max(dim=0).values
+        got = mx + (sums.sum(dim=0) - mx) * tie
+    return got if out is None else out.copy_(got)
+
+
+class K11Recorder:
+    """K11's wrapper as compose_device finds it during a counted path:
+    every launch is held to ``compose_plain`` on the same inputs (on the
+    card; it adds the rows one at a time, so it rounds as the CPU does)
+    bit for bit, and counted (the wrapper's counter names the module's
+    ``compose``, which is this object while it stands in)."""
+
+    def __init__(self, kc):
+        self.kc, self.orig = kc, kc.compose
+        self.launches, self.calls, self.err = 0, 0, 0.0
+        self.shapes = set()
+
+    def __call__(self, stacks, boosts, tie, msm, *, term_centric,
+                 chain=True, out=None):
+        import torch
+
+        want = self.kc.compose_plain(stacks, boosts, tie, msm,
+                                     term_centric=term_centric, chain=chain)
+        got = self.orig(stacks, boosts, tie, msm, term_centric=term_centric,
+                        chain=chain, out=out)
+        self.calls += 1
+        self.shapes.add((term_centric, chain,
+                         tuple(int(s.shape[0]) for s in stacks)))
+        if got.numel():
+            self.err = max(self.err, float(
+                (got.double() - want.double()).abs().max()))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(
+                f"K11 on {[tuple(s.shape) for s in stacks]} (term-centric "
+                f"{term_centric}, chain {chain}) differs from compose_plain")
+        return got
+
+
 def parent_cand_rows(lib, counted, extra):
     """K8a's wrapper for a library of the two-kernel design (count each
     tile's runs, then write; no ``sa_cand_rows_grid``): its ``meta`` ends
@@ -1175,10 +1280,11 @@ def main() -> int:
         groups one group at a time, as that design ran them; one without
         K10 (no sa_similarity) takes the similarity as torch ops, as the
         port did before K10; one of the two-kernel K8a (no
-        sa_cand_rows_grid) takes K8a through ``parent_cand_rows``."""
+        sa_cand_rows_grid) takes K8a through ``parent_cand_rows``; one
+        without K11 (no sa_compose) composes edismax as torch ops."""
         def run():
             saved = (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
-                     kc.similarity, kc.cand_rows)
+                     kc.similarity, kc.cand_rows, kc.compose)
             kc._lib = lib
             if not hasattr(lib, "sa_merge_join"):
                 kc.merge_step = parent_merge_step(lib, k7_wrapper)
@@ -1190,11 +1296,13 @@ def main() -> int:
                 kc.similarity = torch_similarity
             if not hasattr(lib, "sa_cand_rows_grid"):
                 kc.cand_rows = parent_cand_rows(lib, k8a_wrapper, k8a_extra)
+            if not hasattr(lib, "sa_compose"):
+                kc.compose = torch_compose
             try:
                 return fn()
             finally:
                 (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
-                 kc.similarity, kc.cand_rows) = saved
+                 kc.similarity, kc.cand_rows, kc.compose) = saved
         return run
 
     # ---- 3. main path (counted) -----------------------------------------
@@ -1213,10 +1321,13 @@ def main() -> int:
     kc.cand_rows.launches = 0
     kc.cand_minis.launches = 0
     kc.similarity.launches = 0
-    # every similarity of the main path is K10's, each launch held to
-    # similarity_plain as it runs
+    kc.compose.launches = 0
+    # every similarity of the main path is K10's and every edismax
+    # composition K11's, each launch held to its plain version as it runs
     k10_rec = K10Recorder(kc)
     kc.similarity = k10_rec
+    k11_rec = K11Recorder(kc)
+    kc.compose = k11_rec
     # a phrase above K5's cap that matches at least one doc: the first 40
     # tokens of the first doc that has as many
     long_doc, long_ph = next((d, t[:40]) for d, t in enumerate(
@@ -1585,7 +1696,11 @@ def main() -> int:
     # the same frame on the long-document corpus, where the body's exact
     # bigrams run K7 and its slop phrases K9
     t0 = time.perf_counter()
-    tarr = SearchArray.index(titles, device=DEVICE)
+    # the title postings memory-mapped from a file (data_dir=) in a
+    # directory of its own, removed when the script ends
+    title_dir = tempfile.mkdtemp(prefix="sa_titles_")
+    atexit.register(shutil.rmtree, title_dir, True)
+    tarr = SearchArray.index(titles, device=DEVICE, data_dir=title_dir)
     del titles
     ltarr = SearchArray.index(long_titles, device=DEVICE)
     del long_titles
@@ -1646,9 +1761,12 @@ def main() -> int:
                 "cand_rows": kc.cand_rows.launches,
                 "cand_minis": kc.cand_minis.launches,
                 "span_sparse": kc.span_sparse.launches,
-                "similarity": k10_rec.launches}
+                "similarity": k10_rec.launches,
+                "compose": k11_rec.launches}
     kc.similarity = k10_rec.orig
     kc.similarity.launches += k10_rec.launches
+    kc.compose = k11_rec.orig
+    kc.compose.launches += k11_rec.launches
     batch.kernels_cuda = cand.kernels_cuda = dense.kernels_cuda = kc
     batch._classify = classify
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -1661,6 +1779,11 @@ def main() -> int:
           f"launches over {len(k10_rec.shapes)} (kind, shape) pairs), each "
           "equal to similarity_plain bit for bit (max abs err "
           f"{k10_rec.err})")
+    check(k11_rec.calls == k11_rec.launches > 0,
+          f"every edismax composition of the main path ran as K11 "
+          f"({k11_rec.launches} launches over {len(k11_rec.shapes)} "
+          "(centric, chain, term counts) shapes), each equal to "
+          f"compose_plain bit for bit (max abs err {k11_rec.err})")
     check(min(k7_windows, k7_long, k7_lmix) > 0
           and k2_chain >= k7_windows + k7_long + k7_lmix,
           f"the sparse chain launched K7 {k7_windows} times for the "
@@ -1792,28 +1915,30 @@ def main() -> int:
     check_edismax(devs, ED_QUERIES, [r for r, _ in ed_one],
                   f"edismax(top_k={TOP_K}) at 1M docs, per query", TOP_K)
     check_edismax(devs, ED_QUERIES, list(zip(*ed_batch[0])),
-                  f"edismax_batch(top_k={TOP_K}) at 1M docs", TOP_K)
+                  f"edismax_batch(top_k={TOP_K}) at 1M docs", TOP_K,
+                  chain=False)
     for q, (got, _) in zip(ED_QUERIES, ed_dense):
         want = oracle_edismax(devs, q)
+        rel_err(got, want)
         if not (got.shape == (n,) and np.all(np.isfinite(got))
-                and np.allclose(got, want, rtol=1e-5, atol=1e-6)
+                and np.allclose(got, want, rtol=1e-6, atol=1e-6)
                 and (want > 0).any()):
             raise AssertionError(f"dense edismax({q!r}) differs from the "
                                  "oracle")
-    check(True, f"dense edismax scores within rtol 1e-5 of the oracle on "
+    check(True, f"dense edismax scores within rtol 1e-6 of the oracle on "
           f"{len(ed_dense)} queries")
     check_edismax(devs, ED_QUERIES[:6], [r for r, _ in eds_one[:6]],
                   f"edismax(top_k={TOP_K}, ps=2, ps2=1) at 1M docs, per "
                   "query", TOP_K, **ED_SLOP)
     check_edismax(devs, ED_QUERIES[:6], list(zip(*eds_batch[0]))[:6],
                   f"edismax_batch(top_k={TOP_K}, ps=2, ps2=1) at 1M docs",
-                  TOP_K, **ED_SLOP)
+                  TOP_K, chain=False, **ED_SLOP)
     check_edismax(ldevs, ED_QUERIES, [r for r, _ in led_one],
                   f"edismax(top_k={TOP_K}, ps=2) on the long-document frame, "
                   "per query", TOP_K, ps=SLOP)
     check_edismax(ldevs, ED_QUERIES, list(zip(*led_batch[0])),
                   f"edismax_batch(top_k={TOP_K}, ps=2) on the long-document "
-                  "frame", TOP_K, ps=SLOP)
+                  "frame", TOP_K, chain=False, ps=SLOP)
     check(all(exp_b == exp_1 for run_1, run_b in (
         (ed_one, ed_batch), (eds_one, eds_batch), (led_one, led_batch))
         for (_, exp_1), exp_b in zip(run_1, run_b[1]))
@@ -1836,6 +1961,207 @@ def main() -> int:
           f"and {len(rec.k8b)} K8b launches of the main path equal their "
           f"plain versions bit for bit, as do {rec.checked}")
     phase_done("edismax: oracle checks")
+
+    # ---- 3b. this slice's path, counted: the body index saved and loaded
+    # (format v3), the title index (memory-mapped by data_dir=) pickled,
+    # and the body index mutated at 1M docs ---------------------------------
+    from collections import Counter
+
+    from searcharray_tpu_torch.index import device as device_mod
+    from searcharray_tpu_torch.index import store
+    from searcharray_tpu_torch.pandas_ext.array import _IndexState
+
+    counted = ("score_term", "score_term_rows", "segment_sum", "plane_fill",
+               "phrase_chain", "merge_step", "topk", "span_window",
+               "cand_rows", "cand_minis", "span_sparse", "similarity",
+               "compose")
+    saved_counts = {k: getattr(kc, k).launches for k in counted}
+    for k in counted:
+        getattr(kc, k).launches = 0
+    k10_slice, k11_slice = K10Recorder(kc), K11Recorder(kc)
+    kc.similarity, kc.compose = k10_slice, k11_slice
+    smix = serving_queries(777)
+    term_q = list(TERM_QUERIES) + rare
+    mix_ref = arr.score_batch(smix, top_k=TOP_K)
+    terms_ref = arr.score_batch(term_q, top_k=TOP_K)
+
+    def same_ranked(a, b):
+        return (np.array_equal(a[1], b[1])
+                and np.array_equal(a[0].view(np.int32), b[0].view(np.int32)))
+
+    # persistence: save_index into a temporary directory, load_index with
+    # memory maps, attach from the store's planes (a re-derivation raises)
+    store_dir = tempfile.mkdtemp(prefix="sa_store_")
+    atexit.register(shutil.rmtree, store_dir, True)
+    t0 = time.perf_counter()
+    store.save_index(arr._built, store_dir)
+    save_s = time.perf_counter() - t0
+    store_bytes = sum(os.path.getsize(os.path.join(store_dir, f))
+                      for f in os.listdir(store_dir))
+    t0 = time.perf_counter()
+    built_l = store.load_index(store_dir, mmap=True)
+    load_s = time.perf_counter() - t0
+    derive = device_mod.derive_attach_arrays
+
+    def no_derivation(_):
+        raise AssertionError("the store's planes were derived again")
+
+    device_mod.derive_attach_arrays = no_derivation
+    try:
+        sarr = SearchArray([], tokenizer=arr.tokenizer, device=DEVICE)
+        sarr._attach(_IndexState(built_l, DEVICE))
+        t0 = time.perf_counter()
+        sdev = sarr.dev
+        torch.cuda.synchronize()
+        attach_store_s = time.perf_counter() - t0
+    finally:
+        device_mod.derive_attach_arrays = derive
+    t0 = time.perf_counter()
+    mem_dev = device_mod.DeviceIndex(arr._built, DEVICE)
+    torch.cuda.synchronize()
+    attach_mem_s = time.perf_counter() - t0
+    check(isinstance(built_l.postings.data, np.memmap)
+          and torch.equal(sdev.hdrs, dev.hdrs)
+          and torch.equal(sdev.pays, dev.pays)
+          and torch.equal(mem_dev.hdrs, dev.hdrs),
+          f"save_index wrote {store_bytes} bytes in {save_s:.2f} s; "
+          f"load_index(mmap=True) took {load_s:.3f} s; the store's planes "
+          f"attached as they are in {attach_store_s:.3f} s (an in-memory "
+          f"index derives and attaches in {attach_mem_s:.3f} s), "
+          "torch.equal to the in-memory index's")
+    del mem_dev
+    s_mix = sarr.score_batch(smix, top_k=TOP_K)
+    s_terms = sarr.score_batch(term_q, top_k=TOP_K)
+    check(same_ranked(s_mix, mix_ref) and same_ranked(s_terms, terms_ref),
+          f"the loaded 1M index answers the serving mix ({len(smix)} "
+          f"queries) and the term batch ({len(term_q)}) as the in-memory "
+          "index does, scores and indices bit for bit")
+    del sarr, sdev, built_l
+
+    # pickling: the title index memory-mapped by data_dir= pickles as its
+    # file's path and answers edismax as before
+    t_post = tarr._built.postings
+    t0 = time.perf_counter()
+    blob = pickle.dumps(tarr)
+    tarr2 = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    pickle_bytes = len(blob)
+    df2 = pd.DataFrame({"title": tarr2, "body": arr})
+    ed_ref = [edismax(df, q=q, top_k=TOP_K, **ED_KW)[0] for q in ED_QUERIES]
+    ed_pk = [edismax(df2, q=q, top_k=TOP_K, **ED_KW)[0] for q in ED_QUERIES]
+    check(isinstance(t_post.data, np.memmap)
+          and t_post.mmap_path.startswith(title_dir)
+          and t_post.mmap_path.encode() in blob
+          and len(blob) < t_post.data.nbytes
+          and tarr2.device == DEVICE and tarr2._state.dev is None
+          and all(same_ranked(a, b) for a, b in zip(ed_pk, ed_ref)),
+          f"the title index's postings ({t_post.data.nbytes} bytes) are "
+          f"memory-mapped from {os.path.basename(t_post.mmap_path)}; its "
+          f"pickle is {len(blob)} bytes (dumps and loads "
+          f"{pickle_s:.3f} s) and the unpickled array answers "
+          f"{len(ED_QUERIES)} edismax queries bit for bit as before")
+    del df2, tarr2, blob
+
+    # mutation: 1,000 rows of a copy of the body index, spread over the
+    # corpus, take new documents (some with terms new to the vocabulary):
+    # 998 by one fancy assignment, 2 by a slice; then one assignment
+    # through a take view that repeats a row (de-aliasing)
+    mrng = np.random.default_rng(2024)
+    m_rows = np.sort(mrng.choice(n, 1000, replace=False))
+    new_docs = build_corpus(1000, seed=4242)
+    for i in range(0, 1000, 9):
+        new_docs[i] += f" novel{i} novel{i} w5"
+    donor = SearchArray.index(new_docs, device=DEVICE, autowarm=False)
+    m = arr.copy()
+    s0 = int(m_rows[500]) + 1
+    while s0 in m_rows or s0 + 1 in m_rows:
+        s0 += 1
+    fancy = np.concatenate([m_rows[:500], m_rows[501:]])[:998]
+    t0 = time.perf_counter()
+    m[fancy] = donor[np.arange(998)]
+    m[s0: s0 + 2] = donor[[998, 999]]
+    setitem_s = time.perf_counter() - t0
+    new_by_row = dict(zip(fancy.tolist(), new_docs[:998]))
+    new_by_row[s0], new_by_row[s0 + 1] = new_docs[998], new_docs[999]
+    alias = int(fancy[0])
+    tv = m.take([alias, alias, s0])
+    tv[0] = donor[5]
+    check(m._state.dev is None and len(new_by_row) == 1000
+          and dict(tv[0].terms()) == dict(donor[5].terms())
+          and dict(tv[1].terms()) == dict(m[alias].terms())
+          and dict(m[alias].terms()) == dict(donor[0].terms())
+          and tv.subset and len(tv._built.doc_lens) == n + 1,
+          f"__setitem__ of 1,000 rows (998 by index, 2 by a slice) took "
+          f"{setitem_s:.3f} s and dropped the device copy; assigning "
+          "through a take view that repeats a row gave that position a "
+          "row of its own and left its alias and the array alone")
+    t0 = time.perf_counter()
+    mdev = m.dev
+    torch.cuda.synchronize()
+    reattach_s = time.perf_counter() - t0
+    m_mix = m.score_batch(smix, top_k=TOP_K)
+    check_ranking(mdev, smix, m_mix[0], m_mix[1],
+                  f"the serving mix on the mutated index (re-attached in "
+                  f"{reattach_s:.3f} s)")
+    # every mutated row's tf of its new terms, and 0 for the terms it lost
+    want_tf = {}
+    old_vocab = arr.term_dict
+    for row, doc in new_by_row.items():
+        cnt = Counter(doc.split())
+        for t, c in cnt.items():
+            want_tf.setdefault(t, []).append((row, c))
+        for tid in arr._built.doc_term.row_terms(row):
+            t = old_vocab.get_term(int(tid))
+            if t not in cnt:
+                want_tf.setdefault(t, []).append((row, 0))
+    got_tf, exp_tf = [], []
+    for t, pairs in want_tf.items():
+        rows_t = torch.as_tensor([r for r, _ in pairs], device=mdev.device)
+        tf = scoring.termfreqs_dense(mdev, m.term_dict.get_term_id(t))
+        got_tf.append(tf[rows_t])
+        exp_tf += [c for _, c in pairs]
+    got_tf = torch.cat(got_tf).cpu().numpy()
+    novel = sum(t.startswith("novel") for t in want_tf)
+    check(np.array_equal(got_tf, np.asarray(exp_tf, np.float32))
+          and novel > 0 and m.docfreq(f"novel{9}") == 1,
+          f"termfreqs of the 1,000 mutated rows: {len(exp_tf)} (row, term) "
+          f"pairs over {len(want_tf)} terms ({novel} new to the "
+          "vocabulary) equal the new documents' counts, 0 for the terms "
+          "each row lost")
+    check(same_ranked(arr.score_batch(smix, top_k=TOP_K), mix_ref),
+          "the body index itself still answers the serving mix as before "
+          "the mutation of its copy")
+    slice_counts = {k: getattr(kc, k).launches for k in counted
+                    if k not in ("similarity", "compose")}
+    slice_counts["similarity"] = k10_slice.launches
+    slice_counts["compose"] = k11_slice.launches
+    kc.similarity, kc.compose = k10_slice.orig, k11_slice.orig
+    for k in counted:
+        getattr(kc, k).launches = saved_counts[k] + slice_counts[k]
+    print(f"persistence, pickling and mutation path launches: "
+          f"{slice_counts}", flush=True)
+    check(all(slice_counts[k] > 0 for k in (
+        "score_term", "plane_fill", "phrase_chain", "topk", "similarity",
+        "compose"))
+          and k10_slice.calls == k10_slice.launches
+          and k11_slice.calls == k11_slice.launches,
+          "that path launched K1, K3, K4, K5, K10 and K11, each K10 and K11 "
+          "launch equal to its plain version bit for bit")
+    slice_evidence = [
+        ("save_index of the 1M body index: s; bytes on disk",
+         f"{save_s}; {store_bytes}"),
+        ("load_index(mmap=True) s", load_s),
+        ("attach s: from the store's planes; deriving them in memory",
+         f"{attach_store_s}; {attach_mem_s}"),
+        ("pickle of the memory-mapped 1M title index: bytes; its postings' "
+         "bytes (not in it); its doc-term matrix's bytes (in it); dumps + "
+         "loads s", f"{pickle_bytes}; {t_post.data.nbytes}; "
+         f"{tarr._built.doc_term.nbytes}; {pickle_s}"),
+        ("__setitem__ of 1,000 rows s; re-attach s",
+         f"{setitem_s}; {reattach_s}"),
+    ]
+    del m, mdev, donor, tv
+    phase_done("persistence, pickling, mutation")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
@@ -2722,7 +3048,8 @@ def main() -> int:
              "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
              "K8b": ("cand_minis_kernel",),
              "K9": ("span_sparse_kernel", "span_join_kernel"),
-             "K10": ("similarity_kernel",)}
+             "K10": ("similarity_kernel",),
+             "K11": ("compose_tc_kernel", "compose_fc_kernel")}
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
@@ -2738,7 +3065,8 @@ def main() -> int:
                                 + k8a_extra[0]),
                 "K8b": lambda: kc.cand_minis.launches,
                 "K9": lambda: kc.span_sparse.launches,
-                "K10": lambda: kc.similarity.launches}
+                "K10": lambda: kc.similarity.launches,
+                "K11": lambda: kc.compose.launches}
 
     def measure(unit, kernel, fn, plain, work, iters=20, plain_iters=3,
                 flush=False, old=True, library=None, per=1, old_fn=None):
@@ -3258,6 +3586,71 @@ def main() -> int:
         iters=20, old=False, library=k10_run(torch_similarity))
     del k10_out, k10_got
 
+    # K11: the composition launches of one edismax call (bench.py's
+    # configuration, its first query) and of one edismax_batch of
+    # bench.py's queries, their stacks kept and composed again into
+    # buffers of their own.  No single PyTorch call computes the
+    # composition; the yardstick is the torch composition K11 replaced
+    # (torch_compose), over the same launches
+    def k11_capture_of(call):
+        calls, orig = [], kc.compose
+
+        def capture(stacks, boosts, tie, msm, *, term_centric, chain=True,
+                    out=None):
+            calls.append((list(stacks), list(boosts), tie, msm,
+                          term_centric, chain))
+            return orig(stacks, boosts, tie, msm, term_centric=term_centric,
+                        chain=chain, out=out)
+
+        capture.launches = 0
+        kc.compose = capture
+        try:
+            call()
+        finally:
+            kc.compose = orig
+            kc.compose.launches += capture.launches
+        outs = [torch.empty(c[0][0].shape[1], device=dev.device)
+                for c in calls]
+
+        def run(fn):
+            return lambda: [fn(st, bo, ti, ms, term_centric=tc, chain=ch,
+                               out=o)
+                            for (st, bo, ti, ms, tc, ch), o in zip(calls,
+                                                                   outs)]
+
+        run(kc.compose)()
+        got = [o.clone() for o in outs]
+        run(kc.compose_plain)()
+        check(len(calls) > 0 and all(
+            torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for g, w in zip(got, outs)),
+              f"K11 equals compose_plain bit for bit on the {len(calls)} "
+              "composition launches of the call")
+        work = rl.total(rl.k11_work([s.shape[0] for s in c[0]],
+                                    c[0][0].shape[1]) for c in calls)
+        return calls, run, work
+
+    k11_calls, k11_run, k11_w = k11_capture_of(
+        lambda: edismax(df, q=ED_QUERIES[0], top_k=TOP_K, **ED_KW))
+    t_k11 = measure(
+        "the composition of one edismax(%r) call: %d K11 launch, stacks "
+        "of %s terms of %d docs" % (
+            ED_QUERIES[0], len(k11_calls),
+            [s.shape[0] for s in k11_calls[0][0]], n), "K11",
+        k11_run(kc.compose), k11_run(kc.compose_plain), k11_w,
+        iters=20, old=hasattr(parent, "sa_compose"),
+        library=k11_run(torch_compose))
+    k11b_calls, k11b_run, k11b_w = k11_capture_of(
+        lambda: edismax_batch(df, ED_QUERIES, top_k=TOP_K, **ED_KW))
+    t_k11b = measure(
+        "the compositions of one edismax_batch of bench.py's %d queries: "
+        "%d K11 launches over row views of the shared stacks" % (
+            len(ED_QUERIES), len(k11b_calls)), "K11",
+        k11b_run(kc.compose), k11b_run(kc.compose_plain), k11b_w,
+        iters=20, old=hasattr(parent, "sa_compose"),
+        library=k11b_run(torch_compose))
+    del k11_calls, k11b_calls
+
     phase_done("kernels: timing")
 
     # one block=False serving call under the profiler: nothing may make the
@@ -3390,6 +3783,40 @@ def main() -> int:
                    ("1M docs, ps=2, ps2=1", df, ED_SLOP),
                    ("long-document frame, ps=2", ldf, {"ps": SLOP}))]
     phase_done("serving call profile")
+
+    # observability: hbm_report of the body index after serving, and
+    # trace() around one block=False serving call, whose Chrome trace must
+    # name the hand-written kernels the profile of such a call showed
+    from searcharray_tpu_torch.utils import profiling
+
+    hbm = profiling.hbm_report(arr)
+    check(hbm["index.total"] >= hbm["index.hdrs"] + hbm["index.pays"]
+          and hbm["pool.plane_pool"] > 0 and hbm["pool.tf_pool"] > 0
+          and hbm["pool.tf_pool.slots_used"] > 0
+          and hbm.get("device.bytes_in_use", -1) >= hbm["index.total"],
+          f"hbm_report of the body index: {hbm}")
+    trace_dir = tempfile.mkdtemp(prefix="sa_trace_")
+    atexit.register(shutil.rmtree, trace_dir, True)
+    with profiling.trace(trace_dir):
+        arr.score_batch(serving_queries(9900), top_k=TOP_K, block=False)()
+        torch.cuda.synchronize()
+    (trace_file,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace_file)) as f:
+        traced = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"}
+
+    def k_labels(kernel_names):
+        return sorted({k for k, subs in names.items()
+                       if any(sub in name for sub in subs
+                              for name in kernel_names)})
+
+    traced_k = k_labels(traced)
+    profiled_k = k_labels([key for key, _, _ in prof_mix_off["top"]])
+    check(set(profiled_k) <= set(traced_k) and {"K3", "K10"} <= set(traced_k),
+          f"trace() wrote {trace_file} ({os.path.getsize(os.path.join(trace_dir, trace_file))} "
+          f"bytes), naming {traced_k}; the profiled serving call showed "
+          f"{profiled_k}")
+    phase_done("observability")
 
     evidence = [
         ("corpus generation s", corpus_s),
@@ -3542,6 +3969,9 @@ def main() -> int:
         ("K5 per group launch of the first mixed batch (queries, terms, "
          "plan halves; bound ms; device ms)",
          [(shape, w["bound_ms"], ms) for shape, w, (ms, _) in k5_each]),
+        *slice_evidence,
+        ("edismax checks: the largest relative difference of a score "
+         "from the oracle's (rtol 1e-6 allowed)", ED_REL_ERR[0]),
         ("plane pool bytes", dev.plane_pool.numel() * 4),
         ("max memory allocated bytes (main path)", peak_bytes),
         ("wall s per phase", phases),
@@ -3621,6 +4051,19 @@ def main() -> int:
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k10["library_ms"],
          "torch_composition_device_ms": t_k10["library_device_ms"]},
+        # the largest difference over every main-path launch
+        # (K11Recorder); no single PyTorch call composes: the torch
+        # composition K11 replaced is its yardstick
+        {**entry("compose (K11)", csrc + "compose.cu",
+                 "searcharray_tpu/solr.py:110", launches["compose"],
+                 k11_rec.err, t_k11),
+         "library_ms": None, "library_device_ms": None,
+         "torch_composition_ms": t_k11["library_ms"],
+         "torch_composition_device_ms": t_k11["library_device_ms"],
+         "more_units": [{**{k: v for k, v in unit_of(t_k11b).items()
+                            if k != "library_device_ms"},
+                         "torch_composition_device_ms":
+                         t_k11b.get("library_device_ms")}]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ K1, the BM25 family fused), exact phrases on dense planes (K4, K5) or on
 the posting slices (K7, K2), slop phrases on dense planes (K6) or on the
 posting slices (K9, K2) -> exact top-k (K3) -> batched serving with one
 copy to the host, and the Solr ``edismax`` / ``edismax_batch`` composer
-over dataframe columns.  Every kernel is written by hand for Hopper.
-Every device is named explicitly: ``SearchArray.index(strings,
-device="cuda")``.
+over dataframe columns (its dismax / tie / mm composition K11).  Every
+kernel is written by hand for Hopper.  Every device is named explicitly:
+``SearchArray.index(strings, device="cuda")``.  An index saves and loads
+through ``index/store.py`` (one on-disk format with the JAX package), its
+postings can be memory-mapped (``data_dir=``), and an array pickles and
+takes assignments (``__setitem__``); only doc-axis sharding (``mesh=``)
+still raises ``NotImplementedError``, naming its ROADMAP item.
 """
 from searcharray_tpu_torch.pandas_ext.array import SearchArray, Terms, TermsDtype  # noqa: F401
 from searcharray_tpu_torch.search.similarity import (  # noqa: F401

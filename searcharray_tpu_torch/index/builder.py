@@ -431,9 +431,10 @@ class BuiltIndex:
     avg_doc_length: float
     doc_freqs: Optional[np.ndarray] = None   # int64[V]
     # Precomputed device-attach arrays (index/device.py:
-    # derive_attach_arrays): {"hdr32", "pay32" (tail-padded), "blk_bits",
-    # "max_bucket"}; other keys are ignored.  Lets DeviceIndex skip its
-    # multi-GB numpy derivation passes.
+    # derive_attach_arrays, or a v3 store's, index/store.py): {"hdr32",
+    # "pay32" (tail-padded), "blk_bits", "max_bucket"}; DeviceIndex
+    # ignores the store's "block_word_max" and "doc_block".  Lets
+    # DeviceIndex skip its multi-GB numpy derivation passes.
     derived: Optional[dict] = None
 
     def __post_init__(self):
@@ -618,6 +619,148 @@ def merge_built(parts: List[BuiltIndex]) -> BuiltIndex:
         doc_term=doc_term,
         vocab=vocab,
         doc_lens=doc_lens,
+        avg_doc_length=avg_dl,
+    )
+
+
+def replace_docs(built: BuiltIndex, doc_ids: np.ndarray, rows: List,
+                 terms_cls) -> BuiltIndex:
+    """Rebuild only the mutated docs: delta-index ``rows`` and splice them
+    into ``built``'s CSR stores with vectorised passes (no per-row Terms
+    materialisation of the untouched corpus).
+
+    ``doc_ids[i]`` is the backing corpus row that ``rows[i]`` replaces; ids
+    ``>= built.corpus_size`` append new docs (the de-aliased ``__setitem__``
+    case).  Duplicate ids keep the LAST assignment, matching sequential
+    in-place semantics.  The reference's ``__setitem__``
+    (``searcharray/postings.py:360-425``) mutates its term matrix and
+    position bit-arrays row by row; here the index is an immutable CSR, so
+    mutation is a delta build + O(total words) splice instead of an
+    O(corpus) decode and rebuild.  Host numpy only (the JAX package's
+    ``index/builder.py:625``).
+    """
+    doc_ids = np.asarray(doc_ids, dtype=np.int64)
+    if len(doc_ids) != len(rows):
+        raise ValueError("doc_ids and rows must align")
+    if len(doc_ids) == 0:
+        return built
+    # duplicates: keep the last assignment per doc
+    _, last = np.unique(doc_ids[::-1], return_index=True)
+    keep_i = np.sort(len(doc_ids) - 1 - last)
+    doc_ids = doc_ids[keep_i]
+    rows = [rows[i] for i in keep_i]
+
+    mini = build_index_from_terms(np.asarray(rows, dtype=object), terms_cls)
+    vocab = built.vocab.copy()
+    tmap = vocab.add_batch(
+        [mini.vocab.get_term(i) for i in range(len(mini.vocab))]
+    ) if len(mini.vocab) else np.empty(0, np.int64)
+    V2 = len(vocab)
+    N = built.corpus_size
+    N2 = max(N, int(doc_ids.max()) + 1)
+
+    # --- postings: only terms touched by the mutation change; runs of
+    # untouched terms copy wholesale as contiguous slices (a global
+    # re-sort or permutation gather of the full buffer takes seconds at
+    # 6M words; the run splice is a memcpy) ---
+    old = built.postings
+    old_data = np.asarray(old.data)
+    dt = built.doc_term
+    live = doc_ids[doc_ids < N]
+    # replaced docs as a mask over the doc axis: one lookup a word (the
+    # JAX package's np.isin sorts every affected slice)
+    replaced = np.zeros(N, dtype=bool)
+    replaced[live] = True
+    aff = np.zeros(V2, dtype=bool)
+    for d in live:
+        aff[dt.row_terms(int(d)).astype(np.int64)] = True
+    if len(tmap):
+        aff[tmap] = True
+    aff_t = np.flatnonzero(aff)
+    # global tid -> mini tid (or -1)
+    inv_t = np.full(V2, -1, dtype=np.int64)
+    if len(tmap):
+        inv_t[tmap] = np.arange(len(tmap), dtype=np.int64)
+    low_mask = np.uint64((1 << enc.KEY_SHIFT) - 1)
+    key_shift = np.uint64(enc.KEY_SHIFT)
+    mp = mini.postings
+    md = np.asarray(mp.data)
+    merged: dict = {}
+    for t in aff_t:
+        t = int(t)
+        if t < old.num_terms and old.lengths[t]:
+            sl = old_data[old.offsets[t]: old.offsets[t] + old.lengths[t]]
+            sl = sl[~replaced[enc.keys_of(sl).astype(np.int64)]]
+        else:
+            sl = np.empty(0, np.uint64)
+        mt = inv_t[t]
+        if mt >= 0 and mp.lengths[mt]:
+            dw = md[mp.offsets[mt]: mp.offsets[mt] + mp.lengths[mt]]
+            # remap the delta's local doc keys (0..m-1) to the real ids;
+            # the low 36 bits (block | payload) pass through untouched
+            real = doc_ids[enc.keys_of(dw).astype(np.int64)].astype(
+                np.uint64)
+            dw = (real << key_shift) | (dw & low_mask)
+            # one word per (doc, block) and the replaced docs' words were
+            # dropped above, so a plain sort restores (doc, block) order
+            sl = np.sort(np.concatenate([sl, dw]))
+        merged[t] = sl
+    lengths2 = np.zeros(V2, dtype=np.int64)
+    lengths2[: old.num_terms] = old.lengths
+    for t, sl in merged.items():
+        lengths2[t] = len(sl)
+    offsets2 = np.zeros(V2, dtype=np.int64)
+    np.cumsum(lengths2[:-1], out=offsets2[1:])
+    data2 = np.empty(int(lengths2.sum()), dtype=np.uint64)
+    prev = 0  # first untouched old term of the pending run
+    for t in list(aff_t) + [old.num_terms]:
+        t = int(t)
+        if t > prev and prev < old.num_terms:  # copy the untouched run
+            lo = old.offsets[prev]
+            hi = (old.offsets[t] if t < old.num_terms
+                  else lo + int(old.lengths[prev: t].sum()))
+            data2[offsets2[prev]: offsets2[prev] + (hi - lo)] = \
+                old_data[lo:hi]
+        if t < old.num_terms or t in merged:
+            if t in merged:
+                data2[offsets2[t]: offsets2[t] + lengths2[t]] = merged[t]
+        prev = t + 1
+    postings2 = TermPostings(data2, offsets2, lengths2)
+
+    # --- doc_term: same run splice along the doc axis ---
+    old_lens = np.diff(dt.rows)
+    lens2 = np.zeros(N2, dtype=np.int64)
+    lens2[:N] = old_lens
+    mini_lens = np.diff(mini.doc_term.rows)
+    lens2[doc_ids] = mini_lens
+    rows2 = np.concatenate([[0], np.cumsum(lens2)]).astype(np.int64)
+    cols2 = np.empty(int(rows2[-1]), dtype=np.uint32)
+    mini_cols_g = tmap[mini.doc_term.cols.astype(np.int64)].astype(
+        np.uint32) if len(mini.doc_term.cols) else mini.doc_term.cols
+    order_d = np.argsort(doc_ids, kind="stable")
+    prev = 0
+    for j in order_d:
+        d = int(doc_ids[j])
+        if d > prev and prev < N:  # copy the untouched doc run
+            lo, hi = dt.rows[prev], dt.rows[min(d, N)]
+            cols2[rows2[prev]: rows2[prev] + (hi - lo)] = dt.cols[lo:hi]
+        mr = mini.doc_term.rows
+        cols2[rows2[d]: rows2[d + 1]] = mini_cols_g[mr[j]: mr[j + 1]]
+        prev = d + 1
+    if prev < N:
+        lo, hi = dt.rows[prev], dt.rows[N]
+        cols2[rows2[prev]: rows2[prev] + (hi - lo)] = dt.cols[lo:hi]
+    doc_term2 = DocTermMatrix(cols2, rows2)
+
+    doc_lens2 = np.zeros(N2, dtype=np.float32)
+    doc_lens2[:N] = built.doc_lens
+    doc_lens2[doc_ids] = mini.doc_lens
+    avg_dl = float(np.mean(doc_lens2)) if N2 else 0.0
+    return BuiltIndex(
+        postings=postings2,
+        doc_term=doc_term2,
+        vocab=vocab,
+        doc_lens=doc_lens2,
         avg_doc_length=avg_dl,
     )
 

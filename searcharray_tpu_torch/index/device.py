@@ -37,8 +37,9 @@ def derive_attach_arrays(built: BuiltIndex) -> dict:
     pay32 planes, in the JAX package's layout, so the port attaches the
     JAX package's arrays too.  The JAX package also derives a per-term
     block-word max, which bounds its Pallas grid; K1 binary-searches each
-    block's word range instead, so the port neither derives nor reads
-    it."""
+    block's word range instead, so DeviceIndex neither derives nor reads
+    it (``index/store.py`` computes it for the stores the JAX package
+    loads)."""
     max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
     max_bucket = max(bucket_of(max(1, max_len)),
                      expand_bucket_of(max(1, max_len)))
@@ -53,6 +54,33 @@ def derive_attach_arrays(built: BuiltIndex) -> dict:
         "blk_bits": blk_bits,
         "max_bucket": max_bucket,
     }
+
+
+UPLOAD_CHUNK = 1 << 24   # elements a pinned staging copy moves (64 MB)
+
+
+def upload_i32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host 32-bit array (int32, or uint32 read as int32) as an int32
+    tensor on ``device``.  A store's read-only memmap is read chunk by
+    chunk: on a card each chunk goes through one pinned staging buffer, on
+    the CPU into a tensor of its own (a read-only array cannot back a
+    tensor)."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.int32:
+        arr = arr.view(np.int32)
+    if device.type != "cuda":
+        if arr.flags.writeable:
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.from_numpy(np.array(arr)).to(device)
+    out = torch.empty(len(arr), dtype=torch.int32, device=device)
+    stage = torch.empty(min(len(arr), UPLOAD_CHUNK),
+                        dtype=torch.int32).pin_memory()
+    for lo in range(0, len(arr), UPLOAD_CHUNK):
+        m = min(UPLOAD_CHUNK, len(arr) - lo)
+        stage[:m].numpy()[:] = arr[lo: lo + m]
+        # blocking: the next chunk reuses the staging buffer
+        out[lo: lo + m].copy_(stage[:m])
+    return out
 
 
 class DeviceIndex:
@@ -81,12 +109,11 @@ class DeviceIndex:
         self.blk_bits = blk_bits_for(int(max_doc_len))
 
         der = self._usable_derived(built) or derive_attach_arrays(built)
-        self.hdrs = torch.as_tensor(np.asarray(der["hdr32"], np.int32),
-                                    device=self.device)
-        self.pays = torch.as_tensor(
-            np.asarray(der["pay32"]).view(np.int32), device=self.device)
+        self.hdrs = upload_i32(der["hdr32"], self.device)
+        self.pays = upload_i32(der["pay32"], self.device)
+        # a copy: a store's doc lengths may be a read-only memmap
         self.doc_lens = torch.as_tensor(
-            np.asarray(built.doc_lens, dtype=np.float32), device=self.device)
+            np.array(built.doc_lens, dtype=np.float32), device=self.device)
         # Device pools (search/dense.py), each allocated on first use:
         # plane_pool int32[C, N << blk_bits] (one term payload plane per
         # slot) and tf_pool f32[Ct, N]; the host keeps key -> slot maps
@@ -125,6 +152,11 @@ class DeviceIndex:
         o = int(self.postings.offsets[term_id])
         n = int(self.postings.lengths[term_id])
         return o, n, bucket_of(max(1, n))
+
+    def refresh(self, built: BuiltIndex) -> None:
+        """Re-upload after a host-side mutation, on the same device; the
+        pools and the phrase-tf cache start empty."""
+        self.__init__(built, self.device)
 
 
 def _doc_term_from_postings(postings: TermPostings,

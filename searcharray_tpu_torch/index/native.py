@@ -148,6 +148,15 @@ def get_lib():
             np.ctypeslib.ndpointer(np.int32),   # hdr_out
             np.ctypeslib.ndpointer(np.uint32),  # pay_out
         ]
+        lib.sa_block_max.restype = None
+        lib.sa_block_max.argtypes = [
+            np.ctypeslib.ndpointer(np.uint64),  # words
+            np.ctypeslib.ndpointer(np.int64),   # offsets
+            np.ctypeslib.ndpointer(np.int64),   # lengths
+            ctypes.c_int64,                     # num_terms
+            ctypes.c_int32,                     # doc_block
+            np.ctypeslib.ndpointer(np.int64),   # out
+        ]
         lib.sa_doc_freqs.restype = None
         lib.sa_doc_freqs.argtypes = [
             np.ctypeslib.ndpointer(np.uint64),  # words
@@ -280,6 +289,21 @@ def compress_planes(words: np.ndarray, blk_bits: int):
     max_hdr = lib.sa_compress_planes(words, len(words), int(blk_bits),
                                      hdr, pay)
     return hdr, pay, int(max_hdr)
+
+
+def block_max(words: np.ndarray, offsets: np.ndarray, lengths: np.ndarray,
+              doc_block: int) -> Optional[np.ndarray]:
+    """Per-term max words in any doc_block-sized doc range, one C++ pass."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    words = np.ascontiguousarray(words, dtype=np.uint64)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    out = np.empty(len(offsets), dtype=np.int64)
+    lib.sa_block_max(words, offsets, lengths, len(offsets),
+                     int(doc_block), out)
+    return out
 
 
 def doc_freqs(words: np.ndarray, offsets: np.ndarray,

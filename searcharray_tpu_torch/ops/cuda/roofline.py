@@ -21,8 +21,9 @@ throughput, compute capability 9.0), over 132 SMs at the 1.98 GHz boost
 clock: 16.7 T/s.  Operations are counted in those issue slots, so a
 popcount counts 4.  The few float operations per doc of K1's fused
 similarity are counted at the integer rate too; they never decide a
-bound.  K10, the similarity alone, counts its float operations at the
-data sheet's float32 rate (67 TFLOP/s, a fused multiply-add two).
+bound.  K10, the similarity alone, and K11, edismax's composition, count
+their float operations at the data sheet's float32 rate (67 TFLOP/s, a
+fused multiply-add two).
 """
 from __future__ import annotations
 
@@ -66,6 +67,11 @@ K8B_OPS_PER_WORD = 4     # key shift, hit compare, address shift-or, store
 # dl / avgdl, two fused multiply-adds, tf / denom, then the kind's own
 K10_FLOPS = {"bm25": 7, "bm25_legacy": 8, "bm25_impact": 6,
              "classic": 4}   # classic: two roots, a product, a quotient
+# K11's float32 operations per stack element: the boost's product, the
+# max, the field sum (a fused multiply-add, 2); per term and doc the fold
+# (a subtraction and a fused multiply-add), the term sum and the mm test
+K11_FLOPS_PER_ELEMENT = 4
+K11_FLOPS_PER_TERM_DOC = 5
 
 
 def bound(nbytes: int, ops: int, flops: int = 0) -> dict:
@@ -320,6 +326,16 @@ def k10_work(rows: int, n: int, kind: str = "bm25",
     nbytes = 8 * elems + 4 * (elems if per_element_lens else int(n)) \
         + 4 * int(rows)
     return bound(nbytes, 0, K10_FLOPS[kind] * elems)
+
+
+def k11_work(terms: Sequence[int], n: int) -> dict:
+    """One K11 launch over F score stacks of ``terms[f]`` rows of ``n``
+    docs: each stack element read once (4 bytes), each doc's score written
+    once (4 bytes)."""
+    elems = sum(int(t) for t in terms) * int(n)
+    flops = K11_FLOPS_PER_ELEMENT * elems \
+        + K11_FLOPS_PER_TERM_DOC * max(int(t) for t in terms) * int(n)
+    return bound(4 * elems + 4 * int(n), 0, flops)
 
 
 def total(works: Iterable[dict]) -> dict:

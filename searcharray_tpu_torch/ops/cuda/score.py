@@ -3,8 +3,9 @@
 slop window coverage on dense planes), K7 (a bigram step of the sparse
 phrase chain), K8a (candidate rows from a posting slice), K8b (mini-planes
 over candidate rows), K9 (the slop window coverage on posting slices) and
-K10 (the similarity of a block of term frequencies): Hopper kernels, their
-plain PyTorch versions, and the build of the one kernel library.
+K10 (the similarity of a block of term frequencies) and K11 (edismax's
+dismax / tie / mm composition): Hopper kernels, their plain PyTorch
+versions, and the build of the one kernel library.
 
 The kernels are CUDA C++ in ``searcharray_tpu_torch/csrc/`` with a plain C
 interface.  At first use they are compiled with ``nvcc`` for ``sm_90a``
@@ -18,7 +19,8 @@ wrapper counts its kernel launches in a plain int attribute
 ``segment_sum.launches``, ``topk.launches``, ``plane_fill.launches``,
 ``phrase_chain.launches``, ``span_window.launches``,
 ``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
-``span_sparse.launches``, ``similarity.launches``).  A K3 launch is one
+``span_sparse.launches``, ``similarity.launches``,
+``compose.launches``).  A K3 launch is one
 call of a C entry, which enqueues one or two kernels (k up to
 ``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger k);
 ``topk.kernels`` counts them.  A K8a launch enqueues
@@ -40,6 +42,7 @@ import torch
 
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     compact_rows_plain,
+    compose_plain,
     merge_step_plain,
     minis_for_rows_plain,
     per_query,
@@ -169,6 +172,8 @@ _ENTRIES = {
                       _int, _int, _vp, _int, _vp],
     "sa_similarity": [_vp, _i64, _i64, _i64, _vp, _i64, _vp, _f, _vp, _i64,
                       _int, _f, _f, _f, _int, _vp],
+    "sa_compose": [_vp, _vp, _vp, _vp, _vp, _int, _i64, _f, _int, _int, _vp,
+                   _int, _vp],
 }
 
 
@@ -1221,3 +1226,71 @@ def similarity(kind: str, tfs: torch.Tensor, doc_lens: torch.Tensor, idf,
 
 
 similarity.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: edismax's composition
+# ---------------------------------------------------------------------------
+COMPOSE_MAX_FIELDS = 16   # csrc/compose.cu's MAX_FIELDS
+
+
+def compose(stacks, boosts, tie: float, msm, *, term_centric: bool,
+            chain: bool = True, out: torch.Tensor = None) -> torch.Tensor:
+    """edismax's dismax / tie / mm composition of F f32 [T_f, N] score
+    stacks (rows may be strided, columns contiguous) into f32 [N], rounded
+    as ``compose_plain`` rounds it (its docstring has the forms).
+    ``msm`` is one int (term-centric) or one per field; ``out`` a
+    contiguous f32 [N] for the result.  One launch (csrc/compose.cu)."""
+    F = len(stacks)
+    if not 1 <= F <= COMPOSE_MAX_FIELDS or len(boosts) != F:
+        raise ValueError(f"K11 composes 1 to {COMPOSE_MAX_FIELDS} fields, "
+                         "each with a boost")
+    dev = stacks[0].device
+    N = stacks[0].shape[1] if stacks[0].dim() == 2 else -1
+    for s in stacks:
+        if s.dtype != torch.float32 or s.dim() != 2 or s.shape[1] != N:
+            raise ValueError("stacks must be f32 [T_f, N] of one N")
+        if s.device != dev:
+            raise ValueError(f"a stack is on {s.device}, expected {dev}")
+        if s.shape[0] and N > 1 and s.stride(1) != 1:
+            raise ValueError("stacks must have contiguous rows")
+    terms = [int(s.shape[0]) for s in stacks]
+    if term_centric:
+        if len(set(terms)) != 1:
+            raise ValueError("term-centric stacks need one term count")
+        msms = [int(msm)] * F
+    else:
+        msms = [int(m) for m in msm]
+        if len(msms) != F:
+            raise ValueError("field-centric composition needs one msm per "
+                             "field")
+    if out is None:
+        out = torch.empty(N, dtype=torch.float32, device=dev)
+    else:
+        _check(out, "out", torch.float32, dev)
+        if out.shape[0] != N:
+            raise ValueError("out must be f32 [N]")
+    if dev.type == "cpu":
+        return compose_plain(stacks, boosts, tie, msm,
+                             term_centric=term_centric, chain=chain, out=out)
+    if dev.type != "cuda":
+        raise ValueError(f"no K11 kernel for device {dev}")
+    if N == 0:
+        return out
+    ptrs = np.asarray([s.data_ptr() for s in stacks], np.int64)
+    strides = np.asarray([s.stride(0) for s in stacks], np.int64)
+    t32 = np.asarray(terms, np.int32)
+    b32 = np.asarray(boosts, np.float32)
+    m32 = np.asarray(msms, np.int32)
+    lib = _get_lib()
+    err = lib.sa_compose(ptrs.ctypes.data, strides.ctypes.data,
+                         t32.ctypes.data, b32.ctypes.data, m32.ctypes.data,
+                         F, N, _f32(tie), int(term_centric), int(chain),
+                         out.data_ptr(), dev.index,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "compose")
+    compose.launches += 1
+    return out
+
+
+compose.launches = 0

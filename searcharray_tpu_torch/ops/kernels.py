@@ -191,6 +191,69 @@ def apply_similarity_device(kind, tfs, doc_lens, idf, avgdl, k1, b,
                                    out=out)
 
 
+def compose_plain(stacks, boosts, tie, msm, *, term_centric: bool,
+                  chain: bool = True, out=None) -> torch.Tensor:
+    """edismax's dismax / tie / mm composition in plain PyTorch, rounded as
+    the JAX package's programs round it (``searcharray_tpu/solr.py``,
+    read from XLA's CPU code): the fold ``mx + (sm - mx) * tie`` is one
+    fused multiply-add, ``fma(sm - mx, tie, mx)`` (``fma_f32``), and every
+    other operation rounds once, in the JAX formulas' order.
+
+    ``stacks`` are F f32 [T_f, N] score blocks (row views may be strided),
+    ``boosts`` one number per field.  Term-centric (every T_f equal to T):
+    per term the boosted field scores ``fs_f = s_f * b_f``, their max and
+    their sum, the sum a chain of fused multiply-adds in field order
+    (``fma(s_1, b_1, s_0 * b_0)``, ...) where ``chain`` (``edismax``'s
+    program) or rounded per add (``edismax_batch``'s, under ``lax.map``);
+    then the fold, and the sum over the terms in order where at least
+    ``msm`` terms score.  Field-centric: per field the sum of its terms in
+    order where at least ``msm[f]`` of them score, times its boost; the
+    sum and max over the fields, then the fold.  Rows are added one at a
+    time, so the order holds on any device.  Returns f32 [N] (into
+    ``out`` when given)."""
+    n = stacks[0].shape[1]
+    tie = float(np.float32(tie))
+    bs = [float(np.float32(b)) for b in boosts]
+    zero = torch.zeros(n, dtype=torch.float32, device=stacks[0].device)
+    none = torch.zeros(n, dtype=torch.int32, device=zero.device)
+    if term_centric:
+        tot, cnt = zero, none
+        for t in range(stacks[0].shape[0]):
+            mx = sm = stacks[0][t] * bs[0]
+            for s, b in zip(stacks[1:], bs[1:]):
+                fs = s[t] * b
+                mx = torch.maximum(mx, fs)
+                sm = fma_f32(s[t], b, sm) if chain else sm + fs
+            ts = fma_f32(sm - mx, tie, mx)
+            cnt = cnt + (ts > 0)
+            tot = tot + ts
+        got = torch.where(cnt >= msm, tot, 0.0)
+    else:
+        sm = mx = None
+        for s, b, m in zip(stacks, bs, msm):
+            tot, cnt = zero, none
+            for t in range(s.shape[0]):
+                tot = tot + s[t]
+                cnt = cnt + (s[t] > 0)
+            val = torch.where(cnt >= m, tot, 0.0) * b
+            sm = zero + val if sm is None else sm + val
+            mx = val if mx is None else torch.maximum(mx, val)
+        got = fma_f32(sm - mx, tie, mx)
+    return got if out is None else out.copy_(got)
+
+
+def compose_device(stacks, boosts, tie, msm, *, term_centric: bool,
+                   chain: bool = True, out=None) -> torch.Tensor:
+    """edismax's composition (``compose_plain``'s arguments) on its
+    stacks' device: K11 (``ops/cuda/score.py:compose``) for CUDA tensors,
+    ``compose_plain`` for CPU tensors; any other device raises."""
+    from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+
+    return kernels_cuda.compose(stacks, boosts, tie, msm,
+                                term_centric=term_centric, chain=chain,
+                                out=out)
+
+
 def topk_exact(x: torch.Tensor, k: int):
     """Exact top-k over the last axis, ties to the SMALLEST index.
 

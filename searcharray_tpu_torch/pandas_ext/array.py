@@ -12,13 +12,19 @@ position window, ``n + slop - 1 > 18``, a term more than twice and
 corpora the planes cannot hold) are ported, the candidate-subset engine
 for selective queries on large corpora, and ``score_batch_device`` (with
 ``rows=``, a doc-id subset) for callers that compose on the device
-(``solr.edismax``); persistence, mutation and sharding raise
-``NotImplementedError`` naming their ROADMAP item.
+(``solr.edismax``).  Postings can live in a memory-mapped file
+(``index(..., data_dir=)``), an array pickles with its device (a
+memmapped one as its file's path) and re-attaches lazily on unpickle, and
+``__setitem__`` re-indexes the assigned rows (``builder.replace_docs``)
+and drops the device copy, whose pools go with it.  Doc-axis sharding
+(``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import json
 import numbers
+import warnings
+from collections import Counter
 from typing import Iterable, List, Optional, Union
 
 import numpy as np
@@ -27,6 +33,7 @@ import torch
 from pandas.api.extensions import (
     ExtensionArray,
     ExtensionDtype,
+    no_default,
     register_extension_dtype,
     take as pd_take,
 )
@@ -36,6 +43,7 @@ from searcharray_tpu_torch.index.builder import (
     BuiltIndex,
     build_index,
     build_index_from_terms,
+    replace_docs,
     ws_tokenizer,
 )
 from searcharray_tpu_torch.index.device import DeviceIndex
@@ -52,6 +60,16 @@ from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
 
 def _todo(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _bytes_h(num_bytes):
+    suffixes = ["B", "KB", "MB", "GB", "TB", "PB"]
+    i = 0
+    num = float(num_bytes)
+    while num >= 1024 and i < len(suffixes) - 1:
+        num /= 1024.0
+        i += 1
+    return f"{num:.2f} {suffixes[i]}"
 
 
 class Terms:
@@ -88,11 +106,28 @@ class Terms:
         w = self.posns[term]
         return self._decode(w) if self.encoded else w
 
+    def raw_positions(self, vocab, term=None):
+        if self.posns is None:
+            return {}
+        if term is None:
+            return [(vocab.get_term_id(t), self.positions(t))
+                    for t in self.posns]
+        return [(vocab.get_term_id(term), self.positions(term))]
+
+    def tf_to_dense(self, vocab):
+        dense = np.zeros(len(vocab))
+        for term, freq in self.terms():
+            dense[vocab.get_term_id(term)] = freq
+        return dense
+
     def __len__(self):
         return len(self.postings)
 
     def __repr__(self):
         return f"Terms({set(self.postings.keys())})"
+
+    def __str__(self):
+        return repr(self)
 
     def __eq__(self, other):
         if isinstance(other, SearchArray):
@@ -100,6 +135,26 @@ class Terms:
         same = isinstance(other, Terms) and self.postings == other.postings
         if same and self.doc_len == other.doc_len:
             return True
+
+    def __lt__(self, other):
+        if not isinstance(other, Terms):
+            # pandas rank/sort compares against Infinity/NegInfinity
+            # sentinels; defer to their reflected comparison
+            return NotImplemented
+        for key in sorted(set(self.postings) | set(other.postings)):
+            lhs_val = self.postings.get(key, 0)
+            rhs_val = other.postings.get(key, 0)
+            if lhs_val < rhs_val:
+                return True
+            elif lhs_val > rhs_val:
+                return False
+        return False
+
+    def __le__(self, other):
+        return self < other or self == other
+
+    def __gt__(self, other):
+        return not (self < other) and self != other
 
     def __hash__(self):
         return hash(json.dumps(self.postings, sort_keys=True))
@@ -136,9 +191,17 @@ class TermsDtype(ExtensionDtype):
     def na_value(self):
         return Terms({})
 
+    def valid_value(self, value):
+        return (isinstance(value, dict) or pd.isna(value)
+                or isinstance(value, Terms))
+
 
 class _IndexState:
-    """Holder shared by all row views of one backing index."""
+    """Mutable holder shared by all row views of one backing index.
+
+    ``__setitem__`` swaps ``built`` in place, so every pandas view of the
+    same array sees the mutation, while ``copy()`` makes a new holder:
+    copy-on-write."""
 
     __slots__ = ("built", "dev", "device", "cache_gt_than")
 
@@ -226,15 +289,20 @@ class SearchArray(ExtensionArray):
               cache_gt_than=25, data_dir: Optional[str] = None,
               autowarm=True, mesh=None, device="cuda") -> "SearchArray":
         """Tokenize and index an iterable of strings; the index lives on
-        ``device`` (a torch device, "cuda" by default)."""
+        ``device`` (a torch device, "cuda" by default).  With ``data_dir``
+        the posting buffer is spilled to a file there and memory-mapped
+        (``index/store.py:memmap_postings``): a pickle of the array then
+        holds the file's path, not the postings."""
         if mesh is not None:
             raise _todo("mesh= (doc-axis sharding)", "Queue 1 item 14")
-        if data_dir is not None:
-            raise _todo("data_dir= (memmap persistence)", "Queue 1 item 13")
         if not is_list_like(array):
             raise TypeError("Expected list-like object, got {}".format(type(array)))
         built = build_index(array, tokenizer, truncate=truncate,
                             batch_size=batch_size, workers=workers)
+        if data_dir is not None:
+            from searcharray_tpu_torch.index.store import memmap_postings
+
+            memmap_postings(built.postings, data_dir)
         arr = cls([], tokenizer=tokenizer, avoid_copies=avoid_copies,
                   device=device)
         arr._attach(_IndexState(built, device))
@@ -274,6 +342,9 @@ class SearchArray(ExtensionArray):
     # ------------------------------------------------------------------
     # pandas protocol
     # ------------------------------------------------------------------
+    def memory_usage(self, deep=False):
+        return self.nbytes
+
     @property
     def nbytes(self):
         b = self._built
@@ -312,10 +383,88 @@ class SearchArray(ExtensionArray):
             if row < 0 or row >= len(self):
                 raise IndexError("index out of bounds")
             return self._row_to_terms(int(self.rows[row]))
-        return self._view(self._state, rows=self.rows[key], subset=True)
+        new = self._view(self._state, rows=self.rows[key], subset=True)
+        new._readonly = self._readonly
+        return new
 
     def __setitem__(self, key, value):
-        raise _todo("SearchArray.__setitem__", "Queue 1 item 15")
+        if self._readonly:
+            raise ValueError("Cannot modify read-only array")
+        key = pd.api.indexers.check_array_indexer(self, key)
+        if isinstance(value, pd.Series):
+            value = value.values
+        if isinstance(value, pd.DataFrame):
+            value = value.values.flatten()
+        if isinstance(value, SearchArray):
+            value = value.to_numpy()
+        if isinstance(value, list):
+            value = np.asarray(value, dtype=object)
+        if not isinstance(value, np.ndarray) and not self.dtype.valid_value(value):
+            raise ValueError(
+                f"Cannot set non-object array to SearchArray -- "
+                f"you passed type:{type(value)} -- {value}"
+            )
+        if isinstance(key, numbers.Integral) and isinstance(value, np.ndarray):
+            raise ValueError("Cannot set a single value to an array")
+
+        # the logical positions assigned (key: int, slice, mask or fancy)
+        logical = np.arange(len(self))[key]
+        if isinstance(logical, numbers.Integral) or np.isscalar(logical):
+            logical = np.asarray([int(logical)])
+        if not isinstance(value, np.ndarray):
+            value = np.asarray([value] * len(logical), dtype=object)
+        elif len(value) == 1 and len(logical) != 1:
+            value = np.asarray([value[0]] * len(logical), dtype=object)
+        elif len(value) != len(logical):
+            raise ValueError(
+                f"cannot set {len(logical)} positions from "
+                f"{len(value)} values"
+            )
+        if pd.isna(value).any():
+            value = np.asarray(
+                [Terms({}) if pd.isna(v) else v for v in value], dtype=object
+            )
+
+        # Only the assigned docs are re-indexed and spliced into the CSR
+        # (builder.replace_docs).  De-alias: a logical position whose
+        # backing row another position of this view shares (take and fancy
+        # indexing repeat backing rows) gets a fresh backing row, so
+        # assigning one position never changes its aliases.
+        counts = np.bincount(self.rows, minlength=self._built.corpus_size)
+        next_row = self._built.corpus_size
+        new_rows = self.rows.copy()
+        appended = False
+        doc_ids: List[int] = []
+        vals: List[Terms] = []
+        for pos, v in zip(logical, value):
+            if isinstance(v, dict):
+                v = Terms(v, doc_len=len(v))
+            backing = int(self.rows[int(pos)])
+            if counts[backing] > 1:
+                backing = next_row
+                next_row += 1
+                new_rows[int(pos)] = backing
+                appended = True
+            doc_ids.append(backing)
+            vals.append(v)
+        # Swap the shared holder's index in place: every pandas view of
+        # this array sees the mutation, copies (other holders) do not.  The
+        # device copy goes with its pools (tf rows, cached phrase and slop
+        # rows, planes, the phrase-tf cache's counts and recipes) and
+        # re-attaches on the next search.
+        self._state.built = replace_docs(self._built,
+                                         np.asarray(doc_ids, dtype=np.int64),
+                                         vals, Terms)
+        self._state.dev = None
+        if appended:
+            self.rows = new_rows
+            self.subset = True
+
+    def value_counts(self, dropna: bool = True):
+        counts = Counter(self[:])
+        if dropna:
+            counts.pop(Terms({}), None)
+        return pd.Series(counts)
 
     def __len__(self):
         return len(self.rows)
@@ -344,6 +493,16 @@ class SearchArray(ExtensionArray):
 
     def isna(self):
         return np.asarray(self.doc_lens == 0)
+
+    def unique(self):
+        return self[:]
+
+    def __iter__(self):
+        if len(self) > 10000:
+            warnings.warn(
+                "Iterating over SearchArray is very slow and not recommended."
+            )
+        return super().__iter__()
 
     def take(self, indices, allow_fill=False, fill_value=None):
         result_indices = pd_take(np.arange(len(self.rows)), indices,
@@ -384,6 +543,14 @@ class SearchArray(ExtensionArray):
         return SearchArray(data, tokenizer=first.tokenizer,
                            device=first.device)
 
+    @classmethod
+    def _from_factorized(cls, values, original):
+        return cls(values, tokenizer=original.tokenizer,
+                   device=original.device)
+
+    def _values_for_factorize(self):
+        return np.asarray(self[:], dtype=object), Terms({})
+
     def __array__(self, dtype=None, copy=None):
         if copy is False:
             raise ValueError(
@@ -392,6 +559,71 @@ class SearchArray(ExtensionArray):
             )
         return np.asarray([self._row_to_terms(int(r)) for r in self.rows],
                           dtype=object)
+
+    def to_numpy(self, dtype=None, copy=False, na_value=no_default):
+        # conversion materialises fresh Terms rows (never a view), so the
+        # result is writeable even where the array is read-only
+        result = np.asarray(self, dtype=dtype)
+        if na_value is not no_default:
+            result[self.isna()] = na_value
+        return result
+
+    def __getstate__(self):
+        return {
+            "built": self._built,
+            "device": str(self.device),
+            "rows": self.rows,
+            "subset": self.subset,
+            "tokenizer": self.tokenizer,
+            "avoid_copies": self.avoid_copies,
+        }
+
+    def __setstate__(self, state):
+        self.tokenizer = state["tokenizer"]
+        self.avoid_copies = state["avoid_copies"]
+        # the device copy re-attaches on the first search, on this device
+        self._attach(_IndexState(state["built"], state["device"]),
+                     rows=state["rows"], subset=state["subset"])
+
+    def memory_report(self, N=1000):
+        b = self._built
+        N = min(N, len(b.vocab))
+        sizes = sorted(
+            ((b.vocab.get_term(i), int(b.postings.lengths[i]) * 8)
+             for i in range(N)),
+            key=lambda x: x[1], reverse=True,
+        )
+        report = (
+            "\n        SearchArray Memory Report\n"
+            "        -------------------------\n"
+            f"        Number of Terms: {len(b.vocab)}\n"
+            "        -------------------------\n"
+            f"        Doc/Term Matrix: {_bytes_h(b.doc_term.nbytes)}\n"
+            f"        Positions:       {_bytes_h(b.postings.nbytes)}\n"
+            f"        Term Dictionary: {_bytes_h(b.vocab.nbytes)}\n"
+        )
+        # the device's serving pools, its largest allocations
+        dev = self._state.dev
+        if dev is not None:
+            for pool, slots, label in (
+                (dev.plane_pool, dev.plane_slot, "Plane Pool"),
+                (dev.tf_pool, dev.tf_slot, "TF Pool"),
+            ):
+                if pool is not None:
+                    nbytes = pool.numel() * pool.element_size()
+                    report += (
+                        f"        {label}:      {_bytes_h(nbytes)} "
+                        f"({len(slots)}/{pool.shape[0]} slots)\n"
+                    )
+        report += "\n"
+        cum = 0
+        for i, (term, nb) in enumerate(sizes):
+            cum += nb
+            report += (
+                f"        Term {i}: {term} - {_bytes_h(nb)} - "
+                f"Cumulative: {_bytes_h(cum)}\n"
+            )
+        return report
 
     # ------------------------------------------------------------------
     # search API
@@ -606,5 +838,22 @@ class SearchArray(ExtensionArray):
         idx = idx[np.argsort(scores[idx])[::-1]]
         return scores[idx], idx
 
-    def positions(self, token: str, key=None):
-        raise _todo("SearchArray.positions", "Queue 1 item 15")
+    def positions(self, token: str, key=None) -> List[np.ndarray]:
+        """The positions of ``token`` in each row of the view (or in the
+        rows ``key`` selects), decoded from the host postings."""
+        tid = self.term_dict.get_term_id(token)
+        wanted = self.rows[key] if key is not None else self.rows
+        if isinstance(wanted, numbers.Integral):
+            wanted = np.asarray([wanted])
+        sl = self._built.postings.term_slice(tid)
+        keys = enc.keys_of(sl).astype(np.int64)
+        mask = np.isin(keys, wanted)
+        dkeys, posns = enc.decode_words(sl[mask])
+        by_doc: dict = {}
+        if len(dkeys):
+            cuts = np.concatenate(
+                [[0], np.flatnonzero(dkeys[1:] != dkeys[:-1]) + 1])
+            split = np.split(posns.astype(np.uint32), cuts[1:])
+            by_doc = dict(zip(dkeys[cuts].astype(np.int64), split))
+        return [by_doc.get(int(d), np.array([], dtype=np.uint32))
+                for d in wanted]

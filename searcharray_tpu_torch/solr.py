@@ -6,10 +6,11 @@ conditional ``n<m`` clauses and percentages), ``field^boost`` lists,
 term-centric vs field-centric dispatch, tie breaking, and pf/pf2/pf3
 phrase boosts added only at rows the main query matched.  Per-field score
 stacks come from ``SearchArray.score_batch_device`` and stay on the
-device; the dismax / tie / mm composition and the phase folds are
-elementwise passes and reductions over them in plain torch (the JAX
-package computes them outside any hand-written kernel too); the ranking
-is K3 (``dense.pack_topk``).  The phrase phases add only at docs the
+device; the dismax / tie / mm composition is K11 (``csrc/compose.cu``;
+``ops/kernels.py:compose_plain`` on the CPU), rounded as the JAX
+package's compiled composers round it; the phase folds are torch adds
+and one float32 matrix product, as the JAX package's are one rounding
+each; the ranking is K3 (``dense.pack_topk``).  The phrase phases add only at docs the
 main query matched.  ``edismax`` on a large corpus whose main query
 matched few docs scores its exact phases at those docs only (the
 candidate-row pruning of the JAX package, ``score_batch_device(rows=)``,
@@ -120,29 +121,21 @@ def _boost_exp(boost) -> str:
     return f"{boost}" if boost is not None else "1"
 
 
-def _compose_tc(stacks, boosts, tie: float, msm: int) -> torch.Tensor:
+def _compose_tc(stacks, boosts, tie: float, msm: int,
+                chain: bool = True) -> torch.Tensor:
     """Term-centric dismax: per-field [T, N] stacks and their boosts ->
     [N].  Per term the best field plus ``tie`` times the others; a doc
-    matches when at least ``msm`` terms score."""
-    fs = torch.stack([s * float(np.float32(bv))
-                      for s, bv in zip(stacks, boosts)])
-    mx = fs.max(dim=0).values
-    ts = mx + (fs.sum(dim=0) - mx) * float(np.float32(tie))   # [T, N]
-    matches = (ts > 0).sum(dim=0) >= msm
-    return torch.where(matches, ts.sum(dim=0), 0.0)
+    matches when at least ``msm`` terms score.  ``chain``: the field sum
+    as fused multiply-adds, as the JAX package's ``edismax`` program
+    rounds it (its ``edismax_batch`` adds them one rounding at a time)."""
+    return K.compose_device(stacks, boosts, tie, msm, term_centric=True,
+                            chain=chain)
 
 
 def _compose_fc(stacks, boosts, tie: float, msms) -> torch.Tensor:
     """Field-centric dismax: per-field mm over its own term count
     (``msms[i]``), then dismax and tie across the fields."""
-    sums = []
-    for ts, bv, msm in zip(stacks, boosts, msms):
-        matches = (ts > 0).sum(dim=0) >= msm
-        sums.append(torch.where(matches, ts.sum(dim=0), 0.0)
-                    * float(np.float32(bv)))
-    stack = torch.stack(sums)
-    mx = stack.max(dim=0).values
-    return mx + (stack.sum(dim=0) - mx) * float(np.float32(tie))
+    return K.compose_device(stacks, boosts, tie, msms, term_centric=False)
 
 
 def _tc_explain(query_fields, search_terms, num_search_terms, msm) -> str:
@@ -437,7 +430,9 @@ def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
 
     - main query: per field, every query's terms score in one
       ``score_batch_device`` call (search/batch.py's groups);
-    - dismax/tie/mm composition: per query, on rows of the shared stacks;
+    - dismax/tie/mm composition: per query, one K11 launch on rows of the
+      shared stacks (the term-centric field sum rounded per add, as the
+      JAX package's batch program rounds it);
     - pf/pf2/pf3 grams: per field, all queries' grams in one batched
       call, masked by each query's own matches;
     - finish: every gram is folded into its query by one float32 matrix
@@ -513,7 +508,8 @@ def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
                 qf_rows.append(torch.zeros(n, dtype=torch.float32,
                                            device=device))
             else:
-                qf_rows.append(_compose_tc(own, boosts, float(tie), msm))
+                qf_rows.append(_compose_tc(own, boosts, float(tie), msm,
+                                           chain=False))
         else:
             explain, msms = _fc_explain(query_fields, st, mm)
             explains.append(explain)

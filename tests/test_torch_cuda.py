@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 to K10 against their plain PyTorch versions, and
+"""The CUDA kernels K1 to K11 against their plain PyTorch versions, and
 the port's main path on a card against the same path on the CPU.
 
 CUDA kernels have no CPU mode: every test here needs a CUDA device and
@@ -1785,3 +1785,62 @@ def test_k10_and_k1_fuse_as_the_plain_form_on_near_ties(card, kind):
                          dl.reshape(-1).to(card), 6.25, 21.29, num_docs=n,
                          blk_bits=3, kind=kind)
     assert torch.equal(got1.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# K11: edismax's composition
+# ---------------------------------------------------------------------------
+def k11_stacks(seed, Ts, n, width=None):
+    """Score stacks f32 [T_f, n], half of them 0, as row views of wider
+    stacks where ``width`` is given (strided rows, as edismax_batch
+    passes)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for T in Ts:
+        s = rng.gamma(1.5, 2.0, size=(T, width or n)).astype(np.float32)
+        s[rng.random(s.shape) < 0.5] = 0
+        out.append(torch.from_numpy(s)[:, :n])
+    return out
+
+
+@pytest.mark.parametrize("F", [1, 2, 3])
+@pytest.mark.parametrize("tie", [0.0, 0.1])
+@pytest.mark.parametrize("msm", [1, 3])
+@pytest.mark.parametrize("chain", [True, False])
+@pytest.mark.parametrize("n,width", [(100_003, None), (4099, 4160)])
+def test_k11_term_centric_matches_plain(card, F, tie, msm, chain, n, width):
+    st = k11_stacks(F * 31 + msm, [4] * F, n, width)
+    boosts = [1.3, 0.7, 2.9][:F]
+    want = kc.compose_plain(st, boosts, tie, msm, term_centric=True,
+                            chain=chain)
+    before = kc.compose.launches
+    got = kc.compose([s.to(card) for s in st], boosts, tie, msm,
+                     term_centric=True, chain=chain)
+    torch.cuda.synchronize()
+    assert kc.compose.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("Ts", [(4,), (4, 3), (4, 2, 3), (3, 0)])
+@pytest.mark.parametrize("tie", [0.0, 0.1])
+@pytest.mark.parametrize("mask", [False, True])
+@pytest.mark.parametrize("n,width", [(100_003, None), (4099, 4160)])
+def test_k11_field_centric_matches_plain(card, Ts, tie, mask, n, width):
+    st = k11_stacks(len(Ts) * 7 + mask, Ts, n, width)
+    boosts = [1.3, 0.7, 2.9][:len(Ts)]
+    msms = [min(2, t) if mask else min(1, t) for t in Ts]
+    want = kc.compose_plain(st, boosts, tie, msms, term_centric=False)
+    got = kc.compose([s.to(card) for s in st], boosts, tie, msms,
+                     term_centric=False)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_k11_writes_into_a_row_and_takes_no_terms(card):
+    st = [s.to(card) for s in k11_stacks(5, [0, 0], 777)]
+    out = torch.full((3, 777), -1.0, device=card)
+    kc.compose(st, [2.0, 1.0], 0.1, 0, term_centric=True, out=out[1])
+    assert bool((out[1] == 0).all() and (out[0] == -1).all()
+                and (out[2] == -1).all())
+    with pytest.raises(ValueError):
+        kc.compose([st[0], st[1].cpu()], [1.0, 1.0], 0.0, 1,
+                   term_centric=True)

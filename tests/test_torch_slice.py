@@ -261,7 +261,7 @@ def test_pool_exhaustion_raises_like_jax(monkeypatch):
 @pytest.mark.parametrize("call", ["phrase_score", "phrase_batch",
                                   "setitem", "positions", "mesh",
                                   "data_dir"])
-def test_unported_parts_raise(pair, call):
+def test_unported_parts_raise(pair, call, tmp_path):
     jarr, tarr = pair
     if call == "phrase_score":
         # ported: a windowed phrase takes the sparse chain
@@ -293,15 +293,32 @@ def test_unported_parts_raise(pair, call):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
         assert got.shape == (2, len(rows)) and got.max() > 0
         return
+    if call == "setitem":
+        # ported: an assignment re-indexes the row as the JAX package does
+        # (on copies: the fixture's arrays stay as they are)
+        jm, tm = jarr.copy(), tarr.copy()
+        jm[0] = JSearchArray.index(["alpha zeta"])[0]
+        tm[0] = SearchArray.index(["alpha zeta"], device="cpu")[0]
+        for q in ("zeta", "alpha", ["alpha", "zeta"]):
+            np.testing.assert_array_equal(tm.score(q), jm.score(q))
+        assert tm.score("zeta")[0] > 0 and tarr.docfreq("zeta") == 0
+        return
+    if call == "positions":
+        # ported: the positions of a term per row, as the JAX package's
+        for got, want in zip(tarr.positions("alpha"), jarr.positions("alpha")):
+            np.testing.assert_array_equal(got, want)
+        return
+    if call == "data_dir":
+        # ported: the postings memory-mapped from a file under data_dir
+        docs = make_docs(n=50, seed=5)
+        arr = SearchArray.index(docs, device="cpu", data_dir=str(tmp_path))
+        assert arr._built.postings.mmap_path.startswith(str(tmp_path))
+        np.testing.assert_array_equal(
+            arr.score("alpha"), SearchArray.index(docs, device="cpu")
+            .score("alpha"))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "setitem":
-            tarr[0] = {"a": 1}
-        elif call == "positions":
-            tarr.positions("alpha")
-        elif call == "mesh":
-            SearchArray.index(["a b"], device="cpu", mesh=object())
-        else:
-            SearchArray.index(["a b"], device="cpu", data_dir="x")
+        SearchArray.index(["a b"], device="cpu", mesh=object())
 
 
 def test_index_defaults_to_cuda_and_is_lazy():
