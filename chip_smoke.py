@@ -87,7 +87,24 @@ entry points a user calls, and checks it:
    terms; by index, by a slice, and through a take view that repeats a
    row), the serving mix on the mutated index held to the oracle of its
    host postings, every mutated row's termfreqs exact, the original
-   index unchanged;
+   index unchanged.  Then doc-axis sharding on this card, counted the
+   same way: a 4 x 2 mesh of the card (``parallel/sharded.py``, 4 doc
+   shards of 250,000 docs, 2 query parts each), the body index's
+   BuiltIndex partitioned and attached (``ShardedIndex.build``) and the
+   title corpus indexed with ``mesh=``; every launch of K1-K9 there held
+   to its plain version on the same inputs bit for bit as it runs
+   (``PlainCheck``), K10 and K11 by their recorders; the serving mix, the term batch and the
+   mixed request with slop through ``score_batch(top_k=10)`` (K3 on each
+   shard's block, then K3 over the [Q, 4k] candidates), bit for bit equal
+   to the unsharded index and held to the oracle; tf, phrase and slop
+   freqs exact; ``rows=`` on 20,000 doc ids in random order; ``edismax``
+   exact and with ``ps=2, ps2=1`` on the sharded frame, bit-equal to the
+   unsharded frame's and held to the oracle (``edismax_batch`` takes its
+   per-query form there); the long-document index on 4 shards (K2, K7,
+   K9 per shard); ``save_shards`` and ``ShardedIndex.load``, the loaded
+   planes ``torch.equal`` to the built ones.  Every K3 merge ranks at most
+   4 x 10 candidates a query; sharded against unsharded qps in turns, and
+   edismax p50;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -117,7 +134,8 @@ entry points a user calls, and checks it:
    alone, the one gather of that half with its index arithmetic, for
    K10 (the similarity launches of a serving-mix call) and K11 (the
    composition launches of one edismax call, and of one edismax_batch)
-   the torch composition each replaced, no single call computing it; K3's
+   the torch composition each replaced, no single call computing it; K3
+   also on the merge of one sharded serving-mix call; K3's
    device operations per call by the profiler's event count, and K10's
    launches in a profiled call against its counter;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
@@ -157,6 +175,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -1107,6 +1126,157 @@ class K11Recorder:
         return got
 
 
+class PlainCheck:
+    """The kernel module as the engine's modules see it during a counted
+    path: every launch of K1-K9 is held to its plain version on the same
+    inputs, on the card, bit for bit, as it runs, and noted by kernel and
+    shape.  An in-place launch's rows are read back and held to its plain
+    version written into rows of their own; K7's continuations are held on
+    the words whose query asked for them.  The wrappers count their own
+    launches as ever, and the plain versions launch no kernel of the port.
+    While ``on``, K3 notes the width of every block it ranks and keeps a
+    copy of each block at most ``narrow`` wide (a merge)."""
+
+    def __init__(self, kc, narrow):
+        self.kc, self.narrow = kc, narrow
+        self.err, self.calls = Counter(), Counter()
+        self.shapes = {}
+        self.on, self.widths, self.merges = False, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.kc, name)
+
+    def _same(self, name, shape, got, want):
+        import torch
+
+        self.calls[name] += 1
+        self.shapes.setdefault(name, set()).add(shape)
+        for g, w in zip(got, want):
+            if g.numel():   # (-inf pads of a merge: equal, no difference)
+                self.err[name] = max(self.err[name], float(
+                    (g.double() - w.double()).abs().nan_to_num(0.0).max()))
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} on {shape} differs from its "
+                                     "plain version")
+
+    def _rows(self, out, rows):
+        import torch
+
+        return out[torch.as_tensor(np.asarray(rows, np.int64),
+                                   device=out.device)]
+
+    def score_term(self, *a, out=None, **kw):
+        got = self.kc.score_term(*a, out=out, **kw)
+        self._same("K1", (a[0].numel(), kw["num_docs"]), [got],
+                   [self.kc.score_term_plain(*a, **kw)])
+        return got
+
+    def score_term_rows(self, hdrs, pays, offs, ns, out, out_rows, **kw):
+        import torch
+
+        got = self.kc.score_term_rows(hdrs, pays, offs, ns, out, out_rows,
+                                      **kw)
+        R = len(out_rows)
+        want = self.kc.score_term_rows_plain(
+            hdrs, pays, np.asarray(offs, np.int64), np.asarray(ns, np.int64),
+            torch.empty((R, kw["num_docs"]), dtype=torch.float32,
+                        device=out.device), np.arange(R), **kw)
+        self._same("K1 rows", (R, kw["num_docs"]),
+                   [self._rows(out, out_rows)], [want])
+        return got
+
+    def segment_sum(self, ids, values, *, num_docs):
+        got = self.kc.segment_sum(ids, values, num_docs=num_docs)
+        self._same("K2", (ids.numel(), num_docs), [got],
+                   [self.kc.segment_sum_plain(ids, values,
+                                              num_docs=num_docs)])
+        return got
+
+    def topk(self, x, k):
+        vals, idx = self.kc.topk(x, k)
+        if self.on:
+            self.widths.append(int(x.shape[-1]))
+            if x.shape[-1] <= self.narrow * k:
+                self.merges.append((x.clone(), k))
+        want_v, want_i = self.kc.topk_plain(x, k)
+        self._same("K3", (tuple(x.shape), k), [idx.long(), vals],
+                   [want_i, want_v])
+        return vals, idx
+
+    def plane_fill(self, hdrs, pays, offs, ns, slots, pool):
+        import torch
+
+        got = self.kc.plane_fill(hdrs, pays, offs, ns, slots, pool)
+        R = len(slots)
+        want = self.kc.plane_fill_plain(
+            hdrs, pays, np.asarray(offs, np.int64), np.asarray(ns, np.int64),
+            np.arange(R), torch.empty((R, pool.shape[1]), dtype=torch.int32,
+                                      device=pool.device))
+        self._same("K4", (R, pool.shape[1]), [self._rows(pool, slots)],
+                   [want])
+        return got
+
+    def _pool_kernel(self, name, fn, plain, pool, slots, *a, out=None,
+                     out_rows=None, **kw):
+        got = fn(pool, slots, *a, out=out, out_rows=out_rows, **kw)
+        want = plain(pool, slots, *a, **kw)
+        self._same(name, (np.shape(slots), kw["num_docs"], out is not None),
+                   [got if out is None else self._rows(out, out_rows)],
+                   [want])
+        return got
+
+    def phrase_chain(self, pool, slots, *a, **kw):
+        return self._pool_kernel("K5", self.kc.phrase_chain,
+                                 self.kc.phrase_chain_plain, pool, slots,
+                                 *a, **kw)
+
+    def span_window(self, pool, slots, *a, **kw):
+        return self._pool_kernel("K6", self.kc.span_window,
+                                 self.kc.span_window_plain, pool, slots,
+                                 *a, **kw)
+
+    def merge_step(self, *a, **kw):
+        import torch
+
+        got = self.kc.merge_step(*a, **kw)
+        want = self.kc.merge_step_plain(
+            *a, **{k: v for k, v in kw.items() if k != "need_cont"})
+        pair = [got[0], got[1]], [want[0], want[1]]
+        if got[2] is not None:
+            need = torch.as_tensor(np.repeat(
+                self.kc.per_query(kw.get("need_cont", True), len(a[4]),
+                                  "need_cont"),
+                np.asarray(a[4], np.int64)), device=got[2].device)
+            pair[0].append(got[2][need])
+            pair[1].append(want[2][need])
+        self._same("K7", (len(a[4]), int(np.sum(a[4]))), *pair)
+        return got
+
+    def cand_rows(self, *a, **kw):
+        got = self.kc.cand_rows(*a, **kw)
+        want = self.kc.cand_rows_plain(a[0], a[1], np.asarray(a[2]),
+                                       np.asarray(a[3]), a[4], **kw)
+        self._same("K8a", (len(a[2]), a[4]),
+                   [g for g in got if g is not None],
+                   [w for w in want if w is not None])
+        return got
+
+    def cand_minis(self, rows, slots, offs, ns, **kw):
+        got = self.kc.cand_minis(rows, slots, offs, ns, **kw)
+        self._same("K8b", (np.shape(slots), rows.shape[-1]), [got],
+                   [self.kc.minis_for_rows_plain(
+                       rows, np.asarray(slots), offs, ns, **kw)])
+        return got
+
+    def span_sparse(self, *a, **kw):
+        got = self.kc.span_sparse(*a, **kw)
+        self._same("K9", (np.shape(a[2]), a[4]), list(got),
+                   list(self.kc.span_sparse_plain(*a, **kw)))
+        return got
+
+
 def parent_cand_rows(lib, counted, extra):
     """K8a's wrapper for a library of the two-kernel design (count each
     tile's runs, then write; no ``sa_cand_rows_grid``): its ``meta`` ends
@@ -1701,7 +1871,6 @@ def main() -> int:
     title_dir = tempfile.mkdtemp(prefix="sa_titles_")
     atexit.register(shutil.rmtree, title_dir, True)
     tarr = SearchArray.index(titles, device=DEVICE, data_dir=title_dir)
-    del titles
     ltarr = SearchArray.index(long_titles, device=DEVICE)
     del long_titles
     title_s = time.perf_counter() - t0
@@ -1965,7 +2134,6 @@ def main() -> int:
     # ---- 3b. this slice's path, counted: the body index saved and loaded
     # (format v3), the title index (memory-mapped by data_dir=) pickled,
     # and the body index mutated at 1M docs ---------------------------------
-    from collections import Counter
 
     from searcharray_tpu_torch.index import device as device_mod
     from searcharray_tpu_torch.index import store
@@ -2003,7 +2171,7 @@ def main() -> int:
     load_s = time.perf_counter() - t0
     derive = device_mod.derive_attach_arrays
 
-    def no_derivation(_):
+    def no_derivation(*_a, **_kw):
         raise AssertionError("the store's planes were derived again")
 
     device_mod.derive_attach_arrays = no_derivation
@@ -2162,6 +2330,287 @@ def main() -> int:
     ]
     del m, mdev, donor, tv
     phase_done("persistence, pickling, mutation")
+
+    # ---- 3c. this slice's path, counted: doc-axis sharding on one card.
+    # A 4 x 2 mesh of this card (4 doc shards, 2 query parts each): the
+    # body index's BuiltIndex partitioned and attached, the title corpus
+    # indexed with mesh=, the serving mix, the mixed request with slop and
+    # the term batch ranked through the shards' K3 and the K3 merge;
+    # freqs; rows= in an unsorted order; edismax on the sharded frame; the
+    # long-document index on 4 shards (K2, K7, K9 per shard); the shard
+    # store saved and loaded.  Every reference it is held to was computed
+    # before the counts were zeroed, so the counts are this path's alone.
+    from searcharray_tpu_torch.parallel import sharded as sharded_mod
+    from searcharray_tpu_torch.utils.profiling import hbm_report
+
+    S, QA = 4, 2
+    mesh = sharded_mod.default_mesh(devices=[torch.device(DEVICE)] * (S * QA))
+    tid_of = arr.term_dict.get_term_id
+    qt_mix = [arr._resolve_tids(arr._check_token_arg(q)) for q in smix]
+    rows_u = np.random.default_rng(77).choice(n, 20000, replace=False)
+    rows_ref = batch.score_batch_fused(dev, qt_mix, as_device=True)[
+        :, torch.as_tensor(rows_u, device=dev.device)]
+    ed_slop_ref = [edismax(df, q=q, top_k=TOP_K, **ED_KW, **ED_SLOP)[0]
+                   for q in ED_QUERIES]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counted:
+        saved_counts[k] = getattr(kc, k).launches
+        getattr(kc, k).launches = 0
+    k10_sh, k11_sh = K10Recorder(kc), K11Recorder(kc)
+    kc.similarity, kc.compose = k10_sh, k11_sh
+    # every kernel launch of this path is held to its plain version as it
+    # runs (K10 and K11 by their recorders, K1-K9 by PlainCheck, which
+    # stands in for the kernel module in each module of the engine); while
+    # ``on``, K3 notes the width of every block the sharded rankings rank
+    # (a shard's, or a merge of the shards' candidates, kept for phase 5)
+    engine_mods = (batch, cand, dense, phrase, spans_mod, scoring,
+                   sharded_mod)
+    sh_check = PlainCheck(kc, S)
+    for mod in engine_mods:
+        mod.kernels_cuda = sh_check
+    merges0, shard_k3s0 = (sharded_mod.TOPK_MERGES[0],
+                           sharded_mod.SHARD_TOPKS[0])
+    # ShardedIndex.build, the call SearchArray.index(mesh=) makes, its
+    # partition timed inside it; the sharded runtime then rides on a copy
+    # of the body array as index(mesh=) attaches it (the title corpus
+    # below goes through index(mesh=) itself)
+    partition_s = []
+    partition = sharded_mod._partition
+
+    def timed_partition(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return partition(*a, **kw)
+        finally:
+            partition_s.append(time.perf_counter() - t0)
+
+    sharded_mod._partition = timed_partition
+    try:
+        t0 = time.perf_counter()
+        sh = sharded_mod.ShardedIndex.build(arr._built, mesh=mesh)
+        torch.cuda.synchronize()
+        sh_build_s = time.perf_counter() - t0
+    finally:
+        sharded_mod._partition = partition
+    partition_s = partition_s[0]
+    sh_attach_s = sh_build_s - partition_s
+    sbody = arr.copy()
+    sbody._state.sharded = sh
+    t0 = time.perf_counter()
+    stitle = SearchArray.index(titles, device=DEVICE, mesh=mesh,
+                               autowarm=False)
+    torch.cuda.synchronize()
+    stitle_s = time.perf_counter() - t0
+    del titles
+    print(f"sharded body index: ShardedIndex.build {sh_build_s:.3f} s "
+          f"(partition {partition_s:.3f} s, attach {sh_attach_s:.3f} s), "
+          f"shard sizes {sh.shard_sizes.tolist()}; title corpus indexed "
+          f"with mesh= in {stitle_s:.3f} s", flush=True)
+    check(sh.blk_bits == dev.blk_bits and sh.num_shards == S
+          and sh.shard_sizes.sum() == n
+          and all(len(r) == 1
+                  and r[0].device == device_mod.canonical_device(DEVICE)
+                  for r in sh.shards + stitle._state.sharded.shards)
+          and all(d.pool_share == S for d in sh.device_indexes()),
+          f"the body index partitioned into {S} shards of "
+          f"{sh.shard_sizes.tolist()} docs on a {S} x {QA} mesh of one card "
+          "(the two entries of a row share one DeviceIndex; four shards "
+          "divide its pools' budgets), blk_bits the corpus's")
+
+    sh_check.on = True
+    sh_mix =sbody.score_batch(smix, top_k=TOP_K)
+    sh_terms = sbody.score_batch(term_q, top_k=TOP_K)
+    sh_req = sbody.score_batch(sq, top_k=TOP_K, slop=ss)
+    sh_check.on = False
+    sh_tf = sh.score_batch_device([[tid_of("what")], [tid_of("w4095")]],
+                                  kind="none").cpu().numpy()
+    sh_ph4 = sh.phrase_freqs(ph4).cpu().numpy()
+    sh_slop = [sh.span_freqs(q, SLOP).cpu().numpy() for q in slop_shapes[:3]]
+    sh_wide = sh.span_freqs(wide_q, wide_slop).cpu().numpy()
+    sh_rows = sh.score_batch_device(qt_mix, rows=rows_u)
+    sdf = pd.DataFrame({"title": stitle, "body": sbody})
+    sh_ed = [edismax(sdf, q=q, top_k=TOP_K, **ED_KW)[0] for q in ED_QUERIES]
+    sh_eds = [edismax(sdf, q=q, top_k=TOP_K, **ED_KW, **ED_SLOP)[0]
+              for q in ED_QUERIES]
+    sh_edb = edismax_batch(sdf, ED_QUERIES, top_k=TOP_K, **ED_KW,
+                           **ED_SLOP)[0]
+    # the shards' tensors and pools once they have served
+    sh_bytes = {k: v for k, v in hbm_report(sbody).items()
+                if k.startswith(("sharded.", "index.total"))}
+    print(f"hbm_report of the sharded body array: {sh_bytes}", flush=True)
+    # the long-document index on 4 shards: the long doc lands in shard 0,
+    # and no shard's planes fit (blk_bits 14 is the corpus's), so terms
+    # take K2, phrases K7 + K2 and slop phrases K9 + K2 per shard
+    lsh = sharded_mod.ShardedIndex.build(larr._built, mesh=mesh)
+    slarr = larr.copy()
+    slarr._state.sharded = lsh
+    sh_check.on = True
+    sh_lmix = slarr.score_batch(lmix, top_k=TOP_K)
+    sh_lreq = slarr.score_batch(lsq, top_k=TOP_K, slop=lss)
+    sh_check.on = False
+    # the shard store: the partition saved beside the body index's store
+    # (3b), loaded memory-mapped and attached as it is
+    t0 = time.perf_counter()
+    store.save_shards(arr._built, store_dir, S)
+    save_sh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shl = sharded_mod.ShardedIndex.load(store_dir, mesh=mesh)
+    torch.cuda.synchronize()
+    load_sh_s = time.perf_counter() - t0
+    sh_check.on = True
+    shl_mix = shl.topk(qt_mix, TOP_K)
+    sh_check.on = False
+    shl_mix = (shl_mix[0].cpu().numpy(), shl_mix[1].cpu().numpy())
+    torch.cuda.synchronize()
+    for mod in engine_mods:
+        mod.kernels_cuda = kc
+    sh_counts = {k: getattr(kc, k).launches for k in counted
+                 if k not in ("similarity", "compose")}
+    sh_counts["similarity"] = k10_sh.launches
+    sh_counts["compose"] = k11_sh.launches
+    sh_merges = sharded_mod.TOPK_MERGES[0] - merges0
+    sh_shard_k3s = sharded_mod.SHARD_TOPKS[0] - shard_k3s0
+    sh_peak = torch.cuda.max_memory_allocated()
+    kc.similarity, kc.compose = k10_sh.orig, k11_sh.orig
+    for k in counted:
+        getattr(kc, k).launches = saved_counts[k] + sh_counts[k]
+    print(f"sharded path launches: {sh_counts}; K3 on shard blocks "
+          f"{sh_shard_k3s}, K3 merges {sh_merges}", flush=True)
+    # a wrapper called with no work returns without a launch, so each
+    # kernel's held calls are at least its launches
+    held_of = {"score_term": "K1", "score_term_rows": "K1 rows",
+               "segment_sum": "K2", "topk": "K3", "plane_fill": "K4",
+               "phrase_chain": "K5", "span_window": "K6",
+               "merge_step": "K7", "cand_rows": "K8a", "cand_minis": "K8b",
+               "span_sparse": "K9"}
+    check(all(sh_counts[k] > 0 for k in (
+        "segment_sum", "plane_fill", "phrase_chain", "merge_step", "topk",
+        "span_window", "span_sparse", "similarity", "compose"))
+          and sh_counts["score_term"] + sh_counts["score_term_rows"] > 0
+          and all(sh_check.calls[h] >= sh_counts[k]
+                  for k, h in held_of.items())
+          and k10_sh.calls == k10_sh.launches
+          and k11_sh.calls == k11_sh.launches,
+          "the sharded path launched K1, K2, K3, K4, K5, K6, K7, K9, K10 and "
+          "K11 on the card, every launch equal to its plain version on the "
+          f"same inputs bit for bit (K1-K9 calls held {dict(sh_check.calls)},"
+          f" at {sum(map(len, sh_check.shapes.values()))} distinct shapes; "
+          f"largest differences {dict(sh_check.err)})")
+    shard_widths = set(sh.shard_sizes.tolist()) | set(
+        lsh.shard_sizes.tolist())
+    k3_widths, merge_calls = sh_check.widths, sh_check.merges
+    narrow = [w for w in k3_widths if w not in shard_widths]
+    check(sh_merges == len(narrow) == len(merge_calls) > 0
+          and max(narrow) <= S * TOP_K
+          and n not in k3_widths and len(larr) not in k3_widths,
+          f"every K3 merge ranked at most S * k = {S * TOP_K} candidates a "
+          f"query ({sh_merges} merges of widths {sorted(set(narrow))}); "
+          f"the {len(k3_widths) - len(narrow)} other K3 calls each ranked "
+          "one shard's block, none the whole doc axis")
+
+    check(same_ranked(sh_mix, mix_ref) and same_ranked(sh_terms, terms_ref)
+          and same_ranked(sh_req, slop_runs[0]),
+          f"the sharded body index answers the serving mix ({len(smix)} "
+          f"queries), the term batch ({len(term_q)}) and the mixed request "
+          f"with slop ({len(sq)}) as the unsharded index does, scores and "
+          "indices bit for bit")
+    check_ranking(dev, sq, *sh_req, "the sharded mixed request with slop",
+                  slops=ss)
+    check_ranking(dev, term_q, *sh_terms, "the sharded term batch")
+    check(all(np.array_equal(sh_tf[i], oracle_tf(post, tid_of(t), n))
+              for i, t in enumerate(("what", "w4095")))
+          and np.array_equal(sh_ph4, oracle_phrase_freqs(dev, ph4))
+          and all(np.array_equal(g, w) for g, w in zip(sh_slop, slop_freqs))
+          and np.array_equal(sh_wide, f_wide),
+          "sharded tf of 'what' and 'w4095', phrase freqs of "
+          f"{ph4}, slop freqs of {len(sh_slop)} slop shapes and of {wide_q} "
+          f"at slop {wide_slop} equal the oracle (and the unsharded "
+          "index's) exactly")
+    check(torch.equal(sh_rows.view(torch.int32), rows_ref.view(torch.int32)),
+          f"sharded rows= on {len(rows_u)} doc ids in random order equals "
+          "the unsharded scores at those columns bit for bit")
+    check(all(same_ranked(a, b) for a, b in zip(sh_ed, ed_ref))
+          and all(same_ranked(a, b) for a, b in zip(sh_eds, ed_slop_ref))
+          and all(same_ranked((sh_edb[0][i], sh_edb[1][i]), sh_eds[i])
+                  for i in range(len(ED_QUERIES))),
+          f"edismax(top_k={TOP_K}) over the sharded title and body fields, "
+          "exact and ps=2, ps2=1, equals the unsharded frame's bit for bit; "
+          "edismax_batch there takes the per-query form")
+    check_edismax(devs, ED_QUERIES, sh_ed,
+                  f"sharded edismax(top_k={TOP_K})", TOP_K)
+    check_edismax(devs, ED_QUERIES[:6], sh_eds[:6],
+                  f"sharded edismax(top_k={TOP_K}, ps=2, ps2=1)", TOP_K,
+                  **ED_SLOP)
+    check(same_ranked(sh_lmix, (lm_scores, lm_idx))
+          and same_ranked(sh_lreq, (ls_scores, ls_idx))
+          and lsh.shard_sizes[0] > 0
+          and not any(dense.dense_eligible(d) for d in lsh.device_indexes()),
+          f"the long-document index on {S} shards answers its serving mix "
+          f"({len(lmix)} queries) and its request with slop ({len(lsq)}) "
+          "as the unsharded index does, bit for bit (held to the oracle "
+          "above)")
+    check(all(torch.equal(a.hdrs, b.hdrs) and torch.equal(a.pays, b.pays)
+              for a, b in zip(shl.device_indexes(), sh.device_indexes()))
+          and same_ranked(shl_mix, mix_ref),
+          f"save_shards wrote shards-S{S} in {save_sh_s:.3f} s; "
+          f"ShardedIndex.load attached it in {load_sh_s:.3f} s, its planes "
+          "torch.equal to the built shards', and answers the serving mix "
+          "bit for bit")
+    del shl, shl_mix, sh_rows, rows_ref
+
+    # sharded against unsharded on the same card, in turns (unsharded,
+    # sharded, sharded, unsharded): the serving mix and the mixed request
+    # with slop, queries/s of 5 calls a turn; edismax p50
+    def qps_turn(a, queries, slops):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            a.score_batch(queries, top_k=TOP_K, slop=slops)
+        return 5 * len(queries) / (time.perf_counter() - t0)
+
+    # the peak of serving alone: the counted path's above includes the
+    # plain versions' temporaries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sh_qps = {"serving mix": {"unsharded": [], "sharded": []},
+              "mixed request with slop": {"unsharded": [], "sharded": []}}
+    for label, a in (("unsharded", arr), ("sharded", sbody),
+                     ("sharded", sbody), ("unsharded", arr)):
+        sh_qps["serving mix"][label].append(qps_turn(a, smix, 0))
+        sh_qps["mixed request with slop"][label].append(qps_turn(a, sq, ss))
+    sh_ed_ms = {}
+    for label, frame in (("unsharded", df), ("sharded", sdf),
+                         ("sharded", sdf), ("unsharded", df)):
+        for q in ED_QUERIES:
+            t0 = time.perf_counter()
+            edismax(frame, q=q, top_k=TOP_K, **ED_KW)
+            sh_ed_ms.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    sh_ed_p50 = {k: float(np.median(v)) for k, v in sh_ed_ms.items()}
+    serve_peak = torch.cuda.max_memory_allocated()
+    print(f"sharded qps in turns: {sh_qps}; edismax p50 ms {sh_ed_p50}",
+          flush=True)
+    sharded_evidence = [
+        ("sharded body index: partition s; attach s; title corpus indexed "
+         "with mesh= s", f"{partition_s}; {sh_attach_s}; {stitle_s}"),
+        ("sharded body index: hbm_report sharded.* bytes", sh_bytes),
+        ("shard store: save_shards s; ShardedIndex.load s",
+         f"{save_sh_s}; {load_sh_s}"),
+        ("sharded path launches; K3 on shard blocks; K3 merges",
+         f"{sh_counts}; {sh_shard_k3s}; {sh_merges}"),
+        ("serving mix qps in turns (unsharded, sharded, sharded, "
+         "unsharded), 5 calls a turn", sh_qps["serving mix"]),
+        ("mixed request with slop qps in turns",
+         sh_qps["mixed request with slop"]),
+        ("edismax(top_k=10) p50 ms: unsharded frame; sharded frame",
+         f"{sh_ed_p50['unsharded']}; {sh_ed_p50['sharded']}"),
+        ("device bytes allocated before the sharded path; its peak (the "
+         "plain checks' temporaries included); the peak while the qps and "
+         "edismax turns served", f"{mem_before}; {sh_peak}; {serve_peak}"),
+    ]
+    del sdf, stitle, sbody, slarr, sh, lsh
+    phase_done("doc-axis sharding on one card")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
@@ -3282,6 +3731,15 @@ def main() -> int:
                     k3_calls2)
     t_k3t = k3_unit(f"a [150, {n}] block with ties planted across tile "
                     "edges", [(ties, TOP_K)])
+    # the K3 merge of the sharded path (3c): the shards' candidates of one
+    # sharded serving-mix call, [Q, S * k]
+    mx_, mk_ = merge_calls[0]
+    t_k3m = measure(
+        f"the K3 merge of one sharded serving-mix call: [{mx_.shape[0]}, "
+        f"{mx_.shape[1]}] candidates of {S} shards, k = {mk_}", "K3",
+        lambda: kc.topk(mx_, mk_), lambda: kc.topk_plain(mx_, mk_),
+        rl.k3_work(mx_.shape[0], mx_.shape[1], mk_), iters=20,
+        library=lambda: torch.topk(mx_, mk_, sorted=True))
 
     def device_ops(fn):
         """Device operations (kernels, copies, memsets) one call enqueues,
@@ -3970,6 +4428,10 @@ def main() -> int:
          "plan halves; bound ms; device ms)",
          [(shape, w["bound_ms"], ms) for shape, w, (ms, _) in k5_each]),
         *slice_evidence,
+        *sharded_evidence,
+        ("K3 merge of the sharded path: device ms; bound ms; torch.topk "
+         "device ms", f"{t_k3m['new_device_ms']}; {t_k3m['bound_ms']}; "
+         f"{t_k3m['library_device_ms']}"),
         ("edismax checks: the largest relative difference of a score "
          "from the oracle's (rtol 1e-6 allowed)", ED_REL_ERR[0]),
         ("plane pool bytes", dev.plane_pool.numel() * 4),
@@ -4001,6 +4463,13 @@ def main() -> int:
 
     csrc = "searcharray_tpu_torch/csrc/"
     k1_tpu = "searcharray_tpu/ops/pallas/score.py:86"
+    # each kernel's largest difference over phase 5's checks and every
+    # launch of the sharded path (PlainCheck)
+    k1_err, k1r_err, k2_err, k3_err, k4_err, k5_err, k6_err, k7_err, \
+        k9_err = (max(e, sh_check.err[h]) for e, h in (
+            (k1_err, "K1"), (k1r_err, "K1 rows"), (k2_err, "K2"),
+            (k3_err, "K3"), (k4_err, "K4"), (k5_err, "K5"), (k6_err, "K6"),
+            (k7_err, "K7"), (k9_err, "K9")))
     print(json.dumps({"kernels": [
         entry("score_term (K1)", csrc + "score_term.cu", k1_tpu,
               launches["score_term"], k1_err, t_what),
@@ -4015,7 +4484,7 @@ def main() -> int:
         {**entry("topk (K3)", csrc + "topk.cu",
                  "searcharray_tpu/ops/kernels.py:101", launches["topk"],
                  k3_err, t_k3),
-         "more_units": [unit_of(t_k3s), unit_of(t_k3t)]},
+         "more_units": [unit_of(t_k3s), unit_of(t_k3t), unit_of(t_k3m)]},
         entry("plane_fill (K4)", csrc + "plane_fill.cu",
               "searcharray_tpu/search/dense.py:222", launches["plane_fill"],
               k4_err, t_k4),
@@ -4035,28 +4504,32 @@ def main() -> int:
                  launches["span_sparse"], k9_err, t_k9),
          "more_units": [unit_of(t_k9b), unit_of(t_k9w), unit_of(t_k9bw)]},
         # the largest difference over every main-path launch (K8Recorder)
+        # and every sharded-path launch (PlainCheck)
         entry("cand_rows (K8a)", csrc + "cand_rows.cu",
               "searcharray_tpu/search/candidates.py:201",
-              launches["cand_rows"], rec.err["K8a"], t_k8a),
+              launches["cand_rows"], max(rec.err["K8a"], sh_check.err["K8a"]),
+              t_k8a),
         {**entry("cand_minis (K8b)", csrc + "cand_minis.cu",
                  "searcharray_tpu/search/candidates.py:258",
-                 launches["cand_minis"], rec.err["K8b"], t_k8b),
+                 launches["cand_minis"],
+                 max(rec.err["K8b"], sh_check.err["K8b"]), t_k8b),
          "more_units": [unit_of(t_k8bp)]},
-        # the largest difference over every main-path launch
+        # the largest difference over every launch of the counted paths
         # (K10Recorder); no single PyTorch call computes the similarity:
         # the torch composition K10 replaced is its yardstick
         {**entry("similarity (K10)", csrc + "similarity.cu",
                  "searcharray_tpu/search/scoring.py:29",
-                 launches["similarity"], k10_rec.err, t_k10),
+                 launches["similarity"],
+                 max(k10_rec.err, k10_slice.err, k10_sh.err), t_k10),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k10["library_ms"],
          "torch_composition_device_ms": t_k10["library_device_ms"]},
-        # the largest difference over every main-path launch
+        # the largest difference over every launch of the counted paths
         # (K11Recorder); no single PyTorch call composes: the torch
         # composition K11 replaced is its yardstick
         {**entry("compose (K11)", csrc + "compose.cu",
                  "searcharray_tpu/solr.py:110", launches["compose"],
-                 k11_rec.err, t_k11),
+                 max(k11_rec.err, k11_slice.err, k11_sh.err), t_k11),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k11["library_ms"],
          "torch_composition_device_ms": t_k11["library_device_ms"],

@@ -12,8 +12,10 @@ kernel is written by hand for Hopper.  Every device is named explicitly:
 ``SearchArray.index(strings, device="cuda")``.  An index saves and loads
 through ``index/store.py`` (one on-disk format with the JAX package), its
 postings can be memory-mapped (``data_dir=``), and an array pickles and
-takes assignments (``__setitem__``); only doc-axis sharding (``mesh=``)
-still raises ``NotImplementedError``, naming its ROADMAP item.
+takes assignments (``__setitem__``).  With ``mesh=`` the index is also
+split by doc range into shards (``parallel/sharded.py``): one process
+drives every shard's engine and kernels on the mesh's devices, and a
+per-shard top-k merges through K3.
 """
 from searcharray_tpu_torch.pandas_ext.array import SearchArray, Terms, TermsDtype  # noqa: F401
 from searcharray_tpu_torch.search.similarity import (  # noqa: F401

@@ -50,6 +50,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "segmented.cuh"
 
 namespace {
@@ -185,7 +186,7 @@ extern "C" int sa_cand_minis(const void* rows, int64_t rows_stride,
                              const void* hdrs, const void* pays,
                              int num_docs, int blk_bits, void* out,
                              int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const int64_t width = kc << blk_bits;
   const int64_t slots = int64_t{1} << blk_bits;
   const int64_t tile = slots > MINI_TILE ? slots : MINI_TILE;

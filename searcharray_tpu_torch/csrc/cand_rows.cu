@@ -57,6 +57,8 @@
 #include <mutex>
 #include <utility>
 
+#include "device_guard.cuh"
+
 namespace {
 
 // 1,024 threads of two words a tile: faster on the serving mix's largest
@@ -440,7 +442,7 @@ extern "C" int sa_cand_rows(const void* hdrs, const void* pays,
                             int64_t n_tiles, int64_t kc, int num_docs,
                             int blk_bits, void* rows, void* tf, int device,
                             void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   // held through the launch, so no other host thread frees the scratch of
   // this stream between its growth and the launch that uses it
   std::lock_guard<std::mutex> lock(mu);
@@ -458,7 +460,7 @@ extern "C" int sa_cand_rows_tile() { return TILE; }
 // It also tells the single-kernel design from the earlier two-kernel one.
 extern "C" int sa_cand_rows_grid(int64_t n_queries, int64_t n_tiles,
                                  int64_t kc, int device) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   std::lock_guard<std::mutex> lock(mu);
   int64_t cap = 0;
   if (resident_blocks(device, cap) != cudaSuccess) return 0;

@@ -40,6 +40,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -117,7 +119,7 @@ extern "C" int sa_compose(const int64_t* ptrs, const int64_t* strides,
                           const int32_t* msms, int fields, int64_t n,
                           float tie, int term_centric, int chain, void* out,
                           int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   if (fields < 1 || fields > MAX_FIELDS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -60,6 +60,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "sorted_join.cuh"
 
 namespace {
@@ -397,7 +398,7 @@ extern "C" int sa_merge_join(const void* hdrs, const void* base_pays,
                              void* stream) {
   static int64_t resident[64] = {};   // blocks each device holds at once
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   if (resident[device] == 0) {
     const cudaError_t err = sj::resident_blocks(
         merge_join_kernel, MS_THREADS, 0, device, resident[device]);

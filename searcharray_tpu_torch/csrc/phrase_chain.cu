@@ -65,6 +65,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int MAX_TERMS = 32;      // cap on the terms of one half
@@ -538,7 +540,7 @@ extern "C" int sa_phrase_chain(const void* pool, int64_t plane_size,
     for (int j = 0; j < p.len[h]; ++j) p.tag[h][j] = plan[at + j];
     at += p.len[h];
   }
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* pl = static_cast<const int32_t*>(pool);
   const int32_t* sl = static_cast<const int32_t*>(slots);

@@ -27,6 +27,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "segmented.cuh"
 
 namespace {
@@ -76,7 +77,7 @@ extern "C" int sa_plane_fill(const void* hdrs, const void* pays,
                              const void* offs, const void* ns,
                              const void* slots, int64_t n_rows, void* pool,
                              int64_t plane_size, int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const int64_t tiles = (plane_size + FILL_TILE - 1) / FILL_TILE;
   const dim3 grid(static_cast<unsigned>(tiles),
                   static_cast<unsigned>(n_rows));

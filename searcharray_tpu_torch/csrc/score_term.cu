@@ -43,6 +43,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "segmented.cuh"
 
 namespace {
@@ -224,7 +225,7 @@ extern "C" int sa_score_term(const void* hdrs, const void* pays,
                              int64_t num_docs, int blk_bits, int kind,
                              float idf, float avgdl, float k1, float b,
                              int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   return launch_any(wide(n_words, num_docs), hdrs, pays, nullptr, nullptr,
                     n_words, nullptr, 1, out, 0, doc_lens, num_docs,
                     blk_bits, Similarity{kind, idf, avgdl, k1, b}, stream);
@@ -240,7 +241,7 @@ extern "C" int sa_score_term_rows(const void* hdrs, const void* pays,
                                   int64_t max_words, void* out,
                                   int64_t out_stride, int64_t num_docs,
                                   int blk_bits, int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   return launch_any(wide(max_words, num_docs), hdrs, pays, offs, ns, 0,
                     out_rows, n_rows, out, out_stride, nullptr, num_docs,
                     blk_bits, Similarity{KIND_NONE, 0.f, 1.f, 0.f, 0.f},

@@ -80,6 +80,8 @@
 #include <mutex>
 #include <utility>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -489,7 +491,7 @@ cudaError_t launch(const int32_t* ids, const float* values, int64_t m,
 extern "C" int sa_segment_sum(const void* ids, const void* values, int64_t m,
                               void* out, int64_t num_out, int device,
                               void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   if (num_out <= 0) return 0;
   if (num_out > INT_MAX || m > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);

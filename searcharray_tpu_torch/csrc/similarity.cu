@@ -38,6 +38,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 // kind codes, shared with ops/cuda/score.py (SIM_KINDS)
@@ -127,7 +129,7 @@ extern "C" int sa_similarity(const void* tf, int64_t rows, int64_t n,
                              void* out, int64_t out_stride, int kind,
                              float avgdl, float k1, float b, int device,
                              void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   if (rows <= 0 || n <= 0) return 0;
   if (kind < SIM_BM25 || kind > SIM_CLASSIC || rows > 65535LL * ROWS) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -85,6 +85,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "device_guard.cuh"
 #include "sorted_join.cuh"
 
 namespace {
@@ -588,7 +589,7 @@ extern "C" int sa_span_sparse(const void* hdrs, const void* pays,
                               void* scratch,
                               int64_t scratch_stride, void* keys,
                               void* counts, int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   const BlkWindow win{(1 << blk_bits) - 1, min_blk, max_blk};
   const bool vec = ((reinterpret_cast<uintptr_t>(hdrs)

@@ -49,6 +49,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int LSB_BITS = 18;
@@ -252,7 +254,7 @@ extern "C" int sa_span_window(const void* pool, int64_t plane_size,
     if (mults[t] < 1 || mults[t] > 2) return cudaErrorInvalidValue;
     qr.mult[t] = mults[t];
   }
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* pl = static_cast<const int32_t*>(pool);
   const int32_t* sl = static_cast<const int32_t*>(slots);

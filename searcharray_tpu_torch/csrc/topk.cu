@@ -82,6 +82,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int BINS = 2048;         // 11-bit digits
@@ -812,7 +814,7 @@ extern "C" int sa_topk(const void* x, int64_t n_rows, int64_t n, int64_t k,
       (k > SORT_CAP && cap != k)) {
     return cudaErrorInvalidValue;
   }
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   uint32_t* hist = static_cast<uint32_t*>(scratch);
@@ -846,7 +848,7 @@ extern "C" int sa_topk(const void* x, int64_t n_rows, int64_t n, int64_t k,
 extern "C" int sa_topk_unpack(const void* x, int64_t n_rows, int64_t n,
                               const void* keys, int64_t k, void* vals,
                               void* idx, int device, void* stream) {
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   const int64_t total = n_rows * k;
   int64_t blocks = (total + THREADS - 1) / THREADS;
   if (blocks > 65535) blocks = 65535;
@@ -877,7 +879,7 @@ extern "C" int sa_topk_select(const void* x, int64_t n_rows, int64_t n,
   if (k < 1 || k > n || k > ONE_PASS_CAP || (tiles > 1 && part == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  cudaSetDevice(device);
+  const DeviceGuard guard(device);
   cudaError_t err = cudaFuncSetAttribute(
       topk_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SEL_SMEM);

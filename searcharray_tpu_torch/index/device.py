@@ -32,19 +32,22 @@ from searcharray_tpu_torch.ops.kernels import (
 )
 
 
-def derive_attach_arrays(built: BuiltIndex) -> dict:
+def derive_attach_arrays(built: BuiltIndex,
+                         blk_bits: Optional[int] = None) -> dict:
     """The host-side arrays a DeviceIndex uploads: the tail-padded hdr32 /
     pay32 planes, in the JAX package's layout, so the port attaches the
     JAX package's arrays too.  The JAX package also derives a per-term
     block-word max, which bounds its Pallas grid; K1 binary-searches each
     block's word range instead, so DeviceIndex neither derives nor reads
     it (``index/store.py`` computes it for the stores the JAX package
-    loads)."""
+    loads).  ``blk_bits`` is derived from the longest doc unless given (a
+    shard takes its partition's)."""
     max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
     max_bucket = max(bucket_of(max(1, max_len)),
                      expand_bucket_of(max(1, max_len)))
-    max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
-    blk_bits = blk_bits_for(int(max_doc_len))
+    if blk_bits is None:
+        max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
+        blk_bits = blk_bits_for(int(max_doc_len))
     hdr, pay = compress_planes(built.postings.data, blk_bits)
     pad_h = np.full(max_bucket, PAD_HDR32, dtype=np.int32)
     pad_p = np.zeros(max_bucket, dtype=np.uint32)
@@ -54,6 +57,16 @@ def derive_attach_arrays(built: BuiltIndex) -> dict:
         "blk_bits": blk_bits,
         "max_bucket": max_bucket,
     }
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: "cuda" names the current card, so that
+    the index's tensors and every later host-to-device copy for it land on
+    one card whatever the current device is then."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 UPLOAD_CHUNK = 1 << 24   # elements a pinned staging copy moves (64 MB)
@@ -86,18 +99,40 @@ def upload_i32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class DeviceIndex:
     """Device copy of a built index on ``device`` (immutable postings, plus
     the lazily allocated plane and tf pools and their host-side slot
-    maps)."""
+    maps).
 
-    def __init__(self, built: BuiltIndex, device):
+    One shard of a doc-axis partition (``parallel/sharded.py``) is a
+    DeviceIndex too: its ``built`` holds the shard's re-based postings and
+    doc lengths beside the corpus's vocabulary, ``doc_freqs`` and
+    ``avg_doc_length``; ``stats_docs`` is the corpus's doc count, which
+    every idf reads (``corpus_size`` stays the shard's own: pools, planes,
+    key strides, routing); ``blk_bits`` is the partition's, never derived
+    from the shard's own longest doc; ``stats_lengths`` is the corpus's
+    per-term posting words, which choose a slop phrase's anchor; and
+    ``pool_share`` shards on one device divide the pools' byte budgets
+    between them."""
+
+    def __init__(self, built: BuiltIndex, device, *,
+                 blk_bits: Optional[int] = None,
+                 stats_docs: Optional[int] = None,
+                 stats_lengths: Optional[np.ndarray] = None,
+                 pool_share: int = 1):
         self.built = built
-        self.device = torch.device(device)
+        self.device = canonical_device(device)
         self.postings = built.postings          # host CSR (numpy, uint64)
         self.doc_term = built.doc_term
         self.vocab: Vocabulary = built.vocab
         self.doc_lens_np = built.doc_lens
         self.avg_doc_length = built.avg_doc_length
         self.corpus_size = int(len(built.doc_lens))
+        self.stats_docs = (self.corpus_size if stats_docs is None
+                           else int(stats_docs))
+        self.pool_share = max(1, int(pool_share))
         self.doc_freqs = built.doc_freqs  # host int64[V], precomputed
+        # per-term posting words of the corpus (a slop phrase's anchor is
+        # its term with the fewest)
+        self.stats_lengths = (built.postings.lengths if stats_lengths is None
+                              else stats_lengths)
 
         max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
         # tail padding covers the largest bucket-sized slice taken at any
@@ -106,9 +141,11 @@ class DeviceIndex:
                               expand_bucket_of(max(1, max_len)))
         max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
         self._max_doc_len = max_doc_len
-        self.blk_bits = blk_bits_for(int(max_doc_len))
+        self.blk_bits = (blk_bits_for(int(max_doc_len)) if blk_bits is None
+                         else int(blk_bits))
 
-        der = self._usable_derived(built) or derive_attach_arrays(built)
+        der = (self._usable_derived(built)
+               or derive_attach_arrays(built, blk_bits=self.blk_bits))
         self.hdrs = upload_i32(der["hdr32"], self.device)
         self.pays = upload_i32(der["pay32"], self.device)
         # a copy: a store's doc lengths may be a read-only memmap
@@ -135,17 +172,24 @@ class DeviceIndex:
     def _usable_derived(self, built: BuiltIndex):
         """Precomputed attach arrays, or None if absent or stale (layout
         constants must match what this code would derive; keys the port
-        does not read are ignored)."""
+        does not read are ignored).  Past the W posting words a plane holds
+        only its pad (PAD_HDR32 headers, zero payloads), at least
+        ``max_bucket`` of it: a store's is exactly that, a shard store's
+        row runs on to the partition's widest shard.  Every entry past W
+        is read: a longer tail of pad is cut, anything else is stale."""
         der = built.derived
-        if not der:
+        if (not der or der.get("blk_bits") != self.blk_bits
+                or der.get("max_bucket", self.max_bucket) != self.max_bucket):
             return None
         W = len(built.postings.data)
-        if (der.get("blk_bits") == self.blk_bits
-                and der.get("max_bucket") == self.max_bucket
-                and len(der["hdr32"]) == W + self.max_bucket
-                and len(der["pay32"]) == W + self.max_bucket):
-            return der
-        return None
+        hdr, pay = der["hdr32"], der["pay32"]
+        if (len(hdr) != len(pay) or len(hdr) < W + self.max_bucket
+                or not (np.all(hdr[W:] == PAD_HDR32)
+                        and np.all(pay[W:] == 0))):
+            return None
+        end = W + self.max_bucket
+        return {**der, "hdr32": hdr[:end], "pay32": pay[:end],
+                "max_bucket": self.max_bucket}
 
     def term_span(self, term_id: int) -> Tuple[int, int, int]:
         """(offset, length, bucket) for a term's posting slice."""

@@ -15,7 +15,9 @@ postings: the padded hdr32 / pay32 planes, which the port's
 ``DeviceIndex`` uploads as they are, and the per-term block-word max
 with its ``doc_block`` of 1024, which the JAX package's loader requires
 of every v3 store (it bounds its Pallas grid; the port's K1 needs no
-bound, so only ``save_index`` computes it, for the store).
+bound, so only ``save_index`` computes it, for the store).  A store may
+also hold doc-range shard partitions (``save_shards``, ``shards-S{n}/``),
+in the JAX package's format too.
 """
 from __future__ import annotations
 
@@ -129,14 +131,51 @@ def save_index(built: BuiltIndex, directory: str) -> None:
             f.write(json.dumps(built.vocab.get_term(i)) + "\n")
 
 
+_SHARD_ARRAYS = ("hdrs", "pays", "offsets", "lengths", "doc_lens",
+                 "shard_starts")
+
+
 def save_shards(built: BuiltIndex, directory: str, num_shards: int) -> str:
-    raise NotImplementedError("save_shards is not ported yet (ROADMAP "
-                              "Queue 1 item 14, doc-axis sharding)")
+    """Persist a doc-range shard partition beside a saved index.
+
+    Writes ``shards-S{num_shards}/`` under ``directory`` holding the
+    per-shard device-attach arrays (``ShardedIndex.partition``'s) and
+    ``shards.json``, so a serving process on a mesh cold-starts at upload
+    speed instead of re-running the O(S*W) host re-partition.  One store
+    can hold partitions for several shard counts."""
+    from searcharray_tpu_torch.parallel.sharded import ShardedIndex
+
+    parts = ShardedIndex.partition(built, num_shards)
+    d = os.path.join(directory, f"shards-S{num_shards}")
+    os.makedirs(d, exist_ok=True)
+    for name in _SHARD_ARRAYS:
+        np.save(os.path.join(d, name + ".npy"), parts[name])
+    with open(os.path.join(d, "shards.json"), "w") as f:
+        json.dump({
+            "num_shards": num_shards,
+            "shard_docs": int(parts["shard_docs"]),
+            "blk_bits": int(parts["blk_bits"]),
+            "num_docs": int(parts["num_docs"]),
+        }, f)
+    return d
 
 
 def load_shards(directory: str, num_shards: int) -> dict:
-    raise NotImplementedError("load_shards is not ported yet (ROADMAP "
-                              "Queue 1 item 14, doc-axis sharding)")
+    """Memory-map a persisted shard partition (see save_shards)."""
+    d = os.path.join(directory, f"shards-S{num_shards}")
+    meta_path = os.path.join(d, "shards.json")
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(
+            f"no saved S={num_shards} partition under {directory}; run "
+            f"save_shards(built, dir, {num_shards}) once")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    parts = {
+        name: np.load(os.path.join(d, name + ".npy"), mmap_mode="r")
+        for name in _SHARD_ARRAYS
+    }
+    parts.update(meta)
+    return parts
 
 
 def load_index(directory: str, mmap: bool = True) -> BuiltIndex:

@@ -16,8 +16,12 @@ for selective queries on large corpora, and ``score_batch_device`` (with
 (``index(..., data_dir=)``), an array pickles with its device (a
 memmapped one as its file's path) and re-attaches lazily on unpickle, and
 ``__setitem__`` re-indexes the assigned rows (``builder.replace_docs``)
-and drops the device copy, whose pools go with it.  Doc-axis sharding
-(``mesh=``) raises ``NotImplementedError`` naming its ROADMAP item.
+and drops the device copy, whose pools go with it.  With ``mesh=`` (a
+``parallel.sharded.Mesh`` of torch devices) the index is also split by
+doc range into shards beside the single-device one
+(``parallel/sharded.py``): ``score_batch``, ``score_batch_device`` and
+``edismax`` over a full view then run each shard's own engine and rank
+through a per-shard top-k and a merge.
 """
 from __future__ import annotations
 
@@ -203,12 +207,13 @@ class _IndexState:
     same array sees the mutation, while ``copy()`` makes a new holder:
     copy-on-write."""
 
-    __slots__ = ("built", "dev", "device", "cache_gt_than")
+    __slots__ = ("built", "dev", "device", "sharded", "cache_gt_than")
 
-    def __init__(self, built: BuiltIndex, device, dev=None):
+    def __init__(self, built: BuiltIndex, device, dev=None, sharded=None):
         self.built = built
         self.device = device
         self.dev = dev
+        self.sharded = sharded  # parallel.sharded.ShardedIndex with mesh=
         self.cache_gt_than = 25  # pool-admission threshold (see warm())
 
 
@@ -292,9 +297,11 @@ class SearchArray(ExtensionArray):
         ``device`` (a torch device, "cuda" by default).  With ``data_dir``
         the posting buffer is spilled to a file there and memory-mapped
         (``index/store.py:memmap_postings``): a pickle of the array then
-        holds the file's path, not the postings."""
-        if mesh is not None:
-            raise _todo("mesh= (doc-axis sharding)", "Queue 1 item 14")
+        holds the file's path, not the postings.  With ``mesh`` (a
+        ``parallel.sharded.Mesh`` with "docs" / "queries" axes) the
+        postings are also split by doc range over the mesh's devices
+        (``ShardedIndex``); batched scoring and edismax then run per
+        shard."""
         if not is_list_like(array):
             raise TypeError("Expected list-like object, got {}".format(type(array)))
         built = build_index(array, tokenizer, truncate=truncate,
@@ -306,6 +313,10 @@ class SearchArray(ExtensionArray):
         arr = cls([], tokenizer=tokenizer, avoid_copies=avoid_copies,
                   device=device)
         arr._attach(_IndexState(built, device))
+        if mesh is not None:
+            from searcharray_tpu_torch.parallel.sharded import ShardedIndex
+
+            arr._state.sharded = ShardedIndex.build(built, mesh=mesh)
         if autowarm:
             arr.warm(cache_gt_than=cache_gt_than)
         else:
@@ -456,6 +467,13 @@ class SearchArray(ExtensionArray):
                                          np.asarray(doc_ids, dtype=np.int64),
                                          vals, Terms)
         self._state.dev = None
+        if self._state.sharded is not None:
+            # re-shard the mutated index on the same mesh, so the sharded
+            # routes see the mutation too
+            from searcharray_tpu_torch.parallel.sharded import ShardedIndex
+
+            self._state.sharded = ShardedIndex.build(
+                self._state.built, mesh=self._state.sharded.mesh)
         if appended:
             self.rows = new_rows
             self.subset = True
@@ -519,8 +537,10 @@ class SearchArray(ExtensionArray):
 
     def copy(self):
         if self.avoid_copies:
-            # share the immutable built index and device buffers
-            state = _IndexState(self._built, self.device, self._state.dev)
+            # share the immutable built index and device buffers, the
+            # sharded runtime included
+            state = _IndexState(self._built, self.device, self._state.dev,
+                                sharded=self._state.sharded)
         else:
             import copy as _copy
 
@@ -569,6 +589,8 @@ class SearchArray(ExtensionArray):
         return result
 
     def __getstate__(self):
+        # the sharded runtime is not pickled (as in the JAX package): the
+        # unpickled array scores on its one device
         return {
             "built": self._built,
             "device": str(self.device),
@@ -730,20 +752,24 @@ class SearchArray(ExtensionArray):
 
         Returns float32[Q, len(self)], or with ``top_k`` set,
         ``(scores[Q, k], indices[Q, k])`` ranked on the device.  With
-        ``block=False`` (requires ``top_k``, a fused similarity and a full
-        un-sliced view) the call returns a zero-arg ``collect()`` once all
-        device work is enqueued; invoking it waits for the one copy.
+        ``block=False`` (requires ``top_k``, a fused similarity, a full
+        un-sliced view and no mesh) the call returns a zero-arg
+        ``collect()`` once all device work is enqueued; invoking it waits
+        for the one copy.
         ``slop`` is an int for every query or one per query, so a request
         mixing exact and slop phrases is ONE batch (one pool-fill wave); a
         one-term query ignores it.  A slop phrase the dense window kernel
         cannot take is scored on its posting slices (``span`` groups,
-        search/batch.py) in the same batch."""
+        search/batch.py) in the same batch.  A full view of a sharded
+        array (``mesh=``) scores per shard and ranks through the shards'
+        top-k and their merge (``ShardedIndex.topk``)."""
         fused = getattr(similarity, "_fused", None)
+        sharded = self._state.sharded if self._full_view else None
         if not block and not (fused is not None and top_k is not None
-                              and self._full_view):
+                              and self._full_view and sharded is None):
             raise ValueError(
-                "block=False requires top_k, a fused similarity, and a "
-                "full un-sliced view")
+                "block=False requires top_k, a fused similarity, a full "
+                "un-sliced view, and no mesh")
         slops = ([slop] * len(queries) if np.isscalar(slop)
                  else [int(s) for s in slop])
         if len(slops) != len(queries):
@@ -755,6 +781,14 @@ class SearchArray(ExtensionArray):
         else:
             kind, k1, b = fused
             qtids = [self._resolve_tids(t) for t in tokens]
+            if sharded is not None and top_k is not None:
+                scores, idx = sharded.topk(qtids, min(top_k, len(self)),
+                                           kind, k1, b, slop=slops)
+                return (scores.cpu().numpy(),
+                        idx.cpu().numpy().astype(np.int64))
+            if sharded is not None:
+                return sharded.score_batch_device(qtids, kind, k1, b,
+                                                  slop=slops).cpu().numpy()
             if self._full_view and top_k is not None:
                 return batch_mod.score_batch_fused(
                     self.dev, qtids, kind, k1, b,
@@ -783,7 +817,10 @@ class SearchArray(ExtensionArray):
         With ``rows`` (a doc-id subset; requires a fused similarity,
         slop=0 and a full un-sliced view) the scores are f32[Q,
         len(rows)] and the work is proportional to the subset: the phrase
-        phases' cost contract of the reference (solr.py:328-338)."""
+        phases' cost contract of the reference (solr.py:328-338).  A full
+        view of a sharded array (``mesh=``) scores per shard
+        (``ShardedIndex.score_batch_device``; with ``rows`` each shard its
+        own)."""
         if not np.isscalar(slop):
             slop = [int(s) for s in slop]
             if len(slop) != len(queries):
@@ -800,9 +837,12 @@ class SearchArray(ExtensionArray):
             kind, k1, b = fused
             qtids = [self._resolve_tids(self._check_token_arg(q))
                      for q in queries]
+            rows = np.asarray(rows, dtype=np.int64)
+            if self._state.sharded is not None:
+                return self._state.sharded.score_batch_device(
+                    qtids, kind, k1, b, rows=rows)
             return batch_mod.score_batch_fused(
-                self.dev, qtids, kind, k1, b, as_device=True,
-                rows=np.asarray(rows, dtype=np.int64))
+                self.dev, qtids, kind, k1, b, as_device=True, rows=rows)
         slops = [slop] * len(queries) if np.isscalar(slop) else slop
         if fused is None:
             # custom similarity: the reference protocol per query (the
@@ -817,6 +857,9 @@ class SearchArray(ExtensionArray):
         kind, k1, b = fused
         qtids = [self._resolve_tids(self._check_token_arg(q))
                  for q in queries]
+        if self._state.sharded is not None and self._full_view:
+            return self._state.sharded.score_batch_device(qtids, kind, k1, b,
+                                                          slop=slops)
         out = batch_mod.score_batch_fused(self.dev, qtids, kind, k1, b,
                                           slop=slops, as_device=True)
         if self._full_view:
@@ -826,12 +869,16 @@ class SearchArray(ExtensionArray):
     def topk(self, token: Union[str, List[str]], k: int = 10,
              similarity: Similarity = default_bm25, slop: int = 0):
         """Top-k (scores, row indices) for one query, ranked on the device
-        through the batch driver; a host argpartition for custom
+        through the batch driver (the single-device index's, on a sharded
+        array too, as in the JAX package); a host argpartition for custom
         similarities and sliced views."""
         k = min(k, len(self))
-        if getattr(similarity, "_fused", None) is not None and self._full_view:
-            scores, idx = self.score_batch([token], similarity=similarity,
-                                           slop=slop, top_k=k)
+        fused = getattr(similarity, "_fused", None)
+        if fused is not None and self._full_view:
+            kind, k1, b = fused
+            scores, idx = batch_mod.score_batch_fused(
+                self.dev, [self._resolve_tids(self._check_token_arg(token))],
+                kind, k1, b, top_k=k, slop=slop)
             return scores[0], idx[0]
         scores = self.score(token, similarity=similarity, slop=slop)
         idx = np.argpartition(scores, -k)[-k:]

@@ -1,0 +1,534 @@
+"""Doc-axis sharding: one process drives a corpus split by doc range into
+S shards, each a ``DeviceIndex`` that runs the port's own engine and
+kernels.
+
+The port of ``searcharray_tpu/parallel/sharded.py``.  The JAX module is
+single-controller too: one Python process drives the whole mesh through
+``shard_map``.  Here a ``Mesh`` is a 2-D grid of torch devices with a
+``docs`` axis (one row per doc shard) and a ``queries`` axis (the row's
+devices split a batch's queries in contiguous parts).  A device may
+repeat: ``default_mesh(devices=[torch.device("cuda")] * 8)`` is 4 doc
+shards x 2 query parts on one card, and on a host with several cards
+shard s goes to its own.  Launches are asynchronous, so a loop over the
+shards overlaps their device work.  A process group of one rank per
+shard would need every rank to make every facade call, and NCCL puts no
+two ranks on one card.
+
+* ``partition`` splits the postings by doc range and re-bases the keys
+  to shard-local ids, with one global ``blk_bits`` (the corpus's longest
+  doc): the numpy arrays that ``index/store.py:save_shards`` persists, in
+  the JAX package's format.
+* A shard is one ``DeviceIndex`` per distinct device of its mesh row
+  (entries that repeat a device share it, with its pools).  Its
+  ``BuiltIndex`` holds its re-based postings and doc lengths beside the
+  corpus's vocabulary, ``doc_freqs`` and ``avg_doc_length``; every idf
+  reads the corpus's doc count (``stats_docs``) and a slop phrase's
+  anchor the corpus's posting lengths (``stats_lengths``), so a shard
+  scores its docs as the whole index would; shards on one device divide
+  the pools' byte budgets (``pool_share``).
+* ``score_batch_device`` dedups by (query, slop) once and calls
+  ``search/batch.py:score_batch_fused`` on each shard, which routes each
+  group (dense, sparse, candidates) by the shard's own doc count.  The
+  [Q, n_s] blocks are placed into f32[Q, N] on the device of mesh entry
+  (0, 0).
+* ``topk`` ranks each shard's block with K3 (``ops/cuda/score.py:topk``),
+  offsets the [Q, k_s] candidates by ``shard_starts`` and ranks the
+  [Q, sum k_s] candidates with K3 again: the full doc axis never leaves
+  its shard's device.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from searcharray_tpu_torch.index.builder import (
+    BuiltIndex,
+    DocTermMatrix,
+    TermPostings,
+)
+from searcharray_tpu_torch.index.device import DeviceIndex, canonical_device
+from searcharray_tpu_torch.ops import encoding as enc
+from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+from searcharray_tpu_torch.ops.kernels import (
+    PAD_HDR32,
+    blk_bits_for,
+    bucket_of,
+    compress_planes,
+    expand_bucket_of,
+)
+from searcharray_tpu_torch.search import batch as batch_mod
+from searcharray_tpu_torch.search import phrase as phrase_mod
+from searcharray_tpu_torch.search import spans as spans_mod
+
+# Candidate-engine group launches across shards, with the group launches
+# of every shard's ``rows=`` call (the JAX module's counter of candidate
+# and rows programs).
+CAND_PROGRAMS = [0]
+# K3 calls of ``topk``: on a shard's block, and the merges of candidates.
+SHARD_TOPKS = [0]
+TOPK_MERGES = [0]
+
+
+class Mesh:
+    """A 2-D grid of torch devices: ``devices[d, j]`` holds doc shard d's
+    part j of the queries axis.  ``shape`` maps the axis names to their
+    sizes, as a JAX mesh's does."""
+
+    def __init__(self, devices, axis_names=("docs", "queries")):
+        rows = [list(r) for r in devices]
+        width = len(rows[0]) if rows else 0
+        if not rows or not width or any(len(r) != width for r in rows):
+            raise ValueError("a mesh is a non-empty 2-D grid of devices")
+        self.devices = np.empty((len(rows), width), dtype=object)
+        for d, r in enumerate(rows):
+            for j, device in enumerate(r):
+                # entries naming one card compare equal
+                self.devices[d, j] = canonical_device(device)
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, {sorted(set(map(str, self.devices.flat)))})"
+
+
+def default_mesh(axis_docs: str = "docs", axis_queries: str = "queries",
+                 devices=None) -> Mesh:
+    """A (docs x queries) mesh over ``devices`` (every CUDA device by
+    default); the queries axis takes a factor of 2 when the device count
+    is even, as the JAX package's does."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass devices= (e.g. "
+                               "[torch.device('cpu')] * 8)")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    flat = list(np.asarray(devices, dtype=object).reshape(-1))
+    n = len(flat)
+    q = 2 if n % 2 == 0 and n > 1 else 1
+    return Mesh([flat[d * q: (d + 1) * q] for d in range(n // q)],
+                (axis_docs, axis_queries))
+
+
+class ShardedIndex:
+    """A BuiltIndex partitioned by doc range across a mesh's ``docs`` axis."""
+
+    def __init__(self, mesh: Mesh, shards: List[List[DeviceIndex]],
+                 replica: np.ndarray, shard_starts: np.ndarray, vocab,
+                 avg_doc_length: float, corpus_size: int,
+                 max_shard_docs: int, blk_bits: int, doc_freqs):
+        self.mesh = mesh
+        # shards[d]: one DeviceIndex per distinct device of mesh row d;
+        # replica[d, j]: the one mesh entry (d, j) uses
+        self.shards = shards
+        self.replica = replica
+        self.shard_starts = shard_starts      # int64[S]: global doc base
+        self.shard_sizes = np.asarray([s[0].corpus_size for s in shards],
+                                      np.int64)
+        self.vocab = vocab
+        self.avg_doc_length = avg_doc_length
+        self.corpus_size = corpus_size
+        self.max_shard_docs = max_shard_docs
+        self.blk_bits = blk_bits
+        self.doc_freqs = doc_freqs
+        self.num_shards = len(shards)
+        self.device = mesh.devices[0, 0]      # where results are placed
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def partition(built: BuiltIndex, S: int) -> dict:
+        """Host-side doc-range partition of a BuiltIndex into S shards.
+
+        Returns the numpy shard arrays ({hdrs [S, W], pays [S, W],
+        offsets/lengths [S, V], doc_lens [S, shard_docs]} + scalars) that
+        ``build`` uploads; also what ``index/store.py:save_shards``
+        persists, so a serving process cold-starts without re-running
+        this O(S*W) re-partition."""
+        return _partition(built, S)[0]
+
+    @classmethod
+    def _from_parts(cls, parts: dict, mesh: Mesh, vocab,
+                    avg_doc_length: float, doc_freqs,
+                    shard_words: Optional[list] = None) -> "ShardedIndex":
+        # the corpus's per-term posting words: each shard's sum
+        stats_lengths = np.asarray(parts["lengths"], np.int64).sum(axis=0)
+        S = mesh.shape["docs"]
+        if int(np.shape(parts["hdrs"])[0]) != S:
+            raise ValueError(f"a partition of {np.shape(parts['hdrs'])[0]} "
+                             f"shards on a mesh of {S}")
+        N = int(parts["num_docs"])
+        shard_docs = int(parts["shard_docs"])
+        blk_bits = int(parts["blk_bits"])
+        starts = np.asarray(parts["shard_starts"], dtype=np.int64)
+        # shards that share a device divide its pools' budgets
+        share: dict = {}
+        for d in range(S):
+            for device in set(mesh.devices[d]):
+                share[device] = share.get(device, 0) + 1
+        shards, replica = [], np.zeros(mesh.devices.shape, np.int64)
+        for s in range(S):
+            n_s = max(0, min(N, int(starts[s]) + shard_docs) - int(starts[s]))
+            lengths = np.asarray(parts["lengths"][s], dtype=np.int64)
+            W = int(lengths.sum())
+            words = (shard_words[s] if shard_words is not None
+                     else _words_of(parts["hdrs"][s, :W], parts["pays"][s, :W],
+                                    blk_bits))
+            built = BuiltIndex(
+                postings=TermPostings(
+                    words, np.asarray(parts["offsets"][s], dtype=np.int64),
+                    lengths),
+                doc_term=DocTermMatrix(np.empty(0, np.uint32),
+                                       np.zeros(n_s + 1, np.int64)),
+                vocab=vocab,
+                doc_lens=np.array(parts["doc_lens"][s, :n_s],
+                                  dtype=np.float32),
+                avg_doc_length=avg_doc_length, doc_freqs=doc_freqs,
+                derived={"hdr32": parts["hdrs"][s], "pay32": parts["pays"][s],
+                         "blk_bits": blk_bits})
+            devs: list = []
+            for j, device in enumerate(mesh.devices[s]):
+                if device not in devs:
+                    devs.append(device)
+                replica[s, j] = devs.index(device)
+            shards.append([DeviceIndex(built, device, blk_bits=blk_bits,
+                                       stats_docs=N,
+                                       stats_lengths=stats_lengths,
+                                       pool_share=share[device])
+                           for device in devs])
+        return cls(mesh, shards, replica, starts, vocab, avg_doc_length, N,
+                   shard_docs, blk_bits, doc_freqs)
+
+    @classmethod
+    def build(cls, built: BuiltIndex, mesh: Optional[Mesh] = None
+              ) -> "ShardedIndex":
+        if mesh is None:
+            mesh = default_mesh()
+        parts, words = _partition(built, mesh.shape["docs"])
+        return cls._from_parts(parts, mesh, built.vocab,
+                               built.avg_doc_length, built.doc_freqs, words)
+
+    @classmethod
+    def load(cls, directory: str, mesh: Optional[Mesh] = None
+             ) -> "ShardedIndex":
+        """Attach the per-shard arrays persisted by
+        ``index/store.py:save_shards`` (memory-mapped, uploaded as they
+        are: no host re-partition).  The saved shard count must match the
+        mesh's ``docs`` axis; vocab and doc_freqs load from the same
+        store (either package's)."""
+        from searcharray_tpu_torch.index.store import load_index, load_shards
+
+        if mesh is None:
+            mesh = default_mesh()
+        parts = load_shards(directory, mesh.shape["docs"])
+        built = load_index(directory)
+        return cls._from_parts(parts, mesh, built.vocab,
+                               built.avg_doc_length, built.doc_freqs)
+
+    # ------------------------------------------------------------------
+    # the shard loop
+    # ------------------------------------------------------------------
+    def _blocks(self, Q: int, fn: Callable) -> list:
+        """Per doc shard d, [(qsel, block)]: the Q queries split in
+        contiguous parts over the queries axis, the parts of one device
+        in one call, ``fn(d, shard, qsel) -> [len(qsel), ...]`` on that
+        shard's device."""
+        qa = self.mesh.shape["queries"]
+        per = -(-Q // qa)
+        parts = [np.arange(j * per, min(Q, (j + 1) * per)) for j in range(qa)]
+        out = []
+        for d, reps in enumerate(self.shards):
+            by_rep: dict = {}
+            for j, qsel in enumerate(parts):
+                if len(qsel):
+                    by_rep.setdefault(int(self.replica[d, j]), []).append(qsel)
+            pieces = []
+            for r, qs in by_rep.items():
+                qsel = np.concatenate(qs)
+                pieces.append((qsel, fn(d, reps[r], qsel)))
+            out.append(pieces)
+        return out
+
+    def _place(self, blocks: list, Q: int, cols: list) -> torch.Tensor:
+        """The blocks as one f32[Q, width] on ``self.device``: shard d's
+        block into columns ``cols[d]`` (a slice, or an index array)."""
+        width = sum(c.stop - c.start if isinstance(c, slice) else len(c)
+                    for c in cols)
+        out = torch.zeros((Q, width), dtype=torch.float32, device=self.device)
+        for c, pieces in zip(cols, blocks):
+            if not isinstance(c, slice):
+                c = kernels_cuda.host_to_device(c, self.device)
+            for qsel, blk in pieces:
+                blk = blk.to(self.device, non_blocking=True)
+                if len(qsel) == Q:
+                    out[:, c] = blk
+                    continue
+                q = kernels_cuda.host_to_device(qsel, self.device)
+                out[q if isinstance(c, slice) else q[:, None], c] = blk
+        return out
+
+    def _doc_cols(self) -> list:
+        return [slice(int(lo), int(lo) + int(n))
+                for lo, n in zip(self.shard_starts, self.shard_sizes)]
+
+    def _fan_out(self, out: torch.Tensor, expand: list) -> torch.Tensor:
+        if len(expand) == out.shape[0]:
+            return out
+        return out[kernels_cuda.host_to_device(np.asarray(expand, np.int64),
+                                               out.device)]
+
+    # ------------------------------------------------------------------
+    # scoring
+    # ------------------------------------------------------------------
+    def _batch_blocks(self, queries_tids, kind, k1, b, slop, rows=None):
+        """Every shard's ``score_batch_fused`` blocks of the distinct
+        queries: (blocks, their count, the fan-out map, each shard's
+        columns)."""
+        uniq, uslops, expand = batch_mod.dedup_queries(queries_tids, slop)
+        cols, local = self._doc_cols(), None
+        if rows is not None:
+            # each shard scores its own rows, in ascending local order;
+            # their columns go back to the caller's order
+            sid = np.searchsorted(self.shard_starts, rows, side="right") - 1
+            cols, local = [], []
+            for d in range(self.num_shards):
+                pos = np.flatnonzero(sid == d)
+                pos = pos[np.argsort(rows[pos], kind="stable")]
+                cols.append(pos)
+                local.append(rows[pos] - self.shard_starts[d])
+
+        def fn(d, shard, qsel):
+            return batch_mod.score_batch_fused(
+                shard, [uniq[i] for i in qsel], kind, k1, b, as_device=True,
+                slop=[uslops[i] for i in qsel],
+                rows=None if local is None else local[d])
+
+        before = (batch_mod.CAND_GROUPS[0], batch_mod.DISPATCHES[0])
+        blocks = self._blocks(len(uniq), fn)
+        # the JAX module's count: candidate groups, and every group of a
+        # rows= call
+        CAND_PROGRAMS[0] += (batch_mod.CAND_GROUPS[0] - before[0]
+                             if local is None
+                             else batch_mod.DISPATCHES[0] - before[1])
+        return blocks, len(uniq), expand, cols
+
+    def score_batch_device(self, queries_tids, kind: str = "bm25",
+                           k1: float = 1.2, b: float = 0.75, slop=0,
+                           rows=None) -> torch.Tensor:
+        """Mixed term / phrase / slop batch of term-id queries -> f32[Q, N]
+        on ``self.device`` (the JAX module's sharded counterpart of
+        ``score_batch_fused(as_device=True)``).  ``slop`` is an int or one
+        per query.  With ``rows`` (global doc ids, in any order; slop 0)
+        the scores are f32[Q, len(rows)]: each shard scores its own rows
+        only (``score_batch_fused(rows=)``)."""
+        if rows is not None:
+            slops = [slop] if np.isscalar(slop) else slop
+            if any(int(s) != 0 for s in slops):
+                raise ValueError("rows= requires slop=0")
+            rows = np.asarray(rows, dtype=np.int64)
+            if rows.ndim != 1 or (rows.size and (
+                    rows.min() < 0 or rows.max() >= self.corpus_size)):
+                raise ValueError(
+                    f"rows must be doc ids in [0, {self.corpus_size})")
+        blocks, Q, expand, cols = self._batch_blocks(queries_tids, kind, k1,
+                                                     b, slop, rows)
+        return self._fan_out(self._place(blocks, Q, cols), expand)
+
+    def topk(self, x, k: int, kind: str = "bm25", k1: float = 1.2,
+             b: float = 0.75, slop=0):
+        """Top-k over the doc axis: (scores f32[Q, k], global doc ids
+        int64[Q, k]) on ``self.device``, ties to the smallest doc id.
+        ``x`` is a [Q, N] score tensor (split into the shards' column
+        blocks) or a list of term-id queries (scored per shard as
+        ``score_batch_device`` does, never placed into [Q, N]).
+
+        K3 ranks each shard's block (k_s = min(k, n_s)); the candidates,
+        offset by the shard starts, are laid out in shard order, each
+        shard's in rank order, and K3 ranks those [Q, sum k_s].  Within a
+        shard K3 orders equal scores by ascending index and the shards
+        are in doc order, so among ties the smallest candidate column is
+        the smallest global doc id: the JAX rule."""
+        if torch.is_tensor(x):
+            Q = x.shape[0]
+            whole = np.arange(Q)
+            blocks = [[(whole, x[:, c])] for c in self._doc_cols()]
+            expand = list(range(Q))
+        else:
+            blocks, Q, expand, _ = self._batch_blocks(x, kind, k1, b, slop)
+        vals, idx = self._merge_topk(blocks, Q, k)
+        return self._fan_out(vals, expand), self._fan_out(idx, expand)
+
+    def topk_fn(self, shape, k: int):
+        """The JAX module's form: a callable ranking a [Q, N] tensor."""
+        return lambda dense: self.topk(dense, k)
+
+    def _merge_topk(self, blocks: list, Q: int, k: int):
+        dev = self.device
+        if Q == 0 or k == 0:
+            return (torch.zeros((Q, k), dtype=torch.float32, device=dev),
+                    torch.zeros((Q, k), dtype=torch.int64, device=dev))
+        cand_v, cand_i = [], []
+        for d, pieces in enumerate(blocks):
+            n_d = int(self.shard_sizes[d])
+            if n_d == 0:
+                continue
+            k_d = min(k, n_d)
+            v = torch.empty((Q, k_d), dtype=torch.float32, device=dev)
+            i = torch.empty((Q, k_d), dtype=torch.int64, device=dev)
+            for qsel, blk in pieces:
+                bv, bi = kernels_cuda.topk(blk.contiguous(), k_d)
+                SHARD_TOPKS[0] += 1
+                bv = bv.to(dev, non_blocking=True)
+                bi = bi.to(dev, non_blocking=True).long() + int(
+                    self.shard_starts[d])
+                if len(qsel) == Q:
+                    v, i = bv, bi
+                else:
+                    sel = kernels_cuda.host_to_device(qsel, dev)
+                    v[sel], i[sel] = bv, bi
+            cand_v.append(v)
+            cand_i.append(i)
+        cv = torch.cat(cand_v, dim=1).contiguous()
+        ci = torch.cat(cand_i, dim=1)
+        vals, j = kernels_cuda.topk(cv, k)
+        TOPK_MERGES[0] += 1
+        return vals, torch.gather(ci, 1, j.long())
+
+    def _resolve(self, tokens) -> List[int]:
+        return [self.vocab.get_term_id(t) if t in self.vocab else -1
+                for t in tokens]
+
+    def _query_blocks(self, queries, k1, b):
+        """Per shard, each query's OR of terms: its term rows (BM25 with
+        the corpus's doc_freqs) summed in term order."""
+        tids = [self._resolve(q) for q in queries]
+
+        def fn(_d, shard, qsel):
+            flat = [[t] for qi in qsel for t in tids[qi]]
+            rows = batch_mod.score_batch_fused(shard, flat, "bm25", k1, b,
+                                               as_device=True)
+            out = torch.zeros((len(qsel), shard.corpus_size),
+                              dtype=torch.float32, device=shard.device)
+            r = 0
+            for j, qi in enumerate(qsel):
+                for _ in tids[qi]:
+                    out[j] += rows[r]
+                    r += 1
+            return out
+
+        return self._blocks(len(queries), fn)
+
+    def score_queries(self, queries: Sequence[Sequence[str]],
+                      k1: float = 1.2, b: float = 0.75) -> torch.Tensor:
+        """BM25 of a batch of (OR-composed) term queries -> f32[Q, N]."""
+        return self._place(self._query_blocks(queries, k1, b), len(queries),
+                           self._doc_cols())
+
+    def topk_queries(self, queries: Sequence[Sequence[str]], k: int = 10,
+                     k1: float = 1.2, b: float = 0.75):
+        """Per-query global top-k: host (scores f32[Q, k], doc ids
+        int64[Q, k])."""
+        k = min(k, self.corpus_size)
+        vals, idx = self._merge_topk(self._query_blocks(queries, k1, b),
+                                     len(queries), k)
+        return (vals.cpu().numpy().astype(np.float32),
+                idx.cpu().numpy().astype(np.int64))
+
+    def _per_shard_row(self, fn) -> torch.Tensor:
+        """f32[N]: ``fn(shard) -> f32[n_s]`` on each shard, placed."""
+        blocks = [[(np.arange(1), fn(reps[0])[None])] for reps in self.shards]
+        return self._place(blocks, 1, self._doc_cols())[0]
+
+    def phrase_freqs(self, tokens: Sequence[str], k1: float = 1.2,
+                     b: float = 0.75, kind: str = "none") -> torch.Tensor:
+        """Exact-phrase frequencies (or, with ``kind``, scores) f32[N]:
+        each shard's own (a phrase never crosses a document), idf from
+        the corpus's statistics."""
+        tids = self._resolve(tokens)
+        if min(tids) < 0:
+            return torch.zeros(self.corpus_size, dtype=torch.float32,
+                               device=self.device)
+        return self._per_shard_row(lambda shard: phrase_mod.phrase_freqs_dense(
+            shard, tids, kind=kind, k1=k1, b=b))
+
+    def span_freqs(self, tokens: Sequence[str], slop: int, k1: float = 1.2,
+                   b: float = 0.75, kind: str = "none") -> torch.Tensor:
+        """Slop-phrase frequencies (or scores) f32[N], per shard."""
+        tids = self._resolve(tokens)
+        if min(tids) < 0:
+            return torch.zeros(self.corpus_size, dtype=torch.float32,
+                               device=self.device)
+        return self._per_shard_row(lambda shard: spans_mod.span_freqs_dense(
+            shard, tids, slop, kind=kind, k1=k1, b=b))
+
+    def device_indexes(self) -> List[DeviceIndex]:
+        """Every shard's DeviceIndex, replicas included."""
+        return [dev for reps in self.shards for dev in reps]
+
+
+def _words_of(hdrs: np.ndarray, pays: np.ndarray, blk_bits: int) -> np.ndarray:
+    """uint64 posting words from a shard's (hdr32, pay32) planes: the
+    inverse of ``compress_planes``."""
+    h = np.asarray(hdrs).astype(np.uint64)
+    keys = h >> np.uint64(blk_bits)
+    blks = h & np.uint64((1 << blk_bits) - 1)
+    return ((keys << np.uint64(enc.KEY_SHIFT))
+            | (blks << np.uint64(enc.MSB_SHIFT))
+            | np.asarray(pays).astype(np.uint64))
+
+
+def _partition(built: BuiltIndex, S: int):
+    """``ShardedIndex.partition``'s dict, and each shard's re-based uint64
+    words (its host postings)."""
+    N = built.corpus_size
+    V = len(built.vocab)
+    shard_docs = -(-max(N, 1) // S)
+    starts = np.arange(S, dtype=np.int64) * shard_docs
+
+    post = built.postings
+    word_keys = enc.keys_of(post.data).astype(np.int64)
+    word_term = np.repeat(np.arange(V, dtype=np.int64), post.lengths)
+    word_shard = np.minimum(word_keys // shard_docs, S - 1)
+
+    shard_datas, shard_offs, shard_lens = [], [], []
+    max_words = 1
+    for s in range(S):
+        mask = word_shard == s
+        words = post.data[mask]
+        # re-base doc keys to shard-local ids
+        words = words - (np.uint64(starts[s]) << np.uint64(enc.KEY_SHIFT))
+        lens = np.bincount(word_term[mask], minlength=V).astype(np.int64)
+        offs = np.zeros(V, dtype=np.int64)
+        offs[1:] = np.cumsum(lens)[:-1]
+        shard_datas.append(words)
+        shard_offs.append(offs)
+        shard_lens.append(lens)
+        max_words = max(max_words, len(words))
+
+    max_len = int(max(1, max(l.max(initial=0) for l in shard_lens)))
+    # the tail pad covers the largest slice any kernel takes
+    max_bucket = max(bucket_of(max_len), expand_bucket_of(max_len))
+    W = max_words + max_bucket
+    max_doc_len = float(built.doc_lens.max()) if len(built.doc_lens) else 1
+    blk_bits = blk_bits_for(int(max_doc_len))
+    hdrs_np = np.full((S, W), PAD_HDR32, dtype=np.int32)
+    pays_np = np.zeros((S, W), dtype=np.uint32)
+    for s in range(S):
+        h, p = compress_planes(shard_datas[s], blk_bits)
+        hdrs_np[s, : len(h)] = h
+        pays_np[s, : len(p)] = p
+
+    doc_lens_np = np.zeros((S, shard_docs), dtype=np.float32)
+    for s in range(S):
+        lo = starts[s]
+        hi = min(N, lo + shard_docs)
+        if hi > lo:
+            doc_lens_np[s, : hi - lo] = built.doc_lens[lo:hi]
+    parts = {
+        "hdrs": hdrs_np, "pays": pays_np,
+        "offsets": np.stack(shard_offs), "lengths": np.stack(shard_lens),
+        "doc_lens": doc_lens_np, "shard_starts": starts,
+        "shard_docs": shard_docs, "blk_bits": blk_bits,
+        "num_docs": N,
+    }
+    return parts, shard_datas

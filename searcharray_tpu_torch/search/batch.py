@@ -67,6 +67,7 @@ from searcharray_tpu_torch.search.scoring import (
     host_idf,
 )
 from searcharray_tpu_torch.search.spans import (
+    anchor_of,
     dense_window_ok,
     sparse_span_freqs,
     takes_dense_span,
@@ -75,6 +76,8 @@ from searcharray_tpu_torch.search.spans import (
 
 # Device work items issued since import: tf-pool fills and group launches.
 DISPATCHES = dense.DISPATCHES
+# Of those, the candidate-engine group launches (cterm, cphrase, cspan).
+CAND_GROUPS = [0]
 
 _DOC_BLOCK = 1024  # Npad is a multiple of it (keeps query rows aligned)
 
@@ -272,14 +275,15 @@ def _ptf_budget(dev: DeviceIndex) -> list:
     return [max(0, dense.tf_capacity(dev) // 2 - n_sigs)]
 
 
-def _canon_slop(uniq: List[int], mults: List[int], u_spans: List[tuple]):
+def _canon_slop(uniq: List[int], mults: List[int], u_spans: List[tuple],
+                anchor_i: int):
     """Anchor-first canonical order of a slop query's distinct terms.
 
     The window test is symmetric in every term but the anchor (an AND of
-    per-term window presence), so the anchor (the counted term: the one
-    with the fewest posting words) can always sit at index 0, and a
-    ``dspan`` group never varies by where the anchor sat in the query."""
-    ai = int(np.argmin([s[1] for s in u_spans]))
+    per-term window presence), so the anchor (the counted term,
+    ``uniq[anchor_i]``) can always sit at index 0, and a ``dspan`` group
+    never varies by where the anchor sat in the query."""
+    ai = anchor_i
     order = [ai] + [i for i in range(len(uniq)) if i != ai]
     return ([uniq[i] for i in order], [mults[i] for i in order],
             [u_spans[i] for i in order])
@@ -290,7 +294,8 @@ def _slop_structure(dev: DeviceIndex, tids: List[int], slop: int):
     phrase the dense window kernel takes."""
     uniq, mults = unique_terms(tids)
     uniq, mults, u_spans = _canon_slop(uniq, mults,
-                                       [dev.term_span(t) for t in uniq])
+                                       [dev.term_span(t) for t in uniq],
+                                       anchor_of(dev, uniq))
     return uniq, u_spans, ("phs", len(uniq), 0, len(tids) + slop - 1,
                            tuple(mults))
 
@@ -382,7 +387,7 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
         if tids is None or len(tids) == 0 or any(t < 0 for t in tids):
             continue
         dfs = [int(dev.doc_freqs[t]) for t in tids]
-        idf = host_idf(kind, dfs, dev.corpus_size, dev.avg_doc_length)
+        idf = host_idf(kind, dfs, dev.stats_docs, dev.avg_doc_length)
         spans = [dev.term_span(t) for t in tids]
         lengths = [s[1] for s in spans]
         if _is_slop_phrase(tids, slops[qi]):
@@ -459,6 +464,30 @@ def _cand_fields(gkey):
     return gkey[1], gkey[5], gkey[6]
 
 
+def dedup_queries(queries_tids: Sequence[Optional[List[int]]], slop):
+    """The distinct (query, slop) pairs of a batch: serving batches repeat
+    hot queries, and each distinct one is scored once and fanned back out.
+    ``slop`` is an int for every query or one per query.  Returns (the
+    distinct queries, their slops, each query's index among them)."""
+    slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
+             else [int(s) for s in slop])
+    if len(slops) != len(queries_tids):
+        raise ValueError("per-query slop length must match queries")
+    keymap: dict = {}
+    uniq: List[Optional[List[int]]] = []
+    uniq_slops: List[int] = []
+    expand: List[int] = []
+    for tids, sl in zip(queries_tids, slops):
+        kq = None if tids is None else (tuple(tids), sl)
+        uid = keymap.get(kq)
+        if uid is None:
+            uid = keymap[kq] = len(uniq)
+            uniq.append(tids)
+            uniq_slops.append(sl)
+        expand.append(uid)
+    return uniq, uniq_slops, expand
+
+
 def score_batch_fused(dev: DeviceIndex,
                       queries_tids: Sequence[Optional[List[int]]],
                       kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
@@ -495,27 +524,8 @@ def score_batch_fused(dev: DeviceIndex,
         raise ValueError("as_device and top_k are exclusive")
     if rows is not None and top_k is not None:
         raise ValueError("rows and top_k are exclusive")
-    slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
-             else [int(s) for s in slop])
-    if len(slops) != len(queries_tids):
-        raise ValueError("per-query slop length must match queries")
-    # dedup identical (query, slop) pairs: serving batches repeat hot
-    # queries; each distinct one is scored once and fanned back out below
-    keymap: dict = {}
-    uniq: List[Optional[List[int]]] = []
-    uniq_slops: List[int] = []
-    expand: List[int] = []
-    for tids, sl in zip(queries_tids, slops):
-        kq = None if tids is None else (tuple(tids), sl)
-        uid = keymap.get(kq)
-        if uid is None:
-            uid = len(uniq)
-            keymap[kq] = uid
-            uniq.append(tids)
-            uniq_slops.append(sl)
-        expand.append(uid)
-    n_total = len(queries_tids)
-    dedup = len(uniq) != n_total
+    uniq, uniq_slops, expand = dedup_queries(queries_tids, slop)
+    dedup = len(uniq) != len(queries_tids)
 
     Q = len(uniq)
     N = dev.corpus_size
@@ -665,6 +675,7 @@ def score_batch_fused(dev: DeviceIndex,
                                                   dev.doc_lens, idfs, avgdl,
                                                   rows=rows_t))
             elif gkey[0] == "cterm":
+                CAND_GROUPS[0] += 1
                 crows, tf = kernels_cuda.cand_rows(
                     dev.hdrs, dev.pays, s["offs"], s["ns"], gkey[2],
                     num_docs=N, blk_bits=dev.blk_bits)
@@ -672,6 +683,7 @@ def score_batch_fused(dev: DeviceIndex,
                                                 idfs, avgdl, kind, k1, b,
                                                 top_k, N))
             elif gkey[0] in ("cphrase", "cspan"):
+                CAND_GROUPS[0] += 1
                 freqs, crows = C.candidate_freqs(dev, gkey, s["chunk"])
                 outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
                                                 idfs, avgdl, kind, k1, b,

@@ -75,14 +75,18 @@ def dense_eligible(dev: DeviceIndex) -> bool:
     return 0 < plane_size(dev) * 4 <= DENSE_TERM_BYTES_LIMIT
 
 
+# Shards that share a device (``DeviceIndex.pool_share``) divide each
+# budget between them, so the card holds what one index would.
 def plane_capacity(dev: DeviceIndex) -> int:
     per = max(1, plane_size(dev) * 4)
-    return int(min(PLANE_POOL_MAX_SLOTS, max(8, PLANE_POOL_BYTES // per)))
+    budget = PLANE_POOL_BYTES // dev.pool_share
+    return int(min(PLANE_POOL_MAX_SLOTS, max(8, budget // per)))
 
 
 def tf_capacity(dev: DeviceIndex) -> int:
     per = max(1, dev.corpus_size * 4)
-    return int(min(TF_POOL_MAX_SLOTS, max(16, TF_POOL_BYTES // per)))
+    budget = TF_POOL_BYTES // dev.pool_share
+    return int(min(TF_POOL_MAX_SLOTS, max(16, budget // per)))
 
 
 def phrase_fits_pool(dev: DeviceIndex, tids: Sequence[int]) -> bool:
@@ -286,7 +290,7 @@ def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
     if arr is None:
         arr = _term_tf_k1(dev, term_id)
         per = dev.corpus_size * 4
-        budget = max(per, TF_POOL_BYTES)
+        budget = max(per, TF_POOL_BYTES // dev.pool_share)
         while cache and (len(cache) + 1) * per > budget:
             cache.popitem(last=False)
         cache[term_id] = arr

@@ -202,7 +202,7 @@ def phrase_freqs_dense(index: DeviceIndex, term_ids: List[int],
                            device=index.device)
     if idf is None:
         idf = host_idf(kind, [index.doc_freqs[t] for t in term_ids],
-                       index.corpus_size, index.avg_doc_length)
+                       index.stats_docs, index.avg_doc_length)
     # the plan splits at the rarest term by the untrimmed lengths
     plan_key, pattern = chain_key(index, term_ids)
     if (not windowed and dense.dense_eligible(index)

@@ -89,7 +89,7 @@ def score_term_dense(index: DeviceIndex, term_id: int, kind: str = "bm25",
     """Dense f32[N] scores of one term (tf from K1)."""
     _window_blocks(min_posn, max_posn)  # validate before any device work
     if idf is None:
-        idf = host_idf(kind, [docfreq(index, term_id)], index.corpus_size,
+        idf = host_idf(kind, [docfreq(index, term_id)], index.stats_docs,
                        index.avg_doc_length)
     windowed = min_posn is not None or max_posn is not None
     avgdl = np.float32(max(index.avg_doc_length, 1e-38))

@@ -48,6 +48,14 @@ def unique_terms(term_ids: Sequence[int]) -> Tuple[List[int], List[int]]:
     return uniq, mults
 
 
+def anchor_of(index: DeviceIndex, uniq: Sequence[int]) -> int:
+    """The anchor of a slop phrase, as an index into its distinct terms:
+    the first with the fewest posting words in the corpus
+    (``stats_lengths``: a shard's are its corpus's, so each shard counts
+    the anchor the whole index would)."""
+    return int(np.argmin([int(index.stats_lengths[t]) for t in uniq]))
+
+
 def dense_window_ok(n_terms: int, slop: int, mults: Sequence[int]) -> bool:
     """Whether the dense window kernel takes a slop query's shape: the
     window within one slot shift, no term more than twice."""
@@ -100,11 +108,11 @@ def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
     if min(s[1] for s in spans) == 0:
         return torch.zeros(index.corpus_size, dtype=torch.float32,
                            device=index.device)
-    anchor_i = int(np.argmin([s[1] for s in spans]))
+    anchor_i = anchor_of(index, uniq)
     w = len(term_ids) + slop - 1
     if idf is None:
         idf = host_idf(kind, [index.doc_freqs[t] for t in term_ids],
-                       index.corpus_size, index.avg_doc_length)
+                       index.stats_docs, index.avg_doc_length)
     if takes_dense_span(index, term_ids, slop, windowed):
         return dense.score_span_dense(index, uniq, anchor_i, w, kind, k1, b,
                                       idf, mults=tuple(mults))

@@ -439,8 +439,9 @@ def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
       product W[Q, G] @ grams[G, N] (per-gram boosts and the doubled final
       bigram folded into W), then the mask, then K3 ranks every row.
 
-    Falls back to the scalar loop for custom (non-fused) similarities and
-    sliced fields.
+    Falls back to the scalar loop for custom (non-fused) similarities,
+    sharded fields (``mesh=``) and sliced fields, as the JAX package
+    does.
 
     Returns ``((scores f32[Q, k], indices i64[Q, k]), explains)`` with
     ``top_k``, else ``(scores f32[Q, N], explains)``.  Queries that
@@ -469,7 +470,8 @@ def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
     for field in all_fields:
         arr = get_field(frame, field)
         sim = similarity.get(field, default_bm25)
-        if getattr(sim, "_fused", None) is None or not arr._full_view:
+        if (getattr(sim, "_fused", None) is None or not arr._full_view
+                or arr._state.sharded is not None):
             return _fallback()
     if not queries:
         if top_k is None:

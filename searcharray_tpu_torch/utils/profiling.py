@@ -34,14 +34,18 @@ def trace(log_dir: str):
 
 def hbm_report(index=None) -> Dict[str, int]:
     """Bytes of the index's device tensors and pools (a ``SearchArray`` or
-    a ``DeviceIndex``), and for an index on a card (or, with no index,
-    any card present) the device's own counters: ``device.bytes_in_use``
+    a ``DeviceIndex``); for a sharded array (``mesh=``) also
+    ``sharded.<name>``, its shards' ``hdrs``, ``pays``, ``doc_lens``,
+    ``plane_pool`` and ``tf_pool`` summed over shards and counted in
+    ``index.total``; and for an index on a card (or, with no index, any
+    card present) the device's own counters: ``device.bytes_in_use``
     (``torch.cuda.memory_allocated``), ``device.peak_bytes_in_use``
     (``max_memory_allocated``) and ``device.bytes_limit`` (the card's
     total memory).  An index on the CPU reports no ``device.*`` key."""
     report: Dict[str, int] = {}
     device = None
     if index is not None:
+        sharded = getattr(getattr(index, "_state", None), "sharded", None)
         dev = index.dev if hasattr(index, "dev") else index
         device = dev.device
         for name in ("hdrs", "pays", "doc_lens"):
@@ -58,11 +62,19 @@ def hbm_report(index=None) -> Dict[str, int]:
                 report[f"pool.{label}"] = pool.numel() * pool.element_size()
                 report[f"pool.{label}.slots_used"] = len(slot_map)
                 report[f"pool.{label}.slots_total"] = int(pool.shape[0])
+        if sharded is not None:
+            for name in ("hdrs", "pays", "doc_lens", "plane_pool",
+                         "tf_pool"):
+                ts = [getattr(d, name) for d in sharded.device_indexes()
+                      if getattr(d, name) is not None]
+                if ts:
+                    report[f"sharded.{name}"] = sum(
+                        t.numel() * t.element_size() for t in ts)
         report["index.total"] = sum(
             v for k, v in report.items()
-            if k.startswith("index.") or (k.startswith("pool.") and not
-                                          k.endswith(("slots_used",
-                                                      "slots_total"))))
+            if k.startswith(("index.", "sharded."))
+            or (k.startswith("pool.") and not k.endswith(("slots_used",
+                                                           "slots_total"))))
     elif torch.cuda.is_available():
         device = torch.device("cuda", torch.cuda.current_device())
     if device is not None and device.type == "cuda":

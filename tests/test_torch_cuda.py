@@ -1844,3 +1844,107 @@ def test_k11_writes_into_a_row_and_takes_no_terms(card):
     with pytest.raises(ValueError):
         kc.compose([st[0], st[1].cpu()], [1.0, 1.0], 0.0, 1,
                    term_centric=True)
+
+
+# ---------------------------------------------------------------------------
+# doc-axis sharding on one card: a 4 x 2 mesh of cuda:0 against the
+# unsharded port on the same card, bit for bit
+# ---------------------------------------------------------------------------
+def sharded_docs(seed, n, long_doc=False):
+    rng = np.random.default_rng(seed)
+    vocab = ["alpha", "beta", "gamma", "delta"] + [f"w{i}" for i in range(60)]
+    docs = [" ".join(rng.choice(vocab, size=rng.integers(1, 40)))
+            for _ in range(n)]
+    for d in (0, n // 4 - 1, n // 4, n // 2, n - 1):
+        docs[d] = "tie tie alpha"
+    if long_doc:   # blk_bits 12: no shard is dense-eligible past its pool
+        docs[n // 3] = " ".join(rng.choice(vocab, size=70_000))
+    return docs
+
+
+SHARDED_QUERIES = (["alpha", "w3", "tie", ["alpha", "beta"], ["tie", "alpha"],
+                    ["w1", "w2", "w3"], ["beta", "beta"], "nope",
+                    ["alpha", "beta"], ["gamma", "delta"]],
+                   [0, 0, 0, 0, 0, 0, 0, 0, 2, 3])
+
+
+@pytest.mark.parametrize("n,long_doc", [(4000, False), (1001, True),
+                                        (3, False)])
+@pytest.mark.parametrize("forced", [False, True])
+def test_sharded_engine_on_card_matches_unsharded(card, monkeypatch, n,
+                                                  long_doc, forced):
+    from searcharray_tpu_torch.index.builder import build_index
+    from searcharray_tpu_torch.parallel import sharded as tsh
+    from searcharray_tpu_torch.search import candidates as tcand
+
+    docs = (sharded_docs(7, n, long_doc) if n > 3
+            else ["alpha beta", "tie alpha", "beta alpha alpha"])
+    if forced:
+        for name in ("CAND_MIN_DOCS", "CAND_TERM_MIN_DOCS", "CAND_MAX_FRAC"):
+            monkeypatch.setattr(tcand, name, 0)
+    single = SearchArray.index(docs, device=card, autowarm=False)
+    mesh = tsh.default_mesh(devices=[card] * 8)
+    sh = tsh.ShardedIndex.build(build_index(docs), mesh=mesh)
+    assert all(d.device.type == "cuda" for d in sh.device_indexes())
+    queries, slops = SHARDED_QUERIES
+    qt = [single._resolve_tids(q) for q in queries]
+    got = sh.score_batch_device(qt, slop=slops)
+    assert got.device.type == "cuda"
+    want = batch.score_batch_fused(single.dev, qt, slop=slops,
+                                   as_device=True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    k = min(10, n)
+    merges, k3 = tsh.TOPK_MERGES[0], kc.topk.launches
+    vals, idx = sh.topk(qt, k, slop=slops)
+    assert kc.topk.launches - k3 > 0 and tsh.TOPK_MERGES[0] == merges + 1
+    wv, wi = batch.score_batch_fused(single.dev, qt, slop=slops, top_k=k)
+    assert np.array_equal(vals.cpu().numpy().view(np.int32), wv.view(np.int32))
+    # indices equal where the k-th score is above 0: below it the zero
+    # tail ties (a candidate group fills it next to its candidates)
+    full = wv[:, -1] > 0
+    assert full.any()
+    assert np.array_equal(idx.cpu().numpy()[full], wi[full])
+    # rows= in the caller's (unsorted) order, each shard scoring its own
+    rows = np.random.default_rng(1).permutation(n)[: max(1, n // 3)]
+    got_r = sh.score_batch_device(qt, rows=rows)
+    want_r = batch.score_batch_fused(single.dev, qt, as_device=True)[
+        :, torch.as_tensor(rows, device=card)]
+    assert torch.equal(got_r.view(torch.int32), want_r.view(torch.int32))
+
+
+def test_sharded_engine_across_cards_matches_unsharded(card):
+    """``default_mesh()`` over every card of a host with two or more: the
+    shards' blocks and candidates cross to the card of mesh entry
+    (0, 0), where the results equal the unsharded port's bit for bit."""
+    from searcharray_tpu_torch.index.builder import build_index
+    from searcharray_tpu_torch.parallel import sharded as tsh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    docs = sharded_docs(11, 6000)
+    card_index = torch.cuda.current_device()
+    single = SearchArray.index(docs, device=card, autowarm=False)
+    mesh = tsh.default_mesh()
+    sh = tsh.ShardedIndex.build(build_index(docs), mesh=mesh)
+    assert len({str(d.device) for d in sh.device_indexes()}) == (
+        torch.cuda.device_count())
+    queries, slops = SHARDED_QUERIES
+    qt = [single._resolve_tids(q) for q in queries]
+    got = sh.score_batch_device(qt, slop=slops)
+    want = batch.score_batch_fused(single.dev, qt, slop=slops,
+                                   as_device=True)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+    vals, idx = sh.topk(qt, 10, slop=slops)
+    wv, wi = batch.score_batch_fused(single.dev, qt, slop=slops, top_k=10)
+    assert np.array_equal(idx.cpu().numpy(), wi)
+    assert np.array_equal(vals.cpu().numpy().view(np.int32),
+                          wv.view(np.int32))
+    # rows= takes slop 0: its reference is the batch at slop 0
+    rows = np.random.default_rng(2).permutation(6000)[:1500]
+    want_r = batch.score_batch_fused(single.dev, qt, as_device=True).cpu()
+    assert torch.equal(
+        sh.score_batch_device(qt, rows=rows).cpu().view(torch.int32),
+        want_r[:, torch.as_tensor(rows)].view(torch.int32))
+    # a launch on another card leaves the current device where it was
+    assert torch.cuda.current_device() == card_index

@@ -317,8 +317,21 @@ def test_unported_parts_raise(pair, call, tmp_path):
             arr.score("alpha"), SearchArray.index(docs, device="cpu")
             .score("alpha"))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchArray.index(["a b"], device="cpu", mesh=object())
+    # ported (item 14): a mesh of CPU devices shards the index, and
+    # score_batch answers as the JAX package's sharded array does
+    from searcharray_tpu.parallel.sharded import default_mesh as jmesh
+    from searcharray_tpu_torch.parallel.sharded import default_mesh
+
+    docs = make_docs(n=50, seed=5)
+    arr = SearchArray.index(docs, device="cpu",
+                            mesh=default_mesh(devices=["cpu"] * 8))
+    assert arr._state.sharded.num_shards == 4
+    jsharded = JSearchArray.index(docs, mesh=jmesh())
+    qs = ["alpha", ["alpha", "beta"]]
+    gs, gi = arr.score_batch(qs, top_k=3)
+    ws, wi = jsharded.score_batch(qs, top_k=3)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-7)
 
 
 def test_index_defaults_to_cuda_and_is_lazy():

@@ -152,10 +152,21 @@ def test_older_stores_load_in_both_packages(pair, tmp_path, version, writer):
 
 
 def test_shards_wait_for_item_14(pair, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tstore.save_shards(pair[1]._built, str(tmp_path), 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tstore.load_shards(str(tmp_path), 2)
+    # ported (item 14): the port's shard store is the JAX package's, array
+    # for array, and a count never saved raises the same error
+    jarr, tarr = pair
+    d = tstore.save_shards(tarr._built, str(tmp_path / "t"), 2)
+    jd = jstore.save_shards(jarr._built, str(tmp_path / "j"), 2)
+    assert os.path.basename(d) == os.path.basename(jd) == "shards-S2"
+    got = tstore.load_shards(str(tmp_path / "t"), 2)
+    want = jstore.load_shards(str(tmp_path / "j"), 2)
+    assert set(got) == set(want)
+    for name, value in want.items():
+        np.testing.assert_array_equal(np.asarray(got[name]),
+                                      np.asarray(value), err_msg=name)
+    assert isinstance(got["hdrs"], np.memmap)
+    with pytest.raises(FileNotFoundError, match="no saved S=3 partition"):
+        tstore.load_shards(str(tmp_path / "t"), 3)
 
 
 def test_data_dir_memmaps_and_pickles_as_a_path(pair, tmp_path):
