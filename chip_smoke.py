@@ -103,8 +103,17 @@ entry points a user calls, and checks it:
    per-query form there); the long-document index on 4 shards (K2, K7,
    K9 per shard); ``save_shards`` and ``ShardedIndex.load``, the loaded
    planes ``torch.equal`` to the built ones.  Every K3 merge ranks at most
-   4 x 10 candidates a query; sharded against unsharded qps in turns, and
-   edismax p50;
+   4 x 10 candidates a query; every sharded call plans its batch once
+   for all four shards (``search/batch.py:plan_batch``, then
+   ``run_plan`` on each shard; ``sharded.PLANS`` counts one a call);
+   sharded against unsharded qps in turns, and edismax p50; the host ms
+   of one sharded serving-mix call's plan and of each shard's run.  Then
+   the serving warm-up, counted and held the same way: a fresh attach of
+   the body index warmed by ``warm_serving()`` (its launches read apart)
+   and its first serving-mix call, and the first call on a second fresh
+   attach as it is; then, not held, the first call timed on two more
+   fresh attaches, as it is and after ``warm_serving()`` (its query count
+   and seconds), and in two new processes;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -161,6 +170,15 @@ also builds the kernel sources in DIR (an earlier version's
 current ones (old, new, new, old) at the same shapes, and takes the
 long-document and serving-mix qps in the same turns.
 
+    python3 chip_smoke.py --parent-tree DIR
+
+also runs the sharded driver of the checkout in DIR (an earlier
+version's tree) and this tree's, each in a process of its own
+(``SHARD_DRIVER``), on the same stores and mesh, checks that both rank
+the serving mix as the main process does, and takes the sharded serving
+mix, mixed request and edismax in turns (parent, new, new, parent,
+twice).
+
 Exits non-zero, before printing any result, without a CUDA device or
 outside the repository.
 """
@@ -179,6 +197,7 @@ from collections import Counter
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 N_DOCS = 1_000_000
 LONG_DOCS = 40_000
 TOP_K = 10
@@ -796,8 +815,8 @@ def long_doc_segment_sums(ldev, terms):
     calls = []
     for (kind, bucket), rows in sorted(groups.items()):
         assert kind == "term", kind
-        calls.append(k2_inputs(ldev, [r[1][0] for r in rows],
-                               [r[2][0] for r in rows], bucket))
+        calls.append(k2_inputs(ldev, [r[1][0, 0] for r in rows],
+                               [r[2][0, 0] for r in rows], bucket))
     return calls
 
 
@@ -926,10 +945,165 @@ def thresholds(cand, solr, cand_values, phase_min=None):
 def forget_phrase_rows(dev):
     """Empty the phrase-tf cache of an index: its cached phrase rows, their
     fill recipes and their hit counts (the term rows stay)."""
-    for key in [k for k in dev.tf_slot if isinstance(k, tuple)]:
-        dev.tf_free.append(dev.tf_slot.pop(key))
-    dev.phrase_hits.clear()
-    dev.phrase_recipes.clear()
+    for key in [k for k in dev.maps.tf_slot if isinstance(k, tuple)]:
+        dev.maps.tf_free.append(dev.maps.tf_slot.pop(key))
+    dev.maps.phrase_hits.clear()
+    dev.maps.phrase_recipes.clear()
+
+
+# The sharded driver of a checkout, run in a process of its own from that
+# checkout (``--parent-tree``: an earlier version, whose package has this
+# one's name; and this tree, so both sides of the turns run alike).  It
+# loads the body and title stores this run saved, shards them on the
+# same mesh of the card and answers commands on its standard input, one
+# JSON line each: "mix" / "req" (queries/s of 5 ranked calls of the
+# serving mix / the mixed request with slop), "ed" (ms of one edismax call
+# per query), "check" (the serving mix's ranking), "quit".
+SHARD_DRIVER = r"""
+import json, sys, time
+import numpy as np
+import pandas as pd
+import torch
+from searcharray_tpu_torch import SearchArray, edismax
+from searcharray_tpu_torch.index import store
+from searcharray_tpu_torch.ops.cuda import score as kc
+from searcharray_tpu_torch.pandas_ext.array import _IndexState
+from searcharray_tpu_torch.parallel import sharded
+
+spec = json.load(open(sys.argv[1]))
+t0 = time.perf_counter()
+kc.build()
+mesh = sharded.default_mesh(devices=[torch.device("cuda")] * spec["devices"])
+frame = {}
+for field, directory in spec["stores"].items():
+    built = store.load_index(directory, mmap=True)
+    col = SearchArray([], device="cuda")
+    col._attach(_IndexState(built, "cuda"))
+    col._state.sharded = sharded.ShardedIndex.build(built, mesh=mesh)
+    frame[field] = col
+df = pd.DataFrame(frame)
+body = frame["body"]
+
+
+def calls(name, n):
+    q, s = spec[name]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = body.score_batch(q, top_k=spec["k"], slop=s)
+    return n * len(q) / (time.perf_counter() - t0), out
+
+
+def ed():
+    ms = []
+    for q in spec["ed"]:
+        t0 = time.perf_counter()
+        edismax(df, q=q, top_k=spec["k"], **spec["ed_kw"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+for _ in range(3):   # the pools' fills and the phrase-tf cache's promotions
+    calls("mix", 1), calls("req", 1), ed()
+print(json.dumps({"ready": time.perf_counter() - t0}), flush=True)
+for line in sys.stdin:
+    cmd = line.strip()
+    if cmd in ("mix", "req"):
+        print(json.dumps(calls(cmd, 5)[0]), flush=True)
+    elif cmd == "ed":
+        print(json.dumps(ed()), flush=True)
+    elif cmd == "check":
+        v, i = calls("mix", 1)[1]
+        print(json.dumps([v.view(np.int32).tolist(), i.tolist()]),
+              flush=True)
+    else:
+        break
+"""
+
+# The first serving-mix call of a new process on the body store, as it is
+# or after ``warm_serving()``: the process builds (or finds) the kernel
+# library, attaches the store and prints one JSON line.
+FIRST_CALL = r"""
+import json, sys, time
+import numpy as np
+import torch
+from searcharray_tpu_torch import SearchArray
+from searcharray_tpu_torch.index import store
+from searcharray_tpu_torch.ops.cuda import score as kc
+from searcharray_tpu_torch.pandas_ext.array import _IndexState
+
+spec = json.load(open(sys.argv[1]))
+kc.build()
+arr = SearchArray([], device="cuda")
+arr._attach(_IndexState(store.load_index(spec["store"], mmap=True), "cuda"))
+arr.dev
+torch.cuda.synchronize()
+out = {"warm_queries": None, "warm_s": None}
+if spec["warm"]:
+    t0 = time.perf_counter()
+    out["warm_queries"] = arr.warm_serving()
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+v, i = arr.score_batch(spec["mix"], top_k=spec["k"])
+out["first_ms"] = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+arr.score_batch(spec["mix"], top_k=spec["k"])
+out["second_ms"] = (time.perf_counter() - t0) * 1e3
+out["idx"] = i.tolist()
+out["bits"] = np.asarray(v, np.float32).view(np.int32).tolist()
+print(json.dumps(out), flush=True)
+"""
+
+
+def run_snippet(code, tree, spec, spec_path, timeout=None):
+    """``code`` in a new process of the checkout ``tree`` (its package
+    first on the path), given ``spec`` as a JSON file: the process."""
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    return subprocess.Popen(
+        [sys.executable, "-c", code, spec_path], cwd=tree,
+        env={**os.environ, "PYTHONPATH": os.path.abspath(tree)},
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+
+def json_line(proc):
+    """The next JSON line ``proc`` prints (other lines are echoed)."""
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"a driver process exited (code "
+                               f"{proc.wait()})")
+        try:
+            return json.loads(line)
+        except ValueError:
+            print(f"driver: {line.rstrip()}", flush=True)
+
+
+class ShardDriver:
+    """The process of ``SHARD_DRIVER`` in the checkout ``tree``; stopped
+    by ``close`` (and at exit)."""
+
+    def __init__(self, tree, spec, spec_path):
+        self.proc = run_snippet(SHARD_DRIVER, tree, spec, spec_path)
+        atexit.register(self.close)
+        self.ready_s = None
+
+    def ask(self, cmd):
+        if self.ready_s is None:
+            self.ready_s = json_line(self.proc)["ready"]
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return json_line(self.proc)
+
+    def close(self):
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("quit\n")
+                self.proc.stdin.flush()
+                self.proc.wait(timeout=60)
+            except Exception:
+                self.proc.kill()
+                self.proc.wait()
 
 
 class K8Recorder:
@@ -1393,6 +1567,9 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also build the kernel sources in DIR and time "
                          "them in turns with the current ones")
+    ap.add_argument("--parent-tree", metavar="DIR",
+                    help="also run the sharded driver of the checkout in "
+                         "DIR (its own process) in turns with this one's")
     args = ap.parse_args()
     import torch
 
@@ -1584,7 +1761,7 @@ def main() -> int:
     k5_before = kc.phrase_chain.launches
     mixed_runs = [arr.score_batch(mixed, top_k=TOP_K)]
     k5_chain = kc.phrase_chain.launches - k5_before
-    promoted_first = set(dev.phrase_recipes)
+    promoted_first = set(dev.maps.phrase_recipes)
     mixed_runs.append(arr.score_batch(mixed, top_k=TOP_K, block=False)())
     k5_fill = kc.phrase_chain.launches - k5_before - k5_chain
     mixed_runs.append(arr.score_batch(mixed, top_k=TOP_K))
@@ -1611,10 +1788,10 @@ def main() -> int:
     sig = lambda q: (tuple(arr.term_dict.get_term_id(t) for t in q), 0)  # noqa: E731
     check(k5_chain > 0 and k5_fill > 0
           and promoted_first == {sig(ph3)}
-          and set(dev.phrase_recipes) == {sig(q) for q in phrases},
+          and set(dev.maps.phrase_recipes) == {sig(q) for q in phrases},
           f"phrases ran the chain ({k5_chain} K5 launches in the first "
           f"batch) and were promoted on their second hit ({k5_fill} K5 "
-          f"launches filling tf-pool rows, {len(dev.phrase_recipes)} "
+          f"launches filling tf-pool rows, {len(dev.maps.phrase_recipes)} "
           "phrases cached)")
     for ph in phrases:
         got = arr.termfreqs(ph)
@@ -1649,7 +1826,7 @@ def main() -> int:
     k6_fill = kc.span_window.launches - k6_before - k6_group
     slop_runs.append(arr.score_batch(sq, top_k=TOP_K, slop=ss))
     k6_cached = kc.span_window.launches - k6_before - k6_group - k6_fill
-    slop_sigs = {k for k in dev.phrase_recipes if k[1] == SLOP}
+    slop_sigs = {k for k in dev.maps.phrase_recipes if k[1] == SLOP}
     slop_scores = [arr.score(q, slop=SLOP) for q in slop_shapes]
     slop_freqs = [arr.termfreqs(q, slop=SLOP) for q in slop_shapes]
     wide_q, wide_slop = WIDE_SLOP
@@ -1832,8 +2009,9 @@ def main() -> int:
     # three more to K9.  On the long-document index no plane fits, so
     # every slop phrase of the request takes K9.
     k9_before = kc.span_sparse.launches
-    pools = lambda: (dict(dev.plane_slot), dict(dev.tf_slot),  # noqa: E731
-                     list(dev.plane_free), list(dev.tf_free))
+    maps = dev.maps
+    pools = lambda: (dict(maps.plane_slot), dict(maps.tf_slot),  # noqa: E731
+                     list(maps.plane_free), list(maps.tf_free))
     pools_before = pools()
     wins_scores = [arr.score(q, slop=SLOP, **WIN_SCORE) for q in slop_shapes]
     wins_freqs = [arr.termfreqs(q, slop=SLOP, **WIN_SCORE)
@@ -2346,6 +2524,22 @@ def main() -> int:
     S, QA = 4, 2
     mesh = sharded_mod.default_mesh(devices=[torch.device(DEVICE)] * (S * QA))
     tid_of = arr.term_dict.get_term_id
+    drivers = {}
+    if args.parent_tree:
+        # the earlier checkout's sharded driver and this tree's, each in a
+        # process of its own, on the body store saved above and the title
+        # index's (their start, their kernels' build and their first calls
+        # overlap this phase's checks)
+        title_store = tempfile.mkdtemp(prefix="sa_title_store_")
+        atexit.register(shutil.rmtree, title_store, True)
+        store.save_index(tarr._built, title_store)
+        spec = {"devices": S * QA, "k": TOP_K,
+                "stores": {"title": title_store, "body": store_dir},
+                "mix": [smix, 0], "req": [list(sq), [int(x) for x in ss]],
+                "ed": ED_QUERIES, "ed_kw": ED_KW}
+        for label, tree in (("parent", args.parent_tree), ("new", REPO)):
+            drivers[label] = ShardDriver(
+                tree, spec, os.path.join(title_store, f"{label}.json"))
     qt_mix = [arr._resolve_tids(arr._check_token_arg(q)) for q in smix]
     rows_u = np.random.default_rng(77).choice(n, 20000, replace=False)
     rows_ref = batch.score_batch_fused(dev, qt_mix, as_device=True)[
@@ -2372,6 +2566,16 @@ def main() -> int:
         mod.kernels_cuda = sh_check
     merges0, shard_k3s0 = (sharded_mod.TOPK_MERGES[0],
                            sharded_mod.SHARD_TOPKS[0])
+    # every sharded scoring call goes through _batch_blocks once: each
+    # must plan once (one lane: the mesh's two query parts share the card)
+    plans0, blocks_calls = sharded_mod.PLANS[0], [0]
+    batch_blocks = sharded_mod.ShardedIndex._batch_blocks
+
+    def counted_blocks(self, *a, **kw):
+        blocks_calls[0] += 1
+        return batch_blocks(self, *a, **kw)
+
+    sharded_mod.ShardedIndex._batch_blocks = counted_blocks
     # ShardedIndex.build, the call SearchArray.index(mesh=) makes, its
     # partition timed inside it; the sharded runtime then rides on a copy
     # of the body array as index(mesh=) attaches it (the title corpus
@@ -2466,6 +2670,8 @@ def main() -> int:
     torch.cuda.synchronize()
     for mod in engine_mods:
         mod.kernels_cuda = kc
+    sharded_mod.ShardedIndex._batch_blocks = batch_blocks
+    sh_plans = sharded_mod.PLANS[0] - plans0
     sh_counts = {k: getattr(kc, k).launches for k in counted
                  if k not in ("similarity", "compose")}
     sh_counts["similarity"] = k10_sh.launches
@@ -2478,6 +2684,9 @@ def main() -> int:
         getattr(kc, k).launches = saved_counts[k] + sh_counts[k]
     print(f"sharded path launches: {sh_counts}; K3 on shard blocks "
           f"{sh_shard_k3s}, K3 merges {sh_merges}", flush=True)
+    check(sh_plans == blocks_calls[0] > 0,
+          f"the sharded path planned each of its {blocks_calls[0]} batches "
+          f"once for all {S} shards ({sh_plans} plans: 1 a call)")
     # a wrapper called with no work returns without a launch, so each
     # kernel's held calls are at least its launches
     held_of = {"score_term": "K1", "score_term_rows": "K1 rows",
@@ -2591,7 +2800,91 @@ def main() -> int:
     serve_peak = torch.cuda.max_memory_allocated()
     print(f"sharded qps in turns: {sh_qps}; edismax p50 ms {sh_ed_p50}",
           flush=True)
+
+    # where one serving-mix call's host time goes: the plan (dedup,
+    # classify, chunks, waves, slots), each shard's run (fills and
+    # launches enqueued) and its placing, on the sharded index and on the
+    # unsharded one (its plan and its one run)
+    host_ms = {"plan": [], "run": [], "assemble": []}
+    stages = {k: getattr(batch, k) for k in ("plan_batch", "run_plan",
+                                             "assemble")}
+
+    def timed_stage(name, fn):
+        def f(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_ms[name].append((time.perf_counter() - t0) * 1e3)
+        return f
+
+    breakdown = {}
+    for label, a in (("sharded", sbody), ("unsharded", arr)):
+        for v in host_ms.values():
+            v.clear()
+        for k, fn in stages.items():
+            setattr(batch, k, timed_stage(k.split("_")[0], fn))
+        try:
+            plans0 = sharded_mod.PLANS[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.score_batch(smix, top_k=TOP_K)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            plans = sharded_mod.PLANS[0] - plans0
+        finally:
+            for k, fn in stages.items():
+                setattr(batch, k, fn)
+        breakdown[label] = {"call_ms": call_ms, "plans": plans,
+                            **{k: list(v) for k, v in host_ms.items()}}
+    check(breakdown["sharded"]["plans"] == 1
+          and len(breakdown["sharded"]["plan"]) == 1
+          and len(breakdown["sharded"]["run"]) == S,
+          "one sharded serving-mix call: 1 plan, run on each of the "
+          f"{S} shards; host ms {breakdown['sharded']} (unsharded "
+          f"{breakdown['unsharded']})")
+
+    # the earlier checkout's sharded driver against this tree's, each in
+    # a process of its own, in turns (parent, new, new, parent, twice):
+    # the serving mix, the mixed request with slop (queries/s of 5 calls
+    # a turn) and edismax (ms a call)
+    parent_turns = None
+    if drivers:
+        new_v, new_i = sbody.score_batch(smix, top_k=TOP_K)
+        for label, drv in drivers.items():
+            pv, pi = drv.ask("check")
+            check(np.array_equal(np.asarray(pi), new_i)
+                  and np.array_equal(np.asarray(pv), new_v.view(np.int32)),
+                  f"the {label} sharded driver's process ranks the serving "
+                  "mix as this process does, bit for bit (ready after "
+                  f"{drv.ready_s:.1f} s: kernels built, stores loaded and "
+                  "sharded, three warm-up passes)")
+        parent_turns = {"serving mix": {"parent": [], "new": []},
+                        "mixed request with slop": {"parent": [], "new": []},
+                        "edismax ms": {"parent": [], "new": []}}
+        for label in ("parent", "new", "new", "parent") * 2:
+            drv = drivers[label]
+            parent_turns["serving mix"][label].append(drv.ask("mix"))
+            parent_turns["mixed request with slop"][label].append(
+                drv.ask("req"))
+            parent_turns["edismax ms"][label] += drv.ask("ed")
+        for drv in drivers.values():
+            drv.close()
+        parent_turns["edismax p50 ms"] = {
+            k: float(np.median(v))
+            for k, v in parent_turns.pop("edismax ms").items()}
+        print(f"sharded driver, parent against new, each in its own "
+              f"process, in turns: {parent_turns}", flush=True)
     sharded_evidence = [
+        ("plans of the counted sharded path; its sharded calls",
+         f"{sh_plans}; {blocks_calls[0]}"),
+        ("one serving-mix call, host ms: the call; the plan; each shard's "
+         "run; each shard's assemble (sharded | unsharded)",
+         "; ".join(f"{breakdown[k]['call_ms']}, {breakdown[k]['plan']}, "
+                   f"{breakdown[k]['run']}, {breakdown[k]['assemble']}"
+                   for k in ("sharded", "unsharded"))),
+        ("sharded driver, each in its own process, in turns (parent, new, "
+         "new, parent, twice; 5 calls a turn): serving mix qps; mixed "
+         "request qps; edismax p50 ms", parent_turns),
         ("sharded body index: partition s; attach s; title corpus indexed "
          "with mesh= s", f"{partition_s}; {sh_attach_s}; {stitle_s}"),
         ("sharded body index: hbm_report sharded.* bytes", sh_bytes),
@@ -2611,6 +2904,127 @@ def main() -> int:
     ]
     del sdf, stitle, sbody, slarr, sh, lsh
     phase_done("doc-axis sharding on one card")
+
+    # ---- 3d. this slice's path, counted: the serving warm-up.  A fresh
+    # attach of the body index's BuiltIndex (empty pools) warmed by
+    # warm_serving(), its launches read apart, then its first serving-mix
+    # call; and the first call on a second fresh attach as it is.  Every
+    # launch is held to its plain version as it runs, as in 3c.  Then two
+    # more fresh attaches, not held, time the first call as it is and
+    # after warm_serving: this process has loaded every kernel by now, so
+    # what warming saves here is the pools' fills and the allocator's
+    # growth, not the library's build or the modules' first loads.
+    def fresh_attach():
+        fresh = SearchArray([], tokenizer=arr.tokenizer, device=DEVICE)
+        fresh._attach(_IndexState(arr._built, DEVICE))
+        fresh.dev  # attach: upload the posting planes
+        torch.cuda.synchronize()
+        return fresh
+
+    saved_counts = {k: getattr(kc, k).launches for k in counted}
+    for k in counted:
+        getattr(kc, k).launches = 0
+    k10_warm, k11_warm = K10Recorder(kc), K11Recorder(kc)
+    kc.similarity, kc.compose = k10_warm, k11_warm
+    w_check = PlainCheck(kc, 1)
+    for mod in engine_mods:
+        mod.kernels_cuda = w_check
+    try:
+        fresh = fresh_attach()
+        n_warm = fresh.warm_serving()
+        # (the recorders stand in for K10 and K11, so their counts read)
+        warm_only = {k: getattr(kc, k).launches for k in counted}
+        held_first = {"after warm_serving": fresh.score_batch(
+            smix, top_k=TOP_K)}
+        fresh = fresh_attach()
+        held_first["as it is"] = fresh.score_batch(smix, top_k=TOP_K)
+        del fresh
+        torch.cuda.synchronize()
+        warm_counts = {k: getattr(kc, k).launches for k in counted}
+    finally:
+        for mod in engine_mods:
+            mod.kernels_cuda = kc
+        kc.similarity, kc.compose = k10_warm.orig, k11_warm.orig
+    for k in counted:
+        getattr(kc, k).launches = saved_counts[k] + warm_counts[k]
+    for label, first in held_first.items():
+        check(same_ranked(first, mix_ref),
+              f"the first serving-mix call on a fresh attach ({label}) "
+              "ranks as the main path's index does, bit for bit")
+    print(f"warm-up path launches: warm_serving alone {warm_only}; with "
+          f"the two first calls {warm_counts}", flush=True)
+    check(n_warm > 0 and all(warm_only[k] > 0 for k in (
+        "score_term_rows", "plane_fill", "phrase_chain", "span_window",
+        "topk", "similarity")),
+          f"warm_serving issued its {n_warm} queries through score_batch: "
+          "K1, K3, K4, K5, K6 and K10 launched, counted before any first "
+          "call")
+    check(all(w_check.calls[h] >= warm_counts[k]
+              for k, h in held_of.items())
+          and k10_warm.calls == k10_warm.launches
+          and k11_warm.calls == k11_warm.launches,
+          "every launch of the warm-up path (warm_serving and the two "
+          "first calls) equal to its plain version on the same inputs bit "
+          f"for bit (K1-K9 calls held {dict(w_check.calls)}, K10 "
+          f"{k10_warm.calls}, K11 {k11_warm.calls}; largest differences "
+          f"{dict(w_check.err)}, K10 {k10_warm.err}, K11 {k11_warm.err})")
+    first_ms = {}
+    for label in ("as it is", "after warm_serving"):
+        fresh = fresh_attach()
+        if label != "as it is":
+            t0 = time.perf_counter()
+            n_timed = fresh.warm_serving()
+            torch.cuda.synchronize()
+            warm_serving_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = fresh.score_batch(smix, top_k=TOP_K)
+        first_ms[label] = (time.perf_counter() - t0) * 1e3
+        check(same_ranked(first, mix_ref),
+              f"the timed first serving-mix call on a fresh attach "
+              f"({label}) ranks as the main path's index does, bit for bit")
+        del fresh, first
+    # the same in new processes (one at a time, from this tree, on the body
+    # store): there the first call also loads the kernel library and each
+    # kernel's module and grows the allocator and the pinned buffers
+    fresh_proc = {}
+    for label, warm in (("as it is", False), ("after warm_serving", True)):
+        proc = run_snippet(FIRST_CALL, REPO, {
+            "store": store_dir, "mix": smix, "k": TOP_K, "warm": warm},
+            os.path.join(store_dir, "first_call.json"))
+        fresh_proc[label] = json_line(proc)
+        proc.stdin.close()
+        proc.wait(timeout=300)
+        check(np.array_equal(np.asarray(fresh_proc[label].pop("idx")),
+                             mix_ref[1])
+              and np.array_equal(np.asarray(fresh_proc[label].pop("bits")),
+                                 mix_ref[0].view(np.int32)),
+              f"a new process's first serving-mix call ({label}) ranks as "
+              "the main path's index does, scores and indices bit for bit")
+    print(f"first serving-mix call on a fresh attach of the body index: "
+          f"{first_ms['as it is']:.3f} ms as it is, "
+          f"{first_ms['after warm_serving']:.3f} ms after warm_serving; in "
+          f"a new process: {fresh_proc} {tag}", flush=True)
+    print(f"warm_serving on the 1M body index: {n_warm} queries in "
+          f"{warm_serving_s:.3f} s (in a new process: "
+          f"{fresh_proc['after warm_serving']['warm_queries']} in "
+          f"{fresh_proc['after warm_serving']['warm_s']:.3f} s)", flush=True)
+    check(n_timed == n_warm
+          == fresh_proc["after warm_serving"]["warm_queries"],
+          f"warm_serving issued {n_warm} queries on each fresh attach, in "
+          "this process and in a new one")
+    warm_evidence = [
+        ("first serving-mix call on a fresh attach of the body index, ms: "
+         "as it is; after warm_serving",
+         f"{first_ms['as it is']}; {first_ms['after warm_serving']}"),
+        ("a new process on the body store: first and second serving-mix "
+         "call ms, as it is | after warm_serving (its queries, s)",
+         f"{fresh_proc['as it is']} | {fresh_proc['after warm_serving']}"),
+        ("warm_serving on the 1M body index: queries; s",
+         f"{n_warm}; {warm_serving_s}"),
+        ("warm-up path launches (held): warm_serving alone; with the two "
+         "first calls", f"{warm_only}; {warm_counts}"),
+    ]
+    phase_done("serving warm-up")
 
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
@@ -2795,7 +3209,7 @@ def main() -> int:
     k4_err = (k4_pools[0] - k4_pools[1]).abs().max().item()
     check(torch.equal(k4_pools[0], k4_pools[1])
           and all(torch.equal(k4_pools[0][i],
-                              dev.plane_pool[dev.plane_slot[t]])
+                              dev.plane_pool[dev.maps.plane_slot[t]])
                   for i, t in enumerate(ph_tids)),
           f"K4 equals its plain version bit for bit on the {len(ph_tids)} "
           f"plane rows of the mixed batch ({NS} slots each, "
@@ -2813,7 +3227,7 @@ def main() -> int:
             groups.setdefault((plan_key, pattern), []).append(tids)
     dense.ensure_planes(dev, [t for g in groups.values() for ts in g
                               for t in ts])
-    k5_specs = [(np.stack([dense.plane_slots_of(dev, ts) for ts in g]),
+    k5_specs = [(np.stack([dense.plane_slots_of(dev.maps, ts) for ts in g]),
                  plan_key, pattern)
                 for (plan_key, pattern), g in groups.items()]
     check(any(len(pk) == 2 for _, pk, _ in k5_specs)
@@ -2850,7 +3264,8 @@ def main() -> int:
 
     def serve_slots():
         dense.ensure_planes(dev, [t for ts in serve_tids for t in ts])
-        return np.stack([dense.plane_slots_of(dev, ts) for ts in serve_tids])
+        return np.stack([dense.plane_slots_of(dev.maps, ts)
+                         for ts in serve_tids])
 
     got = kc.phrase_chain(dev.plane_pool, serve_slots(), serve_plan,
                           serve_pattern, **kw5)
@@ -3129,7 +3544,7 @@ def main() -> int:
     wide_tids = [arr.term_dict.get_term_id(t) for t in wide_q]
     wide_uniq, _, wide_key = batch._slop_structure(dev, wide_tids, wide_slop)
     dense.ensure_planes(dev, wide_uniq)
-    wide_args = (dev.plane_pool, [dense.plane_slots_of(dev, wide_uniq)],
+    wide_args = (dev.plane_pool, [dense.plane_slots_of(dev.maps, wide_uniq)],
                  wide_key[3], wide_key[4])
     kw6 = dict(anchor=0, num_docs=n, blk_bits=dev.blk_bits)
     got = kc.span_window(*wide_args, **kw6)
@@ -3781,7 +4196,7 @@ def main() -> int:
         out = []
         for spec in k6_specs:
             dense.ensure_planes(dev, [t for ts in spec[0] for t in ts])
-            out.append((np.stack([dense.plane_slots_of(dev, ts)
+            out.append((np.stack([dense.plane_slots_of(dev.maps, ts)
                                   for ts in spec[0]]), *spec[1:]))
         return out
 
@@ -3818,7 +4233,7 @@ def main() -> int:
                     counter=counters["K6"])[0])
                for sl, w, mults in k6_now]
     dense.ensure_planes(dev, wide_uniq)
-    wide_now = (dev.plane_pool, [dense.plane_slots_of(dev, wide_uniq)],
+    wide_now = (dev.plane_pool, [dense.plane_slots_of(dev.maps, wide_uniq)],
                 wide_key[3], wide_key[4])
     t_k6w = measure(
         f"{wide_q} at slop {wide_slop}: one K6 launch, w = {wide_key[3]}, "
@@ -4429,6 +4844,7 @@ def main() -> int:
          [(shape, w["bound_ms"], ms) for shape, w, (ms, _) in k5_each]),
         *slice_evidence,
         *sharded_evidence,
+        *warm_evidence,
         ("K3 merge of the sharded path: device ms; bound ms; torch.topk "
          "device ms", f"{t_k3m['new_device_ms']}; {t_k3m['bound_ms']}; "
          f"{t_k3m['library_device_ms']}"),
@@ -4464,9 +4880,9 @@ def main() -> int:
     csrc = "searcharray_tpu_torch/csrc/"
     k1_tpu = "searcharray_tpu/ops/pallas/score.py:86"
     # each kernel's largest difference over phase 5's checks and every
-    # launch of the sharded path (PlainCheck)
+    # launch of the sharded and warm-up paths (PlainCheck)
     k1_err, k1r_err, k2_err, k3_err, k4_err, k5_err, k6_err, k7_err, \
-        k9_err = (max(e, sh_check.err[h]) for e, h in (
+        k9_err = (max(e, sh_check.err[h], w_check.err[h]) for e, h in (
             (k1_err, "K1"), (k1r_err, "K1 rows"), (k2_err, "K2"),
             (k3_err, "K3"), (k4_err, "K4"), (k5_err, "K5"), (k6_err, "K6"),
             (k7_err, "K7"), (k9_err, "K9")))
@@ -4504,15 +4920,17 @@ def main() -> int:
                  launches["span_sparse"], k9_err, t_k9),
          "more_units": [unit_of(t_k9b), unit_of(t_k9w), unit_of(t_k9bw)]},
         # the largest difference over every main-path launch (K8Recorder)
-        # and every sharded-path launch (PlainCheck)
+        # and every sharded- and warm-up-path launch (PlainCheck)
         entry("cand_rows (K8a)", csrc + "cand_rows.cu",
               "searcharray_tpu/search/candidates.py:201",
-              launches["cand_rows"], max(rec.err["K8a"], sh_check.err["K8a"]),
+              launches["cand_rows"],
+              max(rec.err["K8a"], sh_check.err["K8a"], w_check.err["K8a"]),
               t_k8a),
         {**entry("cand_minis (K8b)", csrc + "cand_minis.cu",
                  "searcharray_tpu/search/candidates.py:258",
                  launches["cand_minis"],
-                 max(rec.err["K8b"], sh_check.err["K8b"]), t_k8b),
+                 max(rec.err["K8b"], sh_check.err["K8b"],
+                     w_check.err["K8b"]), t_k8b),
          "more_units": [unit_of(t_k8bp)]},
         # the largest difference over every launch of the counted paths
         # (K10Recorder); no single PyTorch call computes the similarity:
@@ -4520,7 +4938,8 @@ def main() -> int:
         {**entry("similarity (K10)", csrc + "similarity.cu",
                  "searcharray_tpu/search/scoring.py:29",
                  launches["similarity"],
-                 max(k10_rec.err, k10_slice.err, k10_sh.err), t_k10),
+                 max(k10_rec.err, k10_slice.err, k10_sh.err,
+                     k10_warm.err), t_k10),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k10["library_ms"],
          "torch_composition_device_ms": t_k10["library_device_ms"]},
@@ -4529,7 +4948,8 @@ def main() -> int:
         # composition K11 replaced is its yardstick
         {**entry("compose (K11)", csrc + "compose.cu",
                  "searcharray_tpu/solr.py:110", launches["compose"],
-                 max(k11_rec.err, k11_slice.err, k11_sh.err), t_k11),
+                 max(k11_rec.err, k11_slice.err, k11_sh.err,
+                     k11_warm.err), t_k11),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k11["library_ms"],
          "torch_composition_device_ms": t_k11["library_device_ms"],

@@ -96,6 +96,32 @@ def upload_i32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return out
 
 
+class SlotMaps:
+    """The host side of the plane and tf pools (``search/dense.py``): key
+    -> slot maps in LRU order, their free lists and capacities (set when
+    a pool starts, 0 until then), and the phrase-tf cache's state
+    (``phrase_hits`` counts encounters per (tids, slop) signature;
+    ``phrase_recipes`` holds a promoted signature's (terms, fill key)).
+    ``corpus_size``, ``blk_bits`` and ``pool_share`` size the pools: the
+    largest doc count and device share of the indexes that fill them.  A
+    DeviceIndex owns one; the shards of a ``ShardedIndex`` that serve one
+    query part share one, so a key lands in the same pool row on every
+    shard and one plan of a batch holds for all of them."""
+
+    def __init__(self, corpus_size: int, blk_bits: int, pool_share: int):
+        self.corpus_size = int(corpus_size)
+        self.blk_bits = int(blk_bits)
+        self.pool_share = int(pool_share)
+        self.plane_slot: "OrderedDict[int, int]" = OrderedDict()
+        self.plane_free: list = []
+        self.plane_cap = 0
+        self.tf_slot: "OrderedDict[object, int]" = OrderedDict()
+        self.tf_free: list = []
+        self.tf_cap = 0
+        self.phrase_hits: dict = {}
+        self.phrase_recipes: dict = {}
+
+
 class DeviceIndex:
     """Device copy of a built index on ``device`` (immutable postings, plus
     the lazily allocated plane and tf pools and their host-side slot
@@ -153,21 +179,15 @@ class DeviceIndex:
             np.array(built.doc_lens, dtype=np.float32), device=self.device)
         # Device pools (search/dense.py), each allocated on first use:
         # plane_pool int32[C, N << blk_bits] (one term payload plane per
-        # slot) and tf_pool f32[Ct, N]; the host keeps key -> slot maps
-        # in LRU order.
+        # slot) and tf_pool f32[Ct, N]; their slot maps and the phrase-tf
+        # cache (tf_slot keys may also be (tids, slop) phrase signatures)
+        # are ``maps``, shared by the shards of one query part.
         self.plane_pool: Optional[torch.Tensor] = None
-        self.plane_slot: "OrderedDict[int, int]" = OrderedDict()
-        self.plane_free: list = []
         self.tf_pool: Optional[torch.Tensor] = None
-        self.tf_slot: "OrderedDict[object, int]" = OrderedDict()
-        self.tf_free: list = []
+        self.maps = SlotMaps(self.corpus_size, self.blk_bits,
+                             self.pool_share)
         # dict-LRU tf fallback for pool-ineligible corpora (dense.term_tf)
         self.tf_cache: "OrderedDict[int, torch.Tensor]" = OrderedDict()
-        # Phrase-tf cache: tf_slot keys may also be (tids, slop) phrase
-        # signatures.  phrase_hits counts encounters per signature;
-        # phrase_recipes holds a promoted signature's (terms, fill key).
-        self.phrase_hits: dict = {}
-        self.phrase_recipes: dict = {}
 
     def _usable_derived(self, built: BuiltIndex):
         """Precomputed attach arrays, or None if absent or stale (layout

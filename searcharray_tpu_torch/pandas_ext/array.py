@@ -20,8 +20,10 @@ and drops the device copy, whose pools go with it.  With ``mesh=`` (a
 ``parallel.sharded.Mesh`` of torch devices) the index is also split by
 doc range into shards beside the single-device one
 (``parallel/sharded.py``): ``score_batch``, ``score_batch_device`` and
-``edismax`` over a full view then run each shard's own engine and rank
-through a per-shard top-k and a merge.
+``edismax`` over a full view then plan each batch once and run the plan
+on every shard, ranking through a per-shard top-k and a merge.
+``warm_serving`` issues the batch driver's group shapes once before the
+first live query (``utils/warm.py``).
 """
 from __future__ import annotations
 
@@ -60,10 +62,6 @@ from searcharray_tpu_torch.search import phrase as phrase_mod
 from searcharray_tpu_torch.search import scoring
 from searcharray_tpu_torch.search import spans as spans_mod
 from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _bytes_h(num_bytes):
@@ -338,9 +336,18 @@ class SearchArray(ExtensionArray):
             tf_cap = max(0, dense_mod.tf_capacity(self.dev) - 8)
             dense_mod.ensure_tfs(self.dev, [int(t) for t in hot[:tf_cap]])
 
-    def warm_serving(self, **kwargs):
-        raise _todo("warm_serving", "'Do not port': no ahead-of-time "
-                    "compiles exist in PyTorch")
+    def warm_serving(self, **kwargs) -> int:
+        """Warm the serving path for this index before the first live
+        query: issue ``score_batch`` calls that reach every group shape
+        the batch driver forms for this corpus, so the kernel library is
+        loaded, each kernel's module loaded on the card (CUDA loads
+        modules at their first launch), the caching allocator grown and
+        the pinned staging buffers allocated.  On a sharded array it warms
+        the sharded path.  See ``utils/warm.py:warm_serving`` for the
+        knobs; returns the number of warm queries issued."""
+        from searcharray_tpu_torch.utils.warm import warm_serving as _ws
+
+        return _ws(self, **kwargs)
 
     @classmethod
     def _from_sequence(cls, scalars, *, dtype=None, copy=False):
@@ -628,8 +635,8 @@ class SearchArray(ExtensionArray):
         dev = self._state.dev
         if dev is not None:
             for pool, slots, label in (
-                (dev.plane_pool, dev.plane_slot, "Plane Pool"),
-                (dev.tf_pool, dev.tf_slot, "TF Pool"),
+                (dev.plane_pool, dev.maps.plane_slot, "Plane Pool"),
+                (dev.tf_pool, dev.maps.tf_slot, "TF Pool"),
             ):
                 if pool is not None:
                     nbytes = pool.numel() * pool.element_size()

@@ -18,19 +18,27 @@ two ranks on one card.
   to shard-local ids, with one global ``blk_bits`` (the corpus's longest
   doc): the numpy arrays that ``index/store.py:save_shards`` persists, in
   the JAX package's format.
-* A shard is one ``DeviceIndex`` per distinct device of its mesh row
-  (entries that repeat a device share it, with its pools).  Its
+* The queries axis's parts that name the same devices in every doc row
+  form one lane (on one card: a single lane).  A shard is one
+  ``DeviceIndex`` per lane, on that lane's device of its mesh row.  Its
   ``BuiltIndex`` holds its re-based postings and doc lengths beside the
   corpus's vocabulary, ``doc_freqs`` and ``avg_doc_length``; every idf
-  reads the corpus's doc count (``stats_docs``) and a slop phrase's
-  anchor the corpus's posting lengths (``stats_lengths``), so a shard
-  scores its docs as the whole index would; shards on one device divide
-  the pools' byte budgets (``pool_share``).
-* ``score_batch_device`` dedups by (query, slop) once and calls
-  ``search/batch.py:score_batch_fused`` on each shard, which routes each
-  group (dense, sparse, candidates) by the shard's own doc count.  The
-  [Q, n_s] blocks are placed into f32[Q, N] on the device of mesh entry
-  (0, 0).
+  reads the corpus's doc count (``stats_docs``) and a phrase's split and
+  a slop phrase's anchor the corpus's posting lengths
+  (``stats_lengths``), so a shard scores its docs as the whole index
+  would; shards on one device divide the pools' byte budgets
+  (``pool_share``).
+* The shards of a lane share one ``SlotMaps`` (the JAX module's
+  ``ensure_shard_planes`` / ``ensure_shard_tfs`` slot maps): a key has
+  the same pool row on each of them, every pool has the capacity of the
+  smallest, and one plan of a batch holds for all of them.
+* ``score_batch_device`` plans a batch once per lane
+  (``search/batch.py:plan_batch`` over the lane's ``PlanView``: the
+  corpus's doc count for the candidate switch, the largest shard for
+  buckets, ``Kc`` and the buffer bound, as the JAX module does) and runs
+  the plan on each shard (``run_plan``: the pool fills from the shard's
+  own slices, then every group's launches).  The [Q, n_s] blocks are
+  placed into f32[Q, N] on the device of mesh entry (0, 0).
 * ``topk`` ranks each shard's block with K3 (``ops/cuda/score.py:topk``),
   offsets the [Q, k_s] candidates by ``shard_starts`` and ranks the
   [Q, sum k_s] candidates with K3 again: the full doc axis never leaves
@@ -38,7 +46,7 @@ two ranks on one card.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +56,11 @@ from searcharray_tpu_torch.index.builder import (
     DocTermMatrix,
     TermPostings,
 )
-from searcharray_tpu_torch.index.device import DeviceIndex, canonical_device
+from searcharray_tpu_torch.index.device import (
+    DeviceIndex,
+    SlotMaps,
+    canonical_device,
+)
 from searcharray_tpu_torch.ops import encoding as enc
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.kernels import (
@@ -59,12 +71,14 @@ from searcharray_tpu_torch.ops.kernels import (
     expand_bucket_of,
 )
 from searcharray_tpu_torch.search import batch as batch_mod
-from searcharray_tpu_torch.search import phrase as phrase_mod
-from searcharray_tpu_torch.search import spans as spans_mod
+from searcharray_tpu_torch.search import dense as dense_mod
 
-# Candidate-engine group launches across shards, with the group launches
-# of every shard's ``rows=`` call (the JAX module's counter of candidate
-# and rows programs).
+# Batch plans made: one per call on a mesh whose query parts share their
+# devices (one lane), one per lane a call's queries reach otherwise.
+PLANS = [0]
+# Candidate chunks planned, each once for all shards, with every group of
+# a ``rows=`` call (the JAX module's counter of candidate and rows
+# programs).
 CAND_PROGRAMS = [0]
 # K3 calls of ``topk``: on a shard's block, and the merges of candidates.
 SHARD_TOPKS = [0]
@@ -119,10 +133,20 @@ class ShardedIndex:
                  avg_doc_length: float, corpus_size: int,
                  max_shard_docs: int, blk_bits: int, doc_freqs):
         self.mesh = mesh
-        # shards[d]: one DeviceIndex per distinct device of mesh row d;
-        # replica[d, j]: the one mesh entry (d, j) uses
+        # shards[d]: one DeviceIndex per lane; replica[d, j]: the lane of
+        # query part j (the same in every row d)
         self.shards = shards
         self.replica = replica
+        # a lane's shards share one slot map; its PlanView reads them
+        self.lanes = []
+        for lane in range(len(shards[0])):
+            members = [reps[lane] for reps in shards]
+            maps = SlotMaps(max(d.corpus_size for d in members),
+                            members[0].blk_bits,
+                            max(d.pool_share for d in members))
+            for dev in members:
+                dev.maps = maps
+            self.lanes.append(batch_mod.PlanView(members))
         self.shard_starts = shard_starts      # int64[S]: global doc base
         self.shard_sizes = np.asarray([s[0].corpus_size for s in shards],
                                       np.int64)
@@ -161,12 +185,19 @@ class ShardedIndex:
         shard_docs = int(parts["shard_docs"])
         blk_bits = int(parts["blk_bits"])
         starts = np.asarray(parts["shard_starts"], dtype=np.int64)
-        # shards that share a device divide its pools' budgets
+        # lanes: the distinct columns of the mesh (query parts that name
+        # the same device in every doc row share one); shards that share a
+        # device divide its pools' budgets
+        lane_of: dict = {}
+        replica = np.zeros(mesh.devices.shape, np.int64)
+        for j in range(mesh.devices.shape[1]):
+            replica[:, j] = lane_of.setdefault(tuple(mesh.devices[:, j]),
+                                               len(lane_of))
         share: dict = {}
-        for d in range(S):
-            for device in set(mesh.devices[d]):
+        for col in lane_of:
+            for device in col:
                 share[device] = share.get(device, 0) + 1
-        shards, replica = [], np.zeros(mesh.devices.shape, np.int64)
+        shards = []
         for s in range(S):
             n_s = max(0, min(N, int(starts[s]) + shard_docs) - int(starts[s]))
             lengths = np.asarray(parts["lengths"][s], dtype=np.int64)
@@ -186,16 +217,11 @@ class ShardedIndex:
                 avg_doc_length=avg_doc_length, doc_freqs=doc_freqs,
                 derived={"hdr32": parts["hdrs"][s], "pay32": parts["pays"][s],
                          "blk_bits": blk_bits})
-            devs: list = []
-            for j, device in enumerate(mesh.devices[s]):
-                if device not in devs:
-                    devs.append(device)
-                replica[s, j] = devs.index(device)
-            shards.append([DeviceIndex(built, device, blk_bits=blk_bits,
+            shards.append([DeviceIndex(built, col[s], blk_bits=blk_bits,
                                        stats_docs=N,
                                        stats_lengths=stats_lengths,
-                                       pool_share=share[device])
-                           for device in devs])
+                                       pool_share=share[col[s]])
+                           for col in lane_of])
         return cls(mesh, shards, replica, starts, vocab, avg_doc_length, N,
                    shard_docs, blk_bits, doc_freqs)
 
@@ -226,28 +252,20 @@ class ShardedIndex:
                                built.avg_doc_length, built.doc_freqs)
 
     # ------------------------------------------------------------------
-    # the shard loop
+    # the plan and the shard loop
     # ------------------------------------------------------------------
-    def _blocks(self, Q: int, fn: Callable) -> list:
-        """Per doc shard d, [(qsel, block)]: the Q queries split in
-        contiguous parts over the queries axis, the parts of one device
-        in one call, ``fn(d, shard, qsel) -> [len(qsel), ...]`` on that
-        shard's device."""
+    def _lane_parts(self, Q: int) -> dict:
+        """lane -> the indexes of its queries: the Q queries split in
+        contiguous parts over the queries axis, the parts of one lane
+        together."""
         qa = self.mesh.shape["queries"]
         per = -(-Q // qa)
-        parts = [np.arange(j * per, min(Q, (j + 1) * per)) for j in range(qa)]
-        out = []
-        for d, reps in enumerate(self.shards):
-            by_rep: dict = {}
-            for j, qsel in enumerate(parts):
-                if len(qsel):
-                    by_rep.setdefault(int(self.replica[d, j]), []).append(qsel)
-            pieces = []
-            for r, qs in by_rep.items():
-                qsel = np.concatenate(qs)
-                pieces.append((qsel, fn(d, reps[r], qsel)))
-            out.append(pieces)
-        return out
+        by_lane: dict = {}
+        for j in range(qa):
+            qsel = np.arange(j * per, min(Q, (j + 1) * per))
+            if len(qsel):
+                by_lane.setdefault(int(self.replica[0, j]), []).append(qsel)
+        return {lane: np.concatenate(qs) for lane, qs in by_lane.items()}
 
     def _place(self, blocks: list, Q: int, cols: list) -> torch.Tensor:
         """The blocks as one f32[Q, width] on ``self.device``: shard d's
@@ -281,9 +299,9 @@ class ShardedIndex:
     # scoring
     # ------------------------------------------------------------------
     def _batch_blocks(self, queries_tids, kind, k1, b, slop, rows=None):
-        """Every shard's ``score_batch_fused`` blocks of the distinct
-        queries: (blocks, their count, the fan-out map, each shard's
-        columns)."""
+        """Every shard's [len(qsel), n_s] blocks of the distinct queries,
+        one plan per lane run on each of its shards: (blocks, their
+        count, the fan-out map, each shard's columns)."""
         uniq, uslops, expand = batch_mod.dedup_queries(queries_tids, slop)
         cols, local = self._doc_cols(), None
         if rows is not None:
@@ -296,20 +314,36 @@ class ShardedIndex:
                 pos = pos[np.argsort(rows[pos], kind="stable")]
                 cols.append(pos)
                 local.append(rows[pos] - self.shard_starts[d])
-
-        def fn(d, shard, qsel):
-            return batch_mod.score_batch_fused(
-                shard, [uniq[i] for i in qsel], kind, k1, b, as_device=True,
+        blocks: list = [[] for _ in range(self.num_shards)]
+        for lane, qsel in self._lane_parts(len(uniq)).items():
+            view = self.lanes[lane]
+            plan = batch_mod.plan_batch(
+                view, [uniq[i] for i in qsel], kind,
                 slop=[uslops[i] for i in qsel],
-                rows=None if local is None else local[d])
-
-        before = (batch_mod.CAND_GROUPS[0], batch_mod.DISPATCHES[0])
-        blocks = self._blocks(len(uniq), fn)
-        # the JAX module's count: candidate groups, and every group of a
-        # rows= call
-        CAND_PROGRAMS[0] += (batch_mod.CAND_GROUPS[0] - before[0]
-                             if local is None
-                             else batch_mod.DISPATCHES[0] - before[1])
+                allow_candidates=rows is None,
+                n_out=self.corpus_size if rows is None else len(rows))
+            PLANS[0] += 1
+            # the JAX module's count: candidate chunks, and every group of
+            # a rows= call
+            CAND_PROGRAMS[0] += plan.n_cand if rows is None else plan.n_specs
+            uploads: dict = {}
+            try:
+                for d, dev in enumerate(view.members):
+                    if local is None:
+                        rows_t, n_out = None, dev.corpus_size
+                    else:
+                        rows_t = kernels_cuda.host_to_device(
+                            local[d].astype(np.int32), dev.device)
+                        n_out = len(local[d])
+                    outs = batch_mod.run_plan(
+                        dev, plan, kind, k1, b, rows=rows_t, shard=d,
+                        uploads=uploads, launch=n_out > 0)
+                    blocks[d].append((qsel, batch_mod.assemble(
+                        dev, plan, outs, n_out, as_device=True,
+                        uploads=uploads)))
+            except BaseException:
+                dense_mod.release(view.maps, plan.fills)
+                raise
         return blocks, len(uniq), expand, cols
 
     def score_batch_device(self, queries_tids, kind: str = "bm25",
@@ -400,23 +434,27 @@ class ShardedIndex:
 
     def _query_blocks(self, queries, k1, b):
         """Per shard, each query's OR of terms: its term rows (BM25 with
-        the corpus's doc_freqs) summed in term order."""
+        the corpus's doc_freqs, one plan for every term of the batch)
+        summed in term order."""
         tids = [self._resolve(q) for q in queries]
-
-        def fn(_d, shard, qsel):
-            flat = [[t] for qi in qsel for t in tids[qi]]
-            rows = batch_mod.score_batch_fused(shard, flat, "bm25", k1, b,
-                                               as_device=True)
-            out = torch.zeros((len(qsel), shard.corpus_size),
-                              dtype=torch.float32, device=shard.device)
+        flat = [[t] for q in tids for t in q]
+        blocks, U, expand, _ = self._batch_blocks(flat, "bm25", k1, b, 0)
+        out = []
+        for d, pieces in enumerate(blocks):
+            dev = self.shards[d][0].device
+            n_d = int(self.shard_sizes[d])
+            rows = torch.zeros((U, n_d), dtype=torch.float32, device=dev)
+            for qsel, blk in pieces:
+                rows[kernels_cuda.host_to_device(qsel, dev)] = blk.to(dev)
+            summed = torch.zeros((len(queries), n_d), dtype=torch.float32,
+                                 device=dev)
             r = 0
-            for j, qi in enumerate(qsel):
-                for _ in tids[qi]:
-                    out[j] += rows[r]
+            for j, q in enumerate(tids):
+                for _ in q:
+                    summed[j] += rows[expand[r]]
                     r += 1
-            return out
-
-        return self._blocks(len(queries), fn)
+            out.append([(np.arange(len(queries)), summed)])
+        return out
 
     def score_queries(self, queries: Sequence[Sequence[str]],
                       k1: float = 1.2, b: float = 0.75) -> torch.Tensor:
@@ -434,32 +472,28 @@ class ShardedIndex:
         return (vals.cpu().numpy().astype(np.float32),
                 idx.cpu().numpy().astype(np.int64))
 
-    def _per_shard_row(self, fn) -> torch.Tensor:
-        """f32[N]: ``fn(shard) -> f32[n_s]`` on each shard, placed."""
-        blocks = [[(np.arange(1), fn(reps[0])[None])] for reps in self.shards]
-        return self._place(blocks, 1, self._doc_cols())[0]
-
     def phrase_freqs(self, tokens: Sequence[str], k1: float = 1.2,
                      b: float = 0.75, kind: str = "none") -> torch.Tensor:
         """Exact-phrase frequencies (or, with ``kind``, scores) f32[N]:
-        each shard's own (a phrase never crosses a document), idf from
-        the corpus's statistics."""
-        tids = self._resolve(tokens)
-        if min(tids) < 0:
-            return torch.zeros(self.corpus_size, dtype=torch.float32,
-                               device=self.device)
-        return self._per_shard_row(lambda shard: phrase_mod.phrase_freqs_dense(
-            shard, tids, kind=kind, k1=k1, b=b))
+        one plan, each shard's own (a phrase never crosses a document),
+        idf from the corpus's statistics; zeros when a token is not in
+        the vocabulary."""
+        return self._phrase_row(tokens, 0, kind, k1, b)
 
     def span_freqs(self, tokens: Sequence[str], slop: int, k1: float = 1.2,
                    b: float = 0.75, kind: str = "none") -> torch.Tensor:
-        """Slop-phrase frequencies (or scores) f32[N], per shard."""
+        """Slop-phrase frequencies (or scores) f32[N], one plan; zeros
+        when a token is not in the vocabulary."""
+        return self._phrase_row(tokens, slop, kind, k1, b)
+
+    def _phrase_row(self, tokens, slop, kind, k1, b) -> torch.Tensor:
         tids = self._resolve(tokens)
-        if min(tids) < 0:
+        if any(t < 0 for t in tids):
             return torch.zeros(self.corpus_size, dtype=torch.float32,
                                device=self.device)
-        return self._per_shard_row(lambda shard: spans_mod.span_freqs_dense(
-            shard, tids, slop, kind=kind, k1=k1, b=b))
+        if len(tids) < 2:
+            raise ValueError("Must have at least two terms")
+        return self.score_batch_device([tids], kind, k1, b, slop=slop)[0]
 
     def device_indexes(self) -> List[DeviceIndex]:
         """Every shard's DeviceIndex, replicas included."""

@@ -35,6 +35,13 @@ Queries are deduplicated, classified and grouped:
   builds every term's mini-plane at those rows and ONE K5 or K6 launch
   runs on the minis; the finish ranks over the candidate axis (K3).
 
+A batch is planned once, on the host (``plan_batch`` over a ``PlanView``:
+the dedup, the groups, their chunks, the pool waves and each wave's pool
+slots), and the plan is run on each index that serves it (``run_plan``:
+the wave's pool fills from the index's own posting slices, then the
+group launches).  One index is the S = 1 case; the S shards of a
+``parallel/sharded.py:ShardedIndex`` share one plan and one slot map.
+
 With ``top_k`` every group's result is ranked by K3 and packed into int32
 [Qg, 2k] (f32 score bits ‖ doc indices), so one device-to-host copy
 returns a batch and nothing before it waits for the device.  With
@@ -183,17 +190,15 @@ def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
     return f
 
 
-def _phrase_specs_freqs(dev: DeviceIndex, specs) -> List[torch.Tensor]:
-    """The f32[Qg, N] freqs of every sparse phrase spec of a call, their
-    chains stepped together (``sparse_chains_freqs``: one K7 and one K2
-    launch per step index), in runs of specs whose rows (query x chain
-    half) fit one K2 key space and whose words _SPARSE_CHUNK_WORDS."""
-    N = dev.corpus_size
+def _phrase_runs(specs, N: int) -> List[list]:
+    """Runs of a plan's sparse phrase specs whose chains step together:
+    their rows (query x chain half) fit one K2 key space and their words
+    _SPARSE_CHUNK_WORDS (a spec's words: its largest shard's)."""
     Npad = _npad(N)
     runs, cur, rows, words = [], [], 0, 0
     for s in specs:
         r = len(s["chunk"]) * len(s["gkey"][2])
-        wd = int(s["ns"].sum())
+        wd = int(s["ns"].sum(axis=(1, 2)).max())
         if cur and ((rows + r) * Npad > _MAX_FLAT
                     or words + wd > _SPARSE_CHUNK_WORDS):
             runs.append(cur)
@@ -203,13 +208,19 @@ def _phrase_specs_freqs(dev: DeviceIndex, specs) -> List[torch.Tensor]:
         words += wd
     if cur:
         runs.append(cur)
-    out = []
-    for run in runs:
-        out += [f[:, :N] for f in sparse_chains_freqs(
-            dev.hdrs, dev.pays,
-            [(s["gkey"][2], s["gkey"][3], s["offs"], s["ns"]) for s in run],
-            blk_bits=dev.blk_bits, key_stride=Npad)]
-    return out
+    return runs
+
+
+def _phrase_run_freqs(dev: DeviceIndex, run, shard: int) -> List[torch.Tensor]:
+    """The f32[Qg, N] freqs of one run of sparse phrase specs on ``dev``
+    (shard ``shard``'s slices), their chains stepped together
+    (``sparse_chains_freqs``: one K7 and one K2 launch per step index)."""
+    N = dev.corpus_size
+    return [f[:, :N] for f in sparse_chains_freqs(
+        dev.hdrs, dev.pays,
+        [(s["gkey"][2], s["gkey"][3], s["offs"][shard], s["ns"][shard])
+         for s in run],
+        blk_bits=dev.blk_bits, key_stride=_npad(N))]
 
 
 def _span_group_fn(dev: DeviceIndex, w: int, mults: tuple, kind: str,
@@ -235,11 +246,11 @@ def _span_group_fn(dev: DeviceIndex, w: int, mults: tuple, kind: str,
 
 def _phrase_chunks(grows, max_rows: int):
     """Cut a sparse phrase group into chunks of at most ``max_rows``
-    queries and _SPARSE_CHUNK_WORDS posting words (a query larger than
-    that is a chunk of its own)."""
+    queries and _SPARSE_CHUNK_WORDS posting words (a query's words: its
+    largest shard's; a query larger than that is a chunk of its own)."""
     chunks, cur, words = [], [], 0
     for row in grows:
-        w = int(row[2].sum())
+        w = int(row[2].sum(axis=1).max())
         if cur and (len(cur) >= max_rows
                     or words + w > _SPARSE_CHUNK_WORDS):
             chunks.append(cur)
@@ -257,13 +268,14 @@ def _phrase_tf_route(dev: DeviceIndex, sig, tids, fkey, budget) -> bool:
     PHRASE_TF_MIN_HITS, registers the fill recipe and spends one unit of
     the per-call promotion budget; the wave's ensure_batch then fills the
     row with K5.  Evicted rows re-promote the same way on later hits."""
-    if sig in dev.tf_slot:
+    maps = dev.maps
+    if sig in maps.tf_slot:
         return True
-    h = dev.phrase_hits.get(sig, 0) + 1
-    dev.phrase_hits[sig] = h
+    h = maps.phrase_hits.get(sig, 0) + 1
+    maps.phrase_hits[sig] = h
     if h < dense.PHRASE_TF_MIN_HITS or budget[0] <= 0:
         return False
-    dev.phrase_recipes[sig] = (list(tids), fkey)
+    maps.phrase_recipes[sig] = (list(tids), fkey)
     budget[0] -= 1
     return True
 
@@ -271,7 +283,7 @@ def _phrase_tf_route(dev: DeviceIndex, sig, tids, fkey, budget) -> bool:
 def _ptf_budget(dev: DeviceIndex) -> list:
     """Phrase-tf promotions allowed in one call: at most half the tf pool
     holds phrase rows, so hot terms and a phrase flood cannot thrash."""
-    n_sigs = sum(1 for k_ in dev.tf_slot if isinstance(k_, tuple))
+    n_sigs = sum(1 for k_ in dev.maps.tf_slot if isinstance(k_, tuple))
     return [max(0, dense.tf_capacity(dev) // 2 - n_sigs)]
 
 
@@ -325,7 +337,7 @@ def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], slop: int,
     if not _phrase_tf_route(dev, sig, rec, fkey, _ptf_budget(dev)):
         return None
     dense.ensure_batch(dev, tf_tids=[sig])
-    slots = kernels_cuda.host_to_device(dense.tf_slots_of(dev, [sig]),
+    slots = kernels_cuda.host_to_device(dense.tf_slots_of(dev.maps, [sig]),
                                         dev.device)
     idfs = kernels_cuda.host_to_device(np.asarray([idf], np.float32),
                                        dev.device)
@@ -341,14 +353,82 @@ def _is_slop_phrase(tids, slop: int) -> bool:
             and all(t >= 0 for t in tids))
 
 
-def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
+class PlanView:
+    """What planning a batch reads, for the S shards that run the plan
+    (one DeviceIndex is the S = 1 case): the corpus's statistics, each
+    shard's posting slices and the slot maps the shards share.
+
+    * ``stats_docs``, ``doc_freqs``, ``avg_doc_length``: the corpus's
+      (every idf; the candidate engine's switch);
+    * ``stats_lengths``: the corpus's posting words per term (the phrase
+      chain's split, a slop phrase's anchor, a query with an empty term);
+    * ``term_span(t)[1]`` and ``local_lengths``: the largest shard's
+      posting words of a term (buckets, ``Kc``, chunk sizes);
+    * ``corpus_size``, ``pool_share``: the largest shard's doc count and
+      the largest share of a device (the slot maps'), so the pools'
+      capacities and the candidate buffer bound hold on every shard;
+    * ``offsets`` / ``lengths``: int64 [S, V], each shard's slices (a
+      plan's tables are their rows);
+    * ``maps``: the shards' shared ``SlotMaps``."""
+
+    def __init__(self, members: Sequence[DeviceIndex]):
+        self.members = list(members)
+        m0 = self.members[0]
+        if any(m.maps is not m0.maps for m in self.members):
+            raise ValueError("the shards of a plan share one slot map")
+        self.maps = m0.maps
+        self.blk_bits = m0.blk_bits
+        self.doc_freqs = m0.doc_freqs
+        self.avg_doc_length = m0.avg_doc_length
+        self.stats_docs = m0.stats_docs
+        self.stats_lengths = m0.stats_lengths
+        self.corpus_size = self.maps.corpus_size
+        self.pool_share = self.maps.pool_share
+        if len(self.members) == 1:
+            self.offsets = m0.postings.offsets[None]
+            self.lengths = m0.postings.lengths[None]
+            self.local_lengths = m0.postings.lengths
+        else:
+            self.offsets = np.stack([m.postings.offsets
+                                     for m in self.members])
+            self.lengths = np.stack([m.postings.lengths
+                                     for m in self.members])
+            self.local_lengths = self.lengths.max(axis=0)
+
+    def term_span(self, term_id: int):
+        """(0, the largest shard's words, their bucket): a term's routing
+        span (its slices are the rows of ``offsets`` / ``lengths``)."""
+        n = int(self.local_lengths[term_id])
+        return 0, n, K.bucket_of(max(1, n))
+
+    def tables(self, tids: Sequence[int]):
+        """Host int64 [S, T] offsets and lengths of ``tids`` on every
+        shard."""
+        return self.offsets[:, tids], self.lengths[:, tids]
+
+
+def _as_view(dev) -> PlanView:
+    return dev if isinstance(dev, PlanView) else PlanView([dev])
+
+
+_DENSE_KINDS = ("dterm", "dphrase", "dspan")
+_SPARSE_KINDS = ("term", "phrase", "span")
+_CAND_KINDS = ("cterm", "cphrase", "cspan")
+
+
+def _classify(dev, queries_tids: Sequence[Optional[List[int]]],
               kind: str, slop=0, top_k: Optional[int] = None,
               allow_candidates: bool = False):
     """Split queries into structure groups.
 
-    Returns a dict mapping a structural key to a list of (query_index,
-    offs[T], ns[T], idf, tids); queries with a missing term, no term or
-    an empty posting are in no group and score all-zero.  With the dense
+    ``dev`` is a DeviceIndex or a ``PlanView`` of shards; every rule
+    reads the corpus's statistics and the largest shard's slices, so the
+    groups hold for every shard.  Returns a dict mapping a structural key
+    to a list of (query_index, offs[S, T], ns[S, T], idf, tids): each
+    shard's posting slices of the row's terms (None for the pooled
+    ``dterm`` / ``dphrase`` / ``dspan`` groups, which read no slice);
+    queries with a missing term, no term or an empty posting are in no
+    group and score all-zero.  With the dense
     engine (corpus dense-eligible) term queries use pooled tf rows
     (``dterm``) and exact phrases the chain on pooled planes (``dphrase``,
     keyed by term count, plan and pattern), or, once repeated, their
@@ -365,8 +445,8 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     ``term``, keyed by posting bucket; phrases there, and phrases of more
     than CHAIN_MAX_TERMS terms (K5's cap) or more unique terms than the
     plane pool takes, are ``phrase`` (the sparse chain, keyed by term
-    count, plan and pattern; their rows hold the slices trimmed to the
-    rarest term's doc range) and never take a tf-pool slot.
+    count, plan and pattern; their rows hold each shard's slices trimmed
+    to its rarest term's doc range) and never take a tf-pool slot.
 
     With ``allow_candidates`` selective queries take the candidate-subset
     engine (search/candidates.py) first, in the JAX package's order: a
@@ -378,82 +458,89 @@ def _classify(dev: DeviceIndex, queries_tids: Sequence[Optional[List[int]]],
     query's Kc keeps it off the engine, and so (unlike the JAX package,
     whose chain takes any length) does a phrase of more than
     CHAIN_MAX_TERMS terms, which K5 does not take."""
-    dense_ok = dense.dense_eligible(dev)
+    view = _as_view(dev)
+    dense_ok = dense.dense_eligible(view)
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
-    ptf_budget = _ptf_budget(dev) if dense_ok else [0]
+    ptf_budget = _ptf_budget(view) if dense_ok else [0]
+    corpus_len, local_len = view.stats_lengths, view.local_lengths
     groups: dict = {}
     for qi, tids in enumerate(queries_tids):
         if tids is None or len(tids) == 0 or any(t < 0 for t in tids):
             continue
-        dfs = [int(dev.doc_freqs[t]) for t in tids]
-        idf = host_idf(kind, dfs, dev.stats_docs, dev.avg_doc_length)
-        spans = [dev.term_span(t) for t in tids]
-        lengths = [s[1] for s in spans]
+        dfs = [int(view.doc_freqs[t]) for t in tids]
+        idf = host_idf(kind, dfs, view.stats_docs, view.avg_doc_length)
+        if len(tids) > 1 and min(int(corpus_len[t]) for t in tids) == 0:
+            continue
+        cols = tids   # the terms of the row's slice tables
         if _is_slop_phrase(tids, slops[qi]):
-            if min(lengths) == 0:
-                continue
             sig = (tuple(tids), slops[qi])
-            row_tids, spans, fkey = _slop_structure(dev, tids, slops[qi])
-            lengths = [s[1] for s in spans]
+            row_tids, _, fkey = _slop_structure(view, tids, slops[qi])
+            cols = row_tids
+            lengths = [int(local_len[t]) for t in row_tids]
             if (allow_candidates
                     and dense_window_ok(len(tids), slops[qi], fkey[4])
-                    and C.eligible_phrase(dev, row_tids, top_k)):
+                    and C.eligible_phrase(view, row_tids, top_k)):
                 # the anchor (fewest words, so the smallest bucket) is the
                 # rows source: column 0
                 rb = K.expand_bucket_of(lengths[0])
                 gkey = (("cspan",) + fkey[1:]
-                        + (C.query_sources(dev, lengths), rb, rb, 0))
-            elif not takes_dense_span(dev, tids, slops[qi]):
+                        + (C.query_sources(view, lengths), rb, rb, 0))
+            elif not takes_dense_span(view, tids, slops[qi]):
                 gkey = ("span",) + fkey[1:]
-            elif _phrase_tf_route(dev, sig, row_tids, fkey, ptf_budget):
+            elif _phrase_tf_route(view, sig, row_tids, fkey, ptf_budget):
                 gkey, row_tids = ("dterm",), [sig]
             else:
                 gkey = ("dspan",) + fkey[1:]
         elif len(tids) == 1:
-            if (allow_candidates and lengths[0] > 0
-                    and C.eligible_term(dev, tids[0], top_k)):
-                bkt = K.expand_bucket_of(lengths[0])
+            n = int(local_len[tids[0]])
+            if (allow_candidates and n > 0
+                    and C.eligible_term(view, tids[0], top_k)):
+                bkt = K.expand_bucket_of(n)
                 gkey = ("cterm", bkt, bkt)
             elif dense_ok:
                 gkey = ("dterm",)
             else:
-                gkey = ("term", K.bucket_of(max(1, lengths[0])))
+                gkey = ("term", K.bucket_of(max(1, n)))
             row_tids = tids
         else:
-            if min(lengths) == 0:
-                continue
             sig = (tuple(tids), 0)
             if (allow_candidates and len(tids) <= CHAIN_MAX_TERMS
-                    and C.eligible_phrase(dev, tids, top_k)):
+                    and C.eligible_phrase(view, tids, top_k)):
                 # the chain splits at the rows source
-                rows_i = tids.index(C.rows_source(dev, tids))
+                rows_i = tids.index(C.rows_source(view, tids))
                 plan_key = tuple((d, tuple(ix))
                                  for d, ix in _plan(len(tids), rows_i))
                 pattern = tuple(tids.index(t) for t in tids)
+                lengths = [int(local_len[t]) for t in tids]
                 rb = K.expand_bucket_of(lengths[rows_i])
                 gkey, row_tids = ("cphrase", len(tids), plan_key, pattern,
-                                  C.query_sources(dev, lengths), rb, rb,
+                                  C.query_sources(view, lengths), rb, rb,
                                   rows_i), tids
             else:
                 # the plan splits at the rarest term by the untrimmed
                 # lengths
-                plan_key, pattern = chain_key(dev, tids)
-                if not (dense_ok and dense.phrase_fits_pool(dev, tids)):
-                    spans = trim_spans(dev, spans)  # rarest-term pre-slice
-                    lengths = [s[1] for s in spans]
+                plan_key, pattern = chain_key(view, tids)
+                if not (dense_ok and dense.phrase_fits_pool(view, tids)):
                     gkey, row_tids = ("phrase", len(tids), plan_key,
                                       pattern), tids
-                elif _phrase_tf_route(dev, sig, tids,
+                elif _phrase_tf_route(view, sig, tids,
                                       ("ph", len(tids), plan_key, pattern),
                                       ptf_budget):
                     gkey, row_tids = ("dterm",), [sig]
                 else:
                     gkey, row_tids = ("dphrase", len(tids), plan_key,
                                       pattern), tids
-        groups.setdefault(gkey, []).append(
-            (qi, np.asarray([s[0] for s in spans], np.int64),
-             np.asarray(lengths, np.int64), idf, row_tids))
+        offs = ns = None
+        if gkey[0] not in _DENSE_KINDS:
+            offs, ns = view.tables(cols)
+            if gkey[0] == "phrase":
+                # each shard's rarest-term pre-slice of its own slices
+                for d, m in enumerate(view.members):
+                    trimmed = trim_spans(m, list(zip(offs[d], ns[d])))
+                    offs[d] = [o for o, _ in trimmed]
+                    ns[d] = [n for _, n in trimmed]
+        groups.setdefault(gkey, []).append((qi, offs, ns, idf, row_tids))
     return groups
 
 
@@ -488,13 +575,395 @@ def dedup_queries(queries_tids: Sequence[Optional[List[int]]], slop):
     return uniq, uniq_slops, expand
 
 
+class BatchPlan:
+    """A batch planned once for every shard of a ``PlanView``: the
+    distinct queries (``Q``, the fan-out map ``expand``), the pool waves
+    (each a ``dense.Fill`` of the rows to fill and its group specs, their
+    pool slots assigned), the sparse specs and the runs their chains step
+    in, and ``out_qis``, the query of each output row a shard's groups
+    give, in launch order.  A spec holds its group key, its rows, its
+    idfs and its tables: pool slots (``slots``, the same on every shard)
+    or each shard's posting slices (``offs`` / ``ns``, int64 [S, rows]
+    or [S, rows, T])."""
+
+    def __init__(self, Q: int, expand: List[int]):
+        self.Q = Q
+        self.expand = expand
+        self.dedup = len(expand) != Q
+        self.waves: List[tuple] = []
+        self.sparse: List[dict] = []
+        self.phrase_runs: List[list] = []
+        self.fills: list = []
+        self.out_qis: List[int] = []
+        self.qis = np.zeros(0, np.int64)     # out_qis, uploaded by assemble
+        self.n_specs = 0
+        self.n_cand = 0
+
+
+def _chunk_specs(view: PlanView, groups: dict) -> List[dict]:
+    """Chunk every group into rectangular specs, bounded on the largest
+    shard."""
+    N = view.corpus_size
+    Npad = _npad(N)
+    NS = dense.plane_size(view)
+    cap_p = dense.plane_capacity(view)
+    cap_t = dense.tf_capacity(view)
+    maps = view.maps
+    specs: List[dict] = []
+    for gkey, grows in groups.items():
+        if gkey[0] in ("dphrase", "dspan"):
+            # the JAX package's bound on a phrase or slop group (a broadcast
+            # plane gather of ~2 GB there), and the chunk's terms must fit
+            # the plane pool beside one free slot
+            T = gkey[1]
+            max_chunk = max(1, min((1 << 29) // (T * max(1, NS)),
+                                   (cap_p - 1) // T))
+        elif gkey[0] == "dterm":
+            # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
+            # rows must fit the pool beside one free slot
+            max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
+        elif gkey[0] == "cterm":
+            max_chunk = C.chunk_rows(view, gkey[2])
+        elif gkey[0] in ("cphrase", "cspan"):
+            # the chunk's minis, and its pool-source terms beside one free
+            # plane slot
+            T, srcs, Kc = _cand_fields(gkey)
+            n_pool = sum(1 for x in srcs if x == "pool")
+            max_chunk = max(1, min(C.chunk_rows(view, Kc, T),
+                                   (cap_p - 1) // n_pool if n_pool
+                                   else 1 << 30))
+        elif gkey[0] == "term":
+            # bound by the flat segment-sum key space AND by sliced
+            # posting-bucket words
+            max_chunk = max(1, min(_MAX_FLAT // Npad,
+                                   _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
+        elif gkey[0] == "span":
+            # the flat key space, and the f32[Qg, Npad] sums at ~1 GB
+            max_chunk = max(1, min(_MAX_FLAT, 1 << 28) // Npad)
+        else:
+            # a split chain's halves take a row each of the key space;
+            # words: _phrase_chunks
+            max_chunk = max(1, _MAX_FLAT // Npad // 2)
+        if gkey[0] == "dterm":
+            # a row keyed by a phrase signature whose tf row is not yet
+            # filled pulls its terms' planes into the wave's fill: cut
+            # chunks so each one's distinct recipe planes fit beside one
+            # free slot (a wave cannot split a spec)
+            chunks, cur_rows, cur_planes = [], [], set()
+            for row in grows:
+                key_ = row[4][0]
+                p_t = (set(maps.phrase_recipes[key_][0])
+                       if isinstance(key_, tuple)
+                       and key_ not in maps.tf_slot else set())
+                if cur_rows and (len(cur_rows) >= max_chunk
+                                 or len(cur_planes | p_t) > cap_p - 1):
+                    chunks.append(cur_rows)
+                    cur_rows, cur_planes = [], set()
+                cur_rows.append(row)
+                cur_planes |= p_t
+            if cur_rows:
+                chunks.append(cur_rows)
+        elif gkey[0] in ("phrase", "span"):
+            chunks = _phrase_chunks(grows, max_chunk)
+        else:
+            chunks = [grows[c0: c0 + max_chunk]
+                      for c0 in range(0, len(grows), max_chunk)]
+        for chunk in chunks:
+            spec = {"gkey": gkey, "chunk": chunk,
+                    "idfs": np.asarray([r[3] for r in chunk], np.float32)}
+            if gkey[0] == "dterm":
+                spec["tf_tids"] = [r[4][0] for r in chunk]
+            elif gkey[0] in ("dphrase", "dspan"):
+                spec["plane_tids"] = [t for r in chunk for t in r[4]]
+            elif gkey[0] in ("cphrase", "cspan"):
+                # the pool-source terms' planes, pinned through the wave
+                T, srcs, _ = _cand_fields(gkey)
+                spec["plane_tids"] = [r[4][i] for r in chunk
+                                      for i in range(T) if srcs[i] == "pool"]
+            if gkey[0] in ("phrase", "span", "cphrase", "cspan"):
+                spec["offs"] = np.stack([r[1] for r in chunk], axis=1)
+                spec["ns"] = np.stack([r[2] for r in chunk], axis=1)
+            elif gkey[0] in ("term", "cterm"):
+                spec["offs"] = np.stack([r[1][:, 0] for r in chunk], axis=1)
+                spec["ns"] = np.stack([r[2][:, 0] for r in chunk], axis=1)
+            specs.append(spec)
+    return specs
+
+
+def _waves(view: PlanView, specs: List[dict]) -> List[List[dict]]:
+    """Partition the pool-reading specs into waves whose unique terms fit
+    the pools: a wave's plane and tf rows are pinned through its fill and
+    its group launches."""
+    maps = view.maps
+    cap_p = dense.plane_capacity(view)
+    cap_t = dense.tf_capacity(view)
+    waves: List[List[dict]] = []
+    cur: List[dict] = []
+    cur_p: set = set()
+    cur_t: set = set()
+    for s in specs:
+        if s["gkey"][0] in _SPARSE_KINDS:
+            continue
+        p_t = set(s.get("plane_tids", ()))
+        t_t = set(s.get("tf_tids", ()))
+        # a phrase signature whose row is not yet filled pulls its terms'
+        # planes into the wave's fill: count them against the plane pool
+        for key_ in t_t:
+            if isinstance(key_, tuple) and key_ not in maps.tf_slot:
+                p_t |= set(maps.phrase_recipes[key_][0])
+        if cur and (len(cur_p | p_t) > cap_p - 1
+                    or len(cur_t | t_t) > cap_t - 1):
+            waves.append(cur)
+            cur, cur_p, cur_t = [], set(), set()
+        cur.append(s)
+        cur_p |= p_t
+        cur_t |= t_t
+    if cur:
+        waves.append(cur)
+    return waves
+
+
+def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
+               kind: str = "bm25", top_k: Optional[int] = None, slop=0,
+               allow_candidates: bool = True, n_out: int = 1) -> BatchPlan:
+    """Plan a batch once for every shard of ``view``, on the host: the
+    dedup, ``_classify``, the chunking into specs, the wave partition and
+    each wave's pool slots, reserved on the shards' shared slot maps
+    (``dense.reserve``; a wave that cannot fit raises with no slot of
+    this plan left assigned).  ``n_out`` is the number of output columns
+    (no group when 0)."""
+    uniq, uniq_slops, expand = dedup_queries(queries_tids, slop)
+    plan = BatchPlan(len(uniq), expand)
+    # queries in no group (and every query of a corpus without tokens, or
+    # of an empty row set) keep the all-zero rows
+    groups = (_classify(view, uniq, kind, slop=uniq_slops, top_k=top_k,
+                        allow_candidates=allow_candidates)
+              if view.avg_doc_length and n_out else {})
+    specs = _chunk_specs(view, groups)
+    try:
+        for wave in _waves(view, specs):
+            fill = dense.reserve(
+                view.maps, [t for s in wave for t in s.get("plane_tids", ())],
+                [t for s in wave for t in s.get("tf_tids", ())])
+            plan.fills.append(fill)
+            for s in wave:
+                _slot_tables(view, s)
+                plan.out_qis += [r[0] for r in s["chunk"]]
+            plan.waves.append((fill, wave))
+    except BaseException:
+        dense.release(view.maps, plan.fills)
+        raise
+    plan.sparse = [s for s in specs if s["gkey"][0] in _SPARSE_KINDS]
+    plan.phrase_runs = _phrase_runs(
+        [s for s in plan.sparse if s["gkey"][0] == "phrase"],
+        view.corpus_size)
+    plan.out_qis += [r[0] for s in plan.sparse if s["gkey"][0] != "span"
+                     for r in s["chunk"]]
+    plan.out_qis += [r[0] for s in plan.sparse if s["gkey"][0] == "span"
+                     for r in s["chunk"]]
+    plan.qis = np.asarray(plan.out_qis, np.int64)
+    plan.n_specs = len(specs)
+    plan.n_cand = sum(1 for s in specs if s["gkey"][0] in _CAND_KINDS)
+    return plan
+
+
+def _slot_tables(view: PlanView, s: dict) -> None:
+    """A pool-reading spec's slots, read once its wave is reserved."""
+    gkey = s["gkey"]
+    if gkey[0] == "dterm":
+        s["slots"] = dense.tf_slots_of(view.maps, s["tf_tids"])
+    elif gkey[0] in ("dphrase", "dspan"):
+        s["slots"] = dense.plane_slots_of(view.maps, s["plane_tids"]).reshape(
+            len(s["chunk"]), gkey[1])
+    elif gkey[0] in ("cphrase", "cspan"):
+        T, srcs, _ = _cand_fields(gkey)
+        Qg = len(s["chunk"])
+        slots = np.full((Qg, T), -1, np.int64)
+        pool_is = [i for i in range(T) if srcs[i] == "pool"]
+        if pool_is:
+            slots[:, pool_is] = dense.plane_slots_of(
+                view.maps, s["plane_tids"]).reshape(Qg, len(pool_is))
+        s["slots"] = slots
+
+
+def _upload(device, uploads: Optional[dict], arr: np.ndarray):
+    """A plan's host table on ``device``: one pinned copy per device when
+    the shards on it share ``uploads``."""
+    if uploads is None:
+        return kernels_cuda.host_to_device(arr, device)
+    key = (id(arr), device)
+    t = uploads.get(key)
+    if t is None:
+        t = uploads[key] = kernels_cuda.host_to_device(arr, device)
+    return t
+
+
+def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
+             k1: float = 1.2, b: float = 0.75, top_k: Optional[int] = None,
+             rows=None, shard: int = 0, uploads: Optional[dict] = None,
+             launch: bool = True) -> List[torch.Tensor]:
+    """Run a plan on one shard ``dev`` (row ``shard`` of the plan's
+    tables): each wave's pool fills from its own slices, then the wave's
+    group launches; then the sparse groups.  Returns the groups' outputs
+    in the order of ``plan.out_qis``: f32 [Qg, n] scores, or with
+    ``top_k`` packed int32 [Qg, 2k].  With ``rows`` (an int32 device
+    tensor of the shard's doc ids) the scores are those docs'.  With
+    ``launch`` False only the fills run (a shard with no output column
+    keeps its pools in step with the others')."""
+    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
+    N = dev.corpus_size
+    outs: List[torch.Tensor] = []
+    for fill, wave in plan.waves:
+        dense.fill_rows(dev, fill)
+        if not launch:
+            continue
+        for s in wave:
+            idfs = _upload(dev.device, uploads, s["idfs"])
+            DISPATCHES[0] += 1
+            gkey = s["gkey"]
+            if gkey[0] == "dterm":
+                slots = _upload(dev.device, uploads, s["slots"])
+                outs.append(dense.term_group_body(kind, k1, b, top_k,
+                                                  dev.tf_pool, slots,
+                                                  dev.doc_lens, idfs, avgdl,
+                                                  rows=rows))
+            elif gkey[0] == "cterm":
+                CAND_GROUPS[0] += 1
+                crows, tf = kernels_cuda.cand_rows(
+                    dev.hdrs, dev.pays, s["offs"][shard], s["ns"][shard],
+                    gkey[2], num_docs=N, blk_bits=dev.blk_bits)
+                outs.append(C.finish_candidates(tf, crows, dev.doc_lens,
+                                                idfs, avgdl, kind, k1, b,
+                                                top_k, N))
+            elif gkey[0] in ("cphrase", "cspan"):
+                CAND_GROUPS[0] += 1
+                freqs, crows = C.candidate_freqs(
+                    dev, gkey, s["offs"][shard], s["ns"][shard], s["slots"])
+                outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
+                                                idfs, avgdl, kind, k1, b,
+                                                top_k, N))
+            elif gkey[0] == "dspan":
+                _, _, anchor_i, w, mults = gkey
+                outs.append(dense.span_group_body(
+                    dev, anchor_i, w, mults, kind, k1, b, top_k, s["slots"],
+                    idfs, avgdl, rows=rows))
+            else:
+                _, _, plan_key, pattern = gkey
+                outs.append(dense.phrase_group_body(
+                    dev, plan_key, pattern, kind, k1, b, top_k, s["slots"],
+                    idfs, avgdl, rows=rows))
+    if not launch:
+        return outs
+
+    def at_rows(out):
+        """A sparse group's full-corpus scores at the requested rows."""
+        return out if rows is None else out.index_select(1, rows)
+
+    # every sparse phrase group's chain first, stepped together
+    phrase_freqs = {}
+    for run in plan.phrase_runs:
+        phrase_freqs.update(zip(map(id, run),
+                                _phrase_run_freqs(dev, run, shard)))
+    span_outs: List[torch.Tensor] = []   # ranked together, after the rest
+    for s in plan.sparse:
+        gkey = s["gkey"]
+        offs, ns = s["offs"][shard], s["ns"][shard]
+        DISPATCHES[0] += 1
+        if gkey[0] == "phrase":
+            outs.append(at_rows(_phrase_scores(
+                phrase_freqs.pop(id(s)), kind, k1, b, top_k, dev.doc_lens,
+                avgdl, s["idfs"])))
+        elif gkey[0] == "span":
+            fn = _span_group_fn(dev, gkey[3], gkey[4], kind, k1, b)
+            span_outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens,
+                                        avgdl, offs, ns, s["idfs"])))
+        else:
+            fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
+                                top_k)
+            outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
+                                   offs, ns, s["idfs"])))
+    if span_outs:
+        # one K3 call ranks the rows of every span group (cut only where
+        # the stack would pass ~1 GB)
+        stack = torch.cat(span_outs)
+        del span_outs
+        if top_k is None:
+            outs.append(stack)
+        else:
+            step = max(1, (1 << 28) // max(1, N))
+            outs += [dense.pack_topk(stack[r0: r0 + step], top_k)
+                     for r0 in range(0, stack.shape[0], step)]
+        del stack
+    return outs
+
+
+def assemble(dev: DeviceIndex, plan: BatchPlan, outs: List[torch.Tensor],
+             n_out: int, top_k: Optional[int] = None, defer: bool = False,
+             as_device: bool = False, uploads: Optional[dict] = None):
+    """One shard's outputs of ``run_plan`` placed by query and fanned back
+    out to the batch's queries: f32[Q, n_out] on the device with
+    ``as_device``; else numpy, or with ``top_k`` (scores f32[Q, k],
+    indices int64[Q, k]), or with ``defer`` a zero-arg ``collect()``
+    whose packed result is being copied into pinned host memory."""
+    Q, out_qis = plan.Q, plan.out_qis
+    if as_device:
+        if len(outs) == 1 and out_qis == list(range(Q)):
+            out = outs[0]   # one group, in query order: nothing to place
+        else:
+            out = torch.zeros((Q, n_out), dtype=torch.float32,
+                              device=dev.device)
+            if outs:
+                out[_upload(dev.device, uploads, plan.qis)] = torch.cat(outs)
+        if plan.dedup:  # fan duplicate queries back out
+            out = out[kernels_cuda.host_to_device(
+                np.asarray(plan.expand, np.int64), dev.device)]
+        return out
+
+    if top_k is not None:
+        staged, event = None, None
+        if outs:
+            staged = torch.cat(outs)
+            if staged.device.type == "cuda":
+                # start the device-to-host copy now; collect() waits on it
+                packed_dev = staged
+                staged = torch.empty(packed_dev.shape, dtype=packed_dev.dtype,
+                                     pin_memory=True)
+                staged.copy_(packed_dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(packed_dev.device))
+        del outs
+
+        def collect():
+            scores = np.zeros((Q, top_k), np.float32)
+            idx = np.tile(np.arange(top_k, dtype=np.int64), (Q, 1))
+            if staged is not None:
+                if event is not None:
+                    event.synchronize()
+                packed = staged.numpy()
+                scores[out_qis] = packed[:, :top_k].view(np.float32)
+                idx[out_qis] = packed[:, top_k:]
+            if plan.dedup:  # fan duplicate queries back out
+                return scores[plan.expand], idx[plan.expand]
+            return scores, idx
+
+        return collect if defer else collect()
+
+    out_np = np.zeros((Q, n_out), np.float32)
+    if outs:
+        out_np[out_qis] = torch.cat(outs).cpu().numpy()
+    if plan.dedup:  # fan duplicate queries back out
+        out_np = out_np[plan.expand]
+    return out_np
+
+
 def score_batch_fused(dev: DeviceIndex,
                       queries_tids: Sequence[Optional[List[int]]],
                       kind: str = "bm25", k1: float = 1.2, b: float = 0.75,
                       top_k: Optional[int] = None, defer: bool = False,
                       slop=0, as_device: bool = False,
                       rows: Optional[np.ndarray] = None):
-    """Score a batch of resolved term-id queries, one launch per group.
+    """Score a batch of resolved term-id queries, one launch per group:
+    ``plan_batch`` on the index, ``run_plan`` on it, ``assemble``.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
     mark vocabulary misses, making the query score zero), or None; a list
@@ -524,12 +993,7 @@ def score_batch_fused(dev: DeviceIndex,
         raise ValueError("as_device and top_k are exclusive")
     if rows is not None and top_k is not None:
         raise ValueError("rows and top_k are exclusive")
-    uniq, uniq_slops, expand = dedup_queries(queries_tids, slop)
-    dedup = len(uniq) != len(queries_tids)
-
-    Q = len(uniq)
     N = dev.corpus_size
-    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     rows_t = None
     if rows is not None:
         rows = np.asarray(rows, dtype=np.int64)
@@ -539,264 +1003,12 @@ def score_batch_fused(dev: DeviceIndex,
         rows_t = kernels_cuda.host_to_device(rows.astype(np.int32),
                                              dev.device)
     n_out = N if rows is None else len(rows)
-    # queries in no group (and every query of a corpus without tokens, or
-    # of an empty row set) keep the all-zero rows
-    groups = (_classify(dev, uniq, kind, slop=uniq_slops, top_k=top_k,
-                        allow_candidates=rows is None)
-              if dev.avg_doc_length and n_out else {})
-
-    Npad = _npad(N)
-    NS = dense.plane_size(dev)
-    cap_p = dense.plane_capacity(dev)
-    cap_t = dense.tf_capacity(dev)
-
-    # chunk every group into rectangular specs
-    specs: List[dict] = []
-    for gkey, grows in groups.items():
-        if gkey[0] in ("dphrase", "dspan"):
-            # the JAX package's bound on a phrase or slop group (a broadcast
-            # plane gather of ~2 GB there), and the chunk's terms must fit
-            # the plane pool beside one free slot
-            T = gkey[1]
-            max_chunk = max(1, min((1 << 29) // (T * max(1, NS)),
-                                   (cap_p - 1) // T))
-        elif gkey[0] == "dterm":
-            # gathered tf stack is f32[Qg, N]: ~1 GB cap, and the chunk's
-            # rows must fit the pool beside one free slot
-            max_chunk = max(1, min((1 << 28) // max(1, N), cap_t - 1))
-        elif gkey[0] == "cterm":
-            max_chunk = C.chunk_rows(dev, gkey[2])
-        elif gkey[0] in ("cphrase", "cspan"):
-            # the chunk's minis, and its pool-source terms beside one free
-            # plane slot
-            T, srcs, Kc = _cand_fields(gkey)
-            n_pool = sum(1 for x in srcs if x == "pool")
-            max_chunk = max(1, min(C.chunk_rows(dev, Kc, T),
-                                   (cap_p - 1) // n_pool if n_pool
-                                   else 1 << 30))
-        elif gkey[0] == "term":
-            # bound by the flat segment-sum key space AND by sliced
-            # posting-bucket words
-            max_chunk = max(1, min(_MAX_FLAT // Npad,
-                                   _SPARSE_CHUNK_WORDS // max(1, gkey[1])))
-        elif gkey[0] == "span":
-            # the flat key space, and the f32[Qg, Npad] sums at ~1 GB
-            max_chunk = max(1, min(_MAX_FLAT, 1 << 28) // Npad)
-        else:
-            # a split chain's halves take a row each of the key space;
-            # words: _phrase_chunks
-            max_chunk = max(1, _MAX_FLAT // Npad // 2)
-        if gkey[0] == "dterm":
-            # a row keyed by a phrase signature whose tf row is not yet
-            # filled pulls its terms' planes into the wave's fill: cut
-            # chunks so each one's distinct recipe planes fit beside one
-            # free slot (a wave cannot split a spec)
-            chunks, cur_rows, cur_planes = [], [], set()
-            for row in grows:
-                key_ = row[4][0]
-                p_t = (set(dev.phrase_recipes[key_][0])
-                       if isinstance(key_, tuple)
-                       and key_ not in dev.tf_slot else set())
-                if cur_rows and (len(cur_rows) >= max_chunk
-                                 or len(cur_planes | p_t) > cap_p - 1):
-                    chunks.append(cur_rows)
-                    cur_rows, cur_planes = [], set()
-                cur_rows.append(row)
-                cur_planes |= p_t
-            if cur_rows:
-                chunks.append(cur_rows)
-        elif gkey[0] in ("phrase", "span"):
-            chunks = _phrase_chunks(grows, max_chunk)
-        else:
-            chunks = [grows[c0: c0 + max_chunk]
-                      for c0 in range(0, len(grows), max_chunk)]
-        for chunk in chunks:
-            spec = {"gkey": gkey, "chunk": chunk,
-                    "idfs": np.asarray([r[3] for r in chunk], np.float32)}
-            if gkey[0] == "dterm":
-                spec["tf_tids"] = [r[4][0] for r in chunk]
-            elif gkey[0] in ("dphrase", "dspan"):
-                spec["plane_tids"] = [t for r in chunk for t in r[4]]
-            elif gkey[0] in ("cphrase", "cspan"):
-                # the pool-source terms' planes, pinned through the wave
-                T, srcs, _ = _cand_fields(gkey)
-                spec["plane_tids"] = [r[4][i] for r in chunk
-                                      for i in range(T) if srcs[i] == "pool"]
-            elif gkey[0] in ("phrase", "span"):
-                spec["offs"] = np.stack([r[1] for r in chunk])
-                spec["ns"] = np.stack([r[2] for r in chunk])
-            else:  # term, cterm
-                spec["offs"] = np.asarray([r[1][0] for r in chunk], np.int64)
-                spec["ns"] = np.asarray([r[2][0] for r in chunk], np.int64)
-            specs.append(spec)
-
-    # partition the pool-reading specs into waves whose unique terms fit
-    # the pools: a wave's plane and tf rows are pinned through its fill and
-    # its group launches
-    waves: List[List[dict]] = []
-    cur: List[dict] = []
-    cur_p: set = set()
-    cur_t: set = set()
-    for s in specs:
-        if s["gkey"][0] in ("term", "phrase", "span"):
-            continue
-        p_t = set(s.get("plane_tids", ()))
-        t_t = set(s.get("tf_tids", ()))
-        # a phrase signature whose row is not yet filled pulls its terms'
-        # planes into the wave's fill: count them against the plane pool
-        for key_ in t_t:
-            if isinstance(key_, tuple) and key_ not in dev.tf_slot:
-                p_t |= set(dev.phrase_recipes[key_][0])
-        if cur and (len(cur_p | p_t) > cap_p - 1
-                    or len(cur_t | t_t) > cap_t - 1):
-            waves.append(cur)
-            cur, cur_p, cur_t = [], set(), set()
-        cur.append(s)
-        cur_p |= p_t
-        cur_t |= t_t
-    if cur:
-        waves.append(cur)
-
-    out_qis: List[int] = []       # query index of each output row
-    outs: List[torch.Tensor] = []
-    for wave in waves:
-        plane_tids = [t for s in wave for t in s.get("plane_tids", ())]
-        tf_tids = [t for s in wave for t in s.get("tf_tids", ())]
-        dense.ensure_batch(dev, plane_tids=plane_tids, tf_tids=tf_tids)
-        for s in wave:
-            idfs = kernels_cuda.host_to_device(s["idfs"], dev.device)
-            DISPATCHES[0] += 1
-            gkey = s["gkey"]
-            if gkey[0] == "dterm":
-                slots = kernels_cuda.host_to_device(
-                    dense.tf_slots_of(dev, s["tf_tids"]), dev.device)
-                outs.append(dense.term_group_body(kind, k1, b, top_k,
-                                                  dev.tf_pool, slots,
-                                                  dev.doc_lens, idfs, avgdl,
-                                                  rows=rows_t))
-            elif gkey[0] == "cterm":
-                CAND_GROUPS[0] += 1
-                crows, tf = kernels_cuda.cand_rows(
-                    dev.hdrs, dev.pays, s["offs"], s["ns"], gkey[2],
-                    num_docs=N, blk_bits=dev.blk_bits)
-                outs.append(C.finish_candidates(tf, crows, dev.doc_lens,
-                                                idfs, avgdl, kind, k1, b,
-                                                top_k, N))
-            elif gkey[0] in ("cphrase", "cspan"):
-                CAND_GROUPS[0] += 1
-                freqs, crows = C.candidate_freqs(dev, gkey, s["chunk"])
-                outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
-                                                idfs, avgdl, kind, k1, b,
-                                                top_k, N))
-            else:
-                slots = dense.plane_slots_of(dev, s["plane_tids"]).reshape(
-                    len(s["chunk"]), gkey[1])
-                if gkey[0] == "dspan":
-                    _, _, anchor_i, w, mults = gkey
-                    outs.append(dense.span_group_body(
-                        dev, anchor_i, w, mults, kind, k1, b, top_k, slots,
-                        idfs, avgdl, rows=rows_t))
-                else:
-                    _, _, plan_key, pattern = gkey
-                    outs.append(dense.phrase_group_body(
-                        dev, plan_key, pattern, kind, k1, b, top_k, slots,
-                        idfs, avgdl, rows=rows_t))
-            out_qis += [r[0] for r in s["chunk"]]
-
-    def at_rows(out):
-        """A sparse group's full-corpus scores at the requested rows."""
-        return out if rows_t is None else out.index_select(1, rows_t)
-
-    # every sparse phrase group's chain first, stepped together
-    phrase_specs = [s for s in specs if s["gkey"][0] == "phrase"]
-    phrase_freqs = dict(zip(map(id, phrase_specs),
-                            _phrase_specs_freqs(dev, phrase_specs)))
-    span_outs: List[torch.Tensor] = []   # ranked together, after the rest
-    span_qis: List[int] = []
-    for s in specs:
-        gkey = s["gkey"]
-        if gkey[0] not in ("term", "phrase", "span"):
-            continue
-        DISPATCHES[0] += 1
-        if gkey[0] == "phrase":
-            outs.append(at_rows(_phrase_scores(
-                phrase_freqs.pop(id(s)), kind, k1, b, top_k, dev.doc_lens,
-                avgdl, s["idfs"])))
-            out_qis += [r[0] for r in s["chunk"]]
-            continue
-        if gkey[0] == "span":
-            fn = _span_group_fn(dev, gkey[3], gkey[4], kind, k1, b)
-            span_outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens,
-                                        avgdl, s["offs"], s["ns"],
-                                        s["idfs"])))
-            span_qis += [r[0] for r in s["chunk"]]
-            continue
-        fn = _term_group_fn(dev, len(s["chunk"]), gkey[1], kind, k1, b,
-                            top_k)
-        outs.append(at_rows(fn(dev.hdrs, dev.pays, dev.doc_lens, avgdl,
-                               s["offs"], s["ns"], s["idfs"])))
-        out_qis += [r[0] for r in s["chunk"]]
-    if span_outs:
-        # one K3 call ranks the rows of every span group (cut only where
-        # the stack would pass ~1 GB)
-        stack = torch.cat(span_outs)
-        del span_outs
-        if top_k is None:
-            outs.append(stack)
-        else:
-            step = max(1, (1 << 28) // max(1, N))
-            outs += [dense.pack_topk(stack[r0: r0 + step], top_k)
-                     for r0 in range(0, stack.shape[0], step)]
-        del stack
-        out_qis += span_qis
-
-    if as_device:
-        if len(outs) == 1 and out_qis == list(range(Q)):
-            out = outs[0]   # one group, in query order: nothing to place
-        else:
-            out = torch.zeros((Q, n_out), dtype=torch.float32,
-                              device=dev.device)
-            if outs:
-                out[kernels_cuda.host_to_device(
-                    np.asarray(out_qis, np.int64), dev.device)] = torch.cat(
-                        outs)
-        if dedup:  # fan duplicate queries back out
-            out = out[kernels_cuda.host_to_device(
-                np.asarray(expand, np.int64), dev.device)]
-        return out
-
-    if top_k is not None:
-        staged, event = None, None
-        if outs:
-            staged = torch.cat(outs)
-            if staged.device.type == "cuda":
-                # start the device-to-host copy now; collect() waits on it
-                packed_dev = staged
-                staged = torch.empty(packed_dev.shape, dtype=packed_dev.dtype,
-                                     pin_memory=True)
-                staged.copy_(packed_dev, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(packed_dev.device))
-        del outs
-
-        def collect():
-            scores = np.zeros((Q, top_k), np.float32)
-            idx = np.tile(np.arange(top_k, dtype=np.int64), (Q, 1))
-            if staged is not None:
-                if event is not None:
-                    event.synchronize()
-                packed = staged.numpy()
-                scores[out_qis] = packed[:, :top_k].view(np.float32)
-                idx[out_qis] = packed[:, top_k:]
-            if dedup:  # fan duplicate queries back out
-                return scores[expand], idx[expand]
-            return scores, idx
-
-        return collect if defer else collect()
-
-    out_np = np.zeros((Q, n_out), np.float32)
-    if outs:
-        out_np[out_qis] = torch.cat(outs).cpu().numpy()
-    if dedup:  # fan duplicate queries back out
-        out_np = out_np[expand]
-    return out_np
+    plan = plan_batch(PlanView([dev]), queries_tids, kind, top_k=top_k,
+                      slop=slop, allow_candidates=rows is None, n_out=n_out)
+    try:
+        outs = run_plan(dev, plan, kind, k1, b, top_k=top_k, rows=rows_t)
+    except BaseException:
+        dense.release(dev.maps, plan.fills)
+        raise
+    return assemble(dev, plan, outs, n_out, top_k=top_k, defer=defer,
+                    as_device=as_device)

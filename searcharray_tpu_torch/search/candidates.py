@@ -92,28 +92,29 @@ def query_sources(dev: DeviceIndex, lens: Sequence[int]) -> tuple:
     return tuple("pool" if s == "pool" else mini_max for s in raw)
 
 
+# The switch reads the corpus's doc count (``stats_docs``) and the buffer
+# bound the largest shard's (``corpus_size``: a PlanView's is its largest
+# shard's; one index's is the corpus's), as the JAX sharded module does.
 def eligible_term(dev: DeviceIndex, tid: int, top_k: Optional[int]) -> bool:
-    N = dev.corpus_size
-    if N < CAND_TERM_MIN_DOCS:
+    if dev.stats_docs < CAND_TERM_MIN_DOCS:
         return False
     kc = kc_bucket(dev, tid)
     if top_k is not None and top_k > kc:
         return False
-    return kc * CAND_MAX_FRAC <= N
+    return kc * CAND_MAX_FRAC <= dev.corpus_size
 
 
 def eligible_phrase(dev: DeviceIndex, tids: Sequence[int],
                     top_k: Optional[int]) -> bool:
     from searcharray_tpu_torch.search import dense
 
-    N = dev.corpus_size
-    if N < CAND_MIN_DOCS:
+    if dev.stats_docs < CAND_MIN_DOCS:
         return False
     rarest = rows_source(dev, tids)
     kc = kc_bucket(dev, rarest)
     if top_k is not None and top_k > kc:
         return False
-    if kc * CAND_MAX_FRAC > N:
+    if kc * CAND_MAX_FRAC > dev.corpus_size:
         return False
     # pool-source terms need pooled planes (and the pool must hold them);
     # mini-source terms need nothing
@@ -168,34 +169,28 @@ def finish_candidates(freqs: torch.Tensor, rows: torch.Tensor, doc_lens,
     return torch.cat([v.view(torch.int32), real], dim=1)
 
 
-def candidate_freqs(dev: DeviceIndex, gkey: tuple, chunk) -> tuple:
+def candidate_freqs(dev: DeviceIndex, gkey: tuple, offs, ns,
+                    slots) -> tuple:
     """(freqs f32 [Qg, Kc], rows int32 [Qg, Kc]) of one chunk of a
     ``cphrase`` or ``cspan`` group: one K8a launch compacts each query's
     rows-source slice, one K8b launch builds every mini (pooled planes
     for pool-source terms, which the caller made resident, own slices for
     the rest), then one K5 (exact) or K6 (slop) launch on the minis.
-    ``chunk`` rows are (qi, offs[T], ns[T], idf, tids)."""
-    from searcharray_tpu_torch.search import dense
-
+    ``offs`` / ``ns`` are the host int [Qg, T] posting slices of the
+    chunk's terms on ``dev``, ``slots`` the host int [Qg, T] plane slots
+    of its pool-source terms (-1 for the others)."""
     if gkey[0] == "cphrase":
         _, T, plan_key, pattern, srcs, Kc, _rb, rows_i = gkey
     else:
         _, T, _ai, w, mults, srcs, Kc, _rb, rows_i = gkey
-    offs = np.stack([r[1] for r in chunk])
-    ns = np.stack([r[2] for r in chunk])
     rows, _ = kernels_cuda.cand_rows(
         dev.hdrs, dev.pays, offs[:, rows_i], ns[:, rows_i], Kc,
         num_docs=dev.corpus_size, blk_bits=dev.blk_bits, with_tf=False)
-    slots = np.full(offs.shape, -1, np.int64)
-    pool_is = [i for i in range(T) if srcs[i] == "pool"]
-    if pool_is:
-        slots[:, pool_is] = dense.plane_slots_of(
-            dev, [r[4][i] for r in chunk for i in pool_is]).reshape(
-                len(chunk), len(pool_is))
     minis = kernels_cuda.cand_minis(
         rows, slots, offs, ns, pool=dev.plane_pool, hdrs=dev.hdrs,
         pays=dev.pays, num_docs=dev.corpus_size, blk_bits=dev.blk_bits)
-    mslots = np.arange(len(chunk) * T).reshape(len(chunk), T)
+    Qg = offs.shape[0]
+    mslots = np.arange(Qg * T).reshape(Qg, T)
     if gkey[0] == "cphrase":
         freqs = kernels_cuda.phrase_chain(minis, mslots, plan_key, pattern,
                                           num_docs=Kc, blk_bits=dev.blk_bits)

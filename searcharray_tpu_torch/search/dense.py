@@ -21,10 +21,13 @@ term more than twice) is K6 (``span_window``) on the same planes: window
 starts that hold every term often enough, dilated back over the anchor
 term's positions.  Every ranked result is K3 (``topk``), packed by
 ``pack_topk``.
-Both pools keep term -> slot maps on the host (LRU eviction).  A batch's
-missing rows are filled by one K4 launch (all plane rows), one multi-row
-K1 launch (all term tf rows) and one K5 or K6 launch per phrase-row
-recipe, all written straight into their pool rows.  A repeated phrase's freq row is
+Both pools keep key -> slot maps on the host (LRU eviction; ``SlotMaps``,
+shared by the shards of one query part of a ``ShardedIndex``, so a key
+has one row on all of them).  A batch's missing rows are reserved on the
+maps (``reserve``, host only) and filled on each index from its own
+slices (``fill_rows``): one K4 launch (all plane rows), one multi-row K1
+launch (all term tf rows) and one K5 or K6 launch per phrase-row recipe,
+all written straight into their pool rows.  A repeated phrase's freq row is
 cached in the tf pool like a term's (the phrase-tf cache): it then scores
 as one row gather.  Launches are stream-ordered, so a row is filled
 before any later read of it and read before any later launch refills its
@@ -44,7 +47,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from searcharray_tpu_torch.index.device import DeviceIndex
+from searcharray_tpu_torch.index.device import DeviceIndex, SlotMaps
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS
@@ -75,8 +78,12 @@ def dense_eligible(dev: DeviceIndex) -> bool:
     return 0 < plane_size(dev) * 4 <= DENSE_TERM_BYTES_LIMIT
 
 
-# Shards that share a device (``DeviceIndex.pool_share``) divide each
-# budget between them, so the card holds what one index would.
+# A pool's capacity reads the ``corpus_size``, ``blk_bits`` and
+# ``pool_share`` of what it sizes: a DeviceIndex, the SlotMaps of the
+# indexes that share one pool row per key, or a plan's view of them (all
+# three carry the largest member's).  Shards that share a device
+# (``pool_share``) divide each budget between them, so the card holds
+# what one index would.
 def plane_capacity(dev: DeviceIndex) -> int:
     per = max(1, plane_size(dev) * 4)
     budget = PLANE_POOL_BYTES // dev.pool_share
@@ -97,22 +104,35 @@ def phrase_fits_pool(dev: DeviceIndex, tids: Sequence[int]) -> bool:
             and len(set(tids)) <= plane_capacity(dev) - 1)
 
 
-# Pools are allocated lazily per kind: a term-only workload does not pay
-# the multi-GB plane pool, nor a phrase-only one the tf pool.
-def _init_plane_pool(dev: DeviceIndex) -> None:
-    if dev.plane_pool is None:
-        C = plane_capacity(dev)
-        dev.plane_pool = torch.zeros((C, plane_size(dev)), dtype=torch.int32,
-                                     device=dev.device)
-        dev.plane_free = list(range(C - 1, -1, -1))
+# Pools start lazily per kind: a term-only workload does not pay the
+# multi-GB plane pool, nor a phrase-only one the tf pool.  A pool starts
+# on its slot maps when a reservation first needs it (its capacity and a
+# free list of every slot), and each index sharing the maps allocates its
+# tensor at that capacity at its first fill, so the shards of one slot map
+# keep equal pools.
+def _start(maps: SlotMaps, kind: str) -> None:
+    """Start ``kind``'s pool ("plane" or "tf") on ``maps`` unless it has
+    started."""
+    if getattr(maps, kind + "_cap") == 0:
+        cap = plane_capacity(maps) if kind == "plane" else tf_capacity(maps)
+        setattr(maps, kind + "_cap", cap)
+        setattr(maps, kind + "_free", list(range(cap - 1, -1, -1)))
 
 
-def _init_tf_pool(dev: DeviceIndex) -> None:
-    if dev.tf_pool is None:
-        Ct = tf_capacity(dev)
-        dev.tf_pool = torch.zeros((Ct, dev.corpus_size), dtype=torch.float32,
-                                  device=dev.device)
-        dev.tf_free = list(range(Ct - 1, -1, -1))
+def _pool_tensor(dev: DeviceIndex, kind: str) -> torch.Tensor:
+    """``dev``'s ``kind`` pool, allocated (zeros) at its maps' capacity on
+    first use."""
+    pool = getattr(dev, kind + "_pool")
+    if pool is None:
+        cap = getattr(dev.maps, kind + "_cap")
+        if kind == "plane":
+            pool = torch.zeros((cap, plane_size(dev)), dtype=torch.int32,
+                               device=dev.device)
+        else:
+            pool = torch.zeros((cap, dev.corpus_size), dtype=torch.float32,
+                               device=dev.device)
+        setattr(dev, kind + "_pool", pool)
+    return pool
 
 
 def _check_fits(slot_map, free: list, pin: set, tids: Sequence) -> None:
@@ -144,85 +164,115 @@ def _alloc_slots(slot_map, free: list, pin: set, tids: Sequence):
     return new
 
 
-def _release_slots(slot_map, free: list, new) -> None:
-    """Undo ``_alloc_slots``: unmap the newly assigned keys and free their
-    slots (the rows they evicted stay evicted)."""
-    for key, slot in new:
-        del slot_map[key]
-        free.append(slot)
+class Fill:
+    """The rows one reservation assigned, for every index that shares the
+    slot maps to fill from its own posting slices: ``planes`` and
+    ``terms`` are (term, slot) pairs, ``recipes`` maps a phrase row's fill
+    key to its (plane slots int32[T], tf slot) rows; ``planes`` and
+    ``new_t`` are every key newly mapped (``release`` undoes them)."""
+
+    __slots__ = ("planes", "terms", "recipes", "new_t")
+
+    def __init__(self, planes, terms, recipes, new_t):
+        self.planes, self.terms, self.recipes = planes, terms, recipes
+        self.new_t = new_t
+
+
+def reserve(maps: SlotMaps, plane_tids: Sequence[int] = (),
+            tf_tids: Sequence = ()) -> Fill:
+    """Assign pool slots, on ``maps``, to every requested term plane and
+    tf row that is not resident, evicting none of the requested rows;
+    host only.
+
+    ``tf_tids`` entries may be phrase signatures ((tids, slop) tuples)
+    promoted into the phrase-tf cache (``phrase_recipes`` holds each
+    one's terms and chain structure): a missing one pulls its terms'
+    planes into the same reservation, to be filled by K5 (an exact
+    phrase) or K6 (a slop phrase) from them.  Both pools are checked
+    before either assigns a slot, so a request that cannot fit raises
+    with the maps untouched."""
+    miss_sigs = [t for t in dict.fromkeys(tf_tids)
+                 if isinstance(t, tuple) and t not in maps.tf_slot]
+    plane_tids = list(plane_tids) + [t for s in miss_sigs
+                                     for t in maps.phrase_recipes[s][0]]
+    pin_p, pin_t = set(plane_tids), set(tf_tids)
+    if plane_tids:
+        _start(maps, "plane")
+        _check_fits(maps.plane_slot, maps.plane_free, pin_p, plane_tids)
+    if tf_tids:
+        _start(maps, "tf")
+        _check_fits(maps.tf_slot, maps.tf_free, pin_t, tf_tids)
+    new_p = _alloc_slots(maps.plane_slot, maps.plane_free, pin_p, plane_tids)
+    new_t = _alloc_slots(maps.tf_slot, maps.tf_free, pin_t, tf_tids)
+    terms, recipes = [], {}
+    for key, slot in new_t:
+        if isinstance(key, tuple):
+            tids, fkey = maps.phrase_recipes[key]
+            recipes.setdefault(fkey, []).append(
+                (plane_slots_of(maps, tids), slot))
+        else:
+            terms.append((key, slot))
+    return Fill(new_p, terms, recipes, new_t)
+
+
+def release(maps, fills: Sequence[Fill]) -> None:
+    """Unmap every key the reservations ``fills`` assigned and free its
+    slot (the rows they evicted stay evicted), so no key is left on a row
+    that was not filled for it."""
+    for fill in fills:
+        for slot_map, free, new in ((maps.plane_slot, maps.plane_free,
+                                     fill.planes),
+                                    (maps.tf_slot, maps.tf_free,
+                                     fill.new_t)):
+            for key, _ in new:
+                if key in slot_map:
+                    free.append(slot_map.pop(key))
 
 
 def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
                  tf_tids: Sequence = ()) -> None:
-    """Make every requested term's plane and tf vector pool-resident,
-    evicting none of the requested rows.
-
-    ``tf_tids`` entries may be phrase signatures ((tids, slop) tuples)
-    promoted into the phrase-tf cache (``dev.phrase_recipes`` holds each
-    one's terms and chain structure): a missing one pulls its terms'
-    planes into the same call and is filled by K5 (an exact phrase) or
-    K6 (a slop phrase) from them.  Both pools
-    are checked before either assigns a slot, so a request that cannot
-    fit raises with the pools untouched, and a fill that raises unmaps
-    every slot this call assigned: no key is ever left on a row that was
-    not filled for it.  Fills: one K4 launch for all missing planes, one
-    multi-row K1 launch for all missing term tf rows, one K5 or K6 launch
-    per structure of the missing phrase rows."""
-    miss_sigs = [t for t in dict.fromkeys(tf_tids)
-                 if isinstance(t, tuple) and t not in dev.tf_slot]
-    plane_tids = list(plane_tids) + [t for s in miss_sigs
-                                     for t in dev.phrase_recipes[s][0]]
-    pin_p, pin_t = set(plane_tids), set(tf_tids)
-    if plane_tids:
-        _init_plane_pool(dev)
-        _check_fits(dev.plane_slot, dev.plane_free, pin_p, plane_tids)
-    if tf_tids:
-        _init_tf_pool(dev)
-        _check_fits(dev.tf_slot, dev.tf_free, pin_t, tf_tids)
-    new_p = _alloc_slots(dev.plane_slot, dev.plane_free, pin_p, plane_tids)
-    new_t = _alloc_slots(dev.tf_slot, dev.tf_free, pin_t, tf_tids)
+    """Make every requested term's plane and tf vector (or promoted
+    phrase's row) pool-resident on one index: ``reserve`` then
+    ``fill_rows``.  A fill that raises unmaps every slot this call
+    assigned."""
+    fill = reserve(dev.maps, plane_tids, tf_tids)
     try:
-        _fill_rows(dev, new_p, new_t)
+        fill_rows(dev, fill)
     except BaseException:
-        _release_slots(dev.plane_slot, dev.plane_free, new_p)
-        _release_slots(dev.tf_slot, dev.tf_free, new_t)
+        release(dev.maps, [fill])
         raise
 
 
-def _fill_rows(dev: DeviceIndex, new_p, new_t) -> None:
-    """Fill the newly assigned plane rows (one K4 launch), term tf rows
-    (one multi-row K1 launch) and phrase tf rows (one K5 launch per chain
-    structure of the exact phrases, ``"ph"`` recipes, and one K6 launch
-    per (terms, anchor, window, multiplicities) of the slop phrases,
-    ``"phs"`` recipes)."""
-    if new_p:
-        spans = [dev.term_span(t)[:2] for t, _ in new_p]
+def fill_rows(dev: DeviceIndex, fill: Fill) -> None:
+    """Fill one index's rows of a reservation from its own posting slices:
+    the plane rows (one K4 launch), the term tf rows (one multi-row K1
+    launch) and the phrase tf rows (one K5 launch per chain structure of
+    the exact phrases, ``"ph"`` recipes, and one K6 launch per (terms,
+    anchor, window, multiplicities) of the slop phrases, ``"phs"``
+    recipes).  A term absent from the index fills a zero row."""
+    if fill.planes:
+        pool = _pool_tensor(dev, "plane")
+        spans = [dev.term_span(t)[:2] for t, _ in fill.planes]
         DISPATCHES[0] += 1
         kernels_cuda.plane_fill(dev.hdrs, dev.pays, [o for o, _ in spans],
                                 [n for _, n in spans],
-                                [s for _, s in new_p], dev.plane_pool)
-    by_recipe: dict = {}
-    term_rows = []
-    for key, slot in new_t:
-        if isinstance(key, tuple):
-            tids, fkey = dev.phrase_recipes[key]
-            by_recipe.setdefault(fkey, []).append((tids, slot))
-        else:
-            term_rows.append((dev.term_span(key)[:2], slot))
-    if term_rows:
+                                [s for _, s in fill.planes], pool)
+    if fill.terms or fill.recipes:
+        tf_pool = _pool_tensor(dev, "tf")
+    if fill.terms:
+        spans = [dev.term_span(t)[:2] for t, _ in fill.terms]
         DISPATCHES[0] += 1
         kernels_cuda.score_term_rows(
-            dev.hdrs, dev.pays, [o for (o, _), _ in term_rows],
-            [n for (_, n), _ in term_rows], dev.tf_pool,
-            [slot for _, slot in term_rows], num_docs=dev.corpus_size,
-            blk_bits=dev.blk_bits)
+            dev.hdrs, dev.pays, [o for o, _ in spans], [n for _, n in spans],
+            tf_pool, [slot for _, slot in fill.terms],
+            num_docs=dev.corpus_size, blk_bits=dev.blk_bits)
     # the planes above are filled first: stream order puts these reads
     # after the K4 launch that wrote them
-    for fkey, rows in by_recipe.items():
+    for fkey, rows in fill.recipes.items():
         DISPATCHES[0] += 1
-        slots = [plane_slots_of(dev, tids) for tids, _ in rows]
+        slots = [slots for slots, _ in rows]
         into = dict(num_docs=dev.corpus_size, blk_bits=dev.blk_bits,
-                    out=dev.tf_pool, out_rows=[slot for _, slot in rows])
+                    out=tf_pool, out_rows=[slot for _, slot in rows])
         if fkey[0] == "ph":
             _, _, plan_key, pattern = fkey
             kernels_cuda.phrase_chain(dev.plane_pool, slots, plan_key,
@@ -254,12 +304,12 @@ def _term_tf_k1(dev: DeviceIndex, term_id: int) -> torch.Tensor:
                                    blk_bits=dev.blk_bits, kind="none")
 
 
-def plane_slots_of(dev: DeviceIndex, tids: Sequence[int]) -> np.ndarray:
-    return np.asarray([dev.plane_slot[t] for t in tids], np.int32)
+def plane_slots_of(maps: SlotMaps, tids: Sequence[int]) -> np.ndarray:
+    return np.asarray([maps.plane_slot[t] for t in tids], np.int32)
 
 
-def tf_slots_of(dev: DeviceIndex, tids: Sequence) -> np.ndarray:
-    return np.asarray([dev.tf_slot[t] for t in tids], np.int64)
+def tf_slots_of(maps: SlotMaps, tids: Sequence) -> np.ndarray:
+    return np.asarray([maps.tf_slot[t] for t in tids], np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +334,7 @@ def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
     (`searcharray/phrase/middle_out.py:322-328`)."""
     if dense_eligible(dev):
         ensure_tfs(dev, [term_id])
-        return dev.tf_pool[dev.tf_slot[term_id]]
+        return dev.tf_pool[dev.maps.tf_slot[term_id]]
     cache = dev.tf_cache  # dict fallback for pool-ineligible corpora
     arr = cache.get(term_id)
     if arr is None:
@@ -357,7 +407,7 @@ def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
     the similarity."""
     ensure_planes(dev, term_ids)
     freqs = kernels_cuda.phrase_chain(
-        dev.plane_pool, [plane_slots_of(dev, term_ids)], plan, pattern,
+        dev.plane_pool, [plane_slots_of(dev.maps, term_ids)], plan, pattern,
         num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
@@ -391,7 +441,7 @@ def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,
     ensure_planes(dev, uniq_tids)
     mults = (1,) * len(uniq_tids) if mults is None else tuple(mults)
     freqs = kernels_cuda.span_window(
-        dev.plane_pool, [plane_slots_of(dev, uniq_tids)], w, mults,
+        dev.plane_pool, [plane_slots_of(dev.maps, uniq_tids)], w, mults,
         anchor=anchor_i, num_docs=dev.corpus_size,
         blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))

@@ -43,9 +43,10 @@ def _plan(n: int, split: int):
 
 def chain_key(dev: DeviceIndex, term_ids: List[int]):
     """(plan key, pattern) of a phrase: the plan split at the rarest term
-    (fewest posting words), and each term's first index as its same-term
-    tag."""
-    lengths = [dev.term_span(t)[1] for t in term_ids]
+    (fewest posting words in the corpus, ``stats_lengths``: every shard
+    splits a phrase where the whole index would), and each term's first
+    index as its same-term tag."""
+    lengths = [int(dev.stats_lengths[t]) for t in term_ids]
     plan = _plan(len(term_ids), int(np.argmin(lengths)))
     return (tuple((d, tuple(ix)) for d, ix in plan),
             tuple(term_ids.index(t) for t in term_ids))

@@ -55,8 +55,8 @@ def hbm_report(index=None) -> Dict[str, int]:
         # serving pools: the largest allocations an operator sees (the
         # plane pool's budget alone is gigabytes); residency beside them
         for pool, slot_map, label in (
-            (dev.plane_pool, dev.plane_slot, "plane_pool"),
-            (dev.tf_pool, dev.tf_slot, "tf_pool"),
+            (dev.plane_pool, dev.maps.plane_slot, "plane_pool"),
+            (dev.tf_pool, dev.maps.tf_slot, "tf_pool"),
         ):
             if pool is not None:
                 report[f"pool.{label}"] = pool.numel() * pool.element_size()

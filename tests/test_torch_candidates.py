@@ -253,7 +253,7 @@ def clear_hits(*devs):
 def test_routing_matches_jax(pair, forced, slop):
     jarr, tarr = pair
     tids = resolve(tarr, QUERIES)
-    clear_hits(jarr.dev, tarr.dev)
+    clear_hits(jarr.dev, tarr.dev.maps)
     jg, _zero, jfb = jbatch._classify(jarr.dev, tids, "bm25",
                                       allow_candidates=True, slop=slop)
     tg = batch._classify(tarr.dev, tids, "bm25", slop=slop,
@@ -271,7 +271,7 @@ def test_routing_matches_jax(pair, forced, slop):
     jg, _, _ = jbatch._classify(jarr.dev, [ptid], "bm25", slop=slop,
                                 allow_candidates=True, top_k=1 << 20)
     assert kinds(tg) == kinds(jg) and kinds(tg)[0][0] == "d"
-    clear_hits(jarr.dev, tarr.dev)
+    clear_hits(jarr.dev, tarr.dev.maps)
 
 
 def test_routing_unforced_and_before_promotion(pair):
@@ -281,14 +281,14 @@ def test_routing_unforced_and_before_promotion(pair):
     jarr, tarr = pair
     tids = resolve(tarr, QUERIES)
     for slop in (0, 2):
-        clear_hits(jarr.dev, tarr.dev)
+        clear_hits(jarr.dev, tarr.dev.maps)
         jg, _, jfb = jbatch._classify(jarr.dev, tids, "bm25",
                                       allow_candidates=True, slop=slop)
         tg = batch._classify(tarr.dev, tids, "bm25", slop=slop,
                              allow_candidates=True)
         assert kinds(tg) == kinds(jg, jfb)
         assert not any(isinstance(k, tuple) for k in kinds(tg).values())
-    clear_hits(jarr.dev, tarr.dev)
+    clear_hits(jarr.dev, tarr.dev.maps)
     mp = pytest.MonkeyPatch()
     try:
         for mod in (jcand, cand):
@@ -300,13 +300,13 @@ def test_routing_unforced_and_before_promotion(pair):
             jg, _, _ = jbatch._classify(jarr.dev, [tids[2]], "bm25",
                                         allow_candidates=True)
             assert kinds(tg) == kinds(jg) and kinds(tg)[0][0] == "cphrase"
-        assert not tarr.dev.phrase_hits and not jarr.dev.phrase_hits
+        assert not tarr.dev.maps.phrase_hits and not jarr.dev.phrase_hits
         # terms keep their own threshold
         assert batch._classify(tarr.dev, [tids[0]], "bm25",
                                allow_candidates=True).keys() == {("dterm",)}
     finally:
         mp.undo()
-    clear_hits(jarr.dev, tarr.dev)
+    clear_hits(jarr.dev, tarr.dev.maps)
 
 
 BETWEEN_DOCS = (1 << 16) + 1000   # past the JAX package's term threshold
@@ -539,7 +539,7 @@ def test_rows_on_a_cached_phrase_row(pair):
         tarr.score_batch(q)
         jarr.score_batch(q)
     sig = (tuple(tarr._resolve_tids(q[0])), 0)
-    assert sig in tarr.dev.tf_slot and sig in jarr.dev.tf_slot
+    assert sig in tarr.dev.maps.tf_slot and sig in jarr.dev.tf_slot
     rows = rows_of(tarr, 5)
     got = tarr.score_batch_device(q, rows=rows)
     want = np.asarray(jarr.score_batch_device(q, rows=rows))

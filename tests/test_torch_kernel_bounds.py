@@ -320,7 +320,7 @@ def test_pool_fill_of_a_wave_matches_jax(pair):
     dense.ensure_tfs(tarr.dev, tids)
     for t in tids:
         want = np.asarray(jarr.dev.tf_pool[jarr.dev.tf_slot[t]])
-        got = tarr.dev.tf_pool[tarr.dev.tf_slot[t]].numpy()
+        got = tarr.dev.tf_pool[tarr.dev.maps.tf_slot[t]].numpy()
         np.testing.assert_array_equal(got, want)
 
 

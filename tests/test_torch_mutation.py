@@ -161,7 +161,7 @@ def test_a_mutation_after_the_pools_filled_reads_no_stale_row():
         tarr.score_batch(batch, top_k=5, slop=slops)
         jarr.score_batch(batch, top_k=5, slop=slops)
     dev = tarr.dev
-    assert dev.tf_slot and dev.plane_slot and dev.phrase_recipes
+    assert dev.maps.tf_slot and dev.maps.plane_slot and dev.maps.phrase_recipes
     rows = [1, 2, 3, 40, 41]
     assign((jarr, tarr), rows, [1, 1, 1, 0, 2])
     assert tarr._state.dev is None   # the pools went with the old copy

@@ -61,7 +61,7 @@ def test_plane_rows_match_jax_pool(pair):
     dense.ensure_planes(tarr.dev, tids)
     for t in tids:
         want = np.asarray(jarr.dev.plane_pool[jarr.dev.plane_slot[t]])
-        got = tarr.dev.plane_pool[tarr.dev.plane_slot[t]].numpy()
+        got = tarr.dev.plane_pool[tarr.dev.maps.plane_slot[t]].numpy()
         np.testing.assert_array_equal(got, want.view(np.int32))
 
 
@@ -208,10 +208,10 @@ def test_phrase_tf_cache_promotes_on_second_hit():
         np.testing.assert_allclose(runs[-1], jarr.score_batch(qs),
                                    rtol=1e-6, atol=1e-7)
         if len(runs) == 1:
-            assert not sigs(tarr.dev)
+            assert not sigs(tarr.dev.maps)
     want = {((tuple(tarr.term_dict.get_term_id(t) for t in q)), 0)
             for q in qs[:2]}
-    assert sigs(tarr.dev) == want == sigs(jarr.dev)
+    assert sigs(tarr.dev.maps) == want == sigs(jarr.dev)
     np.testing.assert_array_equal(runs[1], runs[0])
     np.testing.assert_array_equal(runs[2], runs[0])
     # the third call reads the cached rows: one dterm group, no fill
@@ -244,7 +244,7 @@ def test_plane_pool_exhaustion_raises_like_jax(monkeypatch):
         jdense.ensure_planes(jarr.dev, tids)
     with pytest.raises(RuntimeError, match="exhausted"):
         dense.ensure_planes(tarr.dev, tids)
-    assert len(tarr.dev.plane_slot) == 0  # nothing assigned, nothing stale
+    assert len(tarr.dev.maps.plane_slot) == 0  # nothing assigned, nothing stale
     # phrases whose terms together overflow the pool split into waves
     qs = [["w0", "w1", "w2"], ["w3", "w4", "w5"], ["w6", "w7", "w8"],
           ["red", "fox"], "dog"]
@@ -293,7 +293,7 @@ def test_phrase_above_the_chain_cap_raises_every_time(call):
             got, want = got[0], want[0]
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
         assert got.max() > 0
-    assert not phrase_sigs(tarr.dev) and not tarr.dev.phrase_recipes
+    assert not phrase_sigs(tarr.dev.maps) and not tarr.dev.maps.phrase_recipes
     capped = long[:dense.CHAIN_MAX_TERMS]
     np.testing.assert_array_equal(tarr.termfreqs(capped),
                                   jarr.termfreqs(capped))
@@ -316,23 +316,23 @@ def test_failed_fill_leaves_no_slot_behind(monkeypatch):
         return chain(*args, **kw)
 
     monkeypatch.setattr(kc, "phrase_chain", failing_row_fill)
-    before = (dict(dev.plane_slot), dict(dev.tf_slot), len(dev.plane_free),
-              len(dev.tf_free))
+    before = (dict(dev.maps.plane_slot), dict(dev.maps.tf_slot), len(dev.maps.plane_free),
+              len(dev.maps.tf_free))
     with pytest.raises(RuntimeError, match="CUDA error"):
         tarr.score(ph)  # the second hit promotes; its row fill raises
     # a recipe whose planes are not resident yet: they are released too
     tids = [tarr.term_dict.get_term_id(t) for t in ("w1", "w2")]
     sig = (tuple(tids), 0)
-    dev.phrase_recipes[sig] = (tids, ("ph", 2) + phrase.chain_key(dev, tids))
+    dev.maps.phrase_recipes[sig] = (tids, ("ph", 2) + phrase.chain_key(dev, tids))
     with pytest.raises(RuntimeError, match="CUDA error"):
         dense.ensure_batch(dev, tf_tids=[sig])
-    assert (dict(dev.plane_slot), dict(dev.tf_slot), len(dev.plane_free),
-            len(dev.tf_free)) == before
+    assert (dict(dev.maps.plane_slot), dict(dev.maps.tf_slot), len(dev.maps.plane_free),
+            len(dev.maps.tf_free)) == before
     monkeypatch.setattr(kc, "phrase_chain", chain)
     for _ in range(2):
         np.testing.assert_allclose(tarr.score(ph), want, rtol=1e-6,
                                    atol=1e-7)
-    assert phrase_sigs(dev) == {(tuple(tarr.term_dict.get_term_id(t)
+    assert phrase_sigs(dev.maps) == {(tuple(tarr.term_dict.get_term_id(t)
                                        for t in ph), 0)}
 
 

@@ -26,6 +26,8 @@ from searcharray_tpu_torch.parallel import sharded as tsh
 from searcharray_tpu_torch.search import batch
 from searcharray_tpu_torch.search import candidates as tcand
 from searcharray_tpu_torch.search import dense as tdense
+from searcharray_tpu_torch.search import phrase as tphrase
+from searcharray_tpu_torch.search import spans as tspans
 from test_sharded import make_corpus
 
 TOL = dict(rtol=1e-6, atol=1e-7)
@@ -173,6 +175,42 @@ def test_phrase_and_span_freqs(trio, case):
         assert not got.any()
     else:
         assert got.max() > 0
+
+
+@pytest.mark.parametrize("tokens,slop", [
+    (["notthere"], None), (["notthere"], 1), (["notthere", "alpha"], None),
+    (["alpha", "notthere"], 2), (["notthere", "nowhere", "alpha"], 1)])
+def test_freqs_with_a_missing_token_are_zeros(trio, tokens, slop):
+    """A token outside the vocabulary gives zeros, however many tokens
+    the phrase has, as the JAX module's freqs do (checked before the
+    phrase's length)."""
+    if slop is None:
+        got = trio.t.phrase_freqs(tokens).numpy()
+        want = np.asarray(trio.j.phrase_freqs(tokens))
+    else:
+        got = trio.t.span_freqs(tokens, slop).numpy()
+        want = np.asarray(trio.j.span_freqs(tokens, slop))
+    assert got.shape == want.shape == (len(trio.docs),)
+    np.testing.assert_array_equal(got, want)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("slop", [None, 0, 2])
+def test_freqs_of_one_token_raise(trio, slop):
+    """A phrase of one known token is no phrase: both freqs raise, as the
+    unsharded port's do (the JAX module's phrase_freqs raises too; its
+    span_freqs returns a row)."""
+    tid = trio.tids([["alpha"]])[0]
+    for fn in ((lambda: trio.t.phrase_freqs(["alpha"]),
+                lambda: tphrase.phrase_freqs_dense(trio.single.dev, tid))
+               if slop is None else
+               (lambda: trio.t.span_freqs(["alpha"], slop),
+                lambda: tspans.span_freqs_dense(trio.single.dev, tid, slop))):
+        with pytest.raises(ValueError, match="at least two terms"):
+            fn()
+    if slop is None:
+        with pytest.raises(Exception):
+            trio.j.phrase_freqs(["alpha"])
 
 
 def ranked_equal(got, want, k):
@@ -355,11 +393,13 @@ def test_candidate_routing_forced(corpus, monkeypatch):
     before = tsh.CAND_PROGRAMS[0]
     got = trio.t.score_batch_device(qt, slop=slops).numpy()
     n_cand = tsh.CAND_PROGRAMS[0] - before
-    # each of the 4 shards runs a cterm, cphrase and cspan group
-    assert n_cand >= 4 * 3
+    jbefore = jsh.CAND_PROGRAMS[0]
+    jgot = np.asarray(trio.j.score_batch_device(qt, slop=slops))
+    # one program a candidate chunk for every shard, as the JAX module
+    # counts: the cterm, cphrase and cspan groups' chunks
+    assert n_cand == jsh.CAND_PROGRAMS[0] - jbefore >= 3
     same_bits(got, want)
-    np.testing.assert_allclose(
-        got, np.asarray(trio.j.score_batch_device(qt, slop=slops)), **TOL)
+    np.testing.assert_allclose(got, jgot, **TOL)
     gv, gi = trio.t.topk(qt, 3, slop=slops)
     same_bits(gv.numpy(), wv.numpy())
     # both routes rank the same docs wherever the 3rd score is above 0
@@ -379,12 +419,12 @@ def test_shard_pool_residency_and_eviction(corpus, monkeypatch):
     shards = trio.t.device_indexes()
     assert all(d.plane_pool is not None and d.tf_pool is not None
                for d in shards)
-    planes = [dict(d.plane_slot) for d in shards]
-    tfs = [dict(d.tf_slot) for d in shards]
+    planes = [dict(d.maps.plane_slot) for d in shards]
+    tfs = [dict(d.maps.tf_slot) for d in shards]
     same_bits(trio.t.score_batch_device(qt).numpy(), want)
-    assert [dict(d.plane_slot) for d in shards] == planes
-    assert [{k: v for k, v in d.tf_slot.items() if not isinstance(k, tuple)}
-            for d in shards] == tfs
+    assert [dict(d.maps.plane_slot) for d in shards] == planes
+    assert [{k: v for k, v in d.maps.tf_slot.items()
+             if not isinstance(k, tuple)} for d in shards] == tfs
     monkeypatch.setattr(tdense, "PLANE_POOL_MAX_SLOTS", 2)
     fresh = tsh.ShardedIndex.build(tbuild(corpus), mesh=tmesh())
     same_bits(fresh.score_batch_device(qt).numpy(), want)

@@ -248,7 +248,7 @@ def test_pool_exhaustion_raises_like_jax(monkeypatch):
         dense.ensure_tfs(tarr.dev, tids)
     # the port fails before assigning any slot (the JAX package keeps the
     # first 16 assignments, for rows it never filled)
-    assert len(tarr.dev.tf_slot) == 0
+    assert len(tarr.dev.maps.tf_slot) == 0
     # a batch wider than the pool splits into waves in both packages (on
     # a fresh JAX index: the one above keeps its stale assignments)
     qs = [f"w{i}" for i in range(40)]

@@ -41,9 +41,9 @@ def carried_pair(docs, tokenizer=None, **kw):
 
 
 def pool_state(dev):
-    return (dict(dev.plane_slot), dict(dev.tf_slot), list(dev.plane_free),
-            list(dev.tf_free), dict(dev.phrase_hits),
-            dict(dev.phrase_recipes))
+    m = dev.maps
+    return (dict(m.plane_slot), dict(m.tf_slot), list(m.plane_free),
+            list(m.tf_free), dict(m.phrase_hits), dict(m.phrase_recipes))
 
 
 # ---------------------------------------------------------------------------
@@ -402,12 +402,12 @@ def test_promotion_parity_slop_and_mults(cache_pair):
         np.testing.assert_allclose(runs[-1], jarr.score_batch(qs, slop=2),
                                    rtol=1e-6, atol=0)
         if len(runs) == 1:
-            assert not phrase_sigs(tarr.dev)
+            assert not phrase_sigs(tarr.dev.maps)
     tid = tarr.term_dict.get_term_id
     want = {(tuple(tid(t) for t in q), 2) for q in qs}
-    assert phrase_sigs(tarr.dev) == want == phrase_sigs(jarr.dev)
+    assert phrase_sigs(tarr.dev.maps) == want == phrase_sigs(jarr.dev)
     for sig in want:
-        tids, fkey = tarr.dev.phrase_recipes[sig]
+        tids, fkey = tarr.dev.maps.phrase_recipes[sig]
         assert fkey[0] == "phs" and fkey[2] == 0 and len(tids) == fkey[1] == 2
         assert (tids, fkey) == tuple(jarr.dev.phrase_recipes[sig])
     np.testing.assert_array_equal(runs[1], runs[0])
@@ -430,7 +430,7 @@ def test_single_query_slop_promotes_on_second_hit(cache_pair):
     sig = (tuple(tarr.term_dict.get_term_id(t) for t in q), 3)
     want = jarr.score(q, slop=3)
     got = [tarr.score(q, slop=3) for _ in range(3)]
-    assert sig in tarr.dev.tf_slot and tarr.dev.phrase_hits[sig] == 2
+    assert sig in tarr.dev.maps.tf_slot and tarr.dev.maps.phrase_hits[sig] == 2
     for g in got:
         np.testing.assert_allclose(g, want, rtol=1e-6, atol=0)
         np.testing.assert_array_equal(g, got[0])
@@ -441,9 +441,9 @@ def test_eviction_and_repromotion_with_slop(cache_pair, monkeypatch):
     monkeypatch.setattr(dense, "TF_POOL_MAX_SLOTS", 4)
     dev = tarr.dev
     dev.tf_pool = None
-    dev.tf_slot.clear()
-    dev.tf_free = []
-    dev.phrase_hits.clear()
+    dev.maps.tf_slot.clear()
+    dev.maps.tf_cap = 0
+    dev.maps.phrase_hits.clear()
     phrases = [["red", "fox"], ["the", "fox"], ["red", "jumps"],
                ["lazy", "dog"], ["fox", "the"]]
     want = jarr.score_batch(phrases, slop=[1, 2, 0, 3, 1])
@@ -451,7 +451,7 @@ def test_eviction_and_repromotion_with_slop(cache_pair, monkeypatch):
         np.testing.assert_allclose(
             tarr.score_batch(phrases, slop=[1, 2, 0, 3, 1]), want, rtol=1e-6,
             atol=0)
-    assert len(phrase_sigs(dev)) <= 2  # budget = capacity // 2
+    assert len(phrase_sigs(dev.maps)) <= 2  # budget = capacity // 2
 
 
 def test_dedup_is_by_query_and_slop(cache_pair, monkeypatch):
@@ -555,8 +555,8 @@ def test_slop_outside_the_dense_window_raises(call, case, monkeypatch):
     else:
         # the sparse kernel's query is never counted or promoted
         sig = (tuple(tarr.term_dict.get_term_id(t) for t in q), slop)
-        assert sig not in tarr.dev.phrase_hits
-        assert sig not in tarr.dev.tf_slot
+        assert sig not in tarr.dev.maps.phrase_hits
+        assert sig not in tarr.dev.maps.tf_slot
 
 
 def test_a_slop_phrase_with_an_empty_posting_scores_zero():

@@ -215,7 +215,7 @@ def test_scenario_table_sparse(name, mode, sparse_only, monkeypatch):
     np.testing.assert_array_equal(got, jarr.termfreqs(ph))
     np.testing.assert_allclose(tarr.score(ph), jarr.score(ph), rtol=1e-6,
                                atol=1e-7)
-    assert not phrase_sigs(tarr.dev)  # sparse phrases take no tf-pool slot
+    assert not phrase_sigs(tarr.dev.maps)  # sparse phrases take no tf-pool slot
 
 
 @pytest.mark.parametrize("off", list(range(14, 23)) + [35, 36, 53, 89, 90])
@@ -253,7 +253,7 @@ def test_windowed_phrases_match_jax(ph, win, mode, monkeypatch):
             tarr.score(ph, similarity=getattr(tsim, sim)(), **win),
             jarr.score(ph, similarity=getattr(jsim, sim)(), **win),
             rtol=1e-6, atol=1e-7)
-    assert not phrase_sigs(tarr.dev) and tarr.dev.plane_pool is None
+    assert not phrase_sigs(tarr.dev.maps) and tarr.dev.plane_pool is None
     with pytest.raises(ValueError, match="multiple of 18"):
         tarr.termfreqs(ph, min_posn=5)
 
@@ -314,7 +314,7 @@ def test_phrase_above_the_chain_cap_takes_the_sparse_chain(call):
             got = tarr.score_batch(["red", long])
             want = jarr.score_batch(["red", long])
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
-    assert not phrase_sigs(tarr.dev) and not tarr.dev.phrase_recipes
+    assert not phrase_sigs(tarr.dev.maps) and not tarr.dev.maps.phrase_recipes
 
 
 @pytest.fixture()
@@ -338,7 +338,7 @@ def test_phrase_overflowing_the_plane_pool_single_query(small_pool_pair):
     for _ in range(3):
         np.testing.assert_allclose(tarr.score(ph), jarr.score(ph),
                                    rtol=1e-6, atol=1e-7)
-    assert not phrase_sigs(tarr.dev) and tarr.dev.plane_pool is None
+    assert not phrase_sigs(tarr.dev.maps) and tarr.dev.plane_pool is None
 
 
 def test_phrase_overflowing_the_plane_pool_batch(small_pool_pair):
@@ -381,7 +381,7 @@ def test_score_batch_on_a_sparse_corpus_matches_jax(block, sim, sparse_only):
             tarr.score_batch(SPARSE_QUERIES, similarity=getattr(tsim, sim)()),
             jarr.score_batch(SPARSE_QUERIES, similarity=getattr(jsim, sim)()),
             rtol=1e-6, atol=1e-7)
-    assert not phrase_sigs(tarr.dev) and tarr.dev.plane_pool is None
+    assert not phrase_sigs(tarr.dev.maps) and tarr.dev.plane_pool is None
 
 
 def test_sparse_group_steps_launch_once_per_chunk(sparse_only, monkeypatch):

@@ -517,7 +517,7 @@ def test_score_batch_mixing_dense_and_sparse_slop_matches_jax(block, sim):
     # (query, slop) pair is one group (2 terms, w = 21) until it is deduped
     assert sorted(len(g) for k, g in groups.items() if k[0] == "span") == [
         1, 1, 2, 2]
-    tarr.dev.phrase_hits.clear()
+    tarr.dev.maps.phrase_hits.clear()
     for _ in range(3):
         ws, wi = jarr.score_batch(MIXED, similarity=getattr(jsim, sim)(),
                                   top_k=10, slop=MIXED_SLOP)
