@@ -113,7 +113,16 @@ entry points a user calls, and checks it:
    and its first serving-mix call, and the first call on a second fresh
    attach as it is; then, not held, the first call timed on two more
    fresh attaches, as it is and after ``warm_serving()`` (its query count
-   and seconds), and in two new processes;
+   and seconds), and in two new processes.  Then concurrent queries,
+   counted and held the same way: 8 threads, each with a serving mix, a
+   mixed request with slop and an ``edismax(ps=2, ps2=1)`` of its own,
+   on the default stream and each thread on a ``torch.cuda.Stream`` of
+   its own, every result bit-equal to the same calls made serially; the
+   profiler's kernel events of a threaded run equal to the wrappers'
+   counts; then, not held, qps of each of the three from 1, 2, 4 and 8
+   threads on both kinds of stream, every result held to the serial
+   calls, beside the slot maps' hold time per call (``SlotMaps.held``)
+   and the call's wall time;
 4. the sparse term group (``batch._term_group_fn``, reduced by K2) on the
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
@@ -192,6 +201,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -227,6 +237,9 @@ ED_QUERIES = ["what is the purpose", "star trek", "purpose of star",
 ED_KW = dict(qf=["title^2", "body"], mm="2<75%", tie=0.1,
              pf=["title", "body"], pf2=["body"])
 ED_SLOP = dict(ps=2, ps2=1)
+THREAD_COUNTS = (1, 2, 4, 8)   # the concurrent phase's client threads
+THREAD_CALLS = 5               # calls of each thread per qps window
+THREAD_DELAY_CYCLES = 20_000_000  # a slow reader's sleep after a fill
 ED_CALLS = 10     # passes over ED_QUERIES per latency sample set, and calls
                   # per edismax_batch qps window
 K3_RADIX_TILE = 16384          # elements of a row per block of K3's radix
@@ -244,6 +257,24 @@ CAND_CONSTS = ("CAND_MIN_DOCS", "CAND_TERM_MIN_DOCS", "CAND_MAX_FRAC")
 JAX_CAND = {"CAND_MIN_DOCS": 1 << 19, "CAND_TERM_MIN_DOCS": 1 << 16}
 JAX_PHASE_SUBSET_MIN_DOCS = 1 << 17
 LSB18 = np.uint32((1 << 18) - 1)
+
+
+# each kernel's device function names, as the profiler shows them
+KERNEL_NAMES = {"K1": ("score_term_kernel",), "K2": ("segment_sum_kernel",),
+                "K4": ("plane_fill_kernel",),
+                "K5": ("chain_warp_kernel", "chain_tile_kernel",
+                       "phrase_chain_kernel"),
+                "K7": ("merge_step_kernel", "merge_join_kernel"),
+                "K3": ("topk_tile_kernel", "topk_merge_kernel",
+                       "topk_hist_kernel", "topk_select_kernel",
+                       "topk_tiescan_kernel", "topk_filter_kernel",
+                       "topk_sort_kernel", "topk_unpack_kernel"),
+                "K6": ("span_window_kernel",),
+                "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
+                "K8b": ("cand_minis_kernel",),
+                "K9": ("span_sparse_kernel", "span_join_kernel"),
+                "K10": ("similarity_kernel",),
+                "K11": ("compose_tc_kernel", "compose_fc_kernel")}
 
 
 def card_line() -> str:
@@ -1223,6 +1254,7 @@ class K10Recorder:
         self.kc, self.orig = kc, kc.similarity
         self.launches, self.calls, self.err = 0, 0, 0.0
         self.shapes = set()
+        self.lock = threading.Lock()
 
     def __call__(self, kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
         import torch
@@ -1232,12 +1264,13 @@ class K10Recorder:
         want = self.kc.similarity_plain(kind, t2, doc_lens.reshape(
             -1, t2.shape[1]), i, avgdl, k1, b).reshape(tfs.shape)
         got = self.orig(kind, tfs, doc_lens, idf, avgdl, k1, b, out=out)
-        self.calls += 1
-        self.shapes.add((kind, tuple(tfs.shape), doc_lens.numel()
-                         == tfs.numel() and tfs.dim() == 2))
-        if got.numel():
-            self.err = max(self.err, float(
-                (got.double() - want.double()).abs().max()))
+        err = (float((got.double() - want.double()).abs().max())
+               if got.numel() else 0.0)
+        with self.lock:
+            self.calls += 1
+            self.shapes.add((kind, tuple(tfs.shape), doc_lens.numel()
+                             == tfs.numel() and tfs.dim() == 2))
+            self.err = max(self.err, err)
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"K10 {kind} on {tuple(tfs.shape)} differs "
                                  "from similarity_plain")
@@ -1278,6 +1311,7 @@ class K11Recorder:
         self.kc, self.orig = kc, kc.compose
         self.launches, self.calls, self.err = 0, 0, 0.0
         self.shapes = set()
+        self.lock = threading.Lock()
 
     def __call__(self, stacks, boosts, tie, msm, *, term_centric,
                  chain=True, out=None):
@@ -1287,12 +1321,13 @@ class K11Recorder:
                                      term_centric=term_centric, chain=chain)
         got = self.orig(stacks, boosts, tie, msm, term_centric=term_centric,
                         chain=chain, out=out)
-        self.calls += 1
-        self.shapes.add((term_centric, chain,
-                         tuple(int(s.shape[0]) for s in stacks)))
-        if got.numel():
-            self.err = max(self.err, float(
-                (got.double() - want.double()).abs().max()))
+        err = (float((got.double() - want.double()).abs().max())
+               if got.numel() else 0.0)
+        with self.lock:
+            self.calls += 1
+            self.shapes.add((term_centric, chain,
+                             tuple(int(s.shape[0]) for s in stacks)))
+            self.err = max(self.err, err)
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(
                 f"K11 on {[tuple(s.shape) for s in stacks]} (term-centric "
@@ -1316,6 +1351,7 @@ class PlainCheck:
         self.err, self.calls = Counter(), Counter()
         self.shapes = {}
         self.on, self.widths, self.merges = False, [], []
+        self.lock = threading.Lock()   # threads launch through it at once
 
     def __getattr__(self, name):
         return getattr(self.kc, name)
@@ -1323,17 +1359,20 @@ class PlainCheck:
     def _same(self, name, shape, got, want):
         import torch
 
-        self.calls[name] += 1
-        self.shapes.setdefault(name, set()).add(shape)
+        err = 0.0
         for g, w in zip(got, want):
             if g.numel():   # (-inf pads of a merge: equal, no difference)
-                self.err[name] = max(self.err[name], float(
+                err = max(err, float(
                     (g.double() - w.double()).abs().nan_to_num(0.0).max()))
             if g.dtype == torch.float32:
                 g, w = g.view(torch.int32), w.view(torch.int32)
             if not torch.equal(g, w):
                 raise AssertionError(f"{name} on {shape} differs from its "
                                      "plain version")
+        with self.lock:
+            self.calls[name] += 1
+            self.shapes.setdefault(name, set()).add(shape)
+            self.err[name] = max(self.err[name], err)
 
     def _rows(self, out, rows):
         import torch
@@ -3026,6 +3065,208 @@ def main() -> int:
     ]
     phase_done("serving warm-up")
 
+    # ---- 3e. this slice's path, counted: concurrent queries.  Thread i
+    # serves a serving mix, a mixed request with slop and an
+    # edismax(ps=2, ps2=1) of its own on the body index and the edismax
+    # frame; 8 threads at once on the default stream, then 8 threads each
+    # on a stream of its own.  Every launch is held to its plain version
+    # as it runs (as in 3c) and every result to the same calls made
+    # serially before the counts were zeroed, bit for bit.  Then a
+    # threaded run under the profiler, whose kernel events must equal the
+    # wrappers' counts, and, not held, qps from 1, 2, 4 and 8 threads on
+    # both kinds of stream beside the slot maps' hold time per call.
+    T_MAX = THREAD_COUNTS[-1]
+    thr_mix = [serving_queries(6000 + i) for i in range(T_MAX)]
+    thr_req = [mixed_request(6100 + i) for i in range(T_MAX)]
+    thr_ed = [ED_QUERIES[i % len(ED_QUERIES)] for i in range(T_MAX)]
+    thr_calls = {
+        "serving mix": lambda i: arr.score_batch(thr_mix[i], top_k=TOP_K),
+        "mixed request with slop": lambda i: arr.score_batch(
+            thr_req[i][0], top_k=TOP_K, slop=thr_req[i][1]),
+        "edismax ps=2 ps2=1": lambda i: edismax(
+            df, q=thr_ed[i], top_k=TOP_K, **ED_KW, **ED_SLOP)[0],
+    }
+
+    def thread_item(i):
+        return [fn(i) for fn in thr_calls.values()]
+
+    # the serial oracle: each thread's calls, one after another
+    thr_ref = [thread_item(i) for i in range(T_MAX)]
+    thr_streams = [torch.cuda.Stream(dev.device) for _ in range(T_MAX)]
+
+    def run_threads(n_t, fn, own_stream):
+        """fn(i) on n_t threads started together, each on the default
+        stream or on a stream of its own (waited for before the thread
+        ends); their results in thread order."""
+        out, errors = [None] * n_t, []
+        start = threading.Barrier(n_t)
+
+        def worker(i):
+            try:
+                start.wait()
+                if own_stream:
+                    with torch.cuda.stream(thr_streams[i]):
+                        out[i] = fn(i)
+                    thr_streams[i].synchronize()
+                else:
+                    out[i] = fn(i)
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                errors.append((i, repr(e)))
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(n_t)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a thread did not finish in 300 s")
+        if errors:
+            raise AssertionError(f"threads raised: {errors}")
+        return out
+
+    def same_items(got, want):
+        return all(same_ranked(g, w) for g, w in zip(got, want))
+
+    torch.cuda.synchronize()
+    for k in counted:
+        saved_counts[k] = getattr(kc, k).launches
+        getattr(kc, k).launches = 0
+    k10_thr, k11_thr = K10Recorder(kc), K11Recorder(kc)
+    kc.similarity, kc.compose = k10_thr, k11_thr
+    t_check = PlainCheck(kc, 1)
+    for mod in engine_mods:
+        mod.kernels_cuda = t_check
+    try:
+        t0 = time.perf_counter()
+        held_thr = {own: run_threads(T_MAX, thread_item, own)
+                    for own in (False, True)}
+        torch.cuda.synchronize()
+        held_thr_s = time.perf_counter() - t0
+        thr_counts = {k: getattr(kc, k).launches for k in counted}
+    finally:
+        for mod in engine_mods:
+            mod.kernels_cuda = kc
+        kc.similarity, kc.compose = k10_thr.orig, k11_thr.orig
+    for k in counted:
+        getattr(kc, k).launches = saved_counts[k] + thr_counts[k]
+    print(f"concurrent-query path launches: {thr_counts}", flush=True)
+    for own, got in held_thr.items():
+        check(all(same_items(got[i], thr_ref[i]) for i in range(T_MAX)),
+              f"{T_MAX} threads on one index "
+              f"({'each on its own stream' if own else 'the default stream'})"
+              f", each serving {', '.join(thr_calls)}: every result equal "
+              "to the same calls made serially, scores and indices bit for "
+              "bit")
+    # the cross-stream order (not counted): a fresh attach of the body
+    # index with pools of 24 tf and 12 plane rows, so the threads' waves
+    # evict each other's rows, and 8 threads on streams of their own; the
+    # odd threads' streams sleep on the card after each pool fill, so
+    # their reads run long after they released the maps while an even
+    # thread's evicting fills start on an idle stream: only the maps'
+    # event orders those fills after the reads
+    fill_rows = dense.fill_rows
+    slow = {thr_streams[i].cuda_stream for i in range(1, T_MAX, 2)}
+
+    def slow_reads(dev_, fill):
+        fill_rows(dev_, fill)
+        if torch.cuda.current_stream(dev_.device).cuda_stream in slow:
+            torch.cuda._sleep(THREAD_DELAY_CYCLES)
+
+    pool_caps = dense.TF_POOL_MAX_SLOTS, dense.PLANE_POOL_MAX_SLOTS
+    dense.TF_POOL_MAX_SLOTS, dense.PLANE_POOL_MAX_SLOTS = 24, 12
+    dense.fill_rows = slow_reads
+    try:
+        small = fresh_attach()
+        t0 = time.perf_counter()
+        delayed = run_threads(T_MAX, lambda i: [
+            small.score_batch(thr_mix[i], top_k=TOP_K),
+            small.score_batch(thr_req[i][0], top_k=TOP_K,
+                              slop=thr_req[i][1])], True)
+        delayed_s = time.perf_counter() - t0
+        small_maps = small.dev.maps
+    finally:
+        dense.fill_rows = fill_rows
+        dense.TF_POOL_MAX_SLOTS, dense.PLANE_POOL_MAX_SLOTS = pool_caps
+    del small
+    check((small_maps.tf_cap, small_maps.plane_cap) == (24, 12)
+          and all(same_items(delayed[i], thr_ref[i][:2])
+                  for i in range(T_MAX)),
+          f"{T_MAX} threads, each on its own stream, on a fresh attach "
+          "with pools of 24 tf and 12 plane rows, the odd threads' reads "
+          "delayed on the card after each pool fill: every serving mix and "
+          "mixed request equal to the serial calls, bit for bit "
+          f"({small_maps.holds} holds, {delayed_s:.3f} s)")
+    check(all(thr_counts[k] > 0 for k in (
+        "plane_fill", "phrase_chain", "span_window", "topk", "similarity",
+        "compose"))
+          and all(t_check.calls[h] >= thr_counts[k]
+                  for k, h in held_of.items())
+          and k10_thr.calls == k10_thr.launches
+          and k11_thr.calls == k11_thr.launches,
+          "the concurrent-query path launched K3, K4, K5, K6, K10 and K11 "
+          "from its threads, every launch equal to its plain version on the "
+          f"same inputs bit for bit (K1-K9 calls held {dict(t_check.calls)}"
+          f", K10 {k10_thr.calls}, K11 {k11_thr.calls}; largest differences "
+          f"{dict(t_check.err)}, K10 {k10_thr.err}, K11 {k11_thr.err}) in "
+          f"{held_thr_s:.3f} s")
+
+    # qps from 1, 2, 4 and 8 threads; hold time per call of the body
+    # index's maps against the call's wall time (not held)
+    body_maps = dev.maps
+    thr_qps, thr_hold = {}, {}
+    for label, fn in thr_calls.items():
+        n_q = {"serving mix": len(thr_mix[0]),
+               "mixed request with slop": len(thr_req[0][0]),
+               "edismax ps=2 ps2=1": 1}[label]
+        col = list(thr_calls).index(label)
+        for own in (False, True):
+            for n_t in THREAD_COUNTS:
+                wall_per = [0.0] * n_t
+
+                def calls_of(i):
+                    t_in = time.perf_counter()
+                    got = [fn(i) for _ in range(THREAD_CALLS)]
+                    wall_per[i] = (time.perf_counter() - t_in) / THREAD_CALLS
+                    return got
+
+                holds0, held0 = body_maps.holds, body_maps.hold_seconds
+                t0 = time.perf_counter()
+                outs = run_threads(n_t, calls_of, own)
+                wall = time.perf_counter() - t0
+                check(all(same_ranked(g, thr_ref[i][col])
+                          for i in range(n_t) for g in outs[i]),
+                      f"{label} from {n_t} threads "
+                      f"({'own streams' if own else 'default stream'}): "
+                      "every result bit-equal to the serial calls")
+                n_holds = body_maps.holds - holds0
+                key = (label, "own streams" if own else "default stream",
+                       n_t)
+                thr_qps[key] = n_t * THREAD_CALLS * n_q / wall
+                thr_hold[key] = (
+                    (body_maps.hold_seconds - held0) * 1e3 / max(1, n_holds),
+                    n_holds / (n_t * THREAD_CALLS),
+                    float(np.mean(wall_per)) * 1e3)
+    for label in thr_calls:
+        for mode in ("default stream", "own streams"):
+            print(f"concurrent {label} ({mode}): "
+                  + "; ".join(
+                      f"{n_t} threads {thr_qps[(label, mode, n_t)]:.1f} "
+                      f"{'calls' if label.startswith('edismax') else 'queries'}"
+                      f"/s, body-index hold "
+                      f"{thr_hold[(label, mode, n_t)][0]:.3f} ms x "
+                      f"{thr_hold[(label, mode, n_t)][1]:.0f} a call, call "
+                      f"wall {thr_hold[(label, mode, n_t)][2]:.3f} ms"
+                      for n_t in THREAD_COUNTS) + f" {tag}", flush=True)
+    thread_evidence = [
+        ("concurrent-query path launches (held)", thr_counts),
+        ("concurrent queries: (call, stream, threads) -> queries/s "
+         "(edismax: calls/s)", thr_qps),
+        ("concurrent queries: (call, stream, threads) -> body-index maps' "
+         "hold ms per hold; holds a call; call wall ms", thr_hold),
+    ]
+    phase_done("concurrent queries")
+
     # ---- 4. sparse term group (K2) vs dterm ------------------------------
     dense_want = batch.score_batch_fused(
         dev, [[arr.term_dict.get_term_id(t)] for t in TERM_QUERIES])
@@ -3899,21 +4140,7 @@ def main() -> int:
     # end-to-end windows above, so that none of them runs in a process
     # the profiler has been attached to.
     timer = DeviceTimer(dev.device)
-    names = {"K1": ("score_term_kernel",), "K2": ("segment_sum_kernel",),
-             "K4": ("plane_fill_kernel",),
-             "K5": ("chain_warp_kernel", "chain_tile_kernel",
-                    "phrase_chain_kernel"),
-             "K7": ("merge_step_kernel", "merge_join_kernel"),
-             "K3": ("topk_tile_kernel", "topk_merge_kernel",
-                    "topk_hist_kernel", "topk_select_kernel",
-                    "topk_tiescan_kernel", "topk_filter_kernel",
-                    "topk_sort_kernel", "topk_unpack_kernel"),
-             "K6": ("span_window_kernel",),
-             "K8a": ("cand_rows_count_kernel", "cand_rows_kernel"),
-             "K8b": ("cand_minis_kernel",),
-             "K9": ("span_sparse_kernel", "span_join_kernel"),
-             "K10": ("similarity_kernel",),
-             "K11": ("compose_tc_kernel", "compose_fc_kernel")}
+    names = KERNEL_NAMES
     counters = {"K1": lambda: (kc.score_term.launches
                                + kc.score_term_rows.launches),
                 "K2": lambda: kc.segment_sum.launches,
@@ -4655,6 +4882,48 @@ def main() -> int:
                    ("1M docs", df, {}),
                    ("1M docs, ps=2, ps2=1", df, ED_SLOP),
                    ("long-document frame, ps=2", ldf, {"ps": SLOP}))]
+    # 3e's threads under the profiler (here, after the qps windows and the
+    # kernel timing, as every profiled run): its kernel events against the
+    # wrappers' counts (a K3 launch enqueues one, two or nine kernels)
+    thr_counter = {"K1": lambda: (kc.score_term.launches
+                                  + kc.score_term_rows.launches),
+                   "K2": lambda: kc.segment_sum.launches,
+                   "K3": lambda: kc.topk.kernels,
+                   "K4": lambda: kc.plane_fill.launches,
+                   "K5": lambda: kc.phrase_chain.launches,
+                   "K6": lambda: kc.span_window.launches,
+                   "K7": lambda: kc.merge_step.launches,
+                   "K8a": lambda: (kc.cand_rows.launches
+                                   * kc.CAND_ROWS_KERNELS_PER_LAUNCH),
+                   "K8b": lambda: kc.cand_minis.launches,
+                   "K9": lambda: kc.span_sparse.launches,
+                   "K10": lambda: kc.similarity.launches,
+                   "K11": lambda: kc.compose.launches}
+    for attempt in range(4):
+        before = {k: f() for k, f in thr_counter.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_got = run_threads(T_MAX, thread_item, True)
+            torch.cuda.synchronize()
+        thr_launched = {k: f() - before[k] for k, f in thr_counter.items()}
+        dev_names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        thr_seen = {k: sum(1 for nm in dev_names
+                           if any(sub in nm for sub in KERNEL_NAMES[k]))
+                    for k in thr_counter}
+        if thr_seen == thr_launched:
+            break
+        print(f"profiler: saw {thr_seen} of {thr_launched}; profiling "
+              "again", flush=True)
+    check(thr_seen == thr_launched and thr_launched["K3"] > 0
+          and same_items(prof_got[0], thr_ref[0]),
+          f"a profiled run of {T_MAX} threads, each on its own stream: the "
+          f"profiler's kernel events per kernel {thr_seen} equal the "
+          f"wrappers' counts {thr_launched}")
+
+    thread_evidence.append(
+        ("concurrent queries: profiled run's kernel events; wrapper counts",
+         f"{thr_seen}; {thr_launched}"))
     phase_done("serving call profile")
 
     # observability: hbm_report of the body index after serving, and
@@ -4845,6 +5114,7 @@ def main() -> int:
         *slice_evidence,
         *sharded_evidence,
         *warm_evidence,
+        *thread_evidence,
         ("K3 merge of the sharded path: device ms; bound ms; torch.topk "
          "device ms", f"{t_k3m['new_device_ms']}; {t_k3m['bound_ms']}; "
          f"{t_k3m['library_device_ms']}"),
@@ -4882,7 +5152,8 @@ def main() -> int:
     # each kernel's largest difference over phase 5's checks and every
     # launch of the sharded and warm-up paths (PlainCheck)
     k1_err, k1r_err, k2_err, k3_err, k4_err, k5_err, k6_err, k7_err, \
-        k9_err = (max(e, sh_check.err[h], w_check.err[h]) for e, h in (
+        k9_err = (max(e, sh_check.err[h], w_check.err[h], t_check.err[h])
+                  for e, h in (
             (k1_err, "K1"), (k1r_err, "K1 rows"), (k2_err, "K2"),
             (k3_err, "K3"), (k4_err, "K4"), (k5_err, "K5"), (k6_err, "K6"),
             (k7_err, "K7"), (k9_err, "K9")))
@@ -4924,13 +5195,14 @@ def main() -> int:
         entry("cand_rows (K8a)", csrc + "cand_rows.cu",
               "searcharray_tpu/search/candidates.py:201",
               launches["cand_rows"],
-              max(rec.err["K8a"], sh_check.err["K8a"], w_check.err["K8a"]),
+              max(rec.err["K8a"], sh_check.err["K8a"], w_check.err["K8a"],
+                  t_check.err["K8a"]),
               t_k8a),
         {**entry("cand_minis (K8b)", csrc + "cand_minis.cu",
                  "searcharray_tpu/search/candidates.py:258",
                  launches["cand_minis"],
                  max(rec.err["K8b"], sh_check.err["K8b"],
-                     w_check.err["K8b"]), t_k8b),
+                     w_check.err["K8b"], t_check.err["K8b"]), t_k8b),
          "more_units": [unit_of(t_k8bp)]},
         # the largest difference over every launch of the counted paths
         # (K10Recorder); no single PyTorch call computes the similarity:
@@ -4939,7 +5211,7 @@ def main() -> int:
                  "searcharray_tpu/search/scoring.py:29",
                  launches["similarity"],
                  max(k10_rec.err, k10_slice.err, k10_sh.err,
-                     k10_warm.err), t_k10),
+                     k10_warm.err, k10_thr.err), t_k10),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k10["library_ms"],
          "torch_composition_device_ms": t_k10["library_device_ms"]},
@@ -4949,7 +5221,7 @@ def main() -> int:
         {**entry("compose (K11)", csrc + "compose.cu",
                  "searcharray_tpu/solr.py:110", launches["compose"],
                  max(k11_rec.err, k11_slice.err, k11_sh.err,
-                     k11_warm.err), t_k11),
+                     k11_warm.err, k11_thr.err), t_k11),
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k11["library_ms"],
          "torch_composition_device_ms": t_k11["library_device_ms"],

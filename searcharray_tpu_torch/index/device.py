@@ -10,8 +10,11 @@ offset/length).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
 from collections import OrderedDict
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,7 +109,13 @@ class SlotMaps:
     largest doc count and device share of the indexes that fill them.  A
     DeviceIndex owns one; the shards of a ``ShardedIndex`` that serve one
     query part share one, so a key lands in the same pool row on every
-    shard and one plan of a batch holds for all of them."""
+    shard and one plan of a batch holds for all of them.
+
+    The maps are also what concurrent queries contend for: a plan
+    reserves rows that its run fills and reads later, so one thread at a
+    time holds them (``held``) from its reservation to its last launch.
+    ``holds`` and ``hold_seconds`` count the outermost holds and their
+    time on the host clock."""
 
     def __init__(self, corpus_size: int, blk_bits: int, pool_share: int):
         self.corpus_size = int(corpus_size)
@@ -120,6 +129,46 @@ class SlotMaps:
         self.tf_cap = 0
         self.phrase_hits: dict = {}
         self.phrase_recipes: dict = {}
+        # re-entrant: edismax's phases, warm-up and the facade nest calls
+        self.lock = threading.RLock()
+        self._depth = 0
+        self._since = 0.0
+        self._done: dict = {}   # device -> the last holder's CUDA event
+        self.holds = 0
+        self.hold_seconds = 0.0
+
+    @contextlib.contextmanager
+    def held(self, devices: Iterable[torch.device]):
+        """Hold the maps, and order the pools of ``devices`` across
+        streams: on entry the caller's current stream on each card waits
+        for the event the previous holder recorded on its own stream; on
+        exit the caller's stream records that event.  So a fill that
+        evicts a row runs after every earlier reader of the row, and a
+        read after the fill that wrote it, whatever stream each thread
+        launches on.  On the CPU the lock alone orders the work.  Hold it
+        over host planning and enqueues only, never over a wait on the
+        device."""
+        cards = [d for d in devices if d.type == "cuda"]
+        with self.lock:
+            self._depth += 1
+            if self._depth == 1:
+                self._since = time.perf_counter()
+            try:
+                for d in cards:
+                    ev = self._done.get(d)
+                    if ev is not None:
+                        torch.cuda.current_stream(d).wait_event(ev)
+                yield self
+            finally:
+                for d in cards:
+                    ev = self._done.get(d)
+                    if ev is None:
+                        ev = self._done[d] = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(d))
+                self._depth -= 1
+                if self._depth == 0:
+                    self.holds += 1
+                    self.hold_seconds += time.perf_counter() - self._since
 
 
 class DeviceIndex:
@@ -210,6 +259,10 @@ class DeviceIndex:
         end = W + self.max_bucket
         return {**der, "hdr32": hdr[:end], "pay32": pay[:end],
                 "max_bucket": self.max_bucket}
+
+    def held(self):
+        """Hold this index's slot maps on its device (``SlotMaps.held``)."""
+        return self.maps.held((self.device,))
 
     def term_span(self, term_id: int) -> Tuple[int, int, int]:
         """(offset, length, bucket) for a term's posting slice."""

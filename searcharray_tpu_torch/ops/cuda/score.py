@@ -20,7 +20,7 @@ wrapper counts its kernel launches in a plain int attribute
 ``phrase_chain.launches``, ``span_window.launches``,
 ``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
 ``span_sparse.launches``, ``similarity.launches``,
-``compose.launches``).  A K3 launch is one
+``compose.launches``), under ``COUNT_LOCK``.  A K3 launch is one
 call of a C entry, which enqueues one or two kernels (k up to
 ``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger k);
 ``topk.kernels`` counts them.  A K8a launch enqueues
@@ -75,6 +75,28 @@ CAND_ROWS_KERNELS_PER_LAUNCH = 1   # K8a: one single-pass kernel
 
 _lib = None
 _lib_lock = threading.Lock()
+
+# The wrappers' launch counts and the engine's counters are host integers
+# that concurrent queries bump together: one lock keeps each
+# read-modify-write whole, so a count read after the threads join is
+# exact.
+COUNT_LOCK = threading.Lock()
+
+
+def bump(counter: list, n: int = 1) -> None:
+    """``counter[0] += n`` under ``COUNT_LOCK`` (the engine's counters:
+    ``dense.DISPATCHES``, ``batch.CAND_GROUPS``, ``sharded.PLANS``...)."""
+    with COUNT_LOCK:
+        counter[0] += n
+
+
+def _launched(wrapper, kernels: int = 0) -> None:
+    """Count one launch of ``wrapper``, and ``kernels`` device kernels it
+    enqueued where the wrapper counts them (``topk.kernels``)."""
+    with COUNT_LOCK:
+        wrapper.launches += 1
+        if kernels:
+            wrapper.kernels += kernels
 
 
 def _sources(csrc_dir: str = CSRC_DIR):
@@ -300,7 +322,7 @@ def score_term(hdrs: torch.Tensor, pays: torch.Tensor,
         _f32(avgdl), _f32(k1), _f32(b), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "score_term")
-    score_term.launches += 1
+    _launched(score_term)
     return out
 
 
@@ -358,7 +380,7 @@ def score_term_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns,
         out.data_ptr(), out.stride(0), num_docs, blk_bits, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "score_term_rows")
-    score_term_rows.launches += 1
+    _launched(score_term_rows)
     return out
 
 
@@ -403,7 +425,7 @@ def segment_sum(sorted_ids: torch.Tensor, values: torch.Tensor, *,
         out.data_ptr(), num_docs, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "segment_sum")
-    segment_sum.launches += 1
+    _launched(segment_sum)
     return out
 
 
@@ -469,8 +491,7 @@ def topk(x: torch.Tensor, k: int):
                                  vals.data_ptr(), idx.data_ptr(), dev.index,
                                  stream)
         _raise_on(err, "topk")
-        topk.launches += 1
-        topk.kernels += 1 if tiles == 1 else 2
+        _launched(topk, 1 if tiles == 1 else 2)
         return vals, idx
     sort_cap = lib.sa_topk_sort_cap()
     cap = max(k, sort_cap)
@@ -489,8 +510,7 @@ def topk(x: torch.Tensor, k: int):
                                  vals.data_ptr(), idx.data_ptr(), dev.index,
                                  stream)
         _raise_on(err, "topk unpack")
-    topk.launches += 1
-    topk.kernels += TOPK_KERNELS_PER_LAUNCH
+    _launched(topk, TOPK_KERNELS_PER_LAUNCH)
     return vals, idx
 
 
@@ -551,7 +571,7 @@ def plane_fill(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, slots,
         rows[1].data_ptr(), rows[2].data_ptr(), len(slots), pool.data_ptr(),
         pool.shape[1], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "plane_fill")
-    plane_fill.launches += 1
+    _launched(plane_fill)
     return pool
 
 
@@ -639,7 +659,7 @@ def phrase_chain(pool: torch.Tensor, slots, plan, pattern, *, num_docs: int,
         num_docs, None if rows_t is None else rows_t.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "phrase_chain")
-    phrase_chain.launches += 1
+    _launched(phrase_chain)
     return out
 
 
@@ -733,7 +753,7 @@ def span_window(pool: torch.Tensor, slots, w: int, mults, *, anchor: int = 0,
         num_docs, None if rows_t is None else rows_t.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "span_window")
-    span_window.launches += 1
+    _launched(span_window)
     return out
 
 
@@ -858,7 +878,7 @@ def merge_step(hdrs: torch.Tensor, base_pays: torch.Tensor,
         None if cont is None else cont.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "merge_step")
-    merge_step.launches += 1
+    _launched(merge_step)
     return keys, counts, cont
 
 
@@ -941,7 +961,7 @@ def cand_rows(hdrs: torch.Tensor, pays: torch.Tensor, offs, ns, Kc: int, *,
         None if tf is None else tf.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "cand_rows")
-    cand_rows.launches += 1
+    _launched(cand_rows)
     return rows, tf
 
 
@@ -1022,7 +1042,7 @@ def cand_minis(rows: torch.Tensor, slots, offs, ns, *, pool,
         hdrs.data_ptr(), pays.data_ptr(), num_docs, blk_bits, out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "cand_minis")
-    cand_minis.launches += 1
+    _launched(cand_minis)
     return out
 
 
@@ -1153,7 +1173,7 @@ def _span_sparse(hdrs, pays, offs, ns, w, mults, *, anchor=0, blk_bits,
         keys.data_ptr(), counts.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "span_sparse")
-    span_sparse.launches += 1
+    _launched(span_sparse)
     return keys, counts
 
 
@@ -1221,7 +1241,7 @@ def similarity(kind: str, tfs: torch.Tensor, doc_lens: torch.Tensor, idf,
         out.data_ptr(), N, SIM_KINDS[kind], _f32(avgdl), _f32(k1), _f32(b),
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "similarity")
-    similarity.launches += 1
+    _launched(similarity)
     return out
 
 
@@ -1289,7 +1309,7 @@ def compose(stacks, boosts, tie: float, msm, *, term_centric: bool,
                          out.data_ptr(), dev.index,
                          torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "compose")
-    compose.launches += 1
+    _launched(compose)
     return out
 
 

@@ -24,11 +24,19 @@ doc range into shards beside the single-device one
 on every shard, ranking through a per-shard top-k and a merge.
 ``warm_serving`` issues the batch driver's group shapes once before the
 first live query (``utils/warm.py``).
+
+Searches may run from many threads at once (each on the default stream
+or on a stream of its own); each returns what it would alone.  An index
+is held by one thread at a time from a batch's plan to its last launch
+(``index/device.py:SlotMaps.held``).  ``__setitem__`` while other threads
+search the array is not supported, as pandas assignment is not
+thread-safe in the reference.
 """
 from __future__ import annotations
 
 import json
 import numbers
+import threading
 import warnings
 from collections import Counter
 from typing import Iterable, List, Optional, Union
@@ -203,9 +211,11 @@ class _IndexState:
 
     ``__setitem__`` swaps ``built`` in place, so every pandas view of the
     same array sees the mutation, while ``copy()`` makes a new holder:
-    copy-on-write."""
+    copy-on-write.  ``lock`` guards the swap and the lazy device attach,
+    so threads that query a fresh array attach one ``DeviceIndex``."""
 
-    __slots__ = ("built", "dev", "device", "sharded", "cache_gt_than")
+    __slots__ = ("built", "dev", "device", "sharded", "cache_gt_than",
+                 "lock")
 
     def __init__(self, built: BuiltIndex, device, dev=None, sharded=None):
         self.built = built
@@ -213,6 +223,7 @@ class _IndexState:
         self.dev = dev
         self.sharded = sharded  # parallel.sharded.ShardedIndex with mesh=
         self.cache_gt_than = 25  # pool-admission threshold (see warm())
+        self.lock = threading.Lock()
 
 
 class SearchArray(ExtensionArray):
@@ -274,9 +285,16 @@ class SearchArray(ExtensionArray):
 
     @property
     def dev(self) -> DeviceIndex:
-        if self._state.dev is None:
-            self._state.dev = DeviceIndex(self._built, self._state.device)
-        return self._state.dev
+        """The device index, attached at the first search (once, however
+        many threads search a fresh array)."""
+        state = self._state
+        dev = state.dev
+        if dev is None:
+            with state.lock:
+                if state.dev is None:
+                    state.dev = DeviceIndex(state.built, state.device)
+                dev = state.dev
+        return dev
 
     @property
     def term_dict(self):
@@ -469,18 +487,25 @@ class SearchArray(ExtensionArray):
         # this array sees the mutation, copies (other holders) do not.  The
         # device copy goes with its pools (tf rows, cached phrase and slop
         # rows, planes, the phrase-tf cache's counts and recipes) and
-        # re-attaches on the next search.
-        self._state.built = replace_docs(self._built,
-                                         np.asarray(doc_ids, dtype=np.int64),
-                                         vals, Terms)
-        self._state.dev = None
+        # re-attaches on the next search.  Assignment is not safe against
+        # queries running in other threads (nor is pandas assignment in
+        # the reference); a query that took the old device index finishes
+        # on it.
+        built = replace_docs(self._built, np.asarray(doc_ids, dtype=np.int64),
+                             vals, Terms)
+        sharded = None
         if self._state.sharded is not None:
             # re-shard the mutated index on the same mesh, so the sharded
             # routes see the mutation too
             from searcharray_tpu_torch.parallel.sharded import ShardedIndex
 
-            self._state.sharded = ShardedIndex.build(
-                self._state.built, mesh=self._state.sharded.mesh)
+            sharded = ShardedIndex.build(built,
+                                         mesh=self._state.sharded.mesh)
+        with self._state.lock:
+            self._state.built = built
+            self._state.dev = None
+            if sharded is not None:
+                self._state.sharded = sharded
         if appended:
             self.rows = new_rows
             self.subset = True
@@ -634,15 +659,16 @@ class SearchArray(ExtensionArray):
         # the device's serving pools, its largest allocations
         dev = self._state.dev
         if dev is not None:
-            for pool, slots, label in (
-                (dev.plane_pool, dev.maps.plane_slot, "Plane Pool"),
-                (dev.tf_pool, dev.maps.tf_slot, "TF Pool"),
-            ):
+            with dev.maps.lock:
+                pools = [(dev.plane_pool, len(dev.maps.plane_slot),
+                          "Plane Pool"),
+                         (dev.tf_pool, len(dev.maps.tf_slot), "TF Pool")]
+            for pool, used, label in pools:
                 if pool is not None:
                     nbytes = pool.numel() * pool.element_size()
                     report += (
                         f"        {label}:      {_bytes_h(nbytes)} "
-                        f"({len(slots)}/{pool.shape[0]} slots)\n"
+                        f"({used}/{pool.shape[0]} slots)\n"
                     )
         report += "\n"
         cum = 0

@@ -37,8 +37,10 @@ two ranks on one card.
   corpus's doc count for the candidate switch, the largest shard for
   buckets, ``Kc`` and the buffer bound, as the JAX module does) and runs
   the plan on each shard (``run_plan``: the pool fills from the shard's
-  own slices, then every group's launches).  The [Q, n_s] blocks are
-  placed into f32[Q, N] on the device of mesh entry (0, 0).
+  own slices, then every group's launches), holding the lane's slot maps
+  from the plan to the last shard's run (``SlotMaps.held``: threads may
+  query one index).  The [Q, n_s] blocks are placed into f32[Q, N] on
+  the device of mesh entry (0, 0).
 * ``topk`` ranks each shard's block with K3 (``ops/cuda/score.py:topk``),
   offsets the [Q, k_s] candidates by ``shard_starts`` and ranks the
   [Q, sum k_s] candidates with K3 again: the full doc axis never leaves
@@ -63,6 +65,7 @@ from searcharray_tpu_torch.index.device import (
 )
 from searcharray_tpu_torch.ops import encoding as enc
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
+from searcharray_tpu_torch.ops.cuda.score import bump
 from searcharray_tpu_torch.ops.kernels import (
     PAD_HDR32,
     blk_bits_for,
@@ -317,33 +320,39 @@ class ShardedIndex:
         blocks: list = [[] for _ in range(self.num_shards)]
         for lane, qsel in self._lane_parts(len(uniq)).items():
             view = self.lanes[lane]
-            plan = batch_mod.plan_batch(
-                view, [uniq[i] for i in qsel], kind,
-                slop=[uslops[i] for i in qsel],
-                allow_candidates=rows is None,
-                n_out=self.corpus_size if rows is None else len(rows))
-            PLANS[0] += 1
-            # the JAX module's count: candidate chunks, and every group of
-            # a rows= call
-            CAND_PROGRAMS[0] += plan.n_cand if rows is None else plan.n_specs
             uploads: dict = {}
-            try:
-                for d, dev in enumerate(view.members):
-                    if local is None:
-                        rows_t, n_out = None, dev.corpus_size
-                    else:
-                        rows_t = kernels_cuda.host_to_device(
-                            local[d].astype(np.int32), dev.device)
-                        n_out = len(local[d])
-                    outs = batch_mod.run_plan(
-                        dev, plan, kind, k1, b, rows=rows_t, shard=d,
-                        uploads=uploads, launch=n_out > 0)
-                    blocks[d].append((qsel, batch_mod.assemble(
-                        dev, plan, outs, n_out, as_device=True,
-                        uploads=uploads)))
-            except BaseException:
-                dense_mod.release(view.maps, plan.fills)
-                raise
+            runs = []
+            # the lane's maps held from its plan through the last shard's
+            # run (one lane at a time: a thread never holds two)
+            with view.held():
+                plan = batch_mod.plan_batch(
+                    view, [uniq[i] for i in qsel], kind,
+                    slop=[uslops[i] for i in qsel],
+                    allow_candidates=rows is None,
+                    n_out=self.corpus_size if rows is None else len(rows))
+                bump(PLANS)
+                # the JAX module's count: candidate chunks, and every group
+                # of a rows= call
+                bump(CAND_PROGRAMS,
+                     plan.n_cand if rows is None else plan.n_specs)
+                try:
+                    for d, dev in enumerate(view.members):
+                        if local is None:
+                            rows_t, n_out = None, dev.corpus_size
+                        else:
+                            rows_t = kernels_cuda.host_to_device(
+                                local[d].astype(np.int32), dev.device)
+                            n_out = len(local[d])
+                        runs.append((d, dev, n_out, batch_mod.run_plan(
+                            dev, plan, kind, k1, b, rows=rows_t, shard=d,
+                            uploads=uploads, launch=n_out > 0)))
+                except BaseException:
+                    dense_mod.release(view.maps, plan.fills)
+                    raise
+            for d, dev, n_out, outs in runs:
+                blocks[d].append((qsel, batch_mod.assemble(
+                    dev, plan, outs, n_out, as_device=True,
+                    uploads=uploads)))
         return blocks, len(uniq), expand, cols
 
     def score_batch_device(self, queries_tids, kind: str = "bm25",
@@ -411,7 +420,7 @@ class ShardedIndex:
             i = torch.empty((Q, k_d), dtype=torch.int64, device=dev)
             for qsel, blk in pieces:
                 bv, bi = kernels_cuda.topk(blk.contiguous(), k_d)
-                SHARD_TOPKS[0] += 1
+                bump(SHARD_TOPKS)
                 bv = bv.to(dev, non_blocking=True)
                 bi = bi.to(dev, non_blocking=True).long() + int(
                     self.shard_starts[d])
@@ -425,7 +434,7 @@ class ShardedIndex:
         cv = torch.cat(cand_v, dim=1).contiguous()
         ci = torch.cat(cand_i, dim=1)
         vals, j = kernels_cuda.topk(cv, k)
-        TOPK_MERGES[0] += 1
+        bump(TOPK_MERGES)
         return vals, torch.gather(ci, 1, j.long())
 
     def _resolve(self, tokens) -> List[int]:

@@ -59,7 +59,7 @@ import torch
 from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
-from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS
+from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS, bump
 from searcharray_tpu_torch.search import candidates as C
 from searcharray_tpu_torch.search import dense
 from searcharray_tpu_torch.search.phrase import (
@@ -334,16 +334,19 @@ def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], slop: int,
         plan_key, pattern = chain_key(dev, tids)
         rec, fkey = tids, ("ph", len(tids), plan_key, pattern)
     sig = (tuple(tids), slop)
-    if not _phrase_tf_route(dev, sig, rec, fkey, _ptf_budget(dev)):
-        return None
-    dense.ensure_batch(dev, tf_tids=[sig])
-    slots = kernels_cuda.host_to_device(dense.tf_slots_of(dev.maps, [sig]),
-                                        dev.device)
     idfs = kernels_cuda.host_to_device(np.asarray([idf], np.float32),
                                        dev.device)
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
-    return dense.term_group_body(kind, k1, b, None, dev.tf_pool, slots,
-                                 dev.doc_lens, idfs, avgdl)[0]
+    # the encounter count, the promotion, the fill and the gather of the
+    # row: one hold
+    with dev.held():
+        if not _phrase_tf_route(dev, sig, rec, fkey, _ptf_budget(dev)):
+            return None
+        dense.ensure_batch(dev, tf_tids=[sig])
+        slots = kernels_cuda.host_to_device(
+            dense.tf_slots_of(dev.maps, [sig]), dev.device)
+        return dense.term_group_body(kind, k1, b, None, dev.tf_pool, slots,
+                                     dev.doc_lens, idfs, avgdl)[0]
 
 
 def _is_slop_phrase(tids, slop: int) -> bool:
@@ -369,7 +372,8 @@ class PlanView:
       capacities and the candidate buffer bound hold on every shard;
     * ``offsets`` / ``lengths``: int64 [S, V], each shard's slices (a
       plan's tables are their rows);
-    * ``maps``: the shards' shared ``SlotMaps``."""
+    * ``maps``: the shards' shared ``SlotMaps``; ``held()`` holds them on
+      every shard's device (``SlotMaps.held``)."""
 
     def __init__(self, members: Sequence[DeviceIndex]):
         self.members = list(members)
@@ -394,6 +398,9 @@ class PlanView:
             self.lengths = np.stack([m.postings.lengths
                                      for m in self.members])
             self.local_lengths = self.lengths.max(axis=0)
+
+    def held(self):
+        return self.maps.held(dict.fromkeys(m.device for m in self.members))
 
     def term_span(self, term_id: int):
         """(0, the largest shard's words, their bucket): a term's routing
@@ -645,82 +652,109 @@ def _chunk_specs(view: PlanView, groups: dict) -> List[dict]:
             # words: _phrase_chunks
             max_chunk = max(1, _MAX_FLAT // Npad // 2)
         if gkey[0] == "dterm":
-            # a row keyed by a phrase signature whose tf row is not yet
-            # filled pulls its terms' planes into the wave's fill: cut
-            # chunks so each one's distinct recipe planes fit beside one
-            # free slot (a wave cannot split a spec)
-            chunks, cur_rows, cur_planes = [], [], set()
-            for row in grows:
-                key_ = row[4][0]
-                p_t = (set(maps.phrase_recipes[key_][0])
-                       if isinstance(key_, tuple)
-                       and key_ not in maps.tf_slot else set())
-                if cur_rows and (len(cur_rows) >= max_chunk
-                                 or len(cur_planes | p_t) > cap_p - 1):
-                    chunks.append(cur_rows)
-                    cur_rows, cur_planes = [], set()
-                cur_rows.append(row)
-                cur_planes |= p_t
-            if cur_rows:
-                chunks.append(cur_rows)
+            chunks = _dterm_chunks(maps, grows, max_chunk, cap_p)
         elif gkey[0] in ("phrase", "span"):
             chunks = _phrase_chunks(grows, max_chunk)
         else:
             chunks = [grows[c0: c0 + max_chunk]
                       for c0 in range(0, len(grows), max_chunk)]
-        for chunk in chunks:
-            spec = {"gkey": gkey, "chunk": chunk,
-                    "idfs": np.asarray([r[3] for r in chunk], np.float32)}
-            if gkey[0] == "dterm":
-                spec["tf_tids"] = [r[4][0] for r in chunk]
-            elif gkey[0] in ("dphrase", "dspan"):
-                spec["plane_tids"] = [t for r in chunk for t in r[4]]
-            elif gkey[0] in ("cphrase", "cspan"):
-                # the pool-source terms' planes, pinned through the wave
-                T, srcs, _ = _cand_fields(gkey)
-                spec["plane_tids"] = [r[4][i] for r in chunk
-                                      for i in range(T) if srcs[i] == "pool"]
-            if gkey[0] in ("phrase", "span", "cphrase", "cspan"):
-                spec["offs"] = np.stack([r[1] for r in chunk], axis=1)
-                spec["ns"] = np.stack([r[2] for r in chunk], axis=1)
-            elif gkey[0] in ("term", "cterm"):
-                spec["offs"] = np.stack([r[1][:, 0] for r in chunk], axis=1)
-                spec["ns"] = np.stack([r[2][:, 0] for r in chunk], axis=1)
-            specs.append(spec)
+        specs += [_spec(gkey, chunk) for chunk in chunks]
     return specs
 
 
-def _waves(view: PlanView, specs: List[dict]) -> List[List[dict]]:
+def _spec(gkey, chunk) -> dict:
+    """A group's chunk of rows as a spec: its idfs and its tables."""
+    spec = {"gkey": gkey, "chunk": chunk,
+            "idfs": np.asarray([r[3] for r in chunk], np.float32)}
+    if gkey[0] == "dterm":
+        spec["tf_tids"] = [r[4][0] for r in chunk]
+    elif gkey[0] in ("dphrase", "dspan"):
+        spec["plane_tids"] = [t for r in chunk for t in r[4]]
+    elif gkey[0] in ("cphrase", "cspan"):
+        # the pool-source terms' planes, pinned through the wave
+        T, srcs, _ = _cand_fields(gkey)
+        spec["plane_tids"] = [r[4][i] for r in chunk
+                              for i in range(T) if srcs[i] == "pool"]
+    if gkey[0] in ("phrase", "span", "cphrase", "cspan"):
+        spec["offs"] = np.stack([r[1] for r in chunk], axis=1)
+        spec["ns"] = np.stack([r[2] for r in chunk], axis=1)
+    elif gkey[0] in ("term", "cterm"):
+        spec["offs"] = np.stack([r[1][:, 0] for r in chunk], axis=1)
+        spec["ns"] = np.stack([r[2][:, 0] for r in chunk], axis=1)
+    return spec
+
+
+def _recipe_planes(maps, key_) -> set:
+    """The planes a tf-pool key pulls into its wave's fill: a phrase
+    signature's terms while its row is not resident, else none."""
+    if isinstance(key_, tuple) and key_ not in maps.tf_slot:
+        return set(maps.phrase_recipes[key_][0])
+    return set()
+
+
+def _dterm_chunks(maps, rows, max_rows: int, cap_p: int) -> List[list]:
+    """``dterm`` rows cut into chunks of at most ``max_rows``: a row keyed
+    by a phrase signature whose tf row is not resident pulls its terms'
+    planes into the wave's fill, so each chunk's planes must fit the plane
+    pool beside one free slot."""
+    chunks, cur, cur_planes = [], [], set()
+    for row in rows:
+        p_t = _recipe_planes(maps, row[4][0])
+        if cur and (len(cur) >= max_rows
+                    or len(cur_planes | p_t) > cap_p - 1):
+            chunks.append(cur)
+            cur, cur_planes = [], set()
+        cur.append(row)
+        cur_planes |= p_t
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _fitting(maps, s: dict, cap_p: int) -> List[dict]:
+    """``s``, or a ``dterm`` spec cut again where an earlier wave's
+    reservation evicted phrase rows that were resident when the group was
+    chunked."""
+    if s["gkey"][0] != "dterm":
+        return [s]
+    chunks = _dterm_chunks(maps, s["chunk"], len(s["chunk"]), cap_p)
+    return [s] if len(chunks) == 1 else [_spec(s["gkey"], c) for c in chunks]
+
+
+def _waves(view: PlanView, specs: List[dict]):
     """Partition the pool-reading specs into waves whose unique terms fit
     the pools: a wave's plane and tf rows are pinned through its fill and
-    its group launches."""
+    its group launches.  A generator: the caller reserves each wave before
+    the next is formed, and a spec's pool needs are read from the maps as
+    that reservation left them (it may evict a cached phrase row a later
+    spec reads, whose terms' planes that spec's wave then fills)."""
     maps = view.maps
     cap_p = dense.plane_capacity(view)
     cap_t = dense.tf_capacity(view)
-    waves: List[List[dict]] = []
     cur: List[dict] = []
     cur_p: set = set()
     cur_t: set = set()
-    for s in specs:
-        if s["gkey"][0] in _SPARSE_KINDS:
-            continue
-        p_t = set(s.get("plane_tids", ()))
+    pending = [s for s in specs if s["gkey"][0] not in _SPARSE_KINDS]
+    while pending:
+        s = pending.pop(0)
+        if not cur:
+            parts = _fitting(maps, s, cap_p)
+            s, pending = parts[0], parts[1:] + pending
         t_t = set(s.get("tf_tids", ()))
-        # a phrase signature whose row is not yet filled pulls its terms'
-        # planes into the wave's fill: count them against the plane pool
+        p_t = set(s.get("plane_tids", ()))
         for key_ in t_t:
-            if isinstance(key_, tuple) and key_ not in maps.tf_slot:
-                p_t |= set(maps.phrase_recipes[key_][0])
+            p_t |= _recipe_planes(maps, key_)
         if cur and (len(cur_p | p_t) > cap_p - 1
                     or len(cur_t | t_t) > cap_t - 1):
-            waves.append(cur)
+            yield cur
             cur, cur_p, cur_t = [], set(), set()
+            pending.insert(0, s)   # read again after that reservation
+            continue
         cur.append(s)
         cur_p |= p_t
         cur_t |= t_t
     if cur:
-        waves.append(cur)
-    return waves
+        yield cur
 
 
 def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
@@ -731,7 +765,9 @@ def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
     each wave's pool slots, reserved on the shards' shared slot maps
     (``dense.reserve``; a wave that cannot fit raises with no slot of
     this plan left assigned).  ``n_out`` is the number of output columns
-    (no group when 0)."""
+    (no group when 0).  The caller holds ``view`` (``view.held()``) from
+    here through the last ``run_plan`` of the plan: another thread's plan
+    would otherwise evict the rows reserved here before they are read."""
     uniq, uniq_slops, expand = dedup_queries(queries_tids, slop)
     plan = BatchPlan(len(uniq), expand)
     # queries in no group (and every query of a corpus without tokens, or
@@ -740,6 +776,7 @@ def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
                         allow_candidates=allow_candidates)
               if view.avg_doc_length and n_out else {})
     specs = _chunk_specs(view, groups)
+    n_pooled = 0
     try:
         for wave in _waves(view, specs):
             fill = dense.reserve(
@@ -750,6 +787,7 @@ def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
                 _slot_tables(view, s)
                 plan.out_qis += [r[0] for r in s["chunk"]]
             plan.waves.append((fill, wave))
+            n_pooled += len(wave)
     except BaseException:
         dense.release(view.maps, plan.fills)
         raise
@@ -762,7 +800,7 @@ def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
     plan.out_qis += [r[0] for s in plan.sparse if s["gkey"][0] == "span"
                      for r in s["chunk"]]
     plan.qis = np.asarray(plan.out_qis, np.int64)
-    plan.n_specs = len(specs)
+    plan.n_specs = n_pooled + len(plan.sparse)
     plan.n_cand = sum(1 for s in specs if s["gkey"][0] in _CAND_KINDS)
     return plan
 
@@ -819,7 +857,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
             continue
         for s in wave:
             idfs = _upload(dev.device, uploads, s["idfs"])
-            DISPATCHES[0] += 1
+            bump(DISPATCHES)
             gkey = s["gkey"]
             if gkey[0] == "dterm":
                 slots = _upload(dev.device, uploads, s["slots"])
@@ -828,7 +866,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
                                                   dev.doc_lens, idfs, avgdl,
                                                   rows=rows))
             elif gkey[0] == "cterm":
-                CAND_GROUPS[0] += 1
+                bump(CAND_GROUPS)
                 crows, tf = kernels_cuda.cand_rows(
                     dev.hdrs, dev.pays, s["offs"][shard], s["ns"][shard],
                     gkey[2], num_docs=N, blk_bits=dev.blk_bits)
@@ -836,7 +874,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
                                                 idfs, avgdl, kind, k1, b,
                                                 top_k, N))
             elif gkey[0] in ("cphrase", "cspan"):
-                CAND_GROUPS[0] += 1
+                bump(CAND_GROUPS)
                 freqs, crows = C.candidate_freqs(
                     dev, gkey, s["offs"][shard], s["ns"][shard], s["slots"])
                 outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
@@ -868,7 +906,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
     for s in plan.sparse:
         gkey = s["gkey"]
         offs, ns = s["offs"][shard], s["ns"][shard]
-        DISPATCHES[0] += 1
+        bump(DISPATCHES)
         if gkey[0] == "phrase":
             outs.append(at_rows(_phrase_scores(
                 phrase_freqs.pop(id(s)), kind, k1, b, top_k, dev.doc_lens,
@@ -963,7 +1001,10 @@ def score_batch_fused(dev: DeviceIndex,
                       slop=0, as_device: bool = False,
                       rows: Optional[np.ndarray] = None):
     """Score a batch of resolved term-id queries, one launch per group:
-    ``plan_batch`` on the index, ``run_plan`` on it, ``assemble``.
+    ``plan_batch`` on the index, ``run_plan`` on it, ``assemble``.  Safe
+    from many threads: the index is held (``DeviceIndex.held``) from the
+    plan to the last launch of the run, and released before anything
+    waits for the device.
 
     ``queries_tids[i]`` is the list of term ids for query i (`-1` entries
     mark vocabulary misses, making the query score zero), or None; a list
@@ -1003,12 +1044,17 @@ def score_batch_fused(dev: DeviceIndex,
         rows_t = kernels_cuda.host_to_device(rows.astype(np.int32),
                                              dev.device)
     n_out = N if rows is None else len(rows)
-    plan = plan_batch(PlanView([dev]), queries_tids, kind, top_k=top_k,
-                      slop=slop, allow_candidates=rows is None, n_out=n_out)
-    try:
-        outs = run_plan(dev, plan, kind, k1, b, top_k=top_k, rows=rows_t)
-    except BaseException:
-        dense.release(dev.maps, plan.fills)
-        raise
+    # held from the plan's reservations to the last launch that reads
+    # them; assemble reads only the groups' own outputs, and its copy to
+    # the host is waited for outside
+    with dev.held():
+        plan = plan_batch(PlanView([dev]), queries_tids, kind, top_k=top_k,
+                          slop=slop, allow_candidates=rows is None,
+                          n_out=n_out)
+        try:
+            outs = run_plan(dev, plan, kind, k1, b, top_k=top_k, rows=rows_t)
+        except BaseException:
+            dense.release(dev.maps, plan.fills)
+            raise
     return assemble(dev, plan, outs, n_out, top_k=top_k, defer=defer,
                     as_device=as_device)

@@ -33,6 +33,13 @@ as one row gather.  Launches are stream-ordered, so a row is filled
 before any later read of it and read before any later launch refills its
 slot.
 
+Queries may come from many threads.  A thread holds the maps
+(``SlotMaps.held``, ``DeviceIndex.held``) from its reservation to the
+last launch that reads its rows, so no other thread's plan evicts a row
+in between; the maps' event carries the stream order from one holder to
+the next when threads launch on streams of their own.  No result of a
+call is a view of a pool row: the next holder may refill it.
+
 The port of the JAX package's dense engine (``searcharray_tpu/search/
 dense.py``) for exact and slop phrases on full planes, and over a doc-id
 subset (``rows``): the planes' minis at those docs, built by K8b.  Its
@@ -50,7 +57,7 @@ import torch
 from searcharray_tpu_torch.index.device import DeviceIndex, SlotMaps
 from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
-from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS
+from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS, bump
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (plain K5)
     phrase_counts_dense_planes,
 )
@@ -121,18 +128,20 @@ def _start(maps: SlotMaps, kind: str) -> None:
 
 def _pool_tensor(dev: DeviceIndex, kind: str) -> torch.Tensor:
     """``dev``'s ``kind`` pool, allocated (zeros) at its maps' capacity on
-    first use."""
-    pool = getattr(dev, kind + "_pool")
-    if pool is None:
-        cap = getattr(dev.maps, kind + "_cap")
-        if kind == "plane":
-            pool = torch.zeros((cap, plane_size(dev)), dtype=torch.int32,
-                               device=dev.device)
-        else:
-            pool = torch.zeros((cap, dev.corpus_size), dtype=torch.float32,
-                               device=dev.device)
-        setattr(dev, kind + "_pool", pool)
-    return pool
+    first use, under the maps' lock (one tensor however many threads
+    ask)."""
+    with dev.maps.lock:
+        pool = getattr(dev, kind + "_pool")
+        if pool is None:
+            cap = getattr(dev.maps, kind + "_cap")
+            if kind == "plane":
+                pool = torch.zeros((cap, plane_size(dev)), dtype=torch.int32,
+                                   device=dev.device)
+            else:
+                pool = torch.zeros((cap, dev.corpus_size),
+                                   dtype=torch.float32, device=dev.device)
+            setattr(dev, kind + "_pool", pool)
+        return pool
 
 
 def _check_fits(slot_map, free: list, pin: set, tids: Sequence) -> None:
@@ -233,14 +242,16 @@ def ensure_batch(dev: DeviceIndex, plane_tids: Sequence[int] = (),
                  tf_tids: Sequence = ()) -> None:
     """Make every requested term's plane and tf vector (or promoted
     phrase's row) pool-resident on one index: ``reserve`` then
-    ``fill_rows``.  A fill that raises unmaps every slot this call
-    assigned."""
-    fill = reserve(dev.maps, plane_tids, tf_tids)
-    try:
-        fill_rows(dev, fill)
-    except BaseException:
-        release(dev.maps, [fill])
-        raise
+    ``fill_rows``, the index held through both (the caller holds it on
+    through the reads of the rows).  A fill that raises unmaps every slot
+    this call assigned."""
+    with dev.held():
+        fill = reserve(dev.maps, plane_tids, tf_tids)
+        try:
+            fill_rows(dev, fill)
+        except BaseException:
+            release(dev.maps, [fill])
+            raise
 
 
 def fill_rows(dev: DeviceIndex, fill: Fill) -> None:
@@ -253,7 +264,7 @@ def fill_rows(dev: DeviceIndex, fill: Fill) -> None:
     if fill.planes:
         pool = _pool_tensor(dev, "plane")
         spans = [dev.term_span(t)[:2] for t, _ in fill.planes]
-        DISPATCHES[0] += 1
+        bump(DISPATCHES)
         kernels_cuda.plane_fill(dev.hdrs, dev.pays, [o for o, _ in spans],
                                 [n for _, n in spans],
                                 [s for _, s in fill.planes], pool)
@@ -261,25 +272,26 @@ def fill_rows(dev: DeviceIndex, fill: Fill) -> None:
         tf_pool = _pool_tensor(dev, "tf")
     if fill.terms:
         spans = [dev.term_span(t)[:2] for t, _ in fill.terms]
-        DISPATCHES[0] += 1
+        bump(DISPATCHES)
         kernels_cuda.score_term_rows(
             dev.hdrs, dev.pays, [o for o, _ in spans], [n for _, n in spans],
             tf_pool, [slot for _, slot in fill.terms],
             num_docs=dev.corpus_size, blk_bits=dev.blk_bits)
     # the planes above are filled first: stream order puts these reads
-    # after the K4 launch that wrote them
+    # after the K4 launch that wrote them (or an earlier holder's)
     for fkey, rows in fill.recipes.items():
-        DISPATCHES[0] += 1
+        plane_pool = _pool_tensor(dev, "plane")
+        bump(DISPATCHES)
         slots = [slots for slots, _ in rows]
         into = dict(num_docs=dev.corpus_size, blk_bits=dev.blk_bits,
                     out=tf_pool, out_rows=[slot for _, slot in rows])
         if fkey[0] == "ph":
             _, _, plan_key, pattern = fkey
-            kernels_cuda.phrase_chain(dev.plane_pool, slots, plan_key,
+            kernels_cuda.phrase_chain(plane_pool, slots, plan_key,
                                       pattern, **into)
         else:
             _, _, anchor_i, w, mults = fkey
-            kernels_cuda.span_window(dev.plane_pool, slots, w, mults,
+            kernels_cuda.span_window(plane_pool, slots, w, mults,
                                      anchor=anchor_i, **into)
 
 
@@ -328,25 +340,27 @@ def pack_topk(dense: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
-    """Dense f32[N] term-frequency vector (a tf-pool row view).
+    """Dense f32[N] term-frequency vector: a tf-pool row view, so the
+    caller holds the index (``dev.held()``) through its last read of it.
 
     The analog of the reference's ``termfreq_cache``
     (`searcharray/phrase/middle_out.py:322-328`)."""
-    if dense_eligible(dev):
-        ensure_tfs(dev, [term_id])
-        return dev.tf_pool[dev.maps.tf_slot[term_id]]
-    cache = dev.tf_cache  # dict fallback for pool-ineligible corpora
-    arr = cache.get(term_id)
-    if arr is None:
-        arr = _term_tf_k1(dev, term_id)
-        per = dev.corpus_size * 4
-        budget = max(per, TF_POOL_BYTES // dev.pool_share)
-        while cache and (len(cache) + 1) * per > budget:
-            cache.popitem(last=False)
-        cache[term_id] = arr
-    else:
-        cache.move_to_end(term_id)
-    return arr
+    with dev.held():
+        if dense_eligible(dev):
+            ensure_tfs(dev, [term_id])
+            return dev.tf_pool[dev.maps.tf_slot[term_id]]
+        cache = dev.tf_cache  # dict fallback for pool-ineligible corpora
+        arr = cache.get(term_id)
+        if arr is None:
+            arr = _term_tf_k1(dev, term_id)
+            per = dev.corpus_size * 4
+            budget = max(per, TF_POOL_BYTES // dev.pool_share)
+            while cache and (len(cache) + 1) * per > budget:
+                cache.popitem(last=False)
+            cache[term_id] = arr
+        else:
+            cache.move_to_end(term_id)
+        return arr
 
 
 def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
@@ -403,12 +417,13 @@ def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
 
 def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
                        pattern, kind: str, k1: float, b: float, idf):
-    """Single-query dense phrase scoring: the plane fill, one K5 launch,
-    the similarity."""
-    ensure_planes(dev, term_ids)
-    freqs = kernels_cuda.phrase_chain(
-        dev.plane_pool, [plane_slots_of(dev.maps, term_ids)], plan, pattern,
-        num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
+    """Single-query dense phrase scoring: the plane fill, one K5 launch
+    (the index held through both), the similarity."""
+    with dev.held():
+        ensure_planes(dev, term_ids)
+        freqs = kernels_cuda.phrase_chain(
+            dev.plane_pool, [plane_slots_of(dev.maps, term_ids)], plan,
+            pattern, num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
                                      np.float32(idf), avgdl, k1, b,
@@ -436,14 +451,15 @@ def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
 def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,
                      w: int, kind: str, k1: float, b: float, idf,
                      mults=None):
-    """Single-query dense slop scoring: the plane fill, one K6 launch, the
-    similarity."""
-    ensure_planes(dev, uniq_tids)
+    """Single-query dense slop scoring: the plane fill, one K6 launch (the
+    index held through both), the similarity."""
     mults = (1,) * len(uniq_tids) if mults is None else tuple(mults)
-    freqs = kernels_cuda.span_window(
-        dev.plane_pool, [plane_slots_of(dev.maps, uniq_tids)], w, mults,
-        anchor=anchor_i, num_docs=dev.corpus_size,
-        blk_bits=dev.blk_bits)[0]
+    with dev.held():
+        ensure_planes(dev, uniq_tids)
+        freqs = kernels_cuda.span_window(
+            dev.plane_pool, [plane_slots_of(dev.maps, uniq_tids)], w, mults,
+            anchor=anchor_i, num_docs=dev.corpus_size,
+            blk_bits=dev.blk_bits)[0]
     avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
     return K.apply_similarity_device(kind, freqs, dev.doc_lens,
                                      np.float32(idf), avgdl, k1, b,

@@ -95,10 +95,12 @@ def score_term_dense(index: DeviceIndex, term_id: int, kind: str = "bm25",
     avgdl = np.float32(max(index.avg_doc_length, 1e-38))
     if kind != "none" and not windowed:
         # hot-term path: the pooled dense tf vector (dense.ensure_tfs)
-        # makes repeat scoring one row read + elementwise similarity
-        tf = dense.term_tf(index, term_id)
-        return apply_similarity_device(kind, tf, index.doc_lens,
-                                       np.float32(idf), avgdl, k1, b)
+        # makes repeat scoring one row read + elementwise similarity, into
+        # a tensor of its own, the index held until that read is enqueued
+        with index.held():
+            tf = dense.term_tf(index, term_id)
+            return apply_similarity_device(kind, tf, index.doc_lens,
+                                           np.float32(idf), avgdl, k1, b)
     h, p = term_planes(index, term_id, min_posn, max_posn)
     fused = kind if kind in kernels_cuda.KINDS else "none"
     out = kernels_cuda.score_term(

@@ -53,20 +53,25 @@ def hbm_report(index=None) -> Dict[str, int]:
             if t is not None:
                 report[f"index.{name}"] = t.numel() * t.element_size()
         # serving pools: the largest allocations an operator sees (the
-        # plane pool's budget alone is gigabytes); residency beside them
-        for pool, slot_map, label in (
-            (dev.plane_pool, dev.maps.plane_slot, "plane_pool"),
-            (dev.tf_pool, dev.maps.tf_slot, "tf_pool"),
-        ):
+        # plane pool's budget alone is gigabytes); residency beside them,
+        # read under the maps' lock (a query may be filling them)
+        with dev.maps.lock:
+            pools = [(dev.plane_pool, len(dev.maps.plane_slot), "plane_pool"),
+                     (dev.tf_pool, len(dev.maps.tf_slot), "tf_pool")]
+        for pool, used, label in pools:
             if pool is not None:
                 report[f"pool.{label}"] = pool.numel() * pool.element_size()
-                report[f"pool.{label}.slots_used"] = len(slot_map)
+                report[f"pool.{label}.slots_used"] = used
                 report[f"pool.{label}.slots_total"] = int(pool.shape[0])
         if sharded is not None:
             for name in ("hdrs", "pays", "doc_lens", "plane_pool",
                          "tf_pool"):
-                ts = [getattr(d, name) for d in sharded.device_indexes()
-                      if getattr(d, name) is not None]
+                ts = []
+                for d in sharded.device_indexes():
+                    with d.maps.lock:
+                        t = getattr(d, name)
+                    if t is not None:
+                        ts.append(t)
                 if ts:
                     report[f"sharded.{name}"] = sum(
                         t.numel() * t.element_size() for t in ts)

@@ -1948,3 +1948,110 @@ def test_sharded_engine_across_cards_matches_unsharded(card):
         want_r[:, torch.as_tensor(rows)].view(torch.int32))
     # a launch on another card leaves the current device where it was
     assert torch.cuda.current_device() == card_index
+
+
+# ---------------------------------------------------------------------------
+# concurrent queries: threads on one index, on the default stream or each
+# on a stream of its own, against the same calls made serially
+# ---------------------------------------------------------------------------
+def threaded_docs(seed=13, n=30_000):
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(400)]
+    probs = 1.0 / np.arange(1, len(vocab) + 1)
+    probs /= probs.sum()
+    return [" ".join(rng.choice(vocab, size=rng.integers(2, 60), p=probs))
+            for _ in range(n)]
+
+
+THREAD_QUERIES = ([[f"w{i // 10}", f"w{i % 10 + 10}"] for i in range(100)]
+                  + [f"w{i}" for i in range(100)])
+THREAD_SLOPS = [0, 2] * 50 + [0] * 100
+JOIN_TIMEOUT_S = 300
+
+
+def rotated_request(i):
+    r = 20 * i
+    return (THREAD_QUERIES[r:] + THREAD_QUERIES[:r],
+            THREAD_SLOPS[r:] + THREAD_SLOPS[:r])
+
+
+def run_threads(fn, n):
+    import threading
+
+    out, errors = [None] * n, []
+    start = threading.Barrier(n)
+
+    def worker(i):
+        try:
+            start.wait()
+            out[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 (reported by the caller)
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_TIMEOUT_S)
+    assert not any(t.is_alive() for t in threads), "a thread did not finish"
+    return out, errors
+
+
+@pytest.mark.parametrize("streams", ["shared", "per_thread"])
+def test_threads_serve_the_mixed_request_as_serial_calls(card, monkeypatch,
+                                                          streams):
+    """8 threads x 3 mixed requests (exact and slop-2 phrases, terms) on a
+    shrunk pool, ranked, as full score rows and with ``block=False``;
+    with ``per_thread`` each thread launches on its own
+    ``torch.cuda.Stream``, so only the maps' event orders a fill that
+    evicts a row after the other streams' reads of it.  There, the odd
+    threads' streams sleep on the card (~10 ms) after each pool fill, so
+    such a holder's reads run long after it released the maps and an
+    even thread's fills are enqueued on a stream with nothing before
+    them: without the event, those fills overwrite rows before they are
+    read."""
+    from searcharray_tpu_torch.search import dense
+
+    monkeypatch.setattr(dense, "TF_POOL_MAX_SLOTS", 24)
+    monkeypatch.setattr(dense, "PLANE_POOL_MAX_SLOTS", 12)
+    docs = threaded_docs()
+    arr = SearchArray.index(docs, device=card, autowarm=False)
+    ref = SearchArray.index(docs, device=card, autowarm=False)
+    fill_rows = dense.fill_rows
+    own = [torch.cuda.Stream(card) for _ in range(8)]
+    slow = {own[i].cuda_stream for i in range(1, 8, 2)}
+
+    def slow_reads(dev, fill):
+        fill_rows(dev, fill)
+        if torch.cuda.current_stream(dev.device).cuda_stream in slow:
+            torch.cuda._sleep(20_000_000)
+
+    def calls(a, i):
+        qq, sl = rotated_request(i)
+        ranked = [a.score_batch(qq, top_k=10, slop=sl) for _ in range(2)]
+        collect = a.score_batch(qq, top_k=10, slop=sl, block=False)
+        full = a.score_batch_device(qq, slop=sl)
+        return ranked + [collect()], full.cpu().numpy()
+
+    want = [calls(ref, i) for i in range(8)]
+    monkeypatch.setattr(dense, "fill_rows", slow_reads)
+
+    def threaded(i):
+        if streams == "shared":
+            return calls(arr, i)
+        s = own[i]
+        with torch.cuda.stream(s):
+            got = calls(arr, i)
+        s.synchronize()
+        return got
+
+    got, errors = run_threads(threaded, 8)
+    assert not errors, errors
+    for i in range(8):
+        (g_ranked, g_full), (w_ranked, w_full) = got[i], want[i]
+        for (gs, gi), (ws, wi) in zip(g_ranked, w_ranked):
+            assert np.array_equal(gi, wi), i
+            assert np.array_equal(gs.view(np.int32), ws.view(np.int32)), i
+        assert np.array_equal(g_full.view(np.int32), w_full.view(np.int32)), i
+    maps = arr.dev.maps
+    assert maps.holds > 0 and maps.tf_cap == 24 and maps.plane_cap == 12
