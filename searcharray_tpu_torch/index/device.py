@@ -33,6 +33,7 @@ from searcharray_tpu_torch.ops.kernels import (
     compress_planes,
     expand_bucket_of,
 )
+from searcharray_tpu_torch.utils import profiling
 
 
 def derive_attach_arrays(built: BuiltIndex,
@@ -147,24 +148,37 @@ class SlotMaps:
         read after the fill that wrote it, whatever stream each thread
         launches on.  On the CPU the lock alone orders the work.  Hold it
         over host planning and enqueues only, never over a wait on the
-        device."""
+        device.
+
+        Where spans are recorded (``utils/profiling.py``), an outermost
+        hold's wait for the lock is a ``batch.lock_wait`` span, and the
+        stream ordering on entry and on exit a ``batch.order`` span
+        each."""
         cards = [d for d in devices if d.type == "cuda"]
+        asked = time.perf_counter_ns() if profiling.active() else 0
         with self.lock:
             self._depth += 1
             if self._depth == 1:
                 self._since = time.perf_counter()
+                if asked:
+                    profiling.mark("batch.lock_wait", asked,
+                                   time.perf_counter_ns())
             try:
-                for d in cards:
-                    ev = self._done.get(d)
-                    if ev is not None:
-                        torch.cuda.current_stream(d).wait_event(ev)
+                if cards:
+                    with profiling.span("batch.order"):
+                        for d in cards:
+                            ev = self._done.get(d)
+                            if ev is not None:
+                                torch.cuda.current_stream(d).wait_event(ev)
                 yield self
             finally:
-                for d in cards:
-                    ev = self._done.get(d)
-                    if ev is None:
-                        ev = self._done[d] = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(d))
+                if cards:
+                    with profiling.span("batch.order"):
+                        for d in cards:
+                            ev = self._done.get(d)
+                            if ev is None:
+                                ev = self._done[d] = torch.cuda.Event()
+                            ev.record(torch.cuda.current_stream(d))
                 self._depth -= 1
                 if self._depth == 0:
                     self.holds += 1

@@ -70,6 +70,7 @@ from searcharray_tpu_torch.search import phrase as phrase_mod
 from searcharray_tpu_torch.search import scoring
 from searcharray_tpu_torch.search import spans as spans_mod
 from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
+from searcharray_tpu_torch.utils import profiling
 
 
 def _bytes_h(num_bytes):
@@ -777,6 +778,7 @@ class SearchArray(ExtensionArray):
                 idf=idf)
         return self._gather_rows(dense)
 
+    @profiling.spanned("facade.score_batch")
     def score_batch(self, queries: List[Union[str, List[str]]],
                     similarity: Similarity = default_bm25, slop=0,
                     top_k: Optional[int] = None, block: bool = True):
@@ -817,11 +819,14 @@ class SearchArray(ExtensionArray):
             if sharded is not None and top_k is not None:
                 scores, idx = sharded.topk(qtids, min(top_k, len(self)),
                                            kind, k1, b, slop=slops)
-                return (scores.cpu().numpy(),
-                        idx.cpu().numpy().astype(np.int64))
+                with profiling.span("batch.wait"):
+                    return (scores.cpu().numpy(),
+                            idx.cpu().numpy().astype(np.int64))
             if sharded is not None:
-                return sharded.score_batch_device(qtids, kind, k1, b,
-                                                  slop=slops).cpu().numpy()
+                out = sharded.score_batch_device(qtids, kind, k1, b,
+                                                 slop=slops)
+                with profiling.span("batch.wait"):
+                    return out.cpu().numpy()
             if self._full_view and top_k is not None:
                 return batch_mod.score_batch_fused(
                     self.dev, qtids, kind, k1, b,
@@ -836,6 +841,7 @@ class SearchArray(ExtensionArray):
         idx = np.argsort(dense, axis=1)[:, ::-1][:, :top_k]
         return np.take_along_axis(dense, idx, axis=1), idx
 
+    @profiling.spanned("facade.score_batch_device")
     def score_batch_device(self, queries: List[Union[str, List[str]]],
                            similarity: Similarity = default_bm25, slop=0,
                            rows: Optional[np.ndarray] = None) -> torch.Tensor:

@@ -80,6 +80,7 @@ from searcharray_tpu_torch.search.spans import (
     takes_dense_span,
     unique_terms,
 )
+from searcharray_tpu_torch.utils import profiling
 
 # Device work items issued since import: tf-pool fills and group launches.
 DISPATCHES = dense.DISPATCHES
@@ -757,6 +758,7 @@ def _waves(view: PlanView, specs: List[dict]):
         yield cur
 
 
+@profiling.spanned("batch.plan")
 def plan_batch(view: PlanView, queries_tids: Sequence[Optional[List[int]]],
                kind: str = "bm25", top_k: Optional[int] = None, slop=0,
                allow_candidates: bool = True, n_out: int = 1) -> BatchPlan:
@@ -836,6 +838,7 @@ def _upload(device, uploads: Optional[dict], arr: np.ndarray):
     return t
 
 
+@profiling.spanned("batch.enqueue")
 def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
              k1: float = 1.2, b: float = 0.75, top_k: Optional[int] = None,
              rows=None, shard: int = 0, uploads: Optional[dict] = None,
@@ -935,6 +938,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
     return outs
 
 
+@profiling.spanned("batch.assemble")
 def assemble(dev: DeviceIndex, plan: BatchPlan, outs: List[torch.Tensor],
              n_out: int, top_k: Optional[int] = None, defer: bool = False,
              as_device: bool = False, uploads: Optional[dict] = None):
@@ -976,7 +980,8 @@ def assemble(dev: DeviceIndex, plan: BatchPlan, outs: List[torch.Tensor],
             idx = np.tile(np.arange(top_k, dtype=np.int64), (Q, 1))
             if staged is not None:
                 if event is not None:
-                    event.synchronize()
+                    with profiling.span("batch.wait"):
+                        event.synchronize()
                 packed = staged.numpy()
                 scores[out_qis] = packed[:, :top_k].view(np.float32)
                 idx[out_qis] = packed[:, top_k:]
@@ -988,7 +993,9 @@ def assemble(dev: DeviceIndex, plan: BatchPlan, outs: List[torch.Tensor],
 
     out_np = np.zeros((Q, n_out), np.float32)
     if outs:
-        out_np[out_qis] = torch.cat(outs).cpu().numpy()
+        stack = torch.cat(outs)
+        with profiling.span("batch.wait"):
+            out_np[out_qis] = stack.cpu().numpy()
     if plan.dedup:  # fan duplicate queries back out
         out_np = out_np[plan.expand]
     return out_np

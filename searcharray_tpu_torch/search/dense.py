@@ -61,6 +61,7 @@ from searcharray_tpu_torch.ops.cuda.score import CHAIN_MAX_TERMS, bump
 from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (plain K5)
     phrase_counts_dense_planes,
 )
+from searcharray_tpu_torch.utils import profiling
 
 PLANE_POOL_BYTES = 3 << 30   # device budget for the plane pool
 TF_POOL_BYTES = 768 << 20    # device budget for the tf pool
@@ -199,7 +200,12 @@ def reserve(maps: SlotMaps, plane_tids: Sequence[int] = (),
     planes into the same reservation, to be filled by K5 (an exact
     phrase) or K6 (a slop phrase) from them.  Both pools are checked
     before either assigns a slot, so a request that cannot fit raises
-    with the maps untouched."""
+    with the maps untouched.
+
+    Counts on the innermost open span (``utils/profiling.py``): the
+    distinct plane and tf-pool rows requested (``plane_rows``,
+    ``tf_rows``; a missing phrase row's planes and the phrase row itself
+    among them) and those not resident (``plane_fills``, ``tf_fills``)."""
     miss_sigs = [t for t in dict.fromkeys(tf_tids)
                  if isinstance(t, tuple) and t not in maps.tf_slot]
     plane_tids = list(plane_tids) + [t for s in miss_sigs
@@ -213,6 +219,11 @@ def reserve(maps: SlotMaps, plane_tids: Sequence[int] = (),
         _check_fits(maps.tf_slot, maps.tf_free, pin_t, tf_tids)
     new_p = _alloc_slots(maps.plane_slot, maps.plane_free, pin_p, plane_tids)
     new_t = _alloc_slots(maps.tf_slot, maps.tf_free, pin_t, tf_tids)
+    if profiling.active():
+        profiling.count("plane_rows", len(pin_p))
+        profiling.count("plane_fills", len(new_p))
+        profiling.count("tf_rows", len(pin_t))
+        profiling.count("tf_fills", len(new_t))
     terms, recipes = [], {}
     for key, slot in new_t:
         if isinstance(key, tuple):

@@ -33,6 +33,7 @@ from searcharray_tpu_torch.ops.cuda.score import host_to_device
 from searcharray_tpu_torch.pandas_ext.array import SearchArray
 from searcharray_tpu_torch.search.dense import pack_topk
 from searcharray_tpu_torch.search.similarity import Similarity, default_bm25
+from searcharray_tpu_torch.utils import profiling
 
 
 def _mm_int(value: str) -> int:
@@ -227,7 +228,9 @@ def _matched_ids(qf_scores: torch.Tensor, cap: int) -> np.ndarray:
                      device=qf_scores.device)
     ids.scatter_(0, dest, torch.arange(n, device=qf_scores.device))
     ids[cap] = rank[-1]
-    return ids.roll(1).to(torch.int32).cpu().numpy()
+    wire = ids.roll(1).to(torch.int32)
+    with profiling.span("batch.wait"):
+        return wire.cpu().numpy()
 
 
 def _phase_candidate_rows(qf_scores: torch.Tensor) -> Optional[np.ndarray]:
@@ -249,6 +252,7 @@ def _phase_candidate_rows(qf_scores: torch.Tensor) -> Optional[np.ndarray]:
     return wire[1: 1 + count].astype(np.int64)
 
 
+@profiling.spanned("composer.phases")
 def _ngram_phases(frame, search_terms, phases, similarity,
                   rows: Optional[np.ndarray] = None):
     """pf / pf2 / pf3 scoring, all phases batched per FIELD.
@@ -345,6 +349,7 @@ def _settings(qf, mm, pf, pf2, pf3, q_op, similarity):
             similarity)
 
 
+@profiling.spanned("composer.edismax")
 def edismax(frame: pd.DataFrame, q: str, qf: List[str],
             mm: Optional[Union[str, int]] = None,
             pf: Optional[List[str]] = None,
@@ -405,11 +410,16 @@ def edismax(frame: pd.DataFrame, q: str, qf: List[str],
             qf_scores = qf_scores.index_add(0, rows_t, extra)
 
     if top_k is None:
-        return qf_scores.cpu().numpy(), explain
+        with profiling.span("batch.wait"):
+            return qf_scores.cpu().numpy(), explain
     k = min(top_k, int(qf_scores.shape[0]))
-    return _unpack_topk(pack_topk(qf_scores, k).cpu().numpy(), k), explain
+    wire = pack_topk(qf_scores, k)
+    with profiling.span("batch.wait"):
+        wire = wire.cpu().numpy()
+    return _unpack_topk(wire, k), explain
 
 
+@profiling.spanned("composer.edismax")
 def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
                   mm: Optional[Union[str, int]] = None,
                   pf: Optional[List[str]] = None,
@@ -564,6 +574,10 @@ def edismax_batch(frame: pd.DataFrame, queries: List[str], qf: List[str],
         del gram_stacks
         qf_scores = qf_scores + torch.where(qf_scores > 0, extras, 0.0)
     if top_k is None:
-        return qf_scores.cpu().numpy(), explains
+        with profiling.span("batch.wait"):
+            return qf_scores.cpu().numpy(), explains
     k = min(top_k, n)
-    return _unpack_topk(pack_topk(qf_scores, k).cpu().numpy(), k), explains
+    wire = pack_topk(qf_scores, k)
+    with profiling.span("batch.wait"):
+        wire = wire.cpu().numpy()
+    return _unpack_topk(wire, k), explains
