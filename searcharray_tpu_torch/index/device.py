@@ -222,6 +222,10 @@ class DeviceIndex:
         # its term with the fewest)
         self.stats_lengths = (built.postings.lengths if stats_lengths is None
                               else stats_lengths)
+        # kind -> float64 [V], each term's part of a query's idf on
+        # ``doc_freqs`` and ``stats_docs`` (host memory, built at the first
+        # plan that reads it: ``search/batch.py:PlanView.idf_terms``)
+        self.idf_tables: dict = {}
 
         max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
         # tail padding covers the largest bucket-sized slice taken at any

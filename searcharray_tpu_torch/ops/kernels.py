@@ -53,6 +53,30 @@ def expand_bucket_of(n: int) -> int:
     return b
 
 
+def _ceil_log2(n: np.ndarray) -> np.ndarray:
+    """The bit length of ``n - 1`` for int64 ``n >= 1`` below 2**53."""
+    return np.frexp((n - 1).astype(np.float64))[1].astype(np.int64)
+
+
+def buckets_of(n: np.ndarray) -> np.ndarray:
+    """``bucket_of`` of every entry of int64 ``n``."""
+    n = np.asarray(n, np.int64)
+    p = np.left_shift(1, np.maximum(_ceil_log2(np.maximum(n, 1)),
+                                    MIN_BUCKET.bit_length() - 1))
+    half = p >> 1
+    out = p
+    for frac in (7, 6, 5):     # the smallest step that holds n wins
+        cand = (half * frac) >> 2
+        out = np.where(n <= cand, cand, out)
+    return np.where(n <= MIN_BUCKET, MIN_BUCKET, out)
+
+
+def expand_buckets_of(n: np.ndarray) -> np.ndarray:
+    """``expand_bucket_of`` of every entry of int64 ``n``."""
+    e = _ceil_log2(np.maximum(np.asarray(n, np.int64), 1))
+    return np.left_shift(1, 12 + 2 * ((np.maximum(e, 12) - 11) // 2))
+
+
 def compress_planes(words: np.ndarray, blk_bits: int):
     """uint64 posting words -> (hdr32 int32, pay32 uint32) planes.
 

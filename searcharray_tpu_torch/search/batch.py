@@ -71,7 +71,9 @@ from searcharray_tpu_torch.search.phrase import (
 )
 from searcharray_tpu_torch.search.scoring import (
     apply_similarity_device,
-    host_idf,
+    idf_terms,
+    table_idf,
+    table_idfs,
 )
 from searcharray_tpu_torch.search.spans import (
     anchor_of,
@@ -414,6 +416,18 @@ class PlanView:
         shard."""
         return self.offsets[:, tids], self.lengths[:, tids]
 
+    def idf_terms(self, kind: str) -> np.ndarray:
+        """float64 [V]: each term's part of a query's idf on the corpus's
+        statistics (``scoring.idf_terms``), built once per kind and kept
+        on the first shard, whose ``doc_freqs`` and ``stats_docs`` are the
+        corpus's."""
+        tables = self.members[0].idf_tables
+        got = tables.get(kind)
+        if got is None:
+            got = tables[kind] = idf_terms(kind, self.doc_freqs,
+                                           self.stats_docs)
+        return got
+
 
 def _as_view(dev) -> PlanView:
     return dev if isinstance(dev, PlanView) else PlanView([dev])
@@ -465,21 +479,37 @@ def _classify(dev, queries_tids: Sequence[Optional[List[int]]],
     is never promoted into the phrase-tf cache.  ``top_k`` larger than a
     query's Kc keeps it off the engine, and so (unlike the JAX package,
     whose chain takes any length) does a phrase of more than
-    CHAIN_MAX_TERMS terms, which K5 does not take."""
+    CHAIN_MAX_TERMS terms, which K5 does not take.
+
+    Every idf is read from the per-term table (``PlanView.idf_terms``),
+    bit-equal to ``host_idf``'s.  The resolved single-term queries are
+    classified together, in one array pass (``_term_rows``); the loop
+    takes the rest, one query at a time.  Counts on the innermost open
+    span (``utils/profiling.py``) the distinct queries classified
+    (``plan_rows``) and those the loop took (``plan_loop_rows``)."""
     view = _as_view(dev)
     dense_ok = dense.dense_eligible(view)
     slops = ([int(slop)] * len(queries_tids) if np.isscalar(slop)
              else [int(s) for s in slop])
     ptf_budget = _ptf_budget(view) if dense_ok else [0]
     corpus_len, local_len = view.stats_lengths, view.local_lengths
+    parts = view.idf_terms(kind)
+    terms, n_terms = _term_rows(view, queries_tids, kind, parts, top_k,
+                                allow_candidates, dense_ok)
+    if profiling.active():
+        profiling.count("plan_rows", len(queries_tids))
+        profiling.count("plan_loop_rows", len(queries_tids) - n_terms)
     groups: dict = {}
     for qi, tids in enumerate(queries_tids):
+        got = terms[qi]
+        if got is not None:
+            groups.setdefault(got[0], []).append(got[1])
+            continue
         if tids is None or len(tids) == 0 or any(t < 0 for t in tids):
             continue
-        dfs = [int(view.doc_freqs[t]) for t in tids]
-        idf = host_idf(kind, dfs, view.stats_docs, view.avg_doc_length)
-        if len(tids) > 1 and min(int(corpus_len[t]) for t in tids) == 0:
+        if min(int(corpus_len[t]) for t in tids) == 0:
             continue
+        idf = table_idf(kind, parts[tids], view.stats_docs)
         cols = tids   # the terms of the row's slice tables
         if _is_slop_phrase(tids, slops[qi]):
             sig = (tuple(tids), slops[qi])
@@ -500,17 +530,6 @@ def _classify(dev, queries_tids: Sequence[Optional[List[int]]],
                 gkey, row_tids = ("dterm",), [sig]
             else:
                 gkey = ("dspan",) + fkey[1:]
-        elif len(tids) == 1:
-            n = int(local_len[tids[0]])
-            if (allow_candidates and n > 0
-                    and C.eligible_term(view, tids[0], top_k)):
-                bkt = K.expand_bucket_of(n)
-                gkey = ("cterm", bkt, bkt)
-            elif dense_ok:
-                gkey = ("dterm",)
-            else:
-                gkey = ("term", K.bucket_of(max(1, n)))
-            row_tids = tids
         else:
             sig = (tuple(tids), 0)
             if (allow_candidates and len(tids) <= CHAIN_MAX_TERMS
@@ -550,6 +569,42 @@ def _classify(dev, queries_tids: Sequence[Optional[List[int]]],
                     ns[d] = [n for _, n in trimmed]
         groups.setdefault(gkey, []).append((qi, offs, ns, idf, row_tids))
     return groups
+
+
+_DTERM = ("dterm",)
+
+
+def _term_rows(view: PlanView, queries_tids, kind: str, parts: np.ndarray,
+               top_k: Optional[int], allow_candidates: bool,
+               dense_ok: bool):
+    """The resolved single-term queries of a batch, classified in one
+    array pass over the per-term tables: (for each query its (group key,
+    row) as ``_classify`` files it, or None for a query this pass does not
+    take; the number taken).  A term is ``cterm`` where
+    ``C.eligible_term`` holds (and its posting is not empty), else
+    ``dterm`` where the corpus is dense-eligible, else ``term`` keyed by
+    its bucket; the slices of a ``cterm`` or ``term`` row are one gather
+    of ``offsets`` / ``lengths``."""
+    out: list = [None] * len(queries_tids)
+    qis = [qi for qi, tids in enumerate(queries_tids)
+           if tids is not None and len(tids) == 1 and tids[0] >= 0]
+    tids = np.fromiter((queries_tids[qi][0] for qi in qis), np.int64,
+                       len(qis))
+    idfs = table_idfs(kind, parts[tids], view.stats_docs).tolist()
+    n = view.local_lengths[tids]
+    cand = ((n > 0) & C.eligible_terms(view, n, top_k) if allow_candidates
+            else np.zeros(len(qis), bool))
+    kcs = K.expand_buckets_of(n).tolist()
+    bkts = K.buckets_of(np.maximum(n, 1)).tolist()
+    offs, ns = view.tables(tids)
+    for j, (qi, idf, c) in enumerate(zip(qis, idfs, cand.tolist())):
+        if dense_ok and not c:
+            out[qi] = (_DTERM, (qi, None, None, idf, queries_tids[qi]))
+            continue
+        gkey = ("cterm", kcs[j], kcs[j]) if c else ("term", bkts[j])
+        out[qi] = (gkey, (qi, offs[:, j:j + 1], ns[:, j:j + 1], idf,
+                          queries_tids[qi]))
+    return out, len(qis)
 
 
 def _cand_fields(gkey):
@@ -669,6 +724,9 @@ def _spec(gkey, chunk) -> dict:
             "idfs": np.asarray([r[3] for r in chunk], np.float32)}
     if gkey[0] == "dterm":
         spec["tf_tids"] = [r[4][0] for r in chunk]
+        # the rows keyed by a phrase signature: the only ones that can
+        # pull planes into a wave (``_recipe_planes``)
+        spec["sigs"] = [k for k in spec["tf_tids"] if isinstance(k, tuple)]
     elif gkey[0] in ("dphrase", "dspan"):
         spec["plane_tids"] = [t for r in chunk for t in r[4]]
     elif gkey[0] in ("cphrase", "cspan"):
@@ -697,7 +755,11 @@ def _dterm_chunks(maps, rows, max_rows: int, cap_p: int) -> List[list]:
     """``dterm`` rows cut into chunks of at most ``max_rows``: a row keyed
     by a phrase signature whose tf row is not resident pulls its terms'
     planes into the wave's fill, so each chunk's planes must fit the plane
-    pool beside one free slot."""
+    pool beside one free slot.  Rows keyed by a term id pull no plane, so
+    a group of them alone is cut by count."""
+    if not any(isinstance(row[4][0], tuple) for row in rows):
+        return [rows[c0: c0 + max_rows]
+                for c0 in range(0, len(rows), max_rows)]
     chunks, cur, cur_planes = [], [], set()
     for row in rows:
         p_t = _recipe_planes(maps, row[4][0])
@@ -716,7 +778,7 @@ def _fitting(maps, s: dict, cap_p: int) -> List[dict]:
     """``s``, or a ``dterm`` spec cut again where an earlier wave's
     reservation evicted phrase rows that were resident when the group was
     chunked."""
-    if s["gkey"][0] != "dterm":
+    if s["gkey"][0] != "dterm" or not s["sigs"]:
         return [s]
     chunks = _dterm_chunks(maps, s["chunk"], len(s["chunk"]), cap_p)
     return [s] if len(chunks) == 1 else [_spec(s["gkey"], c) for c in chunks]
@@ -743,7 +805,7 @@ def _waves(view: PlanView, specs: List[dict]):
             s, pending = parts[0], parts[1:] + pending
         t_t = set(s.get("tf_tids", ()))
         p_t = set(s.get("plane_tids", ()))
-        for key_ in t_t:
+        for key_ in s.get("sigs", ()):
             p_t |= _recipe_planes(maps, key_)
         if cur and (len(cur_p | p_t) > cap_p - 1
                     or len(cur_t | t_t) > cap_t - 1):

@@ -104,6 +104,17 @@ def eligible_term(dev: DeviceIndex, tid: int, top_k: Optional[int]) -> bool:
     return kc * CAND_MAX_FRAC <= dev.corpus_size
 
 
+def eligible_terms(dev: DeviceIndex, n_words: np.ndarray,
+                   top_k: Optional[int]) -> np.ndarray:
+    """``eligible_term`` of many terms at once, from their routing posting
+    words (``term_span(t)[1]``): bool [Q]."""
+    if dev.stats_docs < CAND_TERM_MIN_DOCS:
+        return np.zeros(len(n_words), bool)
+    kc = K.expand_buckets_of(np.maximum(n_words, 1))
+    ok = kc * CAND_MAX_FRAC <= dev.corpus_size
+    return ok if top_k is None else ok & (top_k <= kc)
+
+
 def eligible_phrase(dev: DeviceIndex, tids: Sequence[int],
                     top_k: Optional[int]) -> bool:
     from searcharray_tpu_torch.search import dense

@@ -47,7 +47,7 @@ def chain_key(dev: DeviceIndex, term_ids: List[int]):
     splits a phrase where the whole index would), and each term's first
     index as its same-term tag."""
     lengths = [int(dev.stats_lengths[t]) for t in term_ids]
-    plan = _plan(len(term_ids), int(np.argmin(lengths)))
+    plan = _plan(len(term_ids), lengths.index(min(lengths)))
     return (tuple((d, tuple(ix)) for d, ix in plan),
             tuple(term_ids.index(t) for t in term_ids))
 

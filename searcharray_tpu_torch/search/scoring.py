@@ -36,6 +36,40 @@ def host_idf(kind, dfs, num_docs, avgdl) -> np.float32:
     return np.float32(0.0)
 
 
+def idf_terms(kind, doc_freqs, num_docs) -> np.ndarray:
+    """float64 [V]: each term's part of ``host_idf``'s sum, by the same
+    float64 operations on every term at once: ``log1p((N - df + 0.5) /
+    (df + 0.5))`` for bm25 and bm25_legacy, ``df`` for classic, 0 for a
+    kind without an idf.  ``table_idf`` and ``table_idfs`` read a query's
+    idf from it, bit-equal to ``host_idf``'s."""
+    dfs64 = np.asarray(doc_freqs, dtype=np.float64)
+    if kind in ("bm25", "bm25_legacy"):
+        return np.log1p((num_docs - dfs64 + 0.5) / (dfs64 + 0.5))
+    if kind == "classic":
+        return dfs64
+    return np.zeros(len(dfs64))
+
+
+def table_idf(kind, parts: np.ndarray, num_docs) -> np.float32:
+    """``host_idf`` of one query from its terms' ``idf_terms`` entries in
+    query order: the same sum, the same narrowing."""
+    if kind in ("bm25", "bm25_legacy"):
+        return np.float32(parts.sum())
+    if kind == "classic":
+        return np.float32(np.log((num_docs + 1) / (parts.sum() + 1)) + 1.0)
+    return np.float32(0.0)
+
+
+def table_idfs(kind, parts: np.ndarray, num_docs) -> np.ndarray:
+    """float32 [Q]: ``host_idf`` of Q single-term queries from their
+    terms' ``idf_terms`` entries, all at once."""
+    if kind in ("bm25", "bm25_legacy"):
+        return parts.astype(np.float32)
+    if kind == "classic":
+        return (np.log((num_docs + 1) / (parts + 1)) + 1.0).astype(np.float32)
+    return np.zeros(len(parts), np.float32)
+
+
 # ---------------------------------------------------------------------------
 # term stats
 # ---------------------------------------------------------------------------

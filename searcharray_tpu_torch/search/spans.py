@@ -53,7 +53,8 @@ def anchor_of(index: DeviceIndex, uniq: Sequence[int]) -> int:
     the first with the fewest posting words in the corpus
     (``stats_lengths``: a shard's are its corpus's, so each shard counts
     the anchor the whole index would)."""
-    return int(np.argmin([int(index.stats_lengths[t]) for t in uniq]))
+    lengths = [int(index.stats_lengths[t]) for t in uniq]
+    return lengths.index(min(lengths))
 
 
 def dense_window_ok(n_terms: int, slop: int, mults: Sequence[int]) -> bool:
