@@ -28,7 +28,10 @@ entry points a user calls, and checks it:
    BM25 in the JAX package's two-FMA form, ``oracle_bm25``).  Every
    similarity of the path is K10's, each launch held to
    ``similarity_plain`` bit for bit as it runs (``K10Recorder``).
-   Every ranked result is K3's.  Then slop phrases on the dense planes
+   Every ranked group with whole rows and k up to 64 is the fused ranking
+   pass (K3's selection with K10's function inside, ``rank_rows``), each
+   launch held to ``rank_rows_plain`` bit for bit as it runs
+   (``K8Recorder``); every other ranked result is K3's.  Then slop phrases on the dense planes
    (K6): three ``score_batch`` calls of bench.py's mixed request (120
    term and phrase queries and 24 slop-2 phrases, per-query ``slop``):
    the window groups, the promotion into tf-pool rows that K6 fills, the
@@ -153,7 +156,10 @@ entry points a user calls, and checks it:
    K10 (the similarity launches of a serving-mix call) and K11 (the
    composition launches of one edismax call, and of one edismax_batch)
    the torch composition each replaced, no single call computing it; K3
-   also on the merge of one sharded serving-mix call; K3's
+   also on the merge of one sharded serving-mix call; the fused ranking
+   pass on one terms wave (99 tf-pool rows of the index by slot, k = 10),
+   beside the route it replaced (the gather, K10 and K3; the parent's
+   turns run it) and that route as torch ops; K3's
    device operations per call by the profiler's event count, and K10's
    launches in a profiled call against its counter;
 6. evidence: timings, ``score_batch`` qps over several windows (terms;
@@ -177,7 +183,9 @@ entry points a user calls, and checks it:
 also builds the kernel sources in DIR (an earlier version's
 ``searcharray_tpu_torch/csrc``) and times them in turns with the
 current ones (old, new, new, old) at the same shapes, and takes the
-long-document and serving-mix qps in the same turns.
+long-document and serving-mix qps in the same turns.  A kernel the
+earlier version lacks runs as it ran then (``with_lib``): without the
+fused ranking pass, every ranked group by K10 then K3.
 
     python3 chip_smoke.py --parent-tree DIR
 
@@ -274,7 +282,8 @@ KERNEL_NAMES = {"K1": ("score_term_kernel",), "K2": ("segment_sum_kernel",),
                 "K8b": ("cand_minis_kernel",),
                 "K9": ("span_sparse_kernel", "span_join_kernel"),
                 "K10": ("similarity_kernel",),
-                "K11": ("compose_tc_kernel", "compose_fc_kernel")}
+                "K11": ("compose_tc_kernel", "compose_fc_kernel"),
+                "K3+K10": ("rank_tile_kernel", "rank_merge_kernel")}
 
 
 def card_line() -> str:
@@ -1142,17 +1151,19 @@ class K8Recorder:
     search/dense.py see it during the main path.  Every K8a and K8b launch
     is held to its plain version on the same inputs as it runs, bit for
     bit, and noted; so are K5 and K6 on mini-planes (the pool they read is
-    a K8b output) and K3 over a candidate axis (rows narrower than the
-    corpus).  Nothing else changes."""
+    a K8b output), K3 over a candidate axis (rows narrower than the
+    corpus) and every launch of the fused ranking pass (``rank_rows``,
+    "K3+K10").  Nothing else changes."""
 
     def __init__(self, kc, num_docs, blk_bits):
         self.kc, self.n, self.bb = kc, num_docs, blk_bits
         self.k8a, self.k8b = [], []
         # the largest absolute difference from the plain version seen
-        self.err = {"K8a": 0.0, "K8b": 0.0}
+        self.err = {"K8a": 0.0, "K8b": 0.0, "K3+K10": 0.0}
         self.minis = {}   # K8b outputs not yet read by K5 or K6, by id
         self.checked = {"K5 on minis": 0, "K6 on minis": 0,
-                        "K3 over Kc": 0}
+                        "K3 over Kc": 0, "K3+K10": 0}
+        self.rank_shapes = set()
 
     def __getattr__(self, name):
         return getattr(self.kc, name)
@@ -1215,6 +1226,24 @@ class K8Recorder:
             self.checked["K3 over Kc"] += 1
         return vals, idx
 
+    def rank_rows(self, kind, src, slots, doc_lens, idfs, avgdl, k1, b, k):
+        import torch
+
+        vals, idx = self.kc.rank_rows(kind, src, slots, doc_lens, idfs,
+                                      avgdl, k1, b, k)
+        want_v, want_i = self.kc.rank_rows_plain(kind, src, slots, doc_lens,
+                                                 idfs, avgdl, k1, b, k)
+        if vals.numel():
+            self.err["K3+K10"] = max(self.err["K3+K10"], float(
+                (vals.double() - want_v.double()).abs().nan_to_num(0.0).max()))
+        if not (torch.equal(idx.long(), want_i) and torch.equal(
+                vals.view(torch.int32), want_v.view(torch.int32))):
+            raise AssertionError("K3+K10 differs from its plain version")
+        self.checked["K3+K10"] += 1
+        self.rank_shapes.add((kind, int(idx.shape[0]), int(src.shape[1]), k,
+                              slots is not None))
+        return vals, idx
+
 
 def torch_similarity(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
     """The similarity as torch ops, each rounded once: what the port ran
@@ -1240,6 +1269,12 @@ def torch_similarity(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
         else:
             got = tfs / (tfs + norm)
     return got if out is None else out.copy_(got)
+
+
+def never_fused(top_k):
+    """``dense.fuses`` on the route the fused ranking pass replaced: every
+    ranked group by K10 then K3."""
+    return False
 
 
 class K10Recorder:
@@ -1416,6 +1451,15 @@ class PlainCheck:
         want_v, want_i = self.kc.topk_plain(x, k)
         self._same("K3", (tuple(x.shape), k), [idx.long(), vals],
                    [want_i, want_v])
+        return vals, idx
+
+    def rank_rows(self, kind, src, slots, doc_lens, idfs, avgdl, k1, b, k):
+        vals, idx = self.kc.rank_rows(kind, src, slots, doc_lens, idfs,
+                                      avgdl, k1, b, k)
+        want_v, want_i = self.kc.rank_rows_plain(kind, src, slots, doc_lens,
+                                                 idfs, avgdl, k1, b, k)
+        self._same("K3+K10", (kind, int(idx.shape[0]), int(src.shape[1]),
+                              k), [idx.long(), vals], [want_i, want_v])
         return vals, idx
 
     def plane_fill(self, hdrs, pays, offs, ns, slots, pool):
@@ -1667,10 +1711,12 @@ def main() -> int:
         K10 (no sa_similarity) takes the similarity as torch ops, as the
         port did before K10; one of the two-kernel K8a (no
         sa_cand_rows_grid) takes K8a through ``parent_cand_rows``; one
-        without K11 (no sa_compose) composes edismax as torch ops."""
+        without K11 (no sa_compose) composes edismax as torch ops; one
+        without the fused ranking pass (no sa_rank_rows) ranks every group
+        by K10 then K3, the route the pass replaced."""
         def run():
             saved = (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
-                     kc.similarity, kc.cand_rows, kc.compose)
+                     kc.similarity, kc.cand_rows, kc.compose, dense.fuses)
             kc._lib = lib
             if not hasattr(lib, "sa_merge_join"):
                 kc.merge_step = parent_merge_step(lib, k7_wrapper)
@@ -1684,11 +1730,13 @@ def main() -> int:
                 kc.cand_rows = parent_cand_rows(lib, k8a_wrapper, k8a_extra)
             if not hasattr(lib, "sa_compose"):
                 kc.compose = torch_compose
+            if not hasattr(lib, "sa_rank_rows"):
+                dense.fuses = never_fused
             try:
                 return fn()
             finally:
                 (kc._lib, kc.merge_step, batch.sparse_chains_freqs,
-                 kc.similarity, kc.cand_rows, kc.compose) = saved
+                 kc.similarity, kc.cand_rows, kc.compose, dense.fuses) = saved
         return run
 
     # ---- 3. main path (counted) -----------------------------------------
@@ -1708,6 +1756,7 @@ def main() -> int:
     kc.cand_minis.launches = 0
     kc.similarity.launches = 0
     kc.compose.launches = 0
+    kc.rank_rows.launches = 0
     # every similarity of the main path is K10's and every edismax
     # composition K11's, each launch held to its plain version as it runs
     k10_rec = K10Recorder(kc)
@@ -2148,7 +2197,8 @@ def main() -> int:
                 "cand_minis": kc.cand_minis.launches,
                 "span_sparse": kc.span_sparse.launches,
                 "similarity": k10_rec.launches,
-                "compose": k11_rec.launches}
+                "compose": k11_rec.launches,
+                "rank_rows": kc.rank_rows.launches}
     kc.similarity = k10_rec.orig
     kc.similarity.launches += k10_rec.launches
     kc.compose = k11_rec.orig
@@ -2170,6 +2220,12 @@ def main() -> int:
           f"({k11_rec.launches} launches over {len(k11_rec.shapes)} "
           "(centric, chain, term counts) shapes), each equal to "
           f"compose_plain bit for bit (max abs err {k11_rec.err})")
+    check(rec.checked["K3+K10"] == launches["rank_rows"] > 0,
+          f"every ranked group of the main path with whole rows and k up to "
+          f"{kc.RANK_MAX_K} ran the fused ranking pass ({launches['rank_rows']}"
+          f" launches over {len(rec.rank_shapes)} (kind, rows, docs, k, by "
+          "slot) shapes), each equal to rank_rows_plain bit for bit (max abs "
+          f"err {rec.err['K3+K10']})")
     check(min(k7_windows, k7_long, k7_lmix) > 0
           and k2_chain >= k7_windows + k7_long + k7_lmix,
           f"the sparse chain launched K7 {k7_windows} times for the "
@@ -2359,7 +2415,7 @@ def main() -> int:
     counted = ("score_term", "score_term_rows", "segment_sum", "plane_fill",
                "phrase_chain", "merge_step", "topk", "span_window",
                "cand_rows", "cand_minis", "span_sparse", "similarity",
-               "compose")
+               "compose", "rank_rows")
     saved_counts = {k: getattr(kc, k).launches for k in counted}
     for k in counted:
         getattr(kc, k).launches = 0
@@ -2732,7 +2788,7 @@ def main() -> int:
                "segment_sum": "K2", "topk": "K3", "plane_fill": "K4",
                "phrase_chain": "K5", "span_window": "K6",
                "merge_step": "K7", "cand_rows": "K8a", "cand_minis": "K8b",
-               "span_sparse": "K9"}
+               "span_sparse": "K9", "rank_rows": "K3+K10"}
     check(all(sh_counts[k] > 0 for k in (
         "segment_sum", "plane_fill", "phrase_chain", "merge_step", "topk",
         "span_window", "span_sparse", "similarity", "compose"))
@@ -2994,10 +3050,10 @@ def main() -> int:
           f"the two first calls {warm_counts}", flush=True)
     check(n_warm > 0 and all(warm_only[k] > 0 for k in (
         "score_term_rows", "plane_fill", "phrase_chain", "span_window",
-        "topk", "similarity")),
+        "rank_rows")),
           f"warm_serving issued its {n_warm} queries through score_batch: "
-          "K1, K3, K4, K5, K6 and K10 launched, counted before any first "
-          "call")
+          "K1, K4, K5, K6 and the fused ranking pass (K3 with K10 inside) "
+          "launched, counted before any first call")
     check(all(w_check.calls[h] >= warm_counts[k]
               for k, h in held_of.items())
           and k10_warm.calls == k10_warm.launches
@@ -3732,15 +3788,20 @@ def main() -> int:
     # The phrase-tf cache is emptied first, so that the slop phrases'
     # rows cached on the main path do not decide whether the request's
     # window groups run
+    # The request takes the route the fused ranking pass replaced (K10
+    # then K3 a ranked group; the route full scores, k above 64 and rows=
+    # still take), so that K3's units stay the launches they were
     rq, rs = mixed_request(7)
     forget_phrase_rows(dev)
     dense.kernels_cuda = RecordingDense()
+    fuses, dense.fuses = dense.fuses, never_fused
     try:
         arr.score_batch(rq, top_k=TOP_K, slop=rs)
         n_first = len(k36_calls)
         arr.score_batch(rq, top_k=TOP_K, slop=rs)
     finally:
         dense.kernels_cuda = kc
+        dense.fuses = fuses
     k6_groups = [(a, kw) for name, a, kw in k36_calls[:n_first]
                  if name == "span_window"]
     # the second call's launches: tf-row fills, and window launches again
@@ -4163,12 +4224,13 @@ def main() -> int:
                 flush=False, old=True, library=None, per=1, old_fn=None):
         """Time one unit of work; ``per`` divides every time into the
         time per launch or row the unit is made of.  ``old_fn`` (``fn`` by
-        default) is what the parent's kernels run in their turns."""
+        default) is what the parent's kernels run in their turns.  A
+        ``kernel`` of None times all the device work of each turn."""
         old_run = with_lib(parent, old_fn or fn)
         turns = ([old_run, fn, fn, old_run] if parent is not None and old
                  else [fn, fn])
-        dev_ms = [timer(f, iters, names[kernel], flush, counters[kernel])
-                  for f in turns]
+        dev_ms = [timer(f, iters, names.get(kernel), flush,
+                        counters.get(kernel)) for f in turns]
         rec = {"unit": unit, "per": per,
                "device_ms": [t / per for t, _ in dev_ms],
                "launches_per_unit": dev_ms[1][1],
@@ -4382,6 +4444,65 @@ def main() -> int:
         lambda: kc.topk(mx_, mk_), lambda: kc.topk_plain(mx_, mk_),
         rl.k3_work(mx_.shape[0], mx_.shape[1], mk_), iters=20,
         library=lambda: torch.topk(mx_, mk_, sorted=True))
+
+    # K3+K10: the fused ranking pass over one terms wave as the batch
+    # driver ranks it: the tf-pool rows, by slot, of 99 terms of the main
+    # path's term batch, made resident first, BM25, k = 10 (the idfs
+    # seeded).  It is
+    # timed by all the device work of a call, so that the parent's turns
+    # (and, beside them, this tree's kernels) run the route it replaced:
+    # the rows gathered, K10 into the gathered block, then K3.  No single
+    # PyTorch call ranks a similarity; the yardstick is that route as
+    # torch ops (the gather, torch_similarity, torch.topk)
+    rng_w = np.random.default_rng(22)
+    wave_tids = list(dict.fromkeys(arr.term_dict.get_term_id(t)
+                                   for t in queries))[:99]
+    dense.ensure_tfs(dev, wave_tids)
+    wave_slots = torch.as_tensor(dense.tf_slots_of(dev.maps, wave_tids),
+                                 device=dev.device)
+    wave_idfs = torch.as_tensor(rng_w.uniform(
+        0.5, 12.0, len(wave_slots)).astype(np.float32), device=dev.device)
+    wave = ("bm25", dev.tf_pool, wave_slots, dev.doc_lens, wave_idfs, avgdl,
+            1.2, 0.75, TOP_K)
+
+    def wave_replaced(sim, rank):
+        def run():
+            rows = dev.tf_pool.index_select(0, wave_slots)
+            sim("bm25", rows, dev.doc_lens, wave_idfs, avgdl, 1.2, 0.75,
+                out=rows)
+            return rank(rows, TOP_K)
+        return run
+
+    def kernels_replaced():
+        return wave_replaced(kc.similarity, kc.topk)()
+
+    def same_rank(got, want):
+        return (torch.equal(got[1].long(), want[1].long()) and torch.equal(
+            got[0].view(torch.int32), want[0].view(torch.int32)))
+
+    wave_want = kc.rank_rows_plain(*wave)
+    check(same_rank(kc.rank_rows(*wave), wave_want)
+          and same_rank(kernels_replaced(), wave_want)
+          and (parent is None
+               or same_rank(with_lib(parent, kernels_replaced)(), wave_want)),
+          f"the fused pass on a terms wave ({len(wave_slots)} tf-pool rows "
+          "by slot) equals rank_rows_plain and the gather, K10 and K3 it "
+          "replaced" + (", the parent's kernels too" if parent is not None
+                        else "") + ", bit for bit")
+    del wave_want
+    t_rank = measure(
+        f"one terms wave: {len(wave_slots)} tf-pool rows of {n} by slot, "
+        f"k = {TOP_K}, one fused launch (the parent's turns: the gather, "
+        "K10 and K3 it replaced)", None,
+        lambda: kc.rank_rows(*wave), lambda: kc.rank_rows_plain(*wave),
+        rl.rank_work(len(wave_slots), n, TOP_K), iters=20,
+        old_fn=kernels_replaced,
+        library=wave_replaced(torch_similarity,
+                              lambda x, k: torch.topk(x, k, sorted=True)))
+    t_rank["replaced_device_ms"] = timer(kernels_replaced, 20)[0]
+    print(f"timing: the route the fused pass replaced on this tree's "
+          f"kernels, the same wave: {t_rank['replaced_device_ms']} ms {tag}",
+          flush=True)
 
     def device_ops(fn):
         """Device operations (kernels, copies, memsets) one call enqueues,
@@ -4647,11 +4768,14 @@ def main() -> int:
 
     k10_capture.launches = 0
     kc.similarity = k10_capture
+    # the route the fused ranking pass replaced, as for K3's units above
+    fuses, dense.fuses = dense.fuses, never_fused
     try:
         arr.score_batch(serving_queries(12345), top_k=TOP_K)
     finally:
         kc.similarity = k10_orig
         kc.similarity.launches += k10_capture.launches
+        dense.fuses = fuses
     k10_out = [torch.empty_like(c[1]) for c in k10_calls]
 
     def k10_plain(kind, tfs, doc_lens, idf, avgdl, k1, b, out=None):
@@ -4852,14 +4976,21 @@ def main() -> int:
     with engine(True):
         prof_mixs = profile_call(lambda i: mixed_request(8000 + i)[0], ss)
     # the same requests on the port's default routing
+    fused_before = kc.rank_rows.launches
     prof_mix_off = profile_call(lambda i: serving_queries(7500 + i),
                                 [0] * mix_n)
     prof_mixs_off = profile_call(lambda i: mixed_request(8500 + i)[0], ss)
-    check(all(p["k10_launches"] == p["k10_events"] > 0
-              for p in (prof_mix, prof_mixs, prof_mix_off, prof_mixs_off)),
-          "every profiled serving and mixed call ran its similarity as K10 "
-          "launches, as many as the profiler's K10 events (on, off: "
-          f"{[(p['k10_launches'], p['k10_events']) for p in (prof_mix, prof_mixs, prof_mix_off, prof_mixs_off)]})")
+    fused_off = kc.rank_rows.launches - fused_before
+    k10_seen = [(p["k10_launches"], p["k10_events"])
+                for p in (prof_mix, prof_mixs, prof_mix_off, prof_mixs_off)]
+    # on the candidate engine's routing its finish runs K10; on the port's,
+    # every ranked group is the fused pass and no K10 runs
+    check(all(a == e for a, e in k10_seen) and k10_seen[0][0] > 0
+          and k10_seen[1][0] > 0 and fused_off > 0,
+          "every profiled serving and mixed call ran as many K10 launches as "
+          "the profiler's K10 events (on, off: "
+          f"{k10_seen}); on the port's routing they ranked by the fused "
+          f"pass ({fused_off} launches)")
     k9_before = kc.span_sparse.launches
     prof_k9 = profile_call(
         lambda i: mixed_request(9000 + i)[0] + [q for q, _ in k9_extra], k9s)
@@ -4954,7 +5085,7 @@ def main() -> int:
 
     traced_k = k_labels(traced)
     profiled_k = k_labels([key for key, _, _ in prof_mix_off["top"]])
-    check(set(profiled_k) <= set(traced_k) and {"K3", "K10"} <= set(traced_k),
+    check(set(profiled_k) <= set(traced_k) and "K3+K10" in traced_k,
           f"trace() wrote {trace_file} ({os.path.getsize(os.path.join(trace_dir, trace_file))} "
           f"bytes), naming {traced_k}; the profiled serving call showed "
           f"{profiled_k}")
@@ -5215,6 +5346,21 @@ def main() -> int:
          "library_ms": None, "library_device_ms": None,
          "torch_composition_ms": t_k10["library_ms"],
          "torch_composition_device_ms": t_k10["library_device_ms"]},
+        # the largest difference over every launch of the main path
+        # (K8Recorder) and of the sharded, warm-up and thread paths
+        # (PlainCheck); no single PyTorch call ranks a similarity: the torch
+        # composition of the route it replaced is its yardstick, and that
+        # route on this tree's kernels (gather, K10, K3) stands beside it
+        {**entry("rank_rows (K3+K10)", csrc + "topk.cu",
+                 "searcharray_tpu/search/scoring.py:29 with "
+                 "searcharray_tpu/ops/kernels.py:101",
+                 launches["rank_rows"],
+                 max(rec.err["K3+K10"], sh_check.err["K3+K10"],
+                     w_check.err["K3+K10"], t_check.err["K3+K10"]), t_rank),
+         "library_ms": None, "library_device_ms": None,
+         "torch_composition_ms": t_rank["library_ms"],
+         "torch_composition_device_ms": t_rank["library_device_ms"],
+         "replaced_device_ms": t_rank["replaced_device_ms"]},
         # the largest difference over every launch of the counted paths
         # (K11Recorder); no single PyTorch call composes: the torch
         # composition K11 replaced is its yardstick

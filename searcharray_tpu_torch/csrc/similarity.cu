@@ -9,15 +9,8 @@
 // does twice on the CPU (the length norm and its sum with tf are fused
 // multiply-adds wherever avgdl is a traced argument).  So the kernel pins
 // every rounding with an intrinsic, in the order ops/kernels.py's
-// similarity_plain fixes:
-//
-//   x     = __fdiv_rn(dl, avgdl)
-//   denom = __fmaf_rn(k1, __fmaf_rn(b, x, 1 - b), tf)
-//   bm25        = __fmul_rn(__fdiv_rn(tf, denom), idf)
-//   bm25_legacy = __fmul_rn(idf, __fdiv_rn(__fmul_rn(tf, k1 + 1), denom))
-//   bm25_impact = __fdiv_rn(tf, denom)
-//   classic     = __fdiv_rn(__fmul_rn(idf, __fsqrt_rn(tf)), __fsqrt_rn(dl))
-//
+// similarity_plain fixes: similarity.cuh's sim::score, the per-element
+// function that the fused ranking pass (topk.cu, rank_rows) shares.
 // (Triton's ``/`` may lower to an approximate division; nvcc's intrinsics
 // give one IEEE rounding each.)
 //
@@ -39,37 +32,15 @@
 #include <cstdint>
 
 #include "device_guard.cuh"
+#include "similarity.cuh"
 
 namespace {
 
-// kind codes, shared with ops/cuda/score.py (SIM_KINDS)
-constexpr int SIM_BM25 = 1;
-constexpr int SIM_BM25_IMPACT = 2;
-constexpr int SIM_BM25_LEGACY = 3;
-constexpr int SIM_CLASSIC = 4;
+using sim::Params;
 
 constexpr int THREADS = 256;
 constexpr int COLS = THREADS * 4;  // columns of a block's tile
 constexpr int ROWS = 16;           // rows a block walks with one tile
-
-struct Params {
-  int kind;
-  float idf, avgdl, k1, b, one_minus_b, k1_plus_1;
-};
-
-__device__ __forceinline__ float sim(const Params& p, float tf, float dl,
-                                     float idf) {
-  if (p.kind == SIM_CLASSIC) {
-    return __fdiv_rn(__fmul_rn(idf, __fsqrt_rn(tf)), __fsqrt_rn(dl));
-  }
-  const float inner = __fmaf_rn(p.b, __fdiv_rn(dl, p.avgdl), p.one_minus_b);
-  const float denom = __fmaf_rn(p.k1, inner, tf);
-  if (p.kind == SIM_BM25) return __fmul_rn(__fdiv_rn(tf, denom), idf);
-  if (p.kind == SIM_BM25_LEGACY) {
-    return __fmul_rn(idf, __fdiv_rn(__fmul_rn(tf, p.k1_plus_1), denom));
-  }
-  return __fdiv_rn(tf, denom);  // SIM_BM25_IMPACT
-}
 
 // Block (x, y): columns [x * COLS, x * COLS + COLS), rows [y * ROWS,
 // y * ROWS + ROWS); thread t its four columns x * COLS + 4t ...
@@ -102,11 +73,13 @@ similarity_kernel(const float* tf, int64_t rows, int64_t n, int64_t tf_stride,
     if (VEC) {
       const float4 v = *reinterpret_cast<const float4*>(src);
       *reinterpret_cast<float4*>(dst) =
-          make_float4(sim(p, v.x, dl[0], idf), sim(p, v.y, dl[1], idf),
-                      sim(p, v.z, dl[2], idf), sim(p, v.w, dl[3], idf));
+          make_float4(sim::score(p, v.x, dl[0], idf),
+                      sim::score(p, v.y, dl[1], idf),
+                      sim::score(p, v.z, dl[2], idf),
+                      sim::score(p, v.w, dl[3], idf));
     } else {
       for (int j = 0; j < w; ++j) t[j] = src[j];
-      for (int j = 0; j < w; ++j) dst[j] = sim(p, t[j], dl[j], idf);
+      for (int j = 0; j < w; ++j) dst[j] = sim::score(p, t[j], dl[j], idf);
     }
   }
 }
@@ -121,7 +94,7 @@ bool aligned16(const void* ptr) {
 // f32 [rows, n] with row strides ``tf_stride`` and ``out_stride`` (``out``
 // may be ``tf``); ``doc_lens`` is f32 [n] with ``dl_stride`` 0, or f32
 // [rows, n] with row stride ``dl_stride``; ``idfs`` is f32 [rows], or null
-// for the one ``idf``.  ``kind`` is a SIM_* code.  Returns
+// for the one ``idf``.  ``kind`` is a sim:: kind code.  Returns
 // cudaGetLastError().
 extern "C" int sa_similarity(const void* tf, int64_t rows, int64_t n,
                              int64_t tf_stride, const void* doc_lens,
@@ -131,11 +104,10 @@ extern "C" int sa_similarity(const void* tf, int64_t rows, int64_t n,
                              void* stream) {
   const DeviceGuard guard(device);
   if (rows <= 0 || n <= 0) return 0;
-  if (kind < SIM_BM25 || kind > SIM_CLASSIC || rows > 65535LL * ROWS) {
+  if (kind < sim::BM25 || kind > sim::CLASSIC || rows > 65535LL * ROWS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // host float arithmetic: one IEEE single rounding each
-  const Params p{kind, idf, avgdl, k1, b, 1.0f - b, k1 + 1.0f};
+  const Params p = sim::params(kind, idf, avgdl, k1, b);
   const bool vec = n % 4 == 0 && tf_stride % 4 == 0 && out_stride % 4 == 0 &&
                    dl_stride % 4 == 0 && aligned16(tf) && aligned16(out) &&
                    aligned16(doc_lens);

@@ -55,6 +55,29 @@
 //      memory (bitonic, MERGE_KEYS at a time, the best k kept between
 //      rounds).  The first k are written as values and indices.
 //
+// The fused ranking pass (sa_rank_rows, k <= ONE_PASS_CAP): the same two
+// kernels over rows whose scores are never stored.  On the batch driver's
+// ranked groups it replaces K10 (similarity.cu) writing a [rows, n] score
+// block, after a gather of the tf pool's rows into it, that pass 1 then
+// reads again: rank_tile_kernel reads each element's tf from its source
+// row (a tf pool row by its slot, or a row of a group's K5 / K6 freqs)
+// and the doc's length, and scores it with similarity.cuh's sim::score,
+// the function K10 runs, before it maps the score to its value key;
+// rank_merge_kernel scores the k winners the same way.  So the answers
+// and their tie order are K10's then K3's, bit for bit.  Bound: bytes, 4
+// of tf an element read once, and the doc lengths, which every row reads:
+// the blocks run tile-major (the blocks of one tile across the rows side
+// by side), so a tile's lengths come from HBM once and from L2 for the
+// other rows, and tf comes in by streaming loads that do not push them
+// out.  The similarity's IEEE divisions (two an element in the BM25
+// forms) are the price of not storing the scores, and they bound the pass
+// where every element pays them: a ranked row is mostly docs without its
+// term, so where a tf of 0 scores alike in every doc (flat_zero_tf: the
+// BM25 forms at the usual k1 and b) its key is computed once a row and a
+// zero costs a compare (on an H100, a 99-row wave of 2M docs: 0.82 ->
+// 0.51 ms).
+// The kind is a template argument, so no element branches on it.
+//
 // Larger k (sa_topk), up to N: nine kernels, the row read two to four
 // times.
 //
@@ -80,9 +103,11 @@
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <cstdint>
 
 #include "device_guard.cuh"
+#include "similarity.cuh"
 
 namespace {
 
@@ -473,14 +498,124 @@ __device__ __forceinline__ void find_digit(const uint32_t* hist, uint32_t need,
   in = ctl[2];
 }
 
+// ---- the rows the two-launch path reads ------------------------------------
+//
+// A row view: one row's elements loaded 16 bytes at a time (load4, the
+// j-th 16 bytes of a 16-byte aligned row) or one at a time (load1), their
+// value keys (keys4, key1), and the value of the element at an index
+// (value), which the kernels write out with its index.
+
+// A row of f32 [n_rows, n]: K3.
+struct PlainRow {
+  const float* x;
+  using Raw4 = uint4;
+  using Raw1 = uint32_t;
+  __device__ __forceinline__ Raw4 load4(int64_t j) const {
+    return __ldg(reinterpret_cast<const uint4*>(x) + j);
+  }
+  __device__ __forceinline__ Raw1 load1(int64_t i) const {
+    return __float_as_uint(__ldg(x + i));
+  }
+  __device__ __forceinline__ uint4 keys4(const Raw4& v) const {
+    return make_uint4(value_key(v.x), value_key(v.y), value_key(v.z),
+                      value_key(v.w));
+  }
+  __device__ __forceinline__ uint32_t key1(Raw1 v) const {
+    return value_key(v);
+  }
+  __device__ __forceinline__ float value(int64_t i) const { return x[i]; }
+};
+
+// What the rows of one fused ranking launch share.
+struct RankArgs {
+  const float* src;       // f32 rows of n, row stride ``stride``
+  int64_t stride;
+  const int64_t* slots;   // the source row of each ranked row, or null
+  const float* doc_lens;  // f32 [n]
+  const float* idfs;      // f32, one a ranked row
+  sim::Params p;
+  // a tf of +0 scores alike in every doc of a row, so the row's key of it
+  // is computed once (flat_zero_tf)
+  bool flat;
+};
+
+// Whether a tf of +0 scores the same in every doc of a row, whatever its
+// length (a count, >= 0): in the BM25 forms where k1 > 0 and 0 < b < 1,
+// the length norm fma(b, dl / avgdl, 1 - b) is at least 1 - b (+inf where
+// the quotient overflows), so the denominator k1 * norm + 0 is positive
+// (at least FLT_MIN by the last condition), 0 / it is +0, and the score
+// is +0 times the idf (bm25, bm25_legacy) or +0 (bm25_impact).  Classic
+// divides by the length's root, which may be 0; b = 0 times an overflowed
+// quotient is NaN.
+inline bool flat_zero_tf(int kind, const sim::Params& p) {
+  return kind != sim::CLASSIC && p.k1 > 0.0f && p.k1 <= FLT_MAX &&
+         p.b > 0.0f && p.b < 1.0f && p.avgdl > 0.0f && p.avgdl <= FLT_MAX &&
+         static_cast<double>(p.k1) * p.one_minus_b >= FLT_MIN;
+}
+
+// A ranked row of the fused pass: its scores, sim::score of kind KIND,
+// computed from its source row's tf and the doc lengths as they load.
+template <int KIND>
+struct ScoredRow {
+  const float* tf;
+  const float* dl;
+  float idf;
+  sim::Params p;
+  bool flat;      // the row's tf of +0 keys as ``zero`` in every doc
+  uint32_t zero;
+  struct Raw4 {
+    float4 tf, dl;
+  };
+  struct Raw1 {
+    float tf, dl;
+  };
+  __device__ __forceinline__ static ScoredRow of(const RankArgs& a,
+                                                 int64_t row) {
+    const int64_t at = a.slots ? a.slots[row] : row;
+    const float idf = a.idfs[row];
+    return ScoredRow{a.src + at * a.stride, a.doc_lens, idf, a.p, a.flat,
+                     value_key(__float_as_uint(
+                         sim::score<KIND>(a.p, 0.0f, 1.0f, idf)))};
+  }
+  __device__ __forceinline__ float score(float t, float d) const {
+    return sim::score<KIND>(p, t, d, idf);
+  }
+  // most of a ranked row's docs lack its term: their key is the row's
+  // zero, and they cost no division
+  __device__ __forceinline__ uint32_t key(float t, float d) const {
+    if (flat && __float_as_uint(t) == 0u) return zero;
+    return value_key(__float_as_uint(score(t, d)));
+  }
+  // tf streams past (read once); the lengths stay in L2 for the next row
+  __device__ __forceinline__ Raw4 load4(int64_t j) const {
+    return Raw4{__ldcs(reinterpret_cast<const float4*>(tf) + j),
+                __ldg(reinterpret_cast<const float4*>(dl) + j)};
+  }
+  __device__ __forceinline__ Raw1 load1(int64_t i) const {
+    return Raw1{__ldcs(tf + i), __ldg(dl + i)};
+  }
+  __device__ __forceinline__ uint4 keys4(const Raw4& v) const {
+    return make_uint4(key(v.tf.x, v.dl.x), key(v.tf.y, v.dl.y),
+                      key(v.tf.z, v.dl.z), key(v.tf.w, v.dl.w));
+  }
+  __device__ __forceinline__ uint32_t key1(const Raw1& v) const {
+    return key(v.tf, v.dl);
+  }
+  __device__ __forceinline__ float value(int64_t i) const {
+    return score(tf[i], dl[i]);
+  }
+};
+
 // Pass 1: block b selects the k largest keys of tile b % tiles of row
 // b / tiles (fewer where the tile is shorter than k) and writes them in
 // order: to the row's values and indices when the row is one tile, else
-// to part[row][tile][0, k), padded with 0.
-__global__ void __launch_bounds__(SEL_THREADS, 3)
-topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
-                 bool vec, uint64_t* __restrict__ part,
-                 float* __restrict__ vals, int32_t* __restrict__ idx) {
+// to part[row][tile][0, k), padded with 0.  The body of a pass-1 block
+// over row ``row`` (a row view ``src``) and its tile ``tile``.
+template <class Row>
+__device__ __forceinline__ void tile_select(
+    const Row& src, int64_t row, int tile, int64_t n, int tiles, int k,
+    bool vec, uint64_t* __restrict__ part, float* __restrict__ vals,
+    int32_t* __restrict__ idx) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* keys = smem;             // the tile's value keys
   uint32_t* hist = smem + SEL_TILE;  // BINS digit counts, or
@@ -489,12 +624,9 @@ topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
   __shared__ uint32_t ctl[3], taken;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t row = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
   const int64_t lo = static_cast<int64_t>(tile) * SEL_TILE;
   const int len = static_cast<int>(n - lo < SEL_TILE ? n - lo : SEL_TILE);
   const uint32_t need = static_cast<uint32_t>(len < k ? len : k);
-  const float* src = x + row * n + lo;
   const uint32_t id0 = 0xffffffffu - static_cast<uint32_t>(lo);
   auto key64 = [&](int i, uint32_t key) {
     return static_cast<uint64_t>(key) << 32 | (id0 - i);
@@ -505,22 +637,21 @@ topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
   // thread; each thread's largest key and the tile's least on the way.
   uint32_t most = 0, least = 0xffffffffu;
   if (vec) {  // 16-byte aligned rows, n a multiple of 4
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    const int64_t j0 = lo >> 2;
     uint4* k4 = reinterpret_cast<uint4*>(keys);
     const int n4 = len >> 2;
     for (int base = 0; base < n4; base += SEL_LOAD * SEL_THREADS) {
-      uint4 v[SEL_LOAD];
+      typename Row::Raw4 v[SEL_LOAD];
 #pragma unroll
       for (int u = 0; u < SEL_LOAD; ++u) {
         const int i = base + u * SEL_THREADS + t;
-        if (i < n4) v[u] = __ldg(s4 + i);
+        if (i < n4) v[u] = src.load4(j0 + i);
       }
 #pragma unroll
       for (int u = 0; u < SEL_LOAD; ++u) {
         const int i = base + u * SEL_THREADS + t;
         if (i < n4) {
-          const uint4 q = make_uint4(value_key(v[u].x), value_key(v[u].y),
-                                     value_key(v[u].z), value_key(v[u].w));
+          const uint4 q = src.keys4(v[u]);
           k4[i] = q;
           most = max(most, max(max(q.x, q.y), max(q.z, q.w)));
           least = min(least, min(min(q.x, q.y), min(q.z, q.w)));
@@ -529,17 +660,17 @@ topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
     }
   } else {
     for (int base = 0; base < len; base += SEL_LOAD * SEL_THREADS) {
-      uint32_t v[SEL_LOAD];
+      typename Row::Raw1 v[SEL_LOAD];
 #pragma unroll
       for (int u = 0; u < SEL_LOAD; ++u) {
         const int i = base + u * SEL_THREADS + t;
-        if (i < len) v[u] = __float_as_uint(__ldg(src + i));
+        if (i < len) v[u] = src.load1(lo + i);
       }
 #pragma unroll
       for (int u = 0; u < SEL_LOAD; ++u) {
         const int i = base + u * SEL_THREADS + t;
         if (i < len) {
-          const uint32_t key = value_key(v[u]);
+          const uint32_t key = src.key1(v[u]);
           keys[i] = key;
           most = max(most, key);
           least = min(least, key);
@@ -700,7 +831,7 @@ topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
       if (tiles == 1) {
         const uint32_t id = 0xffffffffu - static_cast<uint32_t>(c);
         idx[row * k + r] = static_cast<int32_t>(id);
-        vals[row * k + r] = x[row * n + id];
+        vals[row * k + r] = src.value(id);
       } else {
         part[(row * tiles + tile) * k + r] = c;
       }
@@ -713,28 +844,51 @@ topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
   }
 }
 
+// Pass 1 of K3: block b, tile b % tiles of row b / tiles.
+__global__ void __launch_bounds__(SEL_THREADS, 3)
+topk_tile_kernel(const float* __restrict__ x, int64_t n, int tiles, int k,
+                 bool vec, uint64_t* __restrict__ part,
+                 float* __restrict__ vals, int32_t* __restrict__ idx) {
+  const int64_t row = blockIdx.x / tiles;
+  tile_select(PlainRow{x + row * n}, row, blockIdx.x % tiles, n, tiles, k,
+              vec, part, vals, idx);
+}
+
+// Pass 1 of the fused pass, tile-major: block b, tile b / rows of row
+// b % rows, so the blocks of one tile (and its doc lengths) run together.
+template <int KIND>
+__global__ void __launch_bounds__(SEL_THREADS, 3)
+rank_tile_kernel(const RankArgs a, int64_t rows, int64_t n, int tiles, int k,
+                 bool vec, uint64_t* __restrict__ part,
+                 float* __restrict__ vals, int32_t* __restrict__ idx) {
+  const int64_t row = blockIdx.x % rows;
+  tile_select(ScoredRow<KIND>::of(a, row), row,
+              static_cast<int>(blockIdx.x / rows), n, tiles, k, vec, part,
+              vals, idx);
+}
+
 // Pass 2, one block per row: the k largest of the row's m = tiles * k
 // keys.  Each tile's k-th key bounds the row's k-th from below, so the
 // keys at or above the largest of them (k at least, a few more where
 // tiles are close) are ranked against each other; where more than
 // MERGE_CAND are, or the keys do not fit in shared memory, they are
 // sorted (bitonic, MERGE_KEYS at a time, the best k kept between rounds).
-__global__ void __launch_bounds__(MERGE_THREADS)
-topk_merge_kernel(const float* __restrict__ x, int64_t n,
-                  const uint64_t* __restrict__ part, int64_t m, int k,
-                  float* __restrict__ vals, int32_t* __restrict__ idx) {
+// The body of a pass-2 block over row ``row`` (a row view ``src``).
+template <class Row>
+__device__ __forceinline__ void merge_tiles(
+    const Row& src, int64_t row, const uint64_t* __restrict__ part,
+    int64_t m, int k, float* __restrict__ vals, int32_t* __restrict__ idx) {
   __shared__ uint64_t s[MERGE_KEYS];
   __shared__ uint64_t cand[MERGE_CAND];
   __shared__ uint64_t wmax[MERGE_THREADS / 32];
   __shared__ uint32_t taken;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t row = blockIdx.x;
-  const uint64_t* src = part + row * m;
+  const uint64_t* keys = part + row * m;
   if (m <= MERGE_KEYS) {
     if (t == 0) taken = 0;
     uint64_t low = 0;
     for (int i = t; i < m; i += MERGE_THREADS) {
-      const uint64_t key = src[i];
+      const uint64_t key = keys[i];
       s[i] = key;
       if (i % k == k - 1 && key > low) low = key;
     }
@@ -762,7 +916,7 @@ topk_merge_kernel(const float* __restrict__ x, int64_t n,
         if (r < static_cast<uint32_t>(k)) {
           const uint32_t id = 0xffffffffu - static_cast<uint32_t>(key);
           idx[row * k + r] = static_cast<int32_t>(id);
-          vals[row * k + r] = x[row * n + id];
+          vals[row * k + r] = src.value(id);
         }
       }
       return;
@@ -776,7 +930,7 @@ topk_merge_kernel(const float* __restrict__ x, int64_t n,
     while (P < kept + take) P <<= 1;
     __syncthreads();
     for (int i = kept + t; i < P; i += MERGE_THREADS) {
-      s[i] = i - kept < take ? src[base + i - kept] : 0;
+      s[i] = i - kept < take ? keys[base + i - kept] : 0;
     }
     bitonic_desc<MERGE_THREADS>(s, P);
     kept = k;
@@ -785,8 +939,27 @@ topk_merge_kernel(const float* __restrict__ x, int64_t n,
   for (int i = t; i < k; i += MERGE_THREADS) {
     const uint32_t id = 0xffffffffu - static_cast<uint32_t>(s[i]);
     idx[row * k + i] = static_cast<int32_t>(id);
-    vals[row * k + i] = x[row * n + id];
+    vals[row * k + i] = src.value(id);
   }
+}
+
+// Pass 2 of K3.
+__global__ void __launch_bounds__(MERGE_THREADS)
+topk_merge_kernel(const float* __restrict__ x, int64_t n,
+                  const uint64_t* __restrict__ part, int64_t m, int k,
+                  float* __restrict__ vals, int32_t* __restrict__ idx) {
+  merge_tiles(PlainRow{x + blockIdx.x * n}, blockIdx.x, part, m, k, vals,
+              idx);
+}
+
+// Pass 2 of the fused pass.
+template <int KIND>
+__global__ void __launch_bounds__(MERGE_THREADS)
+rank_merge_kernel(const RankArgs a, const uint64_t* __restrict__ part,
+                  int64_t m, int k, float* __restrict__ vals,
+                  int32_t* __restrict__ idx) {
+  merge_tiles(ScoredRow<KIND>::of(a, blockIdx.x), blockIdx.x, part, m, k,
+              vals, idx);
 }
 
 }  // namespace
@@ -905,4 +1078,88 @@ extern "C" int sa_topk_select(const void* x, int64_t n_rows, int64_t n,
                               static_cast<int32_t*>(idx));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <int KIND>
+cudaError_t launch_rank(const RankArgs& a, int64_t rows, int64_t n,
+                        int64_t tiles, int k, bool vec, uint64_t* part,
+                        float* vals, int32_t* idx, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rank_tile_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SEL_SMEM);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(rank_tile_kernel<KIND>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return err;
+  rank_tile_kernel<KIND>
+      <<<static_cast<unsigned>(rows * tiles), SEL_THREADS, SEL_SMEM, st>>>(
+          a, rows, n, static_cast<int>(tiles), k, vec, part, vals, idx);
+  if (tiles > 1) {
+    rank_merge_kernel<KIND><<<static_cast<unsigned>(rows), MERGE_THREADS, 0,
+                              st>>>(a, part, tiles * k, k, vals, idx);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry for ctypes, k <= sa_topk_one_pass_cap(): the fused
+// ranking pass.  Ranked row r's scores are sim::score of kind ``kind`` (a
+// sim:: code) of its source row of ``src`` (f32, n columns, row stride
+// ``stride``; row ``slots[r]`` of int64 ``slots``, or row r where
+// ``slots`` is null), the f32 [n] ``doc_lens`` (counts, >= 0) and its
+// idf ``idfs[r]`` (f32 [rows]); their k largest are written as values f32
+// [rows, k] and indices i32 [rows, k], exactly as sa_similarity then
+// sa_topk_select write them.  ``part`` as in sa_topk_select.  One kernel where a row is
+// one tile, else two, on ``stream``; nothing here synchronises.  Returns
+// the first CUDA error.
+extern "C" int sa_rank_rows(const void* src, int64_t stride,
+                            const void* slots, int64_t rows, int64_t n,
+                            const void* doc_lens, const void* idfs, int kind,
+                            float avgdl, float k1, float b, int64_t k,
+                            void* part, void* vals, void* idx, int device,
+                            void* stream) {
+  const int64_t tiles = (n + SEL_TILE - 1) / SEL_TILE;
+  if (k < 1 || k > n || k > ONE_PASS_CAP || kind < sim::BM25 ||
+      kind > sim::CLASSIC || (tiles > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const DeviceGuard guard(device);
+  if (rows <= 0) return 0;
+  const sim::Params p = sim::params(kind, 0.0f, avgdl, k1, b);
+  const RankArgs a{static_cast<const float*>(src), stride,
+                   static_cast<const int64_t*>(slots),
+                   static_cast<const float*>(doc_lens),
+                   static_cast<const float*>(idfs), p,
+                   flat_zero_tf(kind, p)};
+  const bool vec = n % 4 == 0 && stride % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(doc_lens) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint64_t* pt = static_cast<uint64_t*>(part);
+  float* vf = static_cast<float*>(vals);
+  int32_t* ix = static_cast<int32_t*>(idx);
+  const int kk = static_cast<int>(k);
+  cudaError_t err;
+  switch (kind) {
+    case sim::BM25:
+      err = launch_rank<sim::BM25>(a, rows, n, tiles, kk, vec, pt, vf, ix, st);
+      break;
+    case sim::BM25_IMPACT:
+      err = launch_rank<sim::BM25_IMPACT>(a, rows, n, tiles, kk, vec, pt, vf,
+                                          ix, st);
+      break;
+    case sim::BM25_LEGACY:
+      err = launch_rank<sim::BM25_LEGACY>(a, rows, n, tiles, kk, vec, pt, vf,
+                                          ix, st);
+      break;
+    default:
+      err = launch_rank<sim::CLASSIC>(a, rows, n, tiles, kk, vec, pt, vf, ix,
+                                      st);
+  }
+  return static_cast<int>(err);
 }

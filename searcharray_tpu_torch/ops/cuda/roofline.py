@@ -328,6 +328,17 @@ def k10_work(rows: int, n: int, kind: str = "bm25",
     return bound(nbytes, 0, K10_FLOPS[kind] * elems)
 
 
+def rank_work(rows: int, n: int, k: int, kind: str = "bm25") -> dict:
+    """One launch of the fused ranking pass (K3 with K10 inside) over
+    ``rows`` f32 rows of ``n`` docs: each tf read once (4 bytes), the
+    doc lengths once a launch (the rows of a tile read them from L2), an
+    idf a row, k values and k indices written a row; K3's key work and
+    K10's float32 operations on every element."""
+    elems = int(rows) * int(n)
+    return bound(4 * elems + 4 * int(n) + 4 * int(rows) + 8 * int(rows) * k,
+                 K3_OPS_PER_ELEMENT * elems, K10_FLOPS[kind] * elems)
+
+
 def k11_work(terms: Sequence[int], n: int) -> dict:
     """One K11 launch over F score stacks of ``terms[f]`` rows of ``n``
     docs: each stack element read once (4 bytes), each doc's score written

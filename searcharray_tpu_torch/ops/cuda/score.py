@@ -20,11 +20,13 @@ wrapper counts its kernel launches in a plain int attribute
 ``phrase_chain.launches``, ``span_window.launches``,
 ``merge_step.launches``, ``cand_rows.launches``, ``cand_minis.launches``,
 ``span_sparse.launches``, ``similarity.launches``,
-``compose.launches``), under ``COUNT_LOCK``.  A K3 launch is one
-call of a C entry, which enqueues one or two kernels (k up to
-``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger k);
-``topk.kernels`` counts them.  A K8a launch enqueues
-``CAND_ROWS_KERNELS_PER_LAUNCH``.
+``compose.launches``, ``rank_rows.launches``), under ``COUNT_LOCK``.  A
+K3 launch is one call of a C entry, which enqueues one or two kernels (k
+up to ``sa_topk_one_pass_cap()``) or ``TOPK_KERNELS_PER_LAUNCH`` (larger
+k); ``topk.kernels`` counts them, and ``rank_rows.kernels`` those of the
+fused ranking pass (K3's two-launch selection over scores that K10's
+per-element function computes as it reads them: one kernel or two).  A
+K8a launch enqueues ``CAND_ROWS_KERNELS_PER_LAUNCH``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from searcharray_tpu_torch.ops.kernels import (  # noqa: F401 (re-export)
     per_query,
     phrase_counts_dense_planes,
     popcount_i32,
+    rank_rows_plain,
     similarity_plain,
     span_counts_dense_planes_plain,
     span_neighbourhood_plain,
@@ -180,6 +183,8 @@ _ENTRIES = {
     "sa_topk_select": [_vp, _i64, _i64, _i64, _vp, _vp, _vp, _int, _vp],
     "sa_topk_tile": [],
     "sa_topk_one_pass_cap": [],
+    "sa_rank_rows": [_vp, _i64, _vp, _i64, _i64, _vp, _vp, _int, _f, _f, _f,
+                     _i64, _vp, _vp, _vp, _int, _vp],
     "sa_span_window": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp, _i64,
                        _int, _vp, _i64, _vp, _int, _vp],
     "sa_span_sparse": [_vp, _vp, _vp, _i64, _i64, _int, _int, _int, _int,
@@ -516,6 +521,81 @@ def topk(x: torch.Tensor, k: int):
 
 topk.launches = 0
 topk.kernels = 0   # device kernels the launches enqueued
+
+
+# ---------------------------------------------------------------------------
+# K3 with K10 inside: the fused ranking pass
+# ---------------------------------------------------------------------------
+RANK_MAX_K = 64      # csrc/topk.cu's ONE_PASS_CAP: the k the fused pass takes
+RANK_TILE = 16384    # csrc/topk.cu's SEL_TILE: elements of a row per block
+
+
+def rank_rows(kind: str, src: torch.Tensor, slots, doc_lens: torch.Tensor,
+              idfs: torch.Tensor, avgdl: float, k1: float, b: float, k: int):
+    """The k best scores of each ranked row, never stored in full: what
+    ``topk(similarity(kind, rows, doc_lens, idfs, ...), k)`` returns, bit
+    for bit, where ``rows`` is ``src.index_select(0, slots)`` (``src``
+    itself where ``slots`` is None).  ``src`` is f32 [R, N] with
+    contiguous rows (a tf pool, or a group's K5 / K6 freqs), ``slots`` an
+    int64 tensor of source rows on its device (each in [0, R), not
+    checked: a plan's pool slots), ``doc_lens`` f32 [N] (counts, >= 0),
+    ``idfs`` f32 with one entry per ranked row; k in [1, min(N,
+    RANK_MAX_K)].  Returns (values f32 [Q, k] descending, indices int32
+    [Q, k]), ties to the smallest index.
+
+    On a CUDA tensor this is one launch (csrc/topk.cu, ``sa_rank_rows``):
+    K3's two-launch selection over the rows' scores, each computed by
+    K10's per-element function as its tf is read (one kernel where a row
+    is one tile, else two).  It replaces the gather of the rows, K10's
+    [Q, N] score block and K3's read of it on the batch driver's ranked
+    groups."""
+    if kind not in SIM_KINDS:
+        raise ValueError(f"the fused pass has no similarity kind {kind}")
+    dev = src.device
+    if src.dtype != torch.float32 or src.dim() != 2:
+        raise TypeError("src must be f32 [R, N]")
+    R, n = src.shape
+    if n > 1 and src.stride(1) != 1:
+        raise ValueError("src must have contiguous rows")
+    if not 1 <= k <= min(n, RANK_MAX_K):
+        raise ValueError(f"k must be in [1, {min(n, RANK_MAX_K)}], got {k}")
+    if n >= 2**31:
+        raise ValueError("the fused pass takes rows of fewer than 2^31")
+    if slots is not None:
+        _check(slots, "slots", torch.int64, dev)
+    Q = R if slots is None else slots.shape[0]
+    _check(doc_lens, "doc_lens", torch.float32, dev)
+    _check(idfs, "idfs", torch.float32, dev)
+    if doc_lens.shape[0] != n or idfs.shape[0] != Q:
+        raise ValueError("doc_lens takes one entry a column, idfs one a "
+                         "ranked row")
+    if dev.type == "cpu":
+        vals, idx = rank_rows_plain(kind, src, slots, doc_lens, idfs, avgdl,
+                                    k1, b, k)
+        return vals, idx.to(torch.int32)
+    if dev.type != "cuda":
+        raise ValueError(f"no fused ranking kernel for device {dev}")
+    vals = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return vals, idx
+    lib = _get_lib()
+    tiles = -(-n // RANK_TILE)
+    part = (torch.empty((Q, tiles, k), dtype=torch.int64, device=dev)
+            if tiles > 1 else None)
+    err = lib.sa_rank_rows(
+        src.data_ptr(), src.stride(0), None if slots is None
+        else slots.data_ptr(), Q, n, doc_lens.data_ptr(), idfs.data_ptr(),
+        SIM_KINDS[kind], _f32(avgdl), _f32(k1), _f32(b), k,
+        None if part is None else part.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "rank_rows")
+    _launched(rank_rows, 1 if tiles == 1 else 2)
+    return vals, idx
+
+
+rank_rows.launches = 0
+rank_rows.kernels = 0   # device kernels the launches enqueued
 
 
 # ---------------------------------------------------------------------------

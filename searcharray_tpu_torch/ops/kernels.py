@@ -326,6 +326,18 @@ def topk_by_keys(x: torch.Tensor, k: int):
     return torch.gather(x, -1, idx), idx
 
 
+def rank_rows_plain(kind, src, slots, doc_lens, idfs, avgdl, k1, b, k: int):
+    """The fused ranking pass (``csrc/topk.cu``, ``sa_rank_rows``) in
+    plain PyTorch: ranked row r is source row ``slots[r]`` of f32 ``src``
+    [R, N] (row r where ``slots`` is None), its scores ``similarity_plain``
+    with the f32 [N] ``doc_lens`` and its idf ``idfs[r]``, ranked by
+    ``topk_exact``.  Returns (values f32 [Q, k], indices int64 [Q, k])."""
+    rows = src if slots is None else src.index_select(0, slots)
+    scores = similarity_plain(kind, rows, doc_lens.reshape(1, -1),
+                              idfs.reshape(-1, 1), avgdl, k1, b)
+    return topk_exact(scores, k)
+
+
 def take_term_planes(hdrs: torch.Tensor, pays: torch.Tensor, off: int,
                      n: int, min_blk=None, max_blk=None, *, bucket: int,
                      blk_bits: int):

@@ -5,8 +5,9 @@ Queries are deduplicated, classified and grouped:
 
 * ``dterm`` (corpus dense-eligible): the group's tf rows are made
   resident in the tf pool (one K1 launch per missing term; a repeated
-  phrase's freq row by K5), then one row gather + elementwise similarity
-  + exact top-k scores the group;
+  phrase's freq row by K5), then the fused ranking pass reads the rows
+  from the pool and ranks their similarity (no gather, no score block;
+  K10 over gathered rows where the full scores are asked for);
 * ``dphrase`` (exact phrases, corpus dense-eligible): the group's term
   planes are made resident in the plane pool (one K4 launch for all
   missing planes of a wave), then ONE K5 launch computes the phrase
@@ -42,7 +43,9 @@ the wave's pool fills from the index's own posting slices, then the
 group launches).  One index is the S = 1 case; the S shards of a
 ``parallel/sharded.py:ShardedIndex`` share one plan and one slot map.
 
-With ``top_k`` every group's result is ranked by K3 and packed into int32
+With ``top_k`` every group's result is ranked by K3's selection (the
+fused pass over the group's tf or freqs rows where k is at most
+``RANK_MAX_K``: ``dense.rank_or_score``) and packed into int32
 [Qg, 2k] (f32 score bits ‖ doc indices), so one device-to-host copy
 returns a batch and nothing before it waits for the device.  With
 ``as_device`` the f32[Q, N] scores stay on the device for a caller that
@@ -151,11 +154,8 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
         tfs = _flat_segment_sum(keys, pops, Qp, Npad)[:, :N]
         idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
                                             device)
-        out = apply_similarity_device(kind, tfs, doc_lens[None, :],
-                                      idf_t[:, None], avgdl, k1, b)
-        if top_k is None:
-            return out
-        return dense.pack_topk(out, top_k)
+        return dense.rank_or_score(kind, k1, b, top_k, tfs, doc_lens, idf_t,
+                                   avgdl)
 
     return f
 
@@ -163,14 +163,11 @@ def _term_group_fn(dev: DeviceIndex, Qp: int, bucket: int, kind: str,
 def _phrase_scores(freqs: torch.Tensor, kind: str, k1: float, b: float,
                    top_k: Optional[int], doc_lens, avgdl, idfs):
     """A sparse phrase group's scores from its f32[Qg, N] freqs, or the
-    packed top-k with ``top_k``."""
+    packed top-k with ``top_k`` (``dense.rank_or_score``)."""
     idf_t = kernels_cuda.host_to_device(np.asarray(idfs, np.float32),
                                         freqs.device)
-    out = apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                  idf_t[:, None], avgdl, k1, b)
-    if top_k is None:
-        return out
-    return dense.pack_topk(out, top_k)
+    return dense.rank_or_score(kind, k1, b, top_k, freqs, doc_lens, idf_t,
+                               avgdl)
 
 
 def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
@@ -938,6 +935,8 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
                 outs.append(C.finish_candidates(tf, crows, dev.doc_lens,
                                                 idfs, avgdl, kind, k1, b,
                                                 top_k, N))
+                if top_k is not None:
+                    dense.count_ranked(len(s["chunk"]), fused=False)
             elif gkey[0] in ("cphrase", "cspan"):
                 bump(CAND_GROUPS)
                 freqs, crows = C.candidate_freqs(
@@ -945,6 +944,8 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
                 outs.append(C.finish_candidates(freqs, crows, dev.doc_lens,
                                                 idfs, avgdl, kind, k1, b,
                                                 top_k, N))
+                if top_k is not None:
+                    dense.count_ranked(len(s["chunk"]), fused=False)
             elif gkey[0] == "dspan":
                 _, _, anchor_i, w, mults = gkey
                 outs.append(dense.span_group_body(
@@ -993,6 +994,7 @@ def run_plan(dev: DeviceIndex, plan: BatchPlan, kind: str = "bm25",
         if top_k is None:
             outs.append(stack)
         else:
+            dense.count_ranked(stack.shape[0], fused=False)
             step = max(1, (1 << 28) // max(1, N))
             outs += [dense.pack_topk(stack[r0: r0 + step], top_k)
                      for r0 in range(0, stack.shape[0], step)]

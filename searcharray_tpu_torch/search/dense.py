@@ -19,8 +19,10 @@ version is ``ops/kernels.py:phrase_counts_dense_planes``, re-exported here.
 A slop phrase (window ``w = n + slop - 1`` of at most 18 positions, no
 term more than twice) is K6 (``span_window``) on the same planes: window
 starts that hold every term often enough, dilated back over the anchor
-term's positions.  Every ranked result is K3 (``topk``), packed by
-``pack_topk``.
+term's positions.  Every ranked result is K3's selection: a group's top
+k of at most ``RANK_MAX_K`` over whole rows by the fused pass
+(``rank_or_score``: the scores computed as the selection reads the tf or
+freqs rows, never stored), any other by K10 then K3 (``pack_topk``).
 Both pools keep key -> slot maps on the host (LRU eviction; ``SlotMaps``,
 shared by the shards of one query part of a ``ShardedIndex``, so a key
 has one row on all of them).  A batch's missing rows are reserved on the
@@ -350,6 +352,51 @@ def pack_topk(dense: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([scores.view(torch.int32), idx], dim=-1)
 
 
+def fuses(top_k: Optional[int]) -> bool:
+    """Whether the fused pass (``kernels_cuda.rank_rows``) takes a group's
+    top k: 1 to ``RANK_MAX_K`` (K3's one-pass cap)."""
+    return top_k is not None and 1 <= top_k <= kernels_cuda.RANK_MAX_K
+
+
+def count_ranked(n_rows: int, fused: bool) -> None:
+    """Count a ranked group's rows on the innermost open span (``run_plan``'s
+    ``batch.enqueue``): ``ranked_rows``, and ``ranked_unfused_rows`` for
+    those that took K10 then K3."""
+    if profiling.active():
+        profiling.count("ranked_rows", n_rows)
+        if not fused:
+            profiling.count("ranked_unfused_rows", n_rows)
+
+
+def rank_or_score(kind: str, k1: float, b: float, top_k: Optional[int],
+                  freqs: torch.Tensor, doc_lens, idfs, avgdl, *, slots=None,
+                  fused: bool = True, inplace: bool = False):
+    """A group's similarity and, with ``top_k``, its packed top-k
+    (``pack_topk``'s layout).  The group's rows are rows ``slots`` (an
+    int64 device tensor) of ``freqs`` (the tf pool), or ``freqs`` itself
+    (f32 [Qg, n], rows may be strided; overwritten by the scores where
+    ``inplace``); ``doc_lens`` is f32 [n], ``idfs`` f32 [Qg].  Where
+    ``fuses(top_k)`` and the rows are whole (``fused``: a ``rows`` subset
+    is not) the fused pass ranks them and no score block is stored;
+    otherwise K10 writes the [Qg, n] scores, which K3 ranks when ``top_k``
+    is set."""
+    Qg = freqs.shape[0] if slots is None else slots.shape[0]
+    if fused and fuses(top_k):
+        count_ranked(Qg, fused=True)
+        vals, idx = kernels_cuda.rank_rows(kind, freqs, slots, doc_lens,
+                                           idfs, avgdl, k1, b, top_k)
+        return torch.cat([vals.view(torch.int32), idx], dim=-1)
+    if slots is not None:
+        freqs, inplace = freqs.index_select(0, slots), True
+    out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
+                                    idfs[:, None], avgdl, k1, b,
+                                    out=freqs if inplace else None)
+    if top_k is None:
+        return out
+    count_ranked(Qg, fused=False)
+    return pack_topk(out, top_k)
+
+
 def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
     """Dense f32[N] term-frequency vector: a tf-pool row view, so the
     caller holds the index (``dev.held()``) through its last read of it.
@@ -376,19 +423,18 @@ def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
 
 def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
                     tfpool, slots, doc_lens, idfs, avgdl, rows=None):
-    """One term group: gather tf rows + similarity (+ packed top-k).  With
-    ``rows`` (a device index tensor of doc ids) the tf rows and the doc
-    lengths are gathered at those docs and the scores are [Qg, len(rows)]."""
-    tfstack = tfpool.index_select(0, slots)
-    if rows is not None:
-        tfstack = tfstack.index_select(1, rows)
-        doc_lens = doc_lens.index_select(0, rows)
-    out = K.apply_similarity_device(kind, tfstack, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b,
-                                    out=tfstack)
-    if top_k is None:
-        return out
-    return pack_topk(out, top_k)
+    """One term group: the similarity of its tf pool rows ``slots`` (+
+    packed top-k; ``rank_or_score``: a ranked group's rows are read from
+    the pool by the fused pass, not gathered).  With ``rows`` (a device
+    index tensor of doc ids) the tf rows and the doc lengths are gathered
+    at those docs and the scores are [Qg, len(rows)]."""
+    if rows is None:
+        return rank_or_score(kind, k1, b, top_k, tfpool, doc_lens, idfs,
+                             avgdl, slots=slots)
+    tfstack = tfpool.index_select(0, slots).index_select(1, rows)
+    return rank_or_score(kind, k1, b, top_k, tfstack,
+                         doc_lens.index_select(0, rows), idfs, avgdl,
+                         fused=False, inplace=True)
 
 
 def _rows_minis(dev: DeviceIndex, slots, rows):
@@ -412,18 +458,16 @@ def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
                       kind: str, k1: float, b: float, top_k: Optional[int],
                       slots, idfs, avgdl, rows=None):
     """One exact-phrase group on full planes: one K5 launch reads every
-    query's planes from the pool, then similarity (+ packed top-k).
+    query's planes from the pool, then similarity (+ packed top-k, the
+    fused pass over the freqs: ``rank_or_score``).
     ``slots`` is the host int [Qg, T] array of plane rows.  With ``rows``
     (an int32 device tensor of doc ids) K5 runs on the planes' minis at
     those docs (K8b) and the scores are [Qg, len(rows)]."""
     pool, slots, n_docs, doc_lens = _rows_minis(dev, slots, rows)
     freqs = kernels_cuda.phrase_chain(pool, slots, plan_key, pattern,
                                       num_docs=n_docs, blk_bits=dev.blk_bits)
-    out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b, out=freqs)
-    if top_k is None:
-        return out
-    return pack_topk(out, top_k)
+    return rank_or_score(kind, k1, b, top_k, freqs, doc_lens, idfs, avgdl,
+                         fused=rows is None, inplace=True)
 
 
 def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
@@ -445,18 +489,16 @@ def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
                     kind: str, k1: float, b: float, top_k: Optional[int],
                     slots, idfs, avgdl, rows=None):
     """One slop group on full planes: one K6 launch reads every query's
-    planes from the pool, then similarity (+ packed top-k).  ``slots`` is
+    planes from the pool, then similarity (+ packed top-k, as in
+    ``phrase_group_body``).  ``slots`` is
     the host int [Qg, T] array of the plane rows of each query's distinct
     terms.  With ``rows`` K6 runs on the minis at those docs, as in
     ``phrase_group_body``."""
     pool, slots, n_docs, doc_lens = _rows_minis(dev, slots, rows)
     freqs = kernels_cuda.span_window(pool, slots, w, mults, anchor=anchor_i,
                                      num_docs=n_docs, blk_bits=dev.blk_bits)
-    out = K.apply_similarity_device(kind, freqs, doc_lens[None, :],
-                                    idfs[:, None], avgdl, k1, b, out=freqs)
-    if top_k is None:
-        return out
-    return pack_topk(out, top_k)
+    return rank_or_score(kind, k1, b, top_k, freqs, doc_lens, idfs, avgdl,
+                         fused=rows is None, inplace=True)
 
 
 def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,

@@ -436,6 +436,24 @@ def test_k10_work_is_a_read_and_a_write_per_element(kind, per_element):
                                           * 1e3)
 
 
+@pytest.mark.parametrize("kind", sorted(rl.K10_FLOPS))
+def test_rank_work_reads_each_tf_once_and_stores_no_scores(kind):
+    """The fused ranking pass over a terms wave of 99 rows at 1M docs: the
+    tf read once, the doc lengths once, an idf and k results a row; less
+    than K10 then K3 over the gathered rows by K10's write and K3's read
+    of the scores (the gather's read and write besides)."""
+    w = rl.rank_work(99, 1_000_000, 10, kind)
+    assert w["bytes"] == 4 * 99_000_000 + 4 * 1_000_000 + 4 * 99 \
+        + 8 * 99 * 10
+    assert w["ops"] == rl.K3_OPS_PER_ELEMENT * 99_000_000
+    assert w["flops"] == rl.K10_FLOPS[kind] * 99_000_000
+    assert w["bound_by"] == "bytes"
+    split = rl.total([rl.k10_work(99, 1_000_000, kind),
+                      rl.k3_work(99, 1_000_000, 10)])
+    assert split["bytes"] - w["bytes"] == 8 * 99_000_000
+    assert split["ops"] == w["ops"] and split["flops"] == w["flops"]
+
+
 def test_total_adds_the_float_operations():
     a, b = rl.k10_work(2, 100), rl.k10_work(3, 50, "classic")
     t = rl.total([a, b])

@@ -35,7 +35,8 @@ TOL = dict(rtol=1e-6, atol=1e-7)
 # the CPU a wrapper runs its plain version and its launch counter stays 0)
 WRAPPERS = ("score_term", "score_term_rows", "segment_sum", "topk",
             "plane_fill", "phrase_chain", "span_window", "merge_step",
-            "cand_rows", "cand_minis", "span_sparse", "similarity")
+            "cand_rows", "cand_minis", "span_sparse", "similarity",
+            "rank_rows")
 
 # a fixed mixed batch: terms (one missing), exact phrases (one twice, a
 # repeated term, 34 terms: past K5's cap), slop phrases (w > 18, a term
@@ -125,31 +126,35 @@ def single_device_counts():
 
 
 # single_device_counts() on the code before the plan / run split: the
-# nonzero counters of each call
+# nonzero counters of each call.  Since the fused ranking pass, each ranked
+# group's K10 + K3 pair over whole rows with k <= 64 is one ``rank_rows``
+# launch: one ``topk`` and one ``similarity`` fewer for each.
 PINNED = {
     "first": {"DISPATCHES": 11, "score_term_rows": 1, "segment_sum": 35,
-              "topk": 8, "plane_fill": 1, "phrase_chain": 3,
+              "topk": 1, "plane_fill": 1, "phrase_chain": 3,
               "span_window": 2, "merge_step": 33, "span_sparse": 2,
-              "similarity": 9},
-    "second": {"DISPATCHES": 9, "segment_sum": 35, "topk": 3,
+              "similarity": 2, "rank_rows": 7},
+    "second": {"DISPATCHES": 9, "segment_sum": 35, "topk": 1,
                "phrase_chain": 3, "span_window": 2, "merge_step": 33,
-               "span_sparse": 2, "similarity": 4},
+               "span_sparse": 2, "similarity": 2, "rank_rows": 2},
     "as_device": {"DISPATCHES": 4, "segment_sum": 35, "merge_step": 33,
                   "span_sparse": 2, "similarity": 4},
     "rows": {"DISPATCHES": 2, "segment_sum": 33, "merge_step": 33,
              "similarity": 2},
     "candidates": {"DISPATCHES": 9, "CAND_GROUPS": 6, "segment_sum": 35,
-                   "topk": 8, "phrase_chain": 3, "span_window": 2,
+                   "topk": 7, "phrase_chain": 3, "span_window": 2,
                    "merge_step": 33, "cand_rows": 6, "cand_minis": 5,
-                   "span_sparse": 2, "similarity": 9},
-    "sparse": {"DISPATCHES": 10, "segment_sum": 39, "topk": 7,
-               "merge_step": 33, "span_sparse": 4, "similarity": 10},
+                   "span_sparse": 2, "similarity": 8, "rank_rows": 1},
+    "sparse": {"DISPATCHES": 10, "segment_sum": 39, "topk": 1,
+               "merge_step": 33, "span_sparse": 4, "similarity": 4,
+               "rank_rows": 6},
 }
 
 
 def test_single_device_launch_counts_pinned():
     """The single-device path is the S = 1 case of the plan: the same
-    launches per call as before the split."""
+    launches per call as before the split (a fused ranking launch where a
+    K10 and a K3 launch were)."""
     got = single_device_counts()
     assert {step: {k: v for k, v in calls.items() if v}
             for step, calls in got.items()} == PINNED

@@ -98,7 +98,14 @@ def test_spans_nest_with_parent_and_request_ids():
         assert f.request == composer.id
         assert {s.name for s in spans if s.parent == f.id} >= {
             "batch.plan", "batch.enqueue", "batch.assemble"}
-    assert all(s.counts == {} for s in spans if s.name != "batch.plan")
+    # counts on the plans and, for the ranked batch, on its enqueue: the
+    # rows of its ranked groups (its five distinct queries, every one
+    # fused: top 3 of whole rows); the edismax field batches rank nothing
+    enqueue = next(s for s in spans if s.name == "batch.enqueue")
+    assert enqueue.parent == facade.id
+    assert enqueue.counts == {"ranked_rows": 5}
+    assert all(s.counts == {} for s in spans
+               if s.name != "batch.plan" and s is not enqueue)
 
 
 def test_spans_nest_per_thread_across_four_threads():
