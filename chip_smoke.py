@@ -130,8 +130,9 @@ entry points a user calls, and checks it:
    1M-doc index, held to the dense ``dterm`` results; K2 on those groups'
    launches (each bucket's pad tail a run on the row's last slot) and on
    a control of as many keys spread uniformly, exactly equal to plain;
-   the sparse phrase group (``batch._phrase_group_fn``, K7 and K2) on the
-   1M-doc index, held exactly to the dense engine's results;
+   the sparse phrase group (``phrase.sparse_chain_freqs``, K7 and K2,
+   then ``batch._phrase_scores``) on the 1M-doc index, held exactly to
+   the dense engine's results;
 5. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gave it (K1 on the slices of its tf fills, one
    row and many rows per launch, K2 on the flat keys of the
@@ -1821,6 +1822,14 @@ def main() -> int:
         tf = oracle_tf(post, tid, n)
         check(np.array_equal(arr.termfreqs(term), tf),
               f"termfreqs({term!r}) equals the numpy oracle exactly")
+        # a position window takes the term's posting slice: one K1 launch
+        docs, _ = oracle_positions(post, tid, (WIN_FREQS["min_posn"],
+                                               WIN_FREQS["max_posn"]))
+        check(np.array_equal(arr.termfreqs(term, **WIN_FREQS),
+                             np.bincount(docs, minlength=n)
+                             .astype(np.float32)),
+              f"termfreqs({term!r}, {WIN_FREQS}) equals the numpy oracle "
+              "exactly")
         want = oracle_scores(dev, term)
         check(got.shape == (n,) and np.all(np.isfinite(got))
               and np.allclose(got, want, rtol=1e-6, atol=0),
@@ -1835,11 +1844,12 @@ def main() -> int:
     phase_done("terms: drive and oracle checks")
 
     # exact phrases on the dense plane engine: planes filled by K4, freqs
-    # by K5.  The first score() and the first batch run the chain; the
-    # second encounter of a phrase promotes it (PHRASE_TF_MIN_HITS), and
-    # K5 fills its tf-pool row; the third batch reads the cached rows (the
-    # batch holds more rows than the 192-slot tf pool, so LRU evicts some
-    # of them between calls and K5 refills those).
+    # by K5.  The first score() or termfreqs() (a one-query batch) and the
+    # first batch run the chain; the second encounter of a phrase promotes
+    # it (PHRASE_TF_MIN_HITS), and K5 fills its tf-pool row; the third
+    # batch reads the cached rows (the batch holds more rows than the
+    # 192-slot tf pool, so LRU evicts some of them between calls and K5
+    # refills those).
     ph3 = ["what", "is", "the"]
     ph4 = ["what", "is", "the", "purpose"]
     s_ph3 = arr.score(ph3)
@@ -1875,7 +1885,7 @@ def main() -> int:
           "chain batch's top-k bit for bit")
     sig = lambda q: (tuple(arr.term_dict.get_term_id(t) for t in q), 0)  # noqa: E731
     check(k5_chain > 0 and k5_fill > 0
-          and promoted_first == {sig(ph3)}
+          and promoted_first == {sig(ph3), sig(ph4)}
           and set(dev.maps.phrase_recipes) == {sig(q) for q in phrases},
           f"phrases ran the chain ({k5_chain} K5 launches in the first "
           f"batch) and were promoted on their second hit ({k5_fill} K5 "
@@ -3330,7 +3340,7 @@ def main() -> int:
     for term in TERM_QUERIES:
         tid = arr.term_dict.get_term_id(term)
         off, length, bucket = dev.term_span(tid)
-        idf = scoring.host_idf("bm25", [int(dev.doc_freqs[tid])], n, avgdl)
+        idf = scoring.query_idf(dev, "bm25", [tid])
         fn = batch._term_group_fn(dev, 1, bucket, "bm25", 1.2, 0.75, None)
         sparse_rows.append(fn(dev.hdrs, dev.pays, dev.doc_lens,
                               np.float32(avgdl), [off], [length], [idf]))
@@ -3371,17 +3381,18 @@ def main() -> int:
     sparse_groups = {}
     for qi, tids in enumerate(ph_tids_all):
         spans = phrase.trim_spans(dev, [dev.term_span(t) for t in tids])
-        idf = scoring.host_idf("bm25", [int(dev.doc_freqs[t]) for t in tids],
-                               n, avgdl)
+        idf = scoring.query_idf(dev, "bm25", tids)
         sparse_groups.setdefault(phrase.chain_key(dev, tids), []).append(
             (qi, [s[0] for s in spans], [s[1] for s in spans], idf))
     k7_before = kc.merge_step.launches
     for (plan_key, pattern), rows in sparse_groups.items():
-        fn = batch._phrase_group_fn(dev, plan_key, pattern, "bm25", 1.2,
-                                    0.75, None)
-        got = fn(dev.hdrs, dev.pays, dev.doc_lens, np.float32(avgdl),
-                 [r[1] for r in rows], [r[2] for r in rows],
-                 [r[3] for r in rows])
+        freqs = phrase.sparse_chain_freqs(
+            dev.hdrs, dev.pays, [r[1] for r in rows], [r[2] for r in rows],
+            plan_key, pattern, blk_bits=dev.blk_bits,
+            key_stride=batch._npad(n))[:, :n]
+        got = batch._phrase_scores(freqs, "bm25", 1.2, 0.75, None,
+                                   dev.doc_lens, np.float32(avgdl),
+                                   [r[3] for r in rows])
         if not torch.equal(got, dphrase_want[[r[0] for r in rows]]):
             raise AssertionError(f"the sparse phrase group {plan_key} "
                                  "differs from the dense engine")
@@ -3400,7 +3411,7 @@ def main() -> int:
     for term in ("what", "w333", "w4095"):
         tid = arr.term_dict.get_term_id(term)
         h, p = scoring.term_planes(dev, tid)
-        idf = scoring.host_idf("bm25", [int(dev.doc_freqs[tid])], n, avgdl)
+        idf = scoring.query_idf(dev, "bm25", [tid])
         for kind in ("none", "bm25", "bm25_legacy", "bm25_impact"):
             args = (h, p, dev.doc_lens, idf, np.float32(avgdl))
             kw = dict(num_docs=n, blk_bits=dev.blk_bits, kind=kind)
@@ -5126,8 +5137,8 @@ def main() -> int:
         ("mixed request K3 and K6 launches per call", k36_per_call),
         (f"p50 score(phrase, slop={SLOP}) ms for {slop_shapes[0]} and "
          f"{slop_shapes[2]} (cached phrase-tf rows)", slop_ms),
-        (f"p50 termfreqs({wide_q}, slop={wide_slop}) ms (K6 every call)",
-         tf_wide_ms),
+        (f"p50 termfreqs({wide_q}, slop={wide_slop}) ms (a cached "
+         "phrase-tf row)", tf_wide_ms),
         *((f"one block=False {name} call under the profiler: enqueue ms; "
            "call ms; device ms; kernel launches; host waits before "
            "collect(); device-to-host copies",
@@ -5203,7 +5214,7 @@ def main() -> int:
            turns)
           for name, turns in e2e.items()),
         (f"p50 score({ph3}) ms (a cached phrase-tf row)", score_ph_ms),
-        (f"p50 termfreqs({ph4}) ms (K5 every call)", tf_ph_ms),
+        (f"p50 termfreqs({ph4}) ms (a cached phrase-tf row)", tf_ph_ms),
         (f"p50 score(phrase, {WIN_SCORE}) ms for {phrases[0]} and "
          f"{phrases[3]} (the sparse chain: K7 and K2 per step)", win_ph_ms),
         (f"long-document serving mix score_batch qps ({len(lmix)} queries, "

@@ -223,8 +223,8 @@ class DeviceIndex:
         self.stats_lengths = (built.postings.lengths if stats_lengths is None
                               else stats_lengths)
         # kind -> float64 [V], each term's part of a query's idf on
-        # ``doc_freqs`` and ``stats_docs`` (host memory, built at the first
-        # plan that reads it: ``search/batch.py:PlanView.idf_terms``)
+        # ``doc_freqs`` and ``stats_docs`` (host memory, built the first
+        # time an idf reads it: ``search/scoring.py:idf_table``)
         self.idf_tables: dict = {}
 
         max_len = int(built.postings.lengths.max()) if built.postings.num_terms else 0
@@ -253,8 +253,6 @@ class DeviceIndex:
         self.tf_pool: Optional[torch.Tensor] = None
         self.maps = SlotMaps(self.corpus_size, self.blk_bits,
                              self.pool_share)
-        # dict-LRU tf fallback for pool-ineligible corpora (dense.term_tf)
-        self.tf_cache: "OrderedDict[int, torch.Tensor]" = OrderedDict()
 
     def _usable_derived(self, built: BuiltIndex):
         """Precomputed attach arrays, or None if absent or stale (layout

@@ -3,7 +3,9 @@
 The JAX package's facade (`Terms`, `TermsDtype`, `SearchArray`) with the
 device as an explicit argument: ``SearchArray.index(strings,
 device="cuda")``.  Search methods run over the whole corpus on that device
-and gather the view's rows at the end.  The dtype registers as
+and gather the view's rows at the end; ``score`` and ``termfreqs`` of one
+query are a one-query batch (``search/batch.py``), or with a position
+window run on the query's posting slices.  The dtype registers as
 ``"tokenized_text_torch"``, so pandas take/concat hand back this package's
 arrays.  Terms, exact phrases (dense planes, or the sparse chain for
 position windows and corpora the planes cannot hold) and slop phrases
@@ -710,21 +712,34 @@ class SearchArray(ExtensionArray):
         tokens = [token] if isinstance(token, str) else token
         return [self._resolve_tid(t) for t in tokens]
 
+    def _one_query(self, tids: List[int], kind: str, k1: float, b: float,
+                   slop: int, min_posn: Optional[int],
+                   max_posn: Optional[int]) -> torch.Tensor:
+        """One resolved query's f32[N] freqs (kind ``none``) or scores on
+        the device.  With no position window it is a one-query batch (the
+        batch driver's routing, pools and idf); a window takes the term's
+        or phrase's posting slices, which touch no pool."""
+        if min_posn is None and max_posn is None:
+            return batch_mod.score_batch_fused(
+                self.dev, [tids], kind, k1, b, slop=[slop],
+                as_device=True)[0]
+        if len(tids) == 1:
+            return scoring.score_term_dense(self.dev, tids[0], kind, k1, b,
+                                            min_posn, max_posn)
+        if slop:
+            return spans_mod.span_freqs_dense(self.dev, tids, slop, min_posn,
+                                              max_posn, kind, k1, b)
+        return phrase_mod.phrase_freqs_dense(self.dev, tids, min_posn,
+                                             max_posn, kind, k1, b)
+
     def termfreqs(self, token: Union[List[str], str], slop: int = 0,
                   min_posn: Optional[int] = None,
                   max_posn: Optional[int] = None) -> np.ndarray:
-        token = self._check_token_arg(token)
-        tids = self._resolve_tids(token)
+        tids = self._resolve_tids(self._check_token_arg(token))
         if min(tids) < 0:
             return np.zeros(len(self), dtype=np.float32)
-        if isinstance(token, list) and slop:
-            return self._gather_rows(spans_mod.span_freqs_dense(
-                self.dev, tids, slop, min_posn, max_posn))
-        if isinstance(token, list):
-            return self._gather_rows(phrase_mod.phrase_freqs_dense(
-                self.dev, tids, min_posn, max_posn))
-        return self._gather_rows(
-            scoring.termfreqs_dense(self.dev, tids[0], min_posn, max_posn))
+        return self._gather_rows(self._one_query(tids, "none", 1.2, 0.75,
+                                                 slop, min_posn, max_posn))
 
     def docfreq(self, token: str) -> int:
         if not isinstance(token, str):
@@ -740,13 +755,13 @@ class SearchArray(ExtensionArray):
               min_posn: Optional[int] = None,
               max_posn: Optional[int] = None) -> np.ndarray:
         token = self._check_token_arg(token)
-        tokens = [token] if isinstance(token, str) else token
-        # idf covers every query term (a vocabulary miss has df 0)
-        dfs = [self.docfreq(t) for t in tokens]
         fused = getattr(similarity, "_fused", None)
         if fused is None:
             # Custom (user) similarity: honour the reference protocol
-            # exactly -- subset-shaped numpy tfs/doc_lens in, scores out.
+            # exactly -- subset-shaped numpy tfs/doc_lens in, scores out;
+            # idf covers every query term (a vocabulary miss has df 0).
+            tokens = [token] if isinstance(token, str) else token
+            dfs = [self.docfreq(t) for t in tokens]
             tfs = self.termfreqs(token, slop=slop, min_posn=min_posn,
                                  max_posn=max_posn)
             scores = similarity(tfs, np.asarray(dfs), self.doclengths(),
@@ -756,27 +771,8 @@ class SearchArray(ExtensionArray):
         tids = self._resolve_tids(token)
         if min(tids) < 0 or self.avg_doc_length == 0:
             return np.zeros(len(self), dtype=np.float32)
-        idf = scoring.host_idf(kind, dfs, self.corpus_size,
-                               self.avg_doc_length)
-        if isinstance(token, str):
-            return self._gather_rows(scoring.score_term_dense(
-                self.dev, tids[0], kind=kind, k1=k1, b=b, min_posn=min_posn,
-                max_posn=max_posn, idf=idf))
-        dense = None
-        if min_posn is None and max_posn is None:
-            # a repeated phrase scores from the phrase-tf cache (one row
-            # gather + similarity); a position window changes the freqs
-            dense = batch_mod.score_phrase_cached_single(
-                self.dev, tids, slop, kind, k1, b, idf)
-        if dense is None and slop:
-            dense = spans_mod.span_freqs_dense(
-                self.dev, tids, slop, min_posn, max_posn, kind=kind, k1=k1,
-                b=b, idf=idf)
-        elif dense is None:
-            dense = phrase_mod.phrase_freqs_dense(
-                self.dev, tids, min_posn, max_posn, kind=kind, k1=k1, b=b,
-                idf=idf)
-        return self._gather_rows(dense)
+        return self._gather_rows(self._one_query(tids, kind, k1, b, slop,
+                                                 min_posn, max_posn))
 
     @profiling.spanned("facade.score_batch")
     def score_batch(self, queries: List[Union[str, List[str]]],

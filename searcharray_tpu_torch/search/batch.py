@@ -68,13 +68,12 @@ from searcharray_tpu_torch.search import dense
 from searcharray_tpu_torch.search.phrase import (
     _plan,
     chain_key,
-    sparse_chain_freqs,
     sparse_chains_freqs,
     trim_spans,
 )
 from searcharray_tpu_torch.search.scoring import (
     apply_similarity_device,
-    idf_terms,
+    idf_table,
     table_idf,
     table_idfs,
 )
@@ -168,26 +167,6 @@ def _phrase_scores(freqs: torch.Tensor, kind: str, k1: float, b: float,
                                         freqs.device)
     return dense.rank_or_score(kind, k1, b, top_k, freqs, doc_lens, idf_t,
                                avgdl)
-
-
-def _phrase_group_fn(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
-                     kind: str, k1: float, b: float, top_k: Optional[int]):
-    """The sparse phrase group alone: fn(hdrs, pays, doc_lens, avgdl,
-    offs, ns, idfs) -> f32[Qg, N] scores, or the packed top-k with
-    ``top_k``.  ``offs``/``ns`` are host int [Qg, T] arrays of exact
-    posting slices (no bucket padding: K7 takes each query's own
-    lengths)."""
-    N = dev.corpus_size
-    Npad = _npad(N)
-    blk_bits = dev.blk_bits
-
-    def f(hdrs, pays, doc_lens, avgdl, offs, ns, idfs):
-        freqs = sparse_chain_freqs(hdrs, pays, offs, ns, plan_key, pattern,
-                                   blk_bits=blk_bits, key_stride=Npad)[:, :N]
-        return _phrase_scores(freqs, kind, k1, b, top_k, doc_lens, avgdl,
-                              idfs)
-
-    return f
 
 
 def _phrase_runs(specs, N: int) -> List[list]:
@@ -312,43 +291,6 @@ def _slop_structure(dev: DeviceIndex, tids: List[int], slop: int):
                            tuple(mults))
 
 
-def score_phrase_cached_single(dev: DeviceIndex, tids: List[int], slop: int,
-                               kind: str, k1: float, b: float, idf):
-    """Single-query fast path of an exact or slop phrase through the
-    phrase-tf cache, or None.
-
-    Mirrors _classify's dphrase and dspan structures.  A hit or a
-    promotion scores as one tf-row gather + similarity, the dterm group
-    at one row."""
-    if not dense.dense_eligible(dev) or len(tids) < 2:
-        return None
-    if min(dev.term_span(t)[1] for t in tids) == 0:
-        return None
-    if slop > 0:
-        if not takes_dense_span(dev, tids, slop):
-            return None
-        rec, _, fkey = _slop_structure(dev, tids, slop)
-    else:
-        if not dense.phrase_fits_pool(dev, tids):
-            return None
-        plan_key, pattern = chain_key(dev, tids)
-        rec, fkey = tids, ("ph", len(tids), plan_key, pattern)
-    sig = (tuple(tids), slop)
-    idfs = kernels_cuda.host_to_device(np.asarray([idf], np.float32),
-                                       dev.device)
-    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
-    # the encounter count, the promotion, the fill and the gather of the
-    # row: one hold
-    with dev.held():
-        if not _phrase_tf_route(dev, sig, rec, fkey, _ptf_budget(dev)):
-            return None
-        dense.ensure_batch(dev, tf_tids=[sig])
-        slots = kernels_cuda.host_to_device(
-            dense.tf_slots_of(dev.maps, [sig]), dev.device)
-        return dense.term_group_body(kind, k1, b, None, dev.tf_pool, slots,
-                                     dev.doc_lens, idfs, avgdl)[0]
-
-
 def _is_slop_phrase(tids, slop: int) -> bool:
     """A resolved query of two or more terms with slop: a one-term query
     ignores its slop."""
@@ -415,15 +357,9 @@ class PlanView:
 
     def idf_terms(self, kind: str) -> np.ndarray:
         """float64 [V]: each term's part of a query's idf on the corpus's
-        statistics (``scoring.idf_terms``), built once per kind and kept
-        on the first shard, whose ``doc_freqs`` and ``stats_docs`` are the
-        corpus's."""
-        tables = self.members[0].idf_tables
-        got = tables.get(kind)
-        if got is None:
-            got = tables[kind] = idf_terms(kind, self.doc_freqs,
-                                           self.stats_docs)
-        return got
+        statistics (``scoring.idf_table`` of the first shard, whose
+        ``doc_freqs`` and ``stats_docs`` are the corpus's)."""
+        return idf_table(self.members[0], kind)
 
 
 def _as_view(dev) -> PlanView:

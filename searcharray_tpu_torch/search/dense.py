@@ -51,7 +51,7 @@ eagerly.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -319,16 +319,6 @@ def ensure_tfs(dev: DeviceIndex, tids: Sequence) -> None:
     ensure_batch(dev, tf_tids=tids)
 
 
-def _term_tf_k1(dev: DeviceIndex, term_id: int) -> torch.Tensor:
-    """One term's f32[N] tf vector from one K1 launch (kind ``none``)."""
-    off, n, _ = dev.term_span(term_id)
-    h, p = K.take_term_planes(dev.hdrs, dev.pays, off, n, bucket=n,
-                              blk_bits=dev.blk_bits)
-    return kernels_cuda.score_term(h, p, dev.doc_lens, 0.0, 1.0,
-                                   num_docs=dev.corpus_size,
-                                   blk_bits=dev.blk_bits, kind="none")
-
-
 def plane_slots_of(maps: SlotMaps, tids: Sequence[int]) -> np.ndarray:
     return np.asarray([maps.plane_slot[t] for t in tids], np.int32)
 
@@ -397,30 +387,6 @@ def rank_or_score(kind: str, k1: float, b: float, top_k: Optional[int],
     return pack_topk(out, top_k)
 
 
-def term_tf(dev: DeviceIndex, term_id: int) -> torch.Tensor:
-    """Dense f32[N] term-frequency vector: a tf-pool row view, so the
-    caller holds the index (``dev.held()``) through its last read of it.
-
-    The analog of the reference's ``termfreq_cache``
-    (`searcharray/phrase/middle_out.py:322-328`)."""
-    with dev.held():
-        if dense_eligible(dev):
-            ensure_tfs(dev, [term_id])
-            return dev.tf_pool[dev.maps.tf_slot[term_id]]
-        cache = dev.tf_cache  # dict fallback for pool-ineligible corpora
-        arr = cache.get(term_id)
-        if arr is None:
-            arr = _term_tf_k1(dev, term_id)
-            per = dev.corpus_size * 4
-            budget = max(per, TF_POOL_BYTES // dev.pool_share)
-            while cache and (len(cache) + 1) * per > budget:
-                cache.popitem(last=False)
-            cache[term_id] = arr
-        else:
-            cache.move_to_end(term_id)
-        return arr
-
-
 def term_group_body(kind: str, k1: float, b: float, top_k: Optional[int],
                     tfpool, slots, doc_lens, idfs, avgdl, rows=None):
     """One term group: the similarity of its tf pool rows ``slots`` (+
@@ -470,21 +436,6 @@ def phrase_group_body(dev: DeviceIndex, plan_key: tuple, pattern: tuple,
                          fused=rows is None, inplace=True)
 
 
-def score_phrase_dense(dev: DeviceIndex, term_ids: List[int], plan,
-                       pattern, kind: str, k1: float, b: float, idf):
-    """Single-query dense phrase scoring: the plane fill, one K5 launch
-    (the index held through both), the similarity."""
-    with dev.held():
-        ensure_planes(dev, term_ids)
-        freqs = kernels_cuda.phrase_chain(
-            dev.plane_pool, [plane_slots_of(dev.maps, term_ids)], plan,
-            pattern, num_docs=dev.corpus_size, blk_bits=dev.blk_bits)[0]
-    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
-    return K.apply_similarity_device(kind, freqs, dev.doc_lens,
-                                     np.float32(idf), avgdl, k1, b,
-                                     out=freqs)
-
-
 def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
                     kind: str, k1: float, b: float, top_k: Optional[int],
                     slots, idfs, avgdl, rows=None):
@@ -499,21 +450,3 @@ def span_group_body(dev: DeviceIndex, anchor_i: int, w: int, mults: tuple,
                                      num_docs=n_docs, blk_bits=dev.blk_bits)
     return rank_or_score(kind, k1, b, top_k, freqs, doc_lens, idfs, avgdl,
                          fused=rows is None, inplace=True)
-
-
-def score_span_dense(dev: DeviceIndex, uniq_tids: List[int], anchor_i: int,
-                     w: int, kind: str, k1: float, b: float, idf,
-                     mults=None):
-    """Single-query dense slop scoring: the plane fill, one K6 launch (the
-    index held through both), the similarity."""
-    mults = (1,) * len(uniq_tids) if mults is None else tuple(mults)
-    with dev.held():
-        ensure_planes(dev, uniq_tids)
-        freqs = kernels_cuda.span_window(
-            dev.plane_pool, [plane_slots_of(dev.maps, uniq_tids)], w, mults,
-            anchor=anchor_i, num_docs=dev.corpus_size,
-            blk_bits=dev.blk_bits)[0]
-    avgdl = np.float32(max(dev.avg_doc_length, 1e-38))
-    return K.apply_similarity_device(kind, freqs, dev.doc_lens,
-                                     np.float32(idf), avgdl, k1, b,
-                                     out=freqs)

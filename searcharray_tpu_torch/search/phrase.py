@@ -1,13 +1,13 @@
-"""Exact phrases: the chain plan and single-query phrase freqs / scores.
+"""Exact phrases: the chain plan and the sparse chain on posting slices.
 
 A phrase's freq in a doc is the minimum, over the steps of a chain of
 bigram matches, of the step's per-doc count (the reference's
 ``compute_phrase_freqs``, `searcharray/phrase/middle_out.py:154-168`).
-On a dense-eligible corpus every step runs on the term planes of the
-plane pool (search/dense.py, kernel K5).  Windowed phrases, corpora or
-phrases the plane pool cannot take, and phrases of more than
-``CHAIN_MAX_TERMS`` terms take the sparse chain on the doc-sorted posting
-slices: each step index is one K7 launch
+On a dense-eligible corpus the batch driver runs every step on the term
+planes of the plane pool (search/dense.py, kernel K5).  Windowed phrases
+(``phrase_freqs_dense``), corpora or phrases the plane pool cannot take,
+and phrases of more than ``CHAIN_MAX_TERMS`` terms take the sparse chain
+on the doc-sorted posting slices: each step index is one K7 launch
 (``ops/cuda/score.py:merge_step``) over every chain of a call, whose (doc
 key, count) pairs K2 sums per doc.  The JAX package runs that step as a
 sort of both lists; its compile-reuse machinery (per-step and
@@ -24,8 +24,7 @@ import torch
 from searcharray_tpu_torch.index.device import DeviceIndex
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.kernels import apply_similarity_device
-from searcharray_tpu_torch.search import dense
-from searcharray_tpu_torch.search.scoring import _window_blocks, host_idf
+from searcharray_tpu_torch.search.scoring import _window_blocks, query_idf
 
 TRIM_FACTOR = 20  # reference parity: middle_out.py:66
 
@@ -192,7 +191,9 @@ def phrase_freqs_dense(index: DeviceIndex, term_ids: List[int],
                        kind: str = "none", k1: float = 1.2, b: float = 0.75,
                        idf: Optional[float] = None) -> torch.Tensor:
     """Dense per-doc exact phrase frequencies (kind ``none``) or scores,
-    f32[N] on the index's device."""
+    f32[N] on the index's device, by the sparse chain on the posting
+    slices, inside the position window when one is given.  Takes no pool
+    slot and no lock."""
     if len(term_ids) < 2:
         raise ValueError("Must have at least two terms")
     min_blk, max_blk = _window_blocks(min_posn, max_posn)
@@ -202,15 +203,10 @@ def phrase_freqs_dense(index: DeviceIndex, term_ids: List[int],
         return torch.zeros(index.corpus_size, dtype=torch.float32,
                            device=index.device)
     if idf is None:
-        idf = host_idf(kind, [index.doc_freqs[t] for t in term_ids],
-                       index.stats_docs, index.avg_doc_length)
-    # the plan splits at the rarest term by the untrimmed lengths
+        idf = query_idf(index, kind, term_ids)
+    # the plan splits at the rarest term by the untrimmed lengths; then
+    # stopword slices are bounded by the rarest term
     plan_key, pattern = chain_key(index, term_ids)
-    if (not windowed and dense.dense_eligible(index)
-            and dense.phrase_fits_pool(index, term_ids)):
-        return dense.score_phrase_dense(index, term_ids, plan_key, pattern,
-                                        kind, k1, b, idf)
-    # sparse chain from here: bound stopword slices by the rarest term
     spans = trim_spans(index, spans)
     freqs = sparse_chain_freqs(
         index.hdrs, index.pays, [[s[0] for s in spans]],

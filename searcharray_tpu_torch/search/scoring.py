@@ -1,10 +1,11 @@
-"""Single-term stats and fused BM25 scoring.
+"""Single-term stats, idf, and one term's scores on its posting slice.
 
 Every term tf vector is produced by K1 (ops/cuda/score.py:score_term):
 on a CUDA index the hand-written kernel, on a CPU index its plain
 version -- the tensor's device decides, nothing else.  Docfreqs are
 precomputed on the host at build (builder.compute_doc_freqs), so idf needs
-no device sync.
+no device sync: every idf the program uses is read from a per-term table
+(``idf_table``), bit-equal to ``host_idf``'s definition.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ from searcharray_tpu_torch.ops import kernels as K
 from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.encoding import LSB_BITS
 from searcharray_tpu_torch.ops.kernels import apply_similarity_device
-from searcharray_tpu_torch.search import dense
 
 
 # ---------------------------------------------------------------------------
@@ -26,7 +26,9 @@ from searcharray_tpu_torch.search import dense
 # ---------------------------------------------------------------------------
 def host_idf(kind, dfs, num_docs, avgdl) -> np.float32:
     """Query-level idf scalar, float64 accumulate then float32 narrow
-    (parity: similarity.py:19-21 + bm25.pyx C-float cast)."""
+    (parity: similarity.py:19-21 + bm25.pyx C-float cast).  The definition
+    that ``table_idf`` / ``table_idfs`` are held to; the program reads its
+    idfs from those."""
     dfs64 = np.asarray(dfs, dtype=np.float64)
     if kind in ("bm25", "bm25_legacy"):
         return np.float32(np.sum(np.log1p((num_docs - dfs64 + 0.5) / (dfs64 + 0.5))))
@@ -58,6 +60,22 @@ def table_idf(kind, parts: np.ndarray, num_docs) -> np.float32:
     if kind == "classic":
         return np.float32(np.log((num_docs + 1) / (parts.sum() + 1)) + 1.0)
     return np.float32(0.0)
+
+
+def idf_table(index: DeviceIndex, kind: str) -> np.ndarray:
+    """``idf_terms`` of ``index``'s ``doc_freqs`` and ``stats_docs`` (the
+    corpus's), built once per kind and kept on the index."""
+    got = index.idf_tables.get(kind)
+    if got is None:
+        got = index.idf_tables[kind] = idf_terms(kind, index.doc_freqs,
+                                                 index.stats_docs)
+    return got
+
+
+def query_idf(index: DeviceIndex, kind: str, term_ids) -> np.float32:
+    """One query's idf from ``index``'s per-term table (``table_idf``)."""
+    return table_idf(kind, idf_table(index, kind)[list(term_ids)],
+                     index.stats_docs)
 
 
 def table_idfs(kind, parts: np.ndarray, num_docs) -> np.ndarray:
@@ -120,28 +138,16 @@ def score_term_dense(index: DeviceIndex, term_id: int, kind: str = "bm25",
                      min_posn: Optional[int] = None,
                      max_posn: Optional[int] = None,
                      idf: Optional[float] = None) -> torch.Tensor:
-    """Dense f32[N] scores of one term (tf from K1)."""
-    _window_blocks(min_posn, max_posn)  # validate before any device work
-    if idf is None:
-        idf = host_idf(kind, [docfreq(index, term_id)], index.stats_docs,
-                       index.avg_doc_length)
-    windowed = min_posn is not None or max_posn is not None
-    avgdl = np.float32(max(index.avg_doc_length, 1e-38))
-    if kind != "none" and not windowed:
-        # hot-term path: the pooled dense tf vector (dense.ensure_tfs)
-        # makes repeat scoring one row read + elementwise similarity, into
-        # a tensor of its own, the index held until that read is enqueued
-        with index.held():
-            tf = dense.term_tf(index, term_id)
-            return apply_similarity_device(kind, tf, index.doc_lens,
-                                           np.float32(idf), avgdl, k1, b)
+    """Dense f32[N] scores of one term on its posting slice, inside the
+    position window when one is given: K1's exact tf (kind ``none``),
+    then K10, the batch driver's tf row and similarity.  Takes no pool
+    slot and no lock."""
     h, p = term_planes(index, term_id, min_posn, max_posn)
-    fused = kind if kind in kernels_cuda.KINDS else "none"
-    out = kernels_cuda.score_term(
-        h, p, index.doc_lens, np.float32(idf), avgdl,
-        num_docs=index.corpus_size, blk_bits=index.blk_bits, kind=fused,
-        k1=k1, b=b)
-    if fused != kind:
-        out = apply_similarity_device(kind, out, index.doc_lens,
-                                      np.float32(idf), avgdl, k1, b, out=out)
-    return out
+    tf = kernels_cuda.score_term(h, p, index.doc_lens, 0.0, 1.0,
+                                 num_docs=index.corpus_size,
+                                 blk_bits=index.blk_bits, kind="none")
+    if idf is None:
+        idf = query_idf(index, kind, [term_id])
+    avgdl = np.float32(max(index.avg_doc_length, 1e-38))
+    return apply_similarity_device(kind, tf, index.doc_lens, np.float32(idf),
+                                   avgdl, k1, b, out=tf)

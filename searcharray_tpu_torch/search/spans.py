@@ -9,15 +9,16 @@ counts are at least the exact phrase counts and never fall as slop grows.
 The span width bound is applied soundly (Lucene SpanNear-like); the
 reference's automaton matches at any distance through a position leak.
 
-The port of ``searcharray_tpu/search/spans.py:span_freqs_dense``, with its
-two routes.  A query with no position window, ``w <= 18`` and no term more
+The port of ``searcharray_tpu/search/spans.py:span_freqs_dense``'s two
+routes.  A query with no position window, ``w <= 18`` and no term more
 than twice, on a dense-eligible corpus whose plane pool holds the terms,
-runs K6 (``ops/cuda/score.py:span_window``) on the term planes.  Every
-other slop query runs K9 (``span_sparse``) on the doc-sorted posting
-slices: per anchor word the neighbouring words of every term, the windows
-counted in registers, then K2 sums the words' counts per doc.  The JAX
-package's per-shape jit cache and posting buckets have no counterpart
-here.
+runs K6 (``ops/cuda/score.py:span_window``) on the term planes, in the
+batch driver (``takes_dense_span`` routes it there).  Every other slop
+query, and every windowed one (``span_freqs_dense``), runs K9
+(``span_sparse``) on the doc-sorted posting slices: per anchor word the
+neighbouring words of every term, the windows counted in registers, then
+K2 sums the words' counts per doc.  The JAX package's per-shape jit cache
+and posting buckets have no counterpart here.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from searcharray_tpu_torch.ops.cuda import score as kernels_cuda
 from searcharray_tpu_torch.ops.encoding import LSB_BITS
 from searcharray_tpu_torch.ops.kernels import apply_similarity_device
 from searcharray_tpu_torch.search import dense
-from searcharray_tpu_torch.search.scoring import _window_blocks, host_idf
+from searcharray_tpu_torch.search.scoring import _window_blocks, query_idf
 
 
 def unique_terms(term_ids: Sequence[int]) -> Tuple[List[int], List[int]]:
@@ -63,15 +64,16 @@ def dense_window_ok(n_terms: int, slop: int, mults: Sequence[int]) -> bool:
     return n_terms + slop - 1 <= LSB_BITS and max(mults) <= 2
 
 
-def takes_dense_span(index: DeviceIndex, term_ids: Sequence[int], slop: int,
-                     windowed: bool = False) -> bool:
-    """The router of a slop phrase (two or more resolved terms, every
-    posting non-empty): True where the dense window kernel K6 takes it,
-    False where it runs K9 on the posting slices (a position window, a
-    window above 18 positions, a term more than twice, a corpus that is
-    not dense-eligible, more distinct terms than the plane pool holds)."""
+def takes_dense_span(index: DeviceIndex, term_ids: Sequence[int],
+                     slop: int) -> bool:
+    """The batch driver's router of an unwindowed slop phrase (two or
+    more resolved terms, every posting non-empty): True where the dense
+    window kernel K6 takes it, False where it runs K9 on the posting
+    slices (a window above 18 positions, a term more than twice, a corpus
+    that is not dense-eligible, more distinct terms than the plane pool
+    holds)."""
     uniq, mults = unique_terms(term_ids)
-    return (not windowed and dense_window_ok(len(term_ids), slop, mults)
+    return (dense_window_ok(len(term_ids), slop, mults)
             and dense.dense_eligible(index)
             and dense.phrase_fits_pool(index, uniq))
 
@@ -99,7 +101,8 @@ def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
                      k1: float = 1.2, b: float = 0.75,
                      idf: Optional[float] = None) -> torch.Tensor:
     """Dense per-doc slop-phrase frequencies (kind ``none``) or scores,
-    f32[N] on the index's device."""
+    f32[N] on the index's device, by K9 on the posting slices, inside the
+    position window when one is given.  Takes no pool slot and no lock."""
     if len(term_ids) < 2:
         raise ValueError("Must have at least two terms")
     min_blk, max_blk = _window_blocks(min_posn, max_posn)
@@ -109,18 +112,13 @@ def span_freqs_dense(index: DeviceIndex, term_ids: List[int], slop: int,
     if min(s[1] for s in spans) == 0:
         return torch.zeros(index.corpus_size, dtype=torch.float32,
                            device=index.device)
-    anchor_i = anchor_of(index, uniq)
-    w = len(term_ids) + slop - 1
     if idf is None:
-        idf = host_idf(kind, [index.doc_freqs[t] for t in term_ids],
-                       index.stats_docs, index.avg_doc_length)
-    if takes_dense_span(index, term_ids, slop, windowed):
-        return dense.score_span_dense(index, uniq, anchor_i, w, kind, k1, b,
-                                      idf, mults=tuple(mults))
+        idf = query_idf(index, kind, term_ids)
     freqs = sparse_span_freqs(
         index.hdrs, index.pays, [[s[0] for s in spans]],
-        [[s[1] for s in spans]], w, mults, anchor=anchor_i,
-        blk_bits=index.blk_bits, key_stride=index.corpus_size,
+        [[s[1] for s in spans]], len(term_ids) + slop - 1, mults,
+        anchor=anchor_of(index, uniq), blk_bits=index.blk_bits,
+        key_stride=index.corpus_size,
         min_blk=min_blk if windowed else None,
         max_blk=max_blk if windowed else None)[0]
     avgdl = np.float32(max(index.avg_doc_length, 1e-38))

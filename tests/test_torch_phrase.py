@@ -19,7 +19,7 @@ from searcharray_tpu_torch import similarity as tsim
 from searcharray_tpu_torch.index.device import from_numpy_state
 from searcharray_tpu_torch.ops.cuda import score as kc
 from searcharray_tpu_torch.ops.kernels import PAD_HDR32
-from searcharray_tpu_torch.search import dense, phrase
+from searcharray_tpu_torch.search import batch, dense, phrase
 from test_phrase import CASES
 
 SIMS = ["bm25_similarity", "bm25_legacy_similarity", "bm25_impact",
@@ -368,8 +368,14 @@ def test_last_slot_bit17_reads_across_the_doc_boundary(terms):
     jdev, tdev = crafted_pair()
     assert tdev.blk_bits == jdev.blk_bits == 1
     want = np.asarray(jphrase.phrase_freqs_dense(jdev, terms))
+    # the posting slices (K7 + K2), and a one-query batch: the
+    # ``dphrase`` group, K5 on pooled planes
     got = phrase.phrase_freqs_dense(tdev, terms).numpy()
     np.testing.assert_array_equal(got, want)
+    pooled = batch.score_batch_fused(tdev, [terms], "none",
+                                     as_device=True)[0].numpy()
+    np.testing.assert_array_equal(pooled, want)
+    assert set(tdev.maps.plane_slot) == set(terms)
     if terms == [0, 1]:
         assert got.tolist() == [0, 1]
 

@@ -125,10 +125,15 @@ def test_last_slot_bit17_window_reads_across_the_doc_boundary(anchor):
     for slop in (1, 5, 17):
         want = np.asarray(jdense.score_span_dense(
             jdev, tids, 0, len(tids) + slop - 1, "none", 1.2, 0.75, 1.0))
-        got = dense.score_span_dense(tdev, tids, 0, len(tids) + slop - 1,
-                                     "none", 1.2, 0.75, 1.0).numpy()
+        # a one-query batch: the ``dspan`` group, K6 on pooled planes, its
+        # anchor the query's first term (both terms have one word)
+        assert spans.takes_dense_span(tdev, tids, slop)
+        assert spans.anchor_of(tdev, tids) == 0
+        got = batch.score_batch_fused(tdev, [tids], "none", slop=[slop],
+                                      as_device=True)[0].numpy()
         np.testing.assert_array_equal(got, want)
         assert got.sum() == 1
+        assert set(tdev.maps.plane_slot) == set(tids)
 
 
 # ---------------------------------------------------------------------------
