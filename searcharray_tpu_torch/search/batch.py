@@ -951,11 +951,23 @@ def assemble(dev: DeviceIndex, plan: BatchPlan, outs: List[torch.Tensor],
     if as_device:
         if len(outs) == 1 and out_qis == list(range(Q)):
             out = outs[0]   # one group, in query order: nothing to place
-        else:
+        elif not outs:
             out = torch.zeros((Q, n_out), dtype=torch.float32,
                               device=dev.device)
-            if outs:
-                out[_upload(dev.device, uploads, plan.qis)] = torch.cat(outs)
+        else:
+            # each group's rows copied once, straight to its queries' rows;
+            # only the rows of queries in no group are zeroed
+            out = torch.empty((Q, n_out), dtype=torch.float32,
+                              device=dev.device)
+            qis = _upload(dev.device, uploads, plan.qis)
+            r0 = 0
+            for o in outs:
+                out.index_copy_(0, qis[r0: r0 + o.shape[0]], o)
+                r0 += o.shape[0]
+            if len(out_qis) < Q:
+                unplaced = np.setdiff1d(np.arange(Q), plan.qis)
+                out.index_fill_(0, kernels_cuda.host_to_device(
+                    unplaced, dev.device), 0.0)
         if plan.dedup:  # fan duplicate queries back out
             out = out[kernels_cuda.host_to_device(
                 np.asarray(plan.expand, np.int64), dev.device)]

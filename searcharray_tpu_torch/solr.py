@@ -17,7 +17,8 @@ candidate-row pruning of the JAX package, ``score_batch_device(rows=)``,
 K8b's minis under K5) and adds them there; elsewhere, and in
 ``edismax_batch``, the phases score the whole corpus and are masked by
 the main query's matches, which the JAX package pins as numerically
-identical.
+identical.  Below the pruning's corpus size ``edismax`` scores each
+field's query terms and its phrase grams in one batch.
 """
 from __future__ import annotations
 
@@ -161,13 +162,10 @@ def _fc_explain(query_fields, search_terms, mm) -> Tuple[str, list]:
     return " | ".join(explain), msms
 
 
-def _edismax_term_centric(frame, query_fields, num_search_terms, search_terms,
-                          mm, tie, similarity) -> Tuple[torch.Tensor, str]:
-    """Term-centric composition on the device: one batched call per field
-    scores all query terms, then the dismax / tie / mm passes."""
-    stacks = [get_field(frame, field).score_batch_device(
-        search_terms[field], similarity=similarity[field])
-        for field in query_fields]
+def _edismax_term_centric(stacks, query_fields, num_search_terms,
+                          search_terms, mm, tie) -> Tuple[torch.Tensor, str]:
+    """Term-centric composition on the device of the per-field [T, N]
+    stacks of the query terms: the dismax / tie / mm passes."""
     boosts = [_boost_val(boost) for boost in query_fields.values()]
     min_should_match = parse_min_should_match(num_search_terms, spec=mm)
     qf_scores = _compose_tc(stacks, boosts, float(tie), min_should_match)
@@ -175,13 +173,10 @@ def _edismax_term_centric(frame, query_fields, num_search_terms, search_terms,
                                   num_search_terms, min_should_match)
 
 
-def _edismax_field_centric(frame, query_fields, num_search_terms, search_terms,
-                           mm, tie, similarity) -> Tuple[torch.Tensor, str]:
+def _edismax_field_centric(stacks, query_fields, num_search_terms,
+                           search_terms, mm, tie) -> Tuple[torch.Tensor, str]:
     """Field-centric composition on the device (see
     _edismax_term_centric)."""
-    stacks = [get_field(frame, field).score_batch_device(
-        search_terms[field], similarity=similarity[field])
-        for field in query_fields]
     boosts = [_boost_val(boost) for boost in query_fields.values()]
     explain, msms = _fc_explain(query_fields, search_terms, mm)
     return _compose_fc(stacks, boosts, float(tie), msms), explain
@@ -233,12 +228,20 @@ def _matched_ids(qf_scores: torch.Tensor, cap: int) -> np.ndarray:
         return wire.cpu().numpy()
 
 
+def _prunes_phases(n_docs: int) -> bool:
+    """Whether the phrase phases of a corpus of ``n_docs`` docs may score
+    at the main query's matched docs only (``_phase_candidate_rows``).
+    Below this size they score the whole corpus and are masked after, so
+    they need nothing of the main query."""
+    return n_docs != 0 and n_docs >= PHASE_SUBSET_MIN_DOCS
+
+
 def _phase_candidate_rows(qf_scores: torch.Tensor) -> Optional[np.ndarray]:
     """Doc ids matched by the main query, or None where scoring the
     phases at them would not pay (a small corpus, a broad match, no
     match)."""
     n = int(qf_scores.shape[0])
-    if n == 0 or n < PHASE_SUBSET_MIN_DOCS:
+    if not _prunes_phases(n):
         return None
     cap = min(PHASE_ROWS_CAP, n)
     wire = _matched_ids(qf_scores, cap)
@@ -252,34 +255,31 @@ def _phase_candidate_rows(qf_scores: torch.Tensor) -> Optional[np.ndarray]:
     return wire[1: 1 + count].astype(np.int64)
 
 
-@profiling.spanned("composer.phases")
-def _ngram_phases(frame, search_terms, phases, similarity,
-                  rows: Optional[np.ndarray] = None):
-    """pf / pf2 / pf3 scoring, all phases batched per FIELD.
-
-    ``phases`` is a list of (fields, ngram, slop): ngram=0 means the
-    whole phrase, 2/3 the bigram/trigram phases; ``slop`` wires the Solr
-    ps/ps2/ps3 parameters.  A field appearing in several phases scores ALL
-    its grams in ONE device batch (per-query slop, search/batch.py): one
-    pool-fill wave per field.  With ``rows`` (the main query's matched
-    docs) an exact phase whose fields all have a fused similarity scores
-    its grams at those docs only; slop phases and custom similarities
-    score the whole corpus, and the caller masks by the main query's
-    matches.
-
-    Returns a list of (total tensor or None, explain, rows it is over or
-    None) per phase."""
-    n_ph = len(phases)
-    rows_p: List[Optional[np.ndarray]] = []
+def _phase_rows(phases, similarity, rows) -> List[Optional[np.ndarray]]:
+    """Per phase, the docs its grams score at: ``rows`` (the main query's
+    matched docs) for an exact phase whose fields all have a fused
+    similarity; else None, the whole corpus, masked by the caller."""
+    out: List[Optional[np.ndarray]] = []
     for fields, _ngram, slop in phases:
         use = rows
         if use is not None and (slop != 0 or any(
                 getattr(similarity.get(f, default_bm25), "_fused",
                         None) is None for f in fields)):
             use = None
-        rows_p.append(use)
+        out.append(use)
+    return out
 
-    calls: dict = {}   # per (field, rows mode)
+
+def _phase_grams(search_terms, phases, rows_p) -> dict:
+    """The pf / pf2 / pf3 grams per (field, scored at ``rows_p``'s rows):
+    ``grams``, their ``slops`` and each phase's segment of them in
+    ``segs`` (phase, boost, ngram, slop, first gram, gram count).
+
+    ``phases`` is a list of (fields, ngram, slop): ngram 0 is the whole
+    phrase, 2 / 3 the bigram / trigram phases; ``slop`` wires the Solr ps /
+    ps2 / ps3 parameters.  A field in several phases scores all its grams
+    in one device batch (per-query slop, search/batch.py)."""
+    calls: dict = {}
     for pi, (fields, ngram, slop) in enumerate(phases):
         min_terms = ngram if ngram else 2
         for field, boost in fields.items():
@@ -293,15 +293,40 @@ def _ngram_phases(frame, search_terms, phases, similarity,
                                 len(grams)))
             ent["grams"] += grams
             ent["slops"] += [slop] * len(grams)
+    return calls
 
+
+def _field_batches(frame, query_fields, search_terms, calls,
+                   similarity) -> list:
+    """One ``score_batch_device`` call per query field: its query terms,
+    then the grams of its whole-corpus entry in ``calls`` (per-query slop,
+    0 for the terms).  Returns the [T, N] stacks of the terms, in
+    ``query_fields`` order, and puts each entry's gram rows under
+    ``calls[key]["scores"]``."""
+    stacks = []
+    for field in query_fields:
+        terms = search_terms[field]
+        ent = calls.get((field, False), {"grams": [], "slops": []})
+        out = get_field(frame, field).score_batch_device(
+            terms + ent["grams"], similarity=similarity[field],
+            slop=[0] * len(terms) + ent["slops"])
+        stacks.append(out[:len(terms)])
+        ent["scores"] = out[len(terms):]
+    profiling.count("field_batches", len(query_fields))
+    return stacks
+
+
+@profiling.spanned("composer.phases")
+def _ngram_phases(n_ph: int, calls: dict) -> list:
+    """Each phase's total over the docs its grams were scored at: per
+    segment its gram rows summed (the final bigram twice), times its boost
+    in float32, summed over the phase's fields.  Returns a list of (total
+    tensor or None, explain) per phase."""
     totals: List[Optional[torch.Tensor]] = [None] * n_ph
     explains: List[str] = [""] * n_ph
-    for (field, mode), ent in calls.items():
-        gram_scores = get_field(frame, field).score_batch_device(
-            ent["grams"], similarity=similarity[field], slop=ent["slops"],
-            rows=rows if mode else None)
+    for (field, _at_rows), ent in calls.items():
         for pi, boost, ngram, slop, g0, gn in ent["segs"]:
-            seg = gram_scores[g0: g0 + gn]
+            seg = ent["scores"][g0: g0 + gn]
             contrib = seg.sum(dim=0)
             if ngram == 2 and gn:
                 # parity quirk: the reference double-appends the final
@@ -312,9 +337,7 @@ def _ngram_phases(frame, search_terms, phases, similarity,
                           else totals[pi] + contrib)
             for gram in ent["grams"][g0: g0 + gn]:
                 explains[pi] += _gram_explain(field, gram, slop, boost)
-    return [(totals[pi], explains[pi],
-             rows_p[pi] if totals[pi] is not None else None)
-            for pi in range(n_ph)]
+    return list(zip(totals, explains))
 
 
 def _unpack_topk(wire: np.ndarray, k: int):
@@ -373,32 +396,45 @@ def edismax(frame: pd.DataFrame, q: str, qf: List[str],
     num_search_terms, search_terms, term_centric = parse_query_terms(
         frame, q, list(query_fields.keys())
     )
+    phases = [(phrase_fields, 0, ps), (bigram_fields, 2, ps2),
+              (trigram_fields, 3, ps3)]
+    n_ph = len(phases)
+    # Phrase phases contribute only at docs the main query matched.  At
+    # scale (``_prunes_phases``) the matched docs are read once and the
+    # exact phases score only those (the reference's candidate pruning,
+    # solr.py:328-338), so their grams wait for the main query.  Otherwise
+    # they score the whole corpus and are masked after, needing nothing of
+    # the main query: each field scores its terms and its grams in one
+    # batch.  The mask is taken once from the main scores: phase boosts
+    # are non-negative and only ever add at already-positive rows.
+    prune = (any(fields for fields, _, _ in phases)
+             and _prunes_phases(len(frame)))
+    rows, rows_p = None, [None] * n_ph
+    calls = {} if prune else _phase_grams(search_terms, phases, rows_p)
+    stacks = _field_batches(frame, query_fields, search_terms, calls,
+                            similarity)
     compose = (_edismax_term_centric if term_centric
                else _edismax_field_centric)
-    qf_scores, explain = compose(frame, query_fields, num_search_terms,
-                                 search_terms, mm, tie=tie,
-                                 similarity=similarity)
-
-    # Phrase phases contribute only at rows matched by the main query.  At
-    # scale the matched rows are read once and the exact phases score only
-    # those docs (the reference's candidate pruning, solr.py:328-338);
-    # otherwise a mask after full-corpus scoring.  The mask is taken once
-    # from the main scores: phase boosts are non-negative and only ever add
-    # at already-positive rows.
-    rows = None
-    if phrase_fields or bigram_fields or trigram_fields:
+    qf_scores, explain = compose(stacks, query_fields, num_search_terms,
+                                 search_terms, mm, tie=tie)
+    del stacks   # the main query's stacks go before any phase batch
+    if prune:
         rows = _phase_candidate_rows(qf_scores)
-    phase_results = _ngram_phases(
-        frame, search_terms,
-        [(phrase_fields, 0, ps), (bigram_fields, 2, ps2),
-         (trigram_fields, 3, ps3)], similarity, rows)
+        rows_p = _phase_rows(phases, similarity, rows)
+        calls = _phase_grams(search_terms, phases, rows_p)
+        for (field, at_rows), ent in calls.items():
+            ent["scores"] = get_field(frame, field).score_batch_device(
+                ent["grams"], similarity=similarity[field],
+                slop=ent["slops"], rows=rows if at_rows else None)
+        profiling.count("field_batches", len(calls))
+
     pos = qf_scores > 0
     rows_extras = []
-    for extra, phase_explain, extra_rows in phase_results:
+    for pi, (extra, phase_explain) in enumerate(_ngram_phases(n_ph, calls)):
         explain += phase_explain
         if extra is None:
             continue
-        if extra_rows is None:
+        if rows_p[pi] is None:
             qf_scores = qf_scores + torch.where(pos, extra, 0.0)
         else:
             rows_extras.append(extra)

@@ -88,12 +88,15 @@ def test_spans_nest_with_parent_and_request_ids():
     assert [s.name for s in spans if s.parent == composer.id] == [
         "facade.score_batch_device", "facade.score_batch_device",
         "composer.phases", "batch.wait"]
-    # the main query's two field batches under the composer, the phases'
-    # two under its phases, and the driver's spans under each field batch
+    # one field batch a field under the composer (its terms and its
+    # grams), the phases' folds alone under theirs, and the batch driver's
+    # spans under each field batch; the composer counts its field batches
     fields = [s for s in spans if s.name == "facade.score_batch_device"]
     assert [ids[f.parent].name for f in fields] == [
-        "composer.edismax", "composer.edismax", "composer.phases",
-        "composer.phases"]
+        "composer.edismax", "composer.edismax"]
+    phases = next(s for s in spans if s.name == "composer.phases")
+    assert not [s for s in spans if s.parent == phases.id]
+    assert composer.counts == {"field_batches": 2}
     for f in fields:
         assert f.request == composer.id
         assert {s.name for s in spans if s.parent == f.id} >= {
@@ -105,7 +108,7 @@ def test_spans_nest_with_parent_and_request_ids():
     assert enqueue.parent == facade.id
     assert enqueue.counts == {"ranked_rows": 5}
     assert all(s.counts == {} for s in spans
-               if s.name != "batch.plan" and s is not enqueue)
+               if s.name != "batch.plan" and s not in (enqueue, composer))
 
 
 def test_spans_nest_per_thread_across_four_threads():
